@@ -1,0 +1,9 @@
+"""PyTorch + CUDA port of pangu-tpu for one NVIDIA H100.
+
+A second package beside ``pangu_tpu`` (the JAX reference, which it never
+imports).  Module names mirror ``pangu_tpu`` so each counterpart is easy to
+find.  This slice serves the 24 h forecast step and its chained rollout on
+the window-major trunk: three hand-written CUDA C++ kernels
+(``csrc/``: whole Earth-specific block, DownSample, UpSample), each with a
+plain PyTorch version that serves CPU tensors.
+"""

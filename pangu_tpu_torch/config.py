@@ -1,0 +1,184 @@
+"""Model geometry of the port: the counterpart of ``pangu_tpu/config.py``.
+
+Only what the served forward needs is kept: ``ModelConfig`` with its derived
+token geometry, ``StageGeometry`` and the presets ``PANGU_24``, ``TINY`` and
+``MID``.  The JAX package's TPU tuning fields (``lon_chunk``,
+``attn_unroll``, ``grid_bwd``, its VMEM notes) and its training and layout
+switches have no counterpart here: the port has one inference path, the
+window-major trunk.
+
+``edge_kernels`` and ``lat_group`` stay, with the only values this slice
+supports (``False`` and ``1``); any other value raises ``NotImplementedError``
+that names the ROADMAP item that will add it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(a: int, b: int) -> int:
+    return _cdiv(a, b) * b
+
+
+@dataclasses.dataclass(frozen=True)
+class StageGeometry:
+    """Static token-grid geometry of one encoder/decoder stage."""
+
+    z: int            # token planes (surface plane + upper planes)
+    h: int            # latitude tokens
+    w: int            # longitude tokens
+    h_padded: int     # latitude tokens padded to a window multiple
+    dim: int
+    heads: int
+    depth: int
+    window: Tuple[int, int, int]
+
+    @property
+    def num_window_types(self) -> int:
+        # one earth-specific bias slice per (Z, lat) window position,
+        # shared across longitude
+        return (self.z // self.window[0]) * (self.h_padded // self.window[1])
+
+    @property
+    def window_tokens(self) -> int:
+        wz, wh, ww = self.window
+        return wz * wh * ww
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Geometry + architecture of the Earth-specific 3D Swin transformer."""
+
+    upper_vars: int = 5
+    surface_vars: int = 4
+    const_masks: int = 3        # land/soil/topography planes appended to surface
+    levels: int = 13
+    lat: int = 721
+    lon: int = 1440
+    patch: Tuple[int, int, int] = (2, 4, 4)     # (Z, H, W)
+    window: Tuple[int, int, int] = (2, 6, 12)   # (Z, H, W)
+    depths: Tuple[int, ...] = (2, 6, 6, 2)
+    heads: Tuple[int, ...] = (6, 12, 12, 6)
+    dims: Tuple[int, ...] = (192, 384, 384, 192)
+    mlp_ratio: int = 4
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    gelu: str = "erf"           # "erf" (exact, parity) | "tanh" (perf config)
+    edge_kernels: bool = False  # only False: embed/recovery stay PyTorch
+    lat_group: int = 1          # only 1: one lat window per block program
+
+    def __post_init__(self):
+        pz, ph, pw = self.patch
+        if self.lon % pw != 0:
+            raise ValueError("lon must be a multiple of the W patch size")
+        if (self.lon // pw) % self.window[2] != 0:
+            raise ValueError("lon tokens must be a multiple of the W window")
+        if len(self.depths) != 4:
+            raise ValueError("expect 4 stages (enc, enc, dec, dec)")
+        if any(d % 2 for d in self.depths):
+            raise ValueError("the window-major trunk needs even stage depths")
+        if self.gelu not in ("erf", "tanh"):
+            raise ValueError(f"gelu must be 'erf' or 'tanh', not {self.gelu!r}")
+        if self.edge_kernels:
+            raise NotImplementedError(
+                "edge_kernels=True (embed_wm / recovery_wm kernels) is "
+                "ROADMAP queue B items 1, 3 and 4; this slice runs patch "
+                "embed and recovery in plain PyTorch")
+        if self.lat_group != 1:
+            raise NotImplementedError(
+                "lat_group > 1 (the lat-grouped block kernel, "
+                "_block_wm_group_call) is ROADMAP queue B item 5")
+
+    @property
+    def gelu_tanh(self) -> bool:
+        return self.gelu == "tanh"
+
+    # ---- derived embedding geometry -------------------------------------
+    @property
+    def lat_padded(self) -> int:
+        return _round_up(self.lat, self.patch[1])
+
+    @property
+    def levels_padded(self) -> int:
+        return _round_up(self.levels, self.patch[0])
+
+    @property
+    def upper_planes(self) -> int:
+        return self.levels_padded // self.patch[0]
+
+    @property
+    def z_tokens(self) -> int:
+        # +1: the surface plane is stacked under the upper planes
+        return self.upper_planes + 1
+
+    @property
+    def h_tokens(self) -> int:
+        return self.lat_padded // self.patch[1]
+
+    @property
+    def w_tokens(self) -> int:
+        return self.lon // self.patch[2]
+
+    @property
+    def upper_patch_features(self) -> int:
+        pz, ph, pw = self.patch
+        return (self.upper_vars + 1) * pz * ph * pw  # +1: const_h plane
+
+    @property
+    def surface_patch_features(self) -> int:
+        _, ph, pw = self.patch
+        return (self.surface_vars + self.const_masks) * ph * pw
+
+    # ---- stage geometry --------------------------------------------------
+    def stage(self, i: int) -> StageGeometry:
+        """Token geometry of stage i (0/3 full res, 1/2 half res)."""
+        if i in (0, 3):
+            z, h, w = self.z_tokens, self.h_tokens, self.w_tokens
+        else:
+            z = self.z_tokens
+            h = _cdiv(self.h_tokens, 2)
+            w = self.w_tokens // 2
+        return StageGeometry(
+            z=z, h=h, w=w,
+            h_padded=_round_up(h, self.window[1]),
+            dim=self.dims[i], heads=self.heads[i], depth=self.depths[i],
+            window=self.window,
+        )
+
+    @property
+    def total_blocks(self) -> int:
+        return sum(self.depths)
+
+
+# ---------------------------------------------------------------------------
+# Presets (same values as pangu_tpu.config)
+# ---------------------------------------------------------------------------
+
+PANGU_24 = ModelConfig()
+
+# Miniature geometry with the same structural quirks as the real grid (odd
+# latitude -> nonzero lat padding, odd half-res latitude, Z padding).
+TINY = ModelConfig(
+    levels=5,
+    lat=49,
+    lon=192,
+    depths=(2, 2, 2, 2),
+    heads=(2, 4, 4, 2),
+    dims=(16, 32, 32, 16),
+)
+
+# Mid-size geometry (~1/3 linear of the full grid, full level count).
+MID = ModelConfig(
+    levels=13,
+    lat=241,
+    lon=480,
+    depths=(2, 2, 2, 2),
+    heads=(4, 8, 8, 4),
+    dims=(48, 96, 96, 48),
+)

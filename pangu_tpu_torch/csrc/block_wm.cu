@@ -1,0 +1,227 @@
+// One whole Earth-specific transformer block on window-major storage.
+//
+// Replaces the Pallas kernel pangu_tpu/ops/earth_block_wm.py::_block_wm_call
+// (kernel body _make_wm_kernel), wm -> wm layout.  Storage is
+// (B, nz, nlat, nlon, N, C) with N = wz*wh*ww tokens per window.  Window token
+// (rz, rh, rw) of window (zz, hh, l) reads storage token
+//   (wz*zz + rz + dz, wh*hh + rh + dh, ww*l + rw + dw), each modulo its extent,
+// and the block writes its output in its own window coordinates.  On the TPU
+// that shift is a four-chunk BlockSpec stitch plus sublane rolls; here it is
+// pointer arithmetic in the gather.
+//
+// The unit is a short sequence of launches on the caller's stream:
+//   1. gather   xg = x at the shifted window coordinates, latitude-pad rows
+//               zeroed by their canonical latitude (wh*hh + rh + canon_add) % hp
+//   2. GEMM     qkv = round_T(xg @ Wqkv + bqkv)
+//   3. attention per (window, head): softmax(q.k * hd^-1/2 + bias[type, h]
+//               (+ -100 where region ids differ, shifted blocks)) in float32,
+//               probabilities rounded to T before P.V; type = zz*nlat + hh
+//   4. GEMM     a = round_T(attn @ Wp + bp)
+//   5. LN       x1 = round_T(xg + round_T(LN1(a)))
+//   6. GEMM     h = round_T(GELU(round_T(x1 @ W1 + b1)))   (erf or tanh)
+//   7. GEMM     y = round_T(h @ W2 + b2)
+//   8. LN       out = round_T(x1 + round_T(LN2(y)))
+//
+// What bounds it on an H100: arithmetic.  A stage-0 block at full width does
+// ~5.3e11 FLOP against ~0.45 GB of traffic (x in, out, the bias table), far
+// above the card's ~295 FLOP/byte balance point in bf16.  This first version
+// keeps every intermediate in device memory (about 10*C values per token) and
+// uses untuned WMMA (bf16) / FMA (float32) GEMMs and a one-warp-per-query
+// attention loop, so it runs well below that bound; fusing the steps and
+// moving the GEMMs to wgmma is later work.
+#include "common.cuh"
+
+namespace pangu {
+
+struct BlockShift {
+  int dz, dh, dw, canon_add, h_real;
+};
+
+// 1. gather: one warp per window-coordinate row
+template <typename T>
+__global__ void __launch_bounds__(256)
+block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
+                    int C, WmShape s, BlockShift sh) {
+  const int lane = threadIdx.x % 32;
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M) return;
+  const WmPos p = wm_split(m, s);
+  const int Z = s.nz * s.wz, hp = s.nlat * s.wh, W = s.nlon * s.ww;
+  T* dst = xg + m * C;
+  if (pmod(s.wh * p.hh + p.rh + sh.canon_add, hp) >= sh.h_real) {
+    for (int c = lane; c < C; c += 32) dst[c] = from_f<T>(0.f);
+    return;
+  }
+  const int z = pmod(s.wz * p.zz + p.rz + sh.dz, Z);
+  const int lat = pmod(s.wh * p.hh + p.rh + sh.dh, hp);
+  const int lon = pmod(s.ww * p.l + p.rw + sh.dw, W);
+  const T* src = x + wm_row(p.b, z, lat, lon, s) * C;
+  for (int c = lane; c < C; c += 32) dst[c] = src[c];
+}
+
+// 3. windowed attention, one thread block per (window, head); q, k, v of the
+// window in shared memory as float32 (rows padded to hd+1 against bank
+// conflicts), one warp per query row.  Lane j holds scores j, j+32, ...
+constexpr int ATT_WARPS = 8;
+constexpr int ATT_MAXJ = 8;  // N <= 256
+
+template <typename T, typename TB>
+__global__ void __launch_bounds__(32 * ATT_WARPS)
+window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                   const TB* __restrict__ bias_table, const int* __restrict__ ids,
+                   int N, int C, int heads, int hd, int nlon, int ntype_per_b,
+                   float scale) {
+  extern __shared__ float sm[];
+  const int ld = hd + 1;
+  float* q = sm;
+  float* k = q + N * ld;
+  float* v = k + N * ld;
+  float* prow = v + N * ld;  // ATT_WARPS rows of N probabilities
+
+  const long long win = blockIdx.x;
+  const int h = blockIdx.y;
+  const int type = (int)((win / nlon) % ntype_per_b);
+  const long long base = win * N;
+  const int C3 = 3 * C;
+
+  for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
+    int t = idx / hd, d = idx % hd;
+    const T* r = qkv + (base + t) * C3 + h * hd + d;
+    q[t * ld + d] = to_f(r[0]);
+    k[t * ld + d] = to_f(r[C]);
+    v[t * ld + d] = to_f(r[2 * C]);
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const TB* btab = bias_table + ((long long)type * heads + h) * N * N;
+  const int* id = ids ? ids + (long long)type * N : nullptr;
+  float* pr = prow + warp * N;
+
+  for (int i = warp; i < N; i += ATT_WARPS) {
+    float s[ATT_MAXJ];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+      int j = lane + 32 * jj;
+      s[jj] = -INFINITY;
+      if (j < N) {
+        float acc = 0.f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(q[i * ld + d], k[j * ld + d], acc);
+        float b = to_f(btab[(long long)i * N + j]);
+        if (id) b += (id[i] != id[j]) ? -100.f : 0.f;
+        s[jj] = acc * scale + b;
+      }
+      mx = fmaxf(mx, s[jj]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+      int j = lane + 32 * jj;
+      s[jj] = (j < N) ? expf(s[jj] - mx) : 0.f;
+      sum += s[jj];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+      int j = lane + 32 * jj;
+      if (j < N) pr[j] = round_t<T>(s[jj] / sum);
+    }
+    __syncwarp();
+    for (int d = lane; d < hd; d += 32) {
+      float o = 0.f;
+      for (int j = 0; j < N; ++j) o = fmaf(pr[j], v[j * ld + d], o);
+      out[(base + i) * C + h * hd + d] = from_f<T>(o);
+    }
+    __syncwarp();
+  }
+}
+
+template <typename T, typename TB>
+int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
+             const void* bqkv_, const void* wp_, const void* bp_,
+             const void* table_, const int* ids, const void* n1s_,
+             const void* n1b_, const void* n2s_, const void* n2b_,
+             const void* w1_, const void* b1_, const void* w2_, const void* b2_,
+             int B, WmShape s, int C, int heads, int hidden, BlockShift sh,
+             int gelu_tanh, cudaStream_t st) {
+  const T* x = (const T*)x_;
+  T* out = (T*)out_;
+  const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
+  // workspace: xg (M*C) | qkv (M*3C) | attn, later x1 (M*C) |
+  //            a, later y (M*C) | h (M*hidden)
+  T* xg = (T*)ws_;
+  T* qkv = xg + M * C;
+  T* attn = qkv + M * 3 * C;
+  T* a = attn + M * C;
+  T* hb = a + M * C;
+  T* x1 = attn;
+  T* y = a;
+  const PadRows none = {0};
+  const int hd = C / heads;
+
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh);
+  PANGU_CHECK_LAUNCH();
+  gemm(xg, (const T*)wqkv_, (const T*)bqkv_, qkv, (int)M, 3 * C, C, ACT_NONE,
+       none, st);
+  PANGU_CHECK_LAUNCH();
+
+  const size_t smem = (size_t)(3 * s.n * (hd + 1) + ATT_WARPS * s.n) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 agrid((unsigned)(M / s.n), heads);
+  window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
+      qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nlon,
+      s.nz * s.nlat, (float)pow((double)hd, -0.5));  // hd ** -0.5
+  PANGU_CHECK_LAUNCH();
+
+  gemm(attn, (const T*)wp_, (const T*)bp_, a, (int)M, C, C, ACT_NONE, none, st);
+  PANGU_CHECK_LAUNCH();
+  ln_rows<T>(a, xg, x1, (const T*)n1s_, (const T*)n1b_, M, C, st);
+  PANGU_CHECK_LAUNCH();
+  gemm(x1, (const T*)w1_, (const T*)b1_, hb, (int)M, hidden, C,
+       gelu_tanh ? ACT_GELU_TANH : ACT_GELU_ERF, none, st);
+  PANGU_CHECK_LAUNCH();
+  gemm(hb, (const T*)w2_, (const T*)b2_, y, (int)M, C, hidden, ACT_NONE, none, st);
+  PANGU_CHECK_LAUNCH();
+  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st);
+  PANGU_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace pangu
+
+using namespace pangu;
+
+// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok).
+extern "C" int pangu_block_wm(
+    int dtype, int table_dtype, const void* x, void* out, void* workspace,
+    const void* wqkv, const void* bqkv, const void* wp, const void* bp,
+    const void* table, const void* ids, const void* n1s, const void* n1b,
+    const void* n2s, const void* n2b, const void* w1, const void* b1,
+    const void* w2, const void* b2, int B, int nz, int nlat, int nlon, int n,
+    int C, int heads, int hidden, int wz, int wh, int ww, int dz, int dh,
+    int dw, int canon_add, int h_real, int gelu_tanh, void* stream) {
+  WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
+  BlockShift sh = {dz, dh, dw, canon_add, h_real};
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* id = (const int*)ids;
+  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+#define PANGU_BLOCK(T, TB)                                                     \
+  return block_wm<T, TB>(x, out, workspace, wqkv, bqkv, wp, bp, table, id, \
+                         n1s, n1b, n2s, n2b, w1, b1, w2, b2, B, s, C, heads,  \
+                         hidden, sh, gelu_tanh, st)
+  if (dtype == 0 && table_dtype == 0) PANGU_BLOCK(float, float);
+  if (dtype == 0 && table_dtype == 1) PANGU_BLOCK(float, bf16);
+  if (dtype == 1 && table_dtype == 0) PANGU_BLOCK(bf16, float);
+  if (dtype == 1 && table_dtype == 1) PANGU_BLOCK(bf16, bf16);
+#undef PANGU_BLOCK
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" const char* pangu_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

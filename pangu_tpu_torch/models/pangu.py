@@ -1,0 +1,158 @@
+"""Top-level Pangu-Weather model of the port: parameter init and the served
+forward.  The counterpart of ``pangu_tpu/models/pangu.py`` (``init_params``,
+``forward_core_wm``, the edge-free window-major branch of ``forward``,
+``param_count``).
+
+embed -> enc(2 blocks @192) -> skip -> downsample -> enc(6 @384) ->
+dec(6 @384) -> upsample -> dec(2 @192) -> [skip | dec] -> recover, with the
+trunk in window-major storage: stage chains keep wm storage between blocks,
+DownSample / UpSample read the rolled storage directly, and the canonical
+token grid exists only after the embed and before the recovery.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pangu_tpu_torch import _device
+from pangu_tpu_torch.config import ModelConfig
+from pangu_tpu_torch.data.constants import to_device
+from pangu_tpu_torch.models import layers as L
+from pangu_tpu_torch.ops.earth_block_wm import (run_stage_wm, to_window_major,
+                                                wm_to_canonical)
+from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
+                                           down_sample_wm_plain, up_sample_wm,
+                                           up_sample_wm_plain)
+
+
+# ---------------------------------------------------------------------------
+# Parameter initialisation
+# ---------------------------------------------------------------------------
+
+def init_params(gen: torch.Generator, cfg: ModelConfig, *,
+                device: _device.DeviceLike = "cuda"):
+    """The full parameter tree, with the JAX package's shapes and key paths:
+    trunc-normal (std 0.02, cut at 2 std) dense kernels and bias tables, zero
+    biases, unit LayerNorm.  Values are drawn on the generator's device, in
+    ``cfg.param_dtype``, then moved to ``device``."""
+    dev = _device.resolve(device)
+    dtype = _device.dtype_of(cfg.param_dtype)
+
+    def trunc(*shape):
+        t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=gen)
+        return t.to(dev, dtype)
+
+    def dense(d_in, d_out, bias=True):
+        p = {"kernel": trunc(d_in, d_out)}
+        if bias:
+            p["bias"] = torch.zeros(d_out, dtype=dtype, device=dev)
+        return p
+
+    def norm(dim):
+        return {"scale": torch.ones(dim, dtype=dtype, device=dev),
+                "bias": torch.zeros(dim, dtype=dtype, device=dev)}
+
+    params = {
+        "patch_embed": {
+            "upper": dense(cfg.upper_patch_features, cfg.dims[0]),
+            "surface": dense(cfg.surface_patch_features, cfg.dims[0]),
+        },
+        "stages": [],
+    }
+    for i in range(4):
+        g = cfg.stage(i)
+        n = g.window_tokens
+        params["stages"].append({"blocks": [{
+            "norm1": norm(g.dim),
+            "norm2": norm(g.dim),
+            "attn": {
+                "qkv": dense(g.dim, 3 * g.dim),
+                "proj": dense(g.dim, g.dim),
+                "bias_table": trunc(g.num_window_types, g.heads, n, n),
+            },
+            "mlp": {
+                "fc1": dense(g.dim, cfg.mlp_ratio * g.dim),
+                "fc2": dense(cfg.mlp_ratio * g.dim, g.dim),
+            },
+        } for _ in range(g.depth)]})
+
+    c0 = cfg.dims[0]
+    params["downsample"] = {"norm": norm(4 * c0),
+                            "reduce": dense(4 * c0, 2 * c0, bias=False)}
+    params["upsample"] = {"expand": dense(cfg.dims[2], 4 * cfg.dims[3], bias=False),
+                          "norm": norm(cfg.dims[3]),
+                          "mix": dense(cfg.dims[3], cfg.dims[3], bias=False)}
+    pz, ph, pw = cfg.patch
+    params["patch_recovery"] = {
+        "upper": dense(2 * cfg.dims[3], cfg.upper_vars * pz * ph * pw),
+        "surface": dense(2 * cfg.dims[3], cfg.surface_vars * ph * pw),
+    }
+    return params
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
+    """The encoder/decoder trunk entirely in window-major storage.  ``xs``:
+    stage-0 wm entry storage in canonical coordinates (B, nz, nlat, nlon, N,
+    C).  Returns ``(skip_wm, dec_wm, off)``, the pre-recovery pair, each
+    still rolled by ``off``.  ``kernels=False`` runs every kernel's plain
+    version instead, on any device."""
+    g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
+    down = down_sample_wm if kernels else down_sample_wm_plain
+    up = up_sample_wm if kernels else up_sample_wm_plain
+    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+
+    skip, off0 = run_stage_wm(params["stages"][0], xs, g0, **kw)
+    x = down(params["downsample"], skip, g0, g1, off0)
+    combined = {"blocks": (list(params["stages"][1]["blocks"])
+                           + list(params["stages"][2]["blocks"]))}
+    x, off12 = run_stage_wm(combined, x, g1, **kw)
+    x = up(params["upsample"], x, g2, g3, off12)
+    dec, off3 = run_stage_wm(params["stages"][3], x, g3, **kw)
+    if off0 != off3:
+        raise AssertionError("even depths keep skip and decoder in step")
+    return skip, dec, off3
+
+
+def forward(params, upper, surface, constants, cfg: ModelConfig, *,
+            device: _device.DeviceLike = "cuda", kernels: bool = True):
+    """Full forward step: upper (B, 5, levels, lat, lon) and surface
+    (B, 4, lat, lon) in physical units in, the *normalised* prediction
+    (upper, surface) out.  Inputs and constants are moved to ``device``; the
+    params must already be there."""
+    dev = _device.resolve(device)
+    leaf = params["patch_embed"]["upper"]["kernel"]
+    if leaf.device != dev:
+        raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
+    consts = to_device(constants, dev)
+    cdt = _device.dtype_of(cfg.compute_dtype)
+    upper = upper.to(dev, cdt)
+    surface = surface.to(dev, cdt)
+
+    x = L.patch_embed(params["patch_embed"], upper, surface, consts, cfg)
+    g = cfg.stage(0)
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
+    skip, dec, off = forward_core_wm(params, to_window_major(x, g.window), cfg,
+                                     kernels=kernels)
+    return L.patch_recovery(params["patch_recovery"],
+                            (wm_to_canonical(skip, off, g),
+                             wm_to_canonical(dec, off, g)), cfg)

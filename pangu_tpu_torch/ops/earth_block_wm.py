@@ -1,0 +1,217 @@
+"""Window-major whole-block kernel: the counterpart of
+``pangu_tpu/ops/earth_block_wm.py`` (``to_window_major``,
+``from_window_major``, ``_block_wm_call`` in wm -> wm layout, and
+``run_stage_wm`` with ``io_layout="wm"``, ``lat_group=1``, one device).
+
+The inter-block activation is stored as (B, nz, nlat, nlon, N, C), one row
+per window token, windows contiguous, N ordered (z, lat, lon).  A block reads
+storage through its shift ``delta = (dz, dh, dw)``: window token (rz, rh, rw)
+of window (zz, hh, l) reads storage token (wz*zz + rz + dz, wh*hh + rh + dh,
+ww*l + rw + dw), each modulo its extent, and writes its output in its own
+window coordinates; the stage carries the resulting offset ``off`` (storage
+position p holds canonical token p + off).  Latitude-pad rows are zeroed by
+their canonical latitude (wh*hh + rh + canon_add) % hp before the block runs,
+as the reference re-pads zeros every block.
+
+``block_wm`` launches the CUDA kernel (``csrc/block_wm.cu``) on a CUDA tensor
+and runs ``block_wm_plain`` on a CPU tensor; ``block_wm.launches`` counts the
+kernel's launches.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from pangu_tpu_torch import _build
+from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.models.layers import dense, window_region_ids
+from pangu_tpu_torch.ops.block_tail import tail_math
+
+Offset = Tuple[int, int, int]
+
+# dtype codes of the C entries
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Layout converters
+# ---------------------------------------------------------------------------
+
+def to_window_major(x, window):
+    """(B, Z, Hp, W, C) -> (B, nz, nlat, nlon, N, C), N ordered (z, h, w)."""
+    wz, wh, ww = window
+    b, z, hp, w, c = x.shape
+    nz, nlat, nlon = z // wz, hp // wh, w // ww
+    x = x.reshape(b, nz, wz, nlat, wh, nlon, ww, c)
+    x = x.permute(0, 1, 3, 5, 2, 4, 6, 7)
+    return x.reshape(b, nz, nlat, nlon, wz * wh * ww, c)
+
+
+def from_window_major(xs, window):
+    """(B, nz, nlat, nlon, N, C) -> (B, Z, Hp, W, C)."""
+    wz, wh, ww = window
+    b, nz, nlat, nlon, n, c = xs.shape
+    xs = xs.reshape(b, nz, nlat, nlon, wz, wh, ww, c)
+    xs = xs.permute(0, 1, 4, 2, 5, 3, 6, 7)
+    return xs.reshape(b, nz * wz, nlat * wh, nlon * ww, c)
+
+
+def wm_to_canonical(xs, off: Offset, geom: StageGeometry):
+    """Rolled window-major storage -> canonical (B, Z, H, W, C) token grid:
+    undo the offset (storage p holds canonical p + off) and crop the
+    latitude padding.  The one place the port canonicalises wm storage."""
+    t = from_window_major(xs, geom.window)
+    if any(off):
+        t = torch.roll(t, shifts=tuple(off), dims=(1, 2, 3))
+    return t[:, :, :geom.h]
+
+
+def pad_rows_zeroed(x, geom: StageGeometry, canon_add: int):
+    """Zero the rows of a (B, Z, Hp, W, C) grid in window coordinates whose
+    canonical latitude (row + canon_add) % hp is latitude padding."""
+    hp = x.shape[2]
+    lat = (torch.arange(hp, device=x.device) + canon_add) % hp
+    keep = (lat < geom.h)[None, None, :, None, None]
+    return torch.where(keep, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def require_device(tree, device, what: str) -> None:
+    """Raise unless every tensor in a (nested dict) param tree lies on
+    ``device``: a kernel dereferences raw pointers."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            require_device(v, device, what)
+        elif v.device != device:
+            raise ValueError(f"{what}: parameter on {v.device}, input on {device}")
+
+
+# ---------------------------------------------------------------------------
+# One block, wm -> wm
+# ---------------------------------------------------------------------------
+
+def params_in(p, dt):
+    """A param tree with every dense / LayerNorm leaf in the activation dtype
+    (as the JAX kernels cast them); bias tables keep their own dtype."""
+    return {k: (params_in(v, dt) if isinstance(v, dict) else
+                v.contiguous() if k == "bias_table" else v.to(dt).contiguous())
+            for k, v in p.items()}
+
+
+def block_wm_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+                   ids: Optional[torch.Tensor], gelu_tanh: bool):
+    """Plain PyTorch version of the block kernel (any device)."""
+    b, nz, nlat, nlon, n, c = xs.shape
+    heads = geom.heads
+    hd = c // heads
+    dt = xs.dtype
+    p = params_in(p, dt)
+
+    # storage -> this block's window coordinates, pad rows zeroed
+    grid = from_window_major(xs, geom.window)
+    grid = torch.roll(grid, shifts=tuple(-d for d in delta), dims=(1, 2, 3))
+    xg = to_window_major(pad_rows_zeroed(grid, geom, canon_add), geom.window)
+
+    qkv = dense(p["attn"]["qkv"], xg)
+    qkv = qkv.reshape(b, nz, nlat, nlon, n, 3, heads, hd)
+    q, k, v = (qkv[..., i, :, :].transpose(-3, -2) for i in range(3))
+    bias = p["attn"]["bias_table"].float().reshape(nz, nlat, heads, n, n)
+    bias = bias[None, :, :, None]                  # type = zz * nlat + hh
+    if ids is not None:
+        r = ids.reshape(nz, nlat, n)
+        mask = torch.where(r[..., :, None] != r[..., None, :], -100.0, 0.0)
+        bias = bias + mask[None, :, :, None, None]
+    s = (q.float() @ k.float().transpose(-1, -2)) * hd ** -0.5 + bias
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pr = (e / e.sum(-1, keepdim=True)).to(dt)
+    o = (pr.float() @ v.float()).to(dt)            # (b, nz, nlat, nlon, heads, n, hd)
+    o = o.transpose(-3, -2).reshape(b, nz, nlat, nlon, n, c)
+
+    a = dense(p["attn"]["proj"], o)
+    return tail_math(a, xg, p, gelu_tanh)
+
+
+def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+             ids: Optional[torch.Tensor], gelu_tanh: bool):
+    """One whole Earth-specific block on window-major storage: the CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor.
+
+    ``delta``: shift from storage to window coordinates; ``canon_add``: the
+    latitude component of this block's own offset (canonical latitude of
+    window row rh of window hh is (wh*hh + rh + canon_add) % hp); ``ids``:
+    (ntype, N) int32 region ids for a shifted block, else None."""
+    if not xs.is_cuda:
+        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+    b, nz, nlat, nlon, n, c = xs.shape
+    wz, wh, ww = geom.window
+    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
+            or n != wz * wh * ww or c % geom.heads or c != geom.dim):
+        raise ValueError(f"block_wm: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype} for {geom}")
+    q = params_in(p, xs.dtype)
+    require_device(q, xs.device, "block_wm")
+    table = q["attn"]["bias_table"]
+    if table.dtype not in DTYPE_CODE or table.shape != (nz * nlat, geom.heads, n, n):
+        raise ValueError(f"block_wm: bias table {tuple(table.shape)} {table.dtype}")
+    if ids is not None:
+        ids = ids.to(device=xs.device, dtype=torch.int32).contiguous()
+        if ids.shape != (nz * nlat, n):
+            raise ValueError(f"block_wm: region ids {tuple(ids.shape)}")
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    rows = xs.numel() // c
+    out = torch.empty_like(xs)
+    ws = torch.empty(rows * (6 * c + hidden), dtype=xs.dtype, device=xs.device)
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    code = _build.library().pangu_block_wm(
+        DTYPE_CODE[xs.dtype], DTYPE_CODE[table.dtype], ptr(xs), ptr(out), ptr(ws),
+        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
+        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
+        ptr(table), None if ids is None else ptr(ids),
+        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
+        ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
+        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
+        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
+        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
+        *delta, canon_add, geom.h, int(gelu_tanh),
+        torch.cuda.current_stream(xs.device).cuda_stream)
+    _build.check(code, "block_wm")
+    block_wm.launches += 1
+    return out
+
+
+block_wm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# A stage chain on wm storage
+# ---------------------------------------------------------------------------
+
+def run_stage_wm(stage_params, xs, geom: StageGeometry, *,
+                 gelu_tanh: bool = False, kernels: bool = True):
+    """Run one EarthSpecificLayer on window-major storage.
+
+    ``xs``: wm entry storage in canonical coordinates (as written by the
+    embed or ``ops/updown_wm``).  Blocks alternate unshifted / shifted by
+    half a window; each writes in its own window coordinates, and the next
+    reads through ``delta = target - off``.  Returns the ROLLED storage and
+    its offset ``(xs, off)`` for the consumer to fold into its reads.
+    ``kernels=False`` runs the plain version on any device (the reference
+    the card's kernel is held against)."""
+    wz, wh, ww = geom.window
+    half = (wz // 2, wh // 2, ww // 2)
+    off = (0, 0, 0)
+    ids = None
+    block = block_wm if kernels else block_wm_plain
+    for j, bp in enumerate(stage_params["blocks"]):
+        shifted = j % 2 == 1
+        target = half if shifted else (0, 0, 0)
+        delta = tuple(t - o for t, o in zip(target, off))
+        if shifted and ids is None:
+            ids = torch.as_tensor(
+                window_region_ids(geom.z, geom.h_padded, geom.window),
+                device=xs.device)
+        xs = block(bp, xs, geom, delta, target[1], ids if shifted else None,
+                   gelu_tanh)
+        off = target
+    return xs, off

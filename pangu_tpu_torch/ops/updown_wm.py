@@ -1,0 +1,142 @@
+"""Window-major DownSample / UpSample kernels: the counterpart of
+``pangu_tpu/ops/updown_wm.py`` (``down_sample_wm``, ``up_sample_wm``).
+
+Both consume the previous stage's ROLLED window-major storage (storage
+position p holds canonical token p + off) and emit the next stage's
+window-major entry storage in canonical coordinates, latitude-pad rows zeroed:
+
+  * DownSample: 2x2 space-to-depth on (lat, lon), merge order
+    (h_off, w_off, C), LayerNorm(4C), Linear(4C -> 2C, no bias);
+  * UpSample: Linear(2C -> 4C', no bias), 2x2 depth-to-space, crop to the odd
+    latitude count, LayerNorm(C'), Linear(C' -> C', no bias).
+
+The JAX kernels' roll-back (``_lon_unroll`` and the chunk index maps) is
+index arithmetic in the CUDA gathers (``csrc/updown_wm.cu``); the plain
+versions here canonicalise with ``wm_to_canonical`` and run the reference
+composition.  The JAX UpSample kernel leaves junk in its latitude-pad rows;
+both versions here write zeros there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pangu_tpu_torch import _build
+from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.models.layers import dense, layer_norm
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
+                                                params_in, require_device,
+                                                to_window_major,
+                                                wm_to_canonical)
+
+
+def _pad_lat(x, hp: int):
+    """Zero-pad the latitude axis of (B, Z, H, W, C) to hp rows."""
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, hp - x.shape[2]))
+
+
+# ---------------------------------------------------------------------------
+# DownSample (stage-0 wm rolled -> stage-1 wm canonical)
+# ---------------------------------------------------------------------------
+
+def down_sample_wm_plain(p, xs, geom0: StageGeometry, geom1: StageGeometry,
+                         off: Offset):
+    """Plain PyTorch version of the DownSample kernel (any device)."""
+    p = params_in(p, xs.dtype)
+    x = wm_to_canonical(xs, off, geom0)                  # (B, Z, h0, W, C)
+    B, Z, H, W, C = x.shape
+    h2, w2 = -(-H // 2), W // 2
+    x = _pad_lat(x, 2 * h2)
+    x = x.reshape(B, Z, h2, 2, w2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    x = x.reshape(B, Z, h2, w2, 4 * C)
+    y = dense(p["reduce"], layer_norm(p["norm"], x))
+    return to_window_major(_pad_lat(y, geom1.h_padded), geom1.window)
+
+
+def down_sample_wm(p, xs, geom0: StageGeometry, geom1: StageGeometry,
+                   off: Offset):
+    """xs: (B, nz, nlat0, nlon0, N, C) rolled wm storage with offset ``off``.
+    Returns (B, nz, nlat1, nlon1, N, 2C) wm entry storage of the next stage
+    in canonical coordinates: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if not xs.is_cuda:
+        return down_sample_wm_plain(p, xs, geom0, geom1, off)
+    b, nz, nlat0, nlon0, n, c = xs.shape
+    wz, wh, ww = geom0.window
+    nlat1, nlon1 = geom1.h_padded // wh, nlon0 // 2
+    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
+            or c != geom0.dim or nlat0 * wh != geom0.h_padded):
+        raise ValueError(f"down_sample_wm: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype}")
+    q = params_in(p, xs.dtype)
+    require_device(q, xs.device, "down_sample_wm")
+    out = torch.empty((b, nz, nlat1, nlon1, n, 2 * c), dtype=xs.dtype,
+                      device=xs.device)
+    ws = torch.empty(out.numel() * 2, dtype=xs.dtype, device=xs.device)  # 4C rows
+    code = _build.library().pangu_down_sample_wm(
+        DTYPE_CODE[xs.dtype], xs.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        q["norm"]["scale"].data_ptr(), q["norm"]["bias"].data_ptr(),
+        q["reduce"]["kernel"].data_ptr(),
+        b, nz, nlat0, nlon0, nlat1, nlon1, n, c, wz, wh, ww, *off,
+        geom0.h, geom1.h, torch.cuda.current_stream(xs.device).cuda_stream)
+    _build.check(code, "down_sample_wm")
+    down_sample_wm.launches += 1
+    return out
+
+
+down_sample_wm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# UpSample (stage-2 wm rolled -> stage-3 wm canonical)
+# ---------------------------------------------------------------------------
+
+def up_sample_wm_plain(p, xs, geom2: StageGeometry, geom3: StageGeometry,
+                       off: Offset):
+    """Plain PyTorch version of the UpSample kernel (any device)."""
+    p = params_in(p, xs.dtype)
+    x = wm_to_canonical(xs, off, geom2)                  # (B, Z, h2, W, C)
+    B, Z, H, W, _ = x.shape
+    e = dense(p["expand"], x)
+    c_out = e.shape[-1] // 4
+    e = e.reshape(B, Z, H, W, 2, 2, c_out).permute(0, 1, 2, 4, 3, 5, 6)
+    y = e.reshape(B, Z, 2 * H, 2 * W, c_out)[:, :, :geom3.h]
+    y = dense(p["mix"], layer_norm(p["norm"], y))
+    return to_window_major(_pad_lat(y, geom3.h_padded), geom3.window)
+
+
+def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
+                 off: Offset):
+    """xs: (B, nz, nlat2, nlon2, N, C2) rolled wm storage with offset
+    ``off``.  Returns (B, nz, nlat3, nlon3, N, C3) wm entry storage of stage
+    3 in canonical coordinates: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if not xs.is_cuda:
+        return up_sample_wm_plain(p, xs, geom2, geom3, off)
+    b, nz, nlat2, nlon2, n, c_in = xs.shape
+    wz, wh, ww = geom2.window
+    c_out = p["expand"]["kernel"].shape[-1] // 4
+    nlat3, nlon3 = geom3.h_padded // wh, nlon2 * 2
+    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
+            or c_in != geom2.dim or nlat2 * wh != geom2.h_padded):
+        raise ValueError(f"up_sample_wm: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype}")
+    q = params_in(p, xs.dtype)
+    require_device(q, xs.device, "up_sample_wm")
+    out = torch.empty((b, nz, nlat3, nlon3, n, c_out), dtype=xs.dtype,
+                      device=xs.device)
+    # workspace: e (rows2 x 4C') | y (rows3 x C')
+    ws = torch.empty(xs.numel() // c_in * 4 * c_out + out.numel(),
+                     dtype=xs.dtype, device=xs.device)
+    code = _build.library().pangu_up_sample_wm(
+        DTYPE_CODE[xs.dtype], xs.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        q["expand"]["kernel"].data_ptr(), q["norm"]["scale"].data_ptr(),
+        q["norm"]["bias"].data_ptr(), q["mix"]["kernel"].data_ptr(),
+        b, nz, nlat2, nlon2, nlat3, nlon3, n, c_in, c_out, wz, wh, ww, *off,
+        geom2.h, geom3.h, torch.cuda.current_stream(xs.device).cuda_stream)
+    _build.check(code, "up_sample_wm")
+    up_sample_wm.launches += 1
+    return out
+
+
+up_sample_wm.launches = 0

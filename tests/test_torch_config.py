@@ -1,0 +1,59 @@
+"""The port's model geometry equals the JAX package's on every preset, and
+the values this slice does not support raise instead of being ignored."""
+
+import dataclasses
+
+import pytest
+
+import pangu_tpu.config as JC
+import pangu_tpu_torch.config as PC
+
+PRESETS = ["PANGU_24", "TINY", "MID"]
+DERIVED = ["lat_padded", "levels_padded", "upper_planes", "z_tokens",
+           "h_tokens", "w_tokens", "upper_patch_features",
+           "surface_patch_features", "total_blocks"]
+SHARED_FIELDS = ["upper_vars", "surface_vars", "const_masks", "levels", "lat",
+                 "lon", "patch", "window", "depths", "heads", "dims",
+                 "mlp_ratio", "param_dtype", "compute_dtype",
+                 "gelu"]
+
+
+@pytest.mark.parametrize("stage", [0, 1, 2, 3])
+@pytest.mark.parametrize("preset", PRESETS)
+def test_stage_geometry_matches_jax(preset, stage):
+    want = getattr(JC, preset).stage(stage)
+    got = getattr(PC, preset).stage(stage)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    for prop in ("num_window_types", "window_tokens"):
+        assert getattr(got, prop) == getattr(want, prop)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_model_config_matches_jax(preset):
+    want, got = getattr(JC, preset), getattr(PC, preset)
+    for name in SHARED_FIELDS + DERIVED:
+        assert getattr(got, name) == getattr(want, name), name
+
+
+def test_pangu_24_full_width_geometry():
+    g0, g1 = PC.PANGU_24.stage(0), PC.PANGU_24.stage(1)
+    assert (g0.z, g0.h_padded, g0.w, g0.dim) == (8, 186, 1440 // 4, 192)
+    assert (g1.z, g1.h_padded, g1.w, g1.dim) == (8, 96, 180, 384)
+    assert g0.num_window_types == 124 and g1.num_window_types == 64
+    assert g0.window_tokens == 144
+
+
+@pytest.mark.parametrize("change,roadmap_item", [
+    ({"edge_kernels": True}, "queue B items 1, 3 and 4"),
+    ({"lat_group": 2}, "queue B item 5"),
+])
+def test_unsupported_values_raise_with_roadmap_item(change, roadmap_item):
+    with pytest.raises(NotImplementedError, match=roadmap_item):
+        dataclasses.replace(PC.PANGU_24, **change)
+
+
+@pytest.mark.parametrize("change", [{"gelu": "relu"},
+                                    {"depths": (2, 6, 5, 2)}])
+def test_invalid_values_raise(change):
+    with pytest.raises(ValueError):
+        dataclasses.replace(PC.TINY, **change)

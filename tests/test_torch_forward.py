@@ -1,0 +1,132 @@
+"""The port's served forward and chained rollout against the JAX package
+(``forward`` and ``make_rollout(token_space=False)`` with
+``attn_impl="xla"``) at TINY, float32, erf GELU, from the same parameters
+and inputs.  Tolerance: max abs error 5e-4 on normalised outputs (float32
+reassociation across 8 blocks, down/up and the recovery)."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torch_parity as TP
+from pangu_tpu.config import TINY as JAX_TINY
+from pangu_tpu.data.constants import synthetic_constants as jax_constants
+from pangu_tpu.engine.rollout import make_rollout as jax_make_rollout
+from pangu_tpu.models import pangu as jax_pangu
+from pangu_tpu_torch.config import TINY
+from pangu_tpu_torch.data.constants import norm_data, synthetic_constants
+from pangu_tpu_torch.engine.rollout import make_rollout
+from pangu_tpu_torch.models import pangu
+from pangu_tpu_torch.models.convert import params_from_jax
+
+TOL = 5e-4
+JAX_CFG = dataclasses.replace(JAX_TINY, attn_impl="xla")
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jparams, params = TP.jax_and_port_params(JAX_CFG, seed=3)
+    consts = synthetic_constants(TINY)
+    um, us = consts["upper_mean"][None], consts["upper_std"][None]
+    sm, ss = consts["surface_mean"][None], consts["surface_std"][None]
+    upper = um + us * TP.normal((1, 5, TINY.levels, TINY.lat, TINY.lon), 1)
+    surface = sm + ss * TP.normal((1, 4, TINY.lat, TINY.lon), 2)
+    return jparams, params, consts, upper, surface
+
+
+def _normalised(u, s, consts):
+    t = {k: torch.as_tensor(v) for k, v in consts.items()}
+    return norm_data(torch.as_tensor(TP.to_np(u)), torch.as_tensor(TP.to_np(s)), t)
+
+
+def test_constants_match_jax():
+    want = jax_constants(JAX_TINY)
+    got = synthetic_constants(TINY)
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_forward_matches_jax(setup):
+    jparams, params, consts, upper, surface = setup
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    want = jax.jit(lambda p, u, s: jax_pangu.forward(p, u, s, jc, JAX_CFG))(
+        jparams, jnp.asarray(upper), jnp.asarray(surface))
+    got = pangu.forward(params, torch.as_tensor(upper), torch.as_tensor(surface),
+                        consts, TINY, device="cpu")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert TP.max_abs_err(g, w) <= TOL
+
+
+@pytest.mark.parametrize("return_trajectory", [False, True])
+def test_rollout_matches_jax(setup, return_trajectory):
+    jparams, params, consts, upper, surface = setup
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+    want = jax_make_rollout(JAX_CFG, jc, 2, return_trajectory=return_trajectory)(
+        jparams, jnp.asarray(upper), jnp.asarray(surface))
+    got = make_rollout(TINY, consts, 2, return_trajectory=return_trajectory,
+                       device="cpu")(params, torch.as_tensor(upper),
+                                     torch.as_tensor(surface))
+    pairs = [(got, want)]
+    if return_trajectory:
+        pairs = [(got[0], want[0])] + [((got[1][0][i], got[1][1][i]),
+                                        (want[1][0][i], want[1][1][i]))
+                                       for i in range(2)]
+    for (gu, gs), (wu, ws) in pairs:
+        assert gu.shape == wu.shape and gs.shape == ws.shape
+        for g, w in zip(_normalised(gu, gs, consts), _normalised(wu, ws, consts)):
+            assert TP.max_abs_err(g, w) <= TOL
+
+
+def test_init_params_matches_jax_tree():
+    """Same key paths and shapes as the JAX tree, including the bias tables
+    (types, heads, 144, 144); same parameter count."""
+    jparams = jax_pangu.init_params(jax.random.PRNGKey(0), JAX_TINY)
+    params = pangu.init_params(torch.Generator().manual_seed(0), TINY,
+                               device="cpu")
+    want = {jax.tree_util.keystr(p): tuple(v.shape)
+            for p, v in jax.tree_util.tree_flatten_with_path(jparams)[0]}
+    got = {jax.tree_util.keystr(p): tuple(v.shape)
+           for p, v in jax.tree_util.tree_flatten_with_path(params)[0]}
+    assert got == want
+    assert pangu.param_count(params) == jax_pangu.param_count(jparams)
+    table = params["stages"][1]["blocks"][0]["attn"]["bias_table"]
+    assert table.shape == (TINY.stage(1).num_window_types, 4, 144, 144)
+    assert float(table.abs().max()) <= 0.04
+
+
+@pytest.mark.parametrize("entry", ["forward", "init_params", "make_rollout",
+                                   "params_from_jax"])
+def test_default_device_is_the_card(entry, setup, monkeypatch):
+    """Entry points default to device="cuda" and raise where there is no
+    card, rather than dropping quietly to the CPU."""
+    jparams, params, consts, upper, surface = setup
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "forward": lambda: pangu.forward(params, torch.as_tensor(upper),
+                                         torch.as_tensor(surface), consts,
+                                         TINY),
+        "init_params": lambda: pangu.init_params(torch.Generator(), TINY),
+        "make_rollout": lambda: make_rollout(TINY, consts, 1),
+        "params_from_jax": lambda: params_from_jax(
+            jax.tree.map(np.asarray, jparams)),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+
+
+def test_forward_plain_path_equals_kernel_path_on_cpu(setup):
+    """On CPU tensors the wrappers run their plain versions, so
+    ``kernels=False`` and the default give the same result bit for bit."""
+    _, params, consts, upper, surface = setup
+    a = pangu.forward(params, torch.as_tensor(upper), torch.as_tensor(surface),
+                      consts, TINY, device="cpu")
+    b = pangu.forward(params, torch.as_tensor(upper), torch.as_tensor(surface),
+                      consts, TINY, device="cpu", kernels=False)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
