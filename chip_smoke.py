@@ -8,15 +8,24 @@ Phases, each with its wall seconds:
   1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
   2. build: nvcc compiles ``pangu_tpu_torch/csrc/*.cu`` into one library;
   3. each kernel against its plain PyTorch version on the card, at the
-     full-width Pangu-24 shapes the served step gives it, in float32 and bf16:
-     error, time per launch, the plain version's time and the card's bound;
-     then one full-width float32 forward, kernels against plain versions;
-  4. the main path: a 2-step chained rollout of Pangu-24 in the perf config
-     (bf16 params and compute, tanh GELU, float32 LayerNorm statistics and
-     softmax), batch 1, random weights and synthetic constants from a seed.
-     The launch counters, set to 0 just before it, must read 2 x (16 blocks,
-     1 DownSample, 1 UpSample); step 1 must match the plain path;
-  5. where one step's time goes: embed, trunk, recovery (CUDA events).
+     full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
+     error, time per launch, the plain version's time and the card's bound
+     (the edge kernels: embed, transition and recovery upper / surface, the
+     last three at the stage-end offsets (0, 0, 0) and the served (1, 3, 6));
+     then full-width float32 forwards, without and with the edge kernels,
+     kernels against plain versions;
+  4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
+     tanh GELU, float32 LayerNorm statistics and softmax), batch 1, random
+     weights and synthetic constants from a seed, each driven with the launch
+     counters set to 0 just before it and read just after:
+     a. a 2-step full-step rollout with its trajectory: 2 x (16 blocks,
+        1 DownSample, 1 UpSample); step 1 must match the plain path;
+     b. a 3-step token-space rollout with the edge kernels: 48 blocks,
+        3 DownSample, 3 UpSample, 1 embed, 2 transitions, 1 recovery upper,
+        1 recovery surface; its final state must match the same rollout with
+        plain versions and the 3-step full-step rollout;
+  5. where the time goes: a full step (embed, trunk, recovery) and a
+     token-space chained step (trunk, transition) (CUDA events).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -28,7 +37,7 @@ Error measure throughout: max |kernel - plain| / max |plain|.  Tolerances:
 (float32 reassociation, amplified by the LayerNorms and compounded over 18
 kernel units); 2**-6 for one kernel in bf16 (a few bf16 ulps: a value that
 rounds one way in one version and the other way in the other moves by an ulp
-and the difference propagates) and 2**-4 for the whole bf16 step.
+and the difference propagates) and 2**-4 for whole bf16 steps and rollouts.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 TOL_FORWARD = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
 SEED = 0
 STEPS = 2
+TOKEN_STEPS = 3
 
 
 def phase(name):
@@ -120,6 +130,8 @@ def main() -> int:
     from pangu_tpu_torch.data.constants import (denorm_data, norm_data,
                                                 synthetic_constants, to_device)
     from pangu_tpu_torch.engine.rollout import make_rollout, single_step
+    from pangu_tpu_torch.engine.transition_wm import (
+        apply_transition_wm, apply_transition_wm_plain, build_transition_wm)
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.models import layers as L
     from pangu_tpu_torch.models.layers import window_region_ids
@@ -127,6 +139,12 @@ def main() -> int:
                                                     from_window_major,
                                                     to_window_major,
                                                     wm_to_canonical)
+    from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
+    from pangu_tpu_torch.ops.recovery_wm import (recovery_wm,
+                                                 recovery_wm_surface,
+                                                 recovery_wm_surface_plain,
+                                                 recovery_wm_upper,
+                                                 recovery_wm_upper_plain)
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                                down_sample_wm_plain,
                                                up_sample_wm, up_sample_wm_plain)
@@ -167,6 +185,20 @@ def main() -> int:
     print(f"params: {pangu.param_count(params):,} ({perf.param_dtype})")
     g0, g1, g2, g3 = (PANGU_24.stage(i) for i in range(4))
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    consts = synthetic_constants(PANGU_24, seed=SEED)
+    consts_dev = to_device(consts, dev)
+
+    def state(seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        u = (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
+             * torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                           generator=g, device=dev))
+        s = (consts_dev["surface_mean"][None] + consts_dev["surface_std"][None]
+             * torch.randn((1, 4, PANGU_24.lat, PANGU_24.lon), generator=g,
+                           device=dev))
+        return u, s
+
+    u0, s0 = state(SEED + 2)
 
     def storage(geom, dtype):
         wz, wh, ww = geom.window
@@ -194,13 +226,21 @@ def main() -> int:
         return g.z * g.h_padded * g.w
 
     half = (1, 3, 6)
-    cases = []  # (name, label, dtype, flops, bytes, kernel, plain, view)
+    c0 = g0.dim
+    valid0 = g0.z * g0.h * g0.w                  # real stage-0 token rows
+    upper_rows = (g0.z - 1) * g0.h * g0.w        # of them, upper-plane rows
+    field_u = 5 * PANGU_24.levels * PANGU_24.lat * PANGU_24.lon
+    field_s = 4 * PANGU_24.lat * PANGU_24.lon
+    cases = []  # (name, label, dtype, flops, bytes, kernel, plain, view, record)
     for dtype in (torch.float32, torch.bfloat16):
         tanh = dtype == torch.bfloat16
+        isz = torch.tensor([], dtype=dtype).element_size()
         pdt = to_dtype({"s0": params["stages"][0]["blocks"][1],
                         "s1": params["stages"][1]["blocks"][1],
                         "down": params["downsample"],
-                        "up": params["upsample"]}, dtype)
+                        "up": params["upsample"],
+                        "patch_embed": params["patch_embed"],
+                        "patch_recovery": params["patch_recovery"]}, dtype)
         for label, geom, bp, delta, canon, ids in (
                 ("stage 0 unshifted", g0, pdt["s0"], (0, 0, 0), 0, None),
                 ("stage 0 shifted", g0, pdt["s0"], half, 3, ids_of(g0)),
@@ -213,8 +253,7 @@ def main() -> int:
                     block_wm(bp, xs, geom, d, c, i, t),
                 lambda bp=bp, xs=xs, geom=geom, d=delta, c=canon, i=ids, t=tanh:
                     block_wm_plain(bp, xs, geom, d, c, i, t),
-                lambda out: out))
-        isz = torch.tensor([], dtype=dtype).element_size()
+                lambda out: out, label == "stage 0 shifted"))
         xs = storage(g0, dtype)
         c = g0.dim
         cases.append((       # work: the valid stage-1 rows; bytes: in + out
@@ -223,7 +262,7 @@ def main() -> int:
             nbytes(xs) + rows(g1) * 2 * c * isz + weight_bytes(pdt["down"], dtype),
             lambda xs=xs, p=pdt["down"]: down_sample_wm(p, xs, g0, g1, half),
             lambda xs=xs, p=pdt["down"]: down_sample_wm_plain(p, xs, g0, g1, half),
-            lambda out: out))
+            lambda out: out, True))
         xs = storage(g2, dtype)
         c_in, c_out = g2.dim, g3.dim
         cases.append((       # work: the input rows that feed valid output rows
@@ -233,10 +272,59 @@ def main() -> int:
             nbytes(xs) + rows(g3) * c_out * isz + weight_bytes(pdt["up"], dtype),
             lambda xs=xs, p=pdt["up"]: up_sample_wm(p, xs, g2, g3, half),
             lambda xs=xs, p=pdt["up"]: up_sample_wm_plain(p, xs, g2, g3, half),
-            lambda out: from_window_major(out, g3.window)[:, :, :g3.h]))
+            lambda out: from_window_major(out, g3.window)[:, :, :g3.h], True))
+
+        # the edge kernels, on the compute-dtype state the served paths give
+        ecfg = dataclasses.replace(
+            PANGU_24, compute_dtype="bfloat16" if tanh else "float32")
+        pe, pr = pdt["patch_embed"], pdt["patch_recovery"]
+        ud, sd = u0.to(dtype), s0.to(dtype)
+        k_up = pe["upper"]["kernel"].shape[0]
+        cases.append((       # work: the upper-plane rows; bytes: fields in, wm out
+            "embed_wm", "full width", dtype,
+            2 * upper_rows * k_up * c0,
+            nbytes(ud, sd) + consts_dev["const_h"].numel() * isz
+            + weight_bytes(pe, dtype) + rows(g0) * c0 * isz,
+            lambda p=pe, u=ud, s=sd, cf=ecfg: embed_wm(p, u, s, consts_dev, cf),
+            lambda p=pe, u=ud, s=sd, cf=ecfg: embed_wm_plain(p, u, s, consts_dev,
+                                                             cf),
+            lambda out: out, True))
+        tp = build_transition_wm(pdt, consts_dev, ecfg)
+        mats_bytes = 6 * 2 * c0 * c0 * isz
+        skip, dec = storage(g0, dtype), storage(g0, dtype)
+        for off in ((0, 0, 0), half):
+            cases.append((   # work and reads: the valid rows; the whole output
+                "transition_wm", f"off {off}", dtype,
+                2 * valid0 * 2 * c0 * c0,
+                3 * valid0 * c0 * isz + mats_bytes + rows(g0) * c0 * isz,
+                lambda tp=tp, a=skip, b=dec, o=off:
+                    apply_transition_wm(tp, a, b, g0, o),
+                lambda tp=tp, a=skip, b=dec, o=off:
+                    apply_transition_wm_plain(tp, a, b, g0, o),
+                lambda out: out, off == half))
+            cases.append((   # the upper planes' valid rows of the pair
+                "recovery_wm_upper", f"off {off}", dtype,
+                2 * upper_rows * 2 * c0 * 160,
+                2 * upper_rows * c0 * isz + weight_bytes(pr["upper"], dtype)
+                + field_u * isz,
+                lambda p=pr, a=skip, b=dec, o=off, cf=ecfg:
+                    recovery_wm_upper(p, a, b, o, cf),
+                lambda p=pr, a=skip, b=dec, o=off, cf=ecfg:
+                    recovery_wm_upper_plain(p, a, b, o, cf),
+                lambda out: out, off == half))
+            cases.append((   # plane 0's valid rows of the pair
+                "recovery_wm_surface", f"off {off}", dtype,
+                2 * g0.h * g0.w * 2 * c0 * 64,
+                2 * g0.h * g0.w * c0 * isz + weight_bytes(pr["surface"], dtype)
+                + field_s * isz,
+                lambda p=pr, a=skip, b=dec, o=off, cf=ecfg:
+                    recovery_wm_surface(p, a, b, o, cf),
+                lambda p=pr, a=skip, b=dec, o=off, cf=ecfg:
+                    recovery_wm_surface_plain(p, a, b, o, cf),
+                lambda out: out, off == half))
 
     records = {}
-    for name, label, dtype, flops, byts, kern, plain, view in cases:
+    for name, label, dtype, flops, byts, kern, plain, view, record in cases:
         got, want = view(kern()), view(plain())
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
@@ -245,48 +333,39 @@ def main() -> int:
         plain_ms = time_ms(plain, 2)
         bound_ms, bound_by = bound(flops, byts, dtype)
         ok = rel <= TOL[dtype]
-        print(f"{name:15s} {label:38s} {str(dtype):15s} max_abs_err {err:.3e} "
+        print(f"{name:19s} {label:38s} {str(dtype):15s} max_abs_err {err:.3e} "
               f"rel {rel:.3e} (tol {TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  "
               f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
               f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
         if not ok:
             raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
-        if dtype == torch.bfloat16 and (name not in records
-                                        or label == "stage 0 shifted"):
+        if dtype == torch.bfloat16 and record:
             records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "at": f"{label}, bf16"}
+    del cases, tp, skip, dec, xs
+    torch.cuda.empty_cache()
 
-    consts = synthetic_constants(PANGU_24, seed=SEED)
-    consts_dev = to_device(consts, dev)
-
-    def state(seed):
-        g = torch.Generator(device=dev).manual_seed(seed)
-        u = (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
-             * torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
-                           generator=g, device=dev))
-        s = (consts_dev["surface_mean"][None] + consts_dev["surface_std"][None]
-             * torch.randn((1, 4, PANGU_24.lat, PANGU_24.lon), generator=g,
-                           device=dev))
-        return u, s
-
-    u0, s0 = state(SEED + 2)
     params32 = to_dtype(params, torch.float32)
     cfg32 = dataclasses.replace(PANGU_24, gelu="erf")
-    got = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev)
-    want = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev,
-                         kernels=False)
-    for part, a, b in zip(("upper", "surface"), got, want):
-        err, rel = rel_err(a, b)
-        print(f"forward float32 {part}: max_abs_err {err:.3e} rel {rel:.3e} "
-              f"(tol {TOL_FORWARD[torch.float32]:.1e})")
-        if rel > TOL_FORWARD[torch.float32]:
-            raise AssertionError(f"float32 forward {part}: rel err {rel:.3e}")
-    del params32, got, want
+    for label, cfg in (("float32", cfg32),
+                       ("float32 edge kernels",
+                        dataclasses.replace(cfg32, edge_kernels=True))):
+        got = pangu.forward(params32, u0, s0, consts_dev, cfg, device=dev)
+        want = pangu.forward(params32, u0, s0, consts_dev, cfg, device=dev,
+                             kernels=False)
+        for part, a, b in zip(("upper", "surface"), got, want):
+            err, rel = rel_err(a, b)
+            print(f"forward {label} {part}: max_abs_err {err:.3e} rel "
+                  f"{rel:.3e} (tol {TOL_FORWARD[torch.float32]:.1e})")
+            if rel > TOL_FORWARD[torch.float32]:
+                raise AssertionError(f"{label} forward {part}: rel err {rel:.3e}")
+        del got, want
+    del params32
     torch.cuda.empty_cache()
     done("kernels vs plain versions, full width", t0)
 
-    # ---- 4. the main path: a chained rollout ------------------------------
+    # ---- 4a. main path: a chained full-step rollout -----------------------
     t0 = phase(f"{STEPS}-step rollout, Pangu-24 perf config")
     rollout = make_rollout(perf, consts, STEPS, return_trajectory=True,
                            device=dev)
@@ -301,7 +380,8 @@ def main() -> int:
     counts = ops.launches()
     peak = torch.cuda.max_memory_allocated()
     print(f"launches {counts}")
-    want_counts = {"block_wm": STEPS * PANGU_24.total_blocks,
+    want_counts = {**{name: 0 for name in counts},
+                   "block_wm": STEPS * PANGU_24.total_blocks,
                    "down_sample_wm": STEPS, "up_sample_wm": STEPS}
     if counts != want_counts:
         raise AssertionError(f"launch counts {counts} != {want_counts}")
@@ -324,16 +404,93 @@ def main() -> int:
             raise AssertionError(f"bf16 step 1 {part}: rel err {rel:.3e}")
     print(f"rollout: {step_ms:.1f} ms per step ({STEPS} steps, batch 1, bf16), "
           f"peak memory {peak / 2**30:.2f} GiB")
+    del rollout, ut, st, pu, ps
     done(f"{STEPS}-step rollout, Pangu-24 perf config", t0)
 
-    # ---- 5. where one step's time goes -------------------------------------
+    # ---- 4b. main path: the token-space chained rollout -------------------
+    t0 = phase(f"{TOKEN_STEPS}-step token-space rollout, edge kernels")
+    perf_edge = dataclasses.replace(perf, edge_kernels=True)
+
+    def timed(fn):
+        fn(params, u0, s0)                      # warm the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        out = fn(params, u0, s0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3 / TOKEN_STEPS
+        return out, ms, ops.launches(), torch.cuda.max_memory_allocated()
+
+    (tu, ts), tok_ms, tok_counts, tok_peak = timed(make_rollout(
+        perf_edge, consts, TOKEN_STEPS, token_space=True, device=dev))
+    print(f"launches {tok_counts}")
+    want_counts = {"block_wm": TOKEN_STEPS * PANGU_24.total_blocks,
+                   "down_sample_wm": TOKEN_STEPS, "up_sample_wm": TOKEN_STEPS,
+                   "embed_wm": 1, "transition_wm": TOKEN_STEPS - 1,
+                   "recovery_wm_upper": 1, "recovery_wm_surface": 1}
+    if tok_counts != want_counts:
+        raise AssertionError(f"launch counts {tok_counts} != {want_counts}")
+    if tu.shape != (1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon) \
+            or ts.shape != (1, 4, PANGU_24.lat, PANGU_24.lon):
+        raise AssertionError(f"final state shapes {tu.shape} {ts.shape}")
+    if not (torch.isfinite(tu).all() and torch.isfinite(ts).all()):
+        raise AssertionError("token-space rollout output is not finite")
+    (fu, fs), full_ms, _, full_peak = timed(make_rollout(
+        perf, consts, TOKEN_STEPS, device=dev))
+    plain_u, plain_s = make_rollout(perf_edge, consts, TOKEN_STEPS,
+                                    token_space=True, device=dev,
+                                    kernels=False)(params, u0, s0)
+    # not a gate: both bf16 rollouts against the same full-step rollout in
+    # float32 (perf config otherwise), to show which one the other's error
+    # comes from
+    # (and the token-space rollout without the edge kernels: embed and
+    # recovery in plain PyTorch, transition kernel between steps)
+    perf32 = dataclasses.replace(perf, param_dtype="float32",
+                                 compute_dtype="float32")
+    ref_u, ref_s = make_rollout(perf32, consts, TOKEN_STEPS, device=dev)(
+        to_dtype(params, torch.float32), u0, s0)
+    nu, ns = make_rollout(perf, consts, TOKEN_STEPS, token_space=True,
+                          device=dev)(params, u0, s0)
+    failed = []
+    for other, (ou, os_) in (("plain versions", (plain_u, plain_s)),
+                             ("full-step rollout", (fu, fs)),
+                             ("float32 full-step rollout (not a gate)",
+                              (ref_u, ref_s))):
+        for name, (xu, xs_) in (("token-space", (tu, ts)),
+                                ("full-step", (fu, fs)),
+                                ("token-space without edge kernels", (nu, ns))):
+            if name != "token-space" and not other.startswith("float32"):
+                continue
+            for part, a, b in zip(("upper", "surface"),
+                                  norm_data(xu, xs_, consts_dev),
+                                  norm_data(ou, os_, consts_dev)):
+                err, rel = rel_err(a, b)
+                mean = float((a - b).abs().mean())
+                print(f"final state bf16 {name} {part} vs {other}: max_abs_err "
+                      f"{err:.3e} rel {rel:.3e} mean_abs_err {mean:.3e} "
+                      f"(tol {TOL_FORWARD[torch.bfloat16]:.1e})")
+                if not other.startswith("float32") \
+                        and rel > TOL_FORWARD[torch.bfloat16]:
+                    failed.append(f"{part} vs {other}: rel err {rel:.3e}")
+    if failed:
+        raise AssertionError("token-space final state: " + "; ".join(failed))
+    print(f"token-space rollout: {tok_ms:.1f} ms per step ({TOKEN_STEPS} "
+          f"steps, batch 1, bf16), peak memory {tok_peak / 2**30:.2f} GiB")
+    print(f"full-step rollout:   {full_ms:.1f} ms per step ({TOKEN_STEPS} "
+          f"steps, batch 1, bf16), peak memory {full_peak / 2**30:.2f} GiB")
+    del tu, ts, fu, fs, plain_u, plain_s, ref_u, ref_s, nu, ns
+    torch.cuda.empty_cache()
+    done(f"{TOKEN_STEPS}-step token-space rollout, edge kernels", t0)
+
+    # ---- 5. where the time goes --------------------------------------------
     t0 = phase("step breakdown (CUDA events, 3 reps each)")
     g = perf.stage(0)
     cdt = torch.bfloat16
+    uc, sc = u0.to(cdt), s0.to(cdt)
 
     def embed():
-        x = L.patch_embed(params["patch_embed"], u0.to(cdt), s0.to(cdt),
-                          consts_dev, perf)
+        x = L.patch_embed(params["patch_embed"], uc, sc, consts_dev, perf)
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
         return to_window_major(x, g.window).contiguous()
 
@@ -347,11 +504,29 @@ def main() -> int:
                                 wm_to_canonical(dec, off, g)), perf)
         return denorm_data(*out, consts_dev)
 
-    parts = {"embed + to_window_major": time_ms(embed, 3),
-             "trunk (16 blocks, down, up)": time_ms(trunk, 3),
-             "canonicalise + recovery + denorm": time_ms(recover, 3)}
-    for part, ms in parts.items():
-        print(f"{part:34s} {ms:9.3f} ms  {100 * ms / step_ms:5.1f}% of the step")
+    tp = build_transition_wm(params, consts_dev, perf_edge)
+    full = {"embed + to_window_major": time_ms(embed, 3),
+            "trunk (16 blocks, down, up)": time_ms(trunk, 3),
+            "canonicalise + recovery + denorm": time_ms(recover, 3)}
+    token = {"trunk (16 blocks, down, up)": full["trunk (16 blocks, down, up)"],
+             "transition_wm": time_ms(
+                 lambda: apply_transition_wm(tp, skip, dec, g, off), 3)}
+    once = {"embed_wm": time_ms(
+                lambda: embed_wm(params["patch_embed"], uc, sc, consts_dev,
+                                 perf_edge), 3),
+            "recovery_wm + denorm": time_ms(
+                lambda: denorm_data(*recovery_wm(params["patch_recovery"], skip,
+                                                 dec, off, perf_edge),
+                                    consts_dev), 3),
+            "build_transition_wm": time_ms(
+                lambda: build_transition_wm(params, consts_dev, perf_edge), 3)}
+    for title, parts in (("full step", full),
+                         ("token-space chained step", token),
+                         ("token-space, once per rollout", once)):
+        total = sum(parts.values())
+        print(f"{title}: {total:.3f} ms")
+        for part, ms in parts.items():
+            print(f"  {part:34s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
     done("step breakdown (CUDA events, 3 reps each)", t0)
 
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -359,13 +534,26 @@ def main() -> int:
                "down_sample_wm": ("pangu_tpu_torch/csrc/updown_wm.cu",
                                   "pangu_tpu/ops/updown_wm.py:169"),
                "up_sample_wm": ("pangu_tpu_torch/csrc/updown_wm.cu",
-                                "pangu_tpu/ops/updown_wm.py:305")}
+                                "pangu_tpu/ops/updown_wm.py:305"),
+               "embed_wm": ("pangu_tpu_torch/csrc/embed_wm.cu",
+                            "pangu_tpu/ops/embed_wm.py:195"),
+               "transition_wm": ("pangu_tpu_torch/csrc/transition_wm.cu",
+                                 "pangu_tpu/engine/transition_wm.py:244"),
+               "recovery_wm_upper": ("pangu_tpu_torch/csrc/recovery_wm.cu",
+                                     "pangu_tpu/ops/recovery_wm.py:231"),
+               "recovery_wm_surface": ("pangu_tpu_torch/csrc/recovery_wm.cu",
+                                       "pangu_tpu/ops/recovery_wm.py:272")}
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": counts[name], **records[name], "library_ms": None}
+                "launches": tok_counts[name], **records[name],
+                "library_ms": None}
                for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"rollout": {"ms_per_step": step_ms, "steps": STEPS,
-                                  "batch": 1, "peak_bytes": peak}}))
+                                  "batch": 1, "peak_bytes": peak},
+                      "token_space_rollout": {
+                          "ms_per_step": tok_ms, "steps": TOKEN_STEPS,
+                          "batch": 1, "peak_bytes": tok_peak,
+                          "full_step_ms_per_step": full_ms}}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,12 @@ token geometry, ``StageGeometry`` and the presets ``PANGU_24``, ``TINY`` and
 switches have no counterpart here: the port has one inference path, the
 window-major trunk.
 
-``edge_kernels`` and ``lat_group`` stay, with the only values this slice
-supports (``False`` and ``1``); any other value raises ``NotImplementedError``
-that names the ROADMAP item that will add it.
+``edge_kernels=True`` selects the edge kernels (``ops/embed_wm``,
+``ops/recovery_wm``) on geometries that pass :func:`embed_supported` and
+:func:`recovery_supported`, and raises ``ValueError`` on any other.
+``lat_group`` stays at the only value the port supports (``1``); any other
+value raises ``NotImplementedError`` that names the ROADMAP item that will
+add it.
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ class ModelConfig:
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     gelu: str = "erf"           # "erf" (exact, parity) | "tanh" (perf config)
-    edge_kernels: bool = False  # only False: embed/recovery stay PyTorch
+    edge_kernels: bool = False  # True: embed_wm / recovery_wm kernels
     lat_group: int = 1          # only 1: one lat window per block program
 
     def __post_init__(self):
@@ -85,11 +88,13 @@ class ModelConfig:
             raise ValueError("the window-major trunk needs even stage depths")
         if self.gelu not in ("erf", "tanh"):
             raise ValueError(f"gelu must be 'erf' or 'tanh', not {self.gelu!r}")
-        if self.edge_kernels:
-            raise NotImplementedError(
-                "edge_kernels=True (embed_wm / recovery_wm kernels) is "
-                "ROADMAP queue B items 1, 3 and 4; this slice runs patch "
-                "embed and recovery in plain PyTorch")
+        if self.edge_kernels and not (embed_supported(self)
+                                      and recovery_supported(self)):
+            raise ValueError(
+                "edge_kernels=True: the geometry fails embed_supported / "
+                f"recovery_supported (patch {self.patch}, window "
+                f"{self.window}, {self.w_tokens} longitude tokens, "
+                f"{self.upper_vars} upper variables)")
         if self.lat_group != 1:
             raise NotImplementedError(
                 "lat_group > 1 (the lat-grouped block kernel, "
@@ -154,6 +159,26 @@ class ModelConfig:
     @property
     def total_blocks(self) -> int:
         return sum(self.depths)
+
+
+def embed_supported(cfg: ModelConfig) -> bool:
+    """The geometry ``ops/embed_wm`` takes (the gate of the JAX package's
+    ``ops/embed_wm.py::embed_supported``)."""
+    pz, ph, pw = cfg.patch
+    wz, wh, ww = cfg.window
+    return (pw == 4 and ph == 4 and pz == 2 and wz == 2
+            and cfg.w_tokens % ww == 0 and wh % 2 == 0
+            and (cfg.upper_vars + 1) * pz * ph % 8 == 0)
+
+
+def recovery_supported(cfg: ModelConfig) -> bool:
+    """The geometry ``ops/recovery_wm`` takes (the gate of the JAX package's
+    ``ops/recovery_wm.py::recovery_supported``)."""
+    pz, ph, pw = cfg.patch
+    wz, wh, ww = cfg.window
+    return (pw == 4 and ph == 4 and pz == 2 and wz == 2
+            and cfg.upper_vars * pz * ph * pw <= 256
+            and cfg.w_tokens % ww == 0)
 
 
 # ---------------------------------------------------------------------------

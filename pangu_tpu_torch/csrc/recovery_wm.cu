@@ -1,0 +1,130 @@
+// Patch recovery straight from the rolled window-major skip/decoder pair.
+//
+// Replaces the two Pallas kernels of pangu_tpu/ops/recovery_wm.py::
+// recovery_wm: the upper kernel (_make_upper_kernel) and the surface kernel
+// (_make_surface_kernel).  One C entry, one launch per call, ``surface``
+// picking the branch.  For canonical token t = (z, h, w), read from storage
+// at t - off (storage position p holds canonical token p + off):
+//
+//   y = round_T([skip | dec][t - off] @ W + b)     float32 sum, skip rows of
+//                                                  W are [:C], dec rows [C:]
+//   upper   (z = zp + 1, features (var, zo, ho, wo)):
+//     out[var, 2zp + zo, 4h + ho, 4w + wo] = y[(var, zo, ho, wo)]
+//   surface (z = 0, features (var, ho, wo)):
+//     out[var, 4h + ho, 4w + wo] = y[(var, ho, wo)]
+//
+// with levels >= 13 and lat >= 721 cropped (never written).  Only the real
+// token-lat rows h < HT are groups.  The TPU kernels stitch two lat-window
+// chunks, pad the features to 256 lanes, transpose per token row and
+// interleave w_off with a 0/1 selection matmul; here the roll-back is a
+// modular index and the interleave a scattered store, ordered so that
+// neighbouring threads write neighbouring longitudes.
+//
+// What bounds it on an H100: memory traffic.  At full width (bf16) the upper
+// branch reads 7/8 of the pair (360 MB) and writes the 135 MB field; the
+// surface branch reads plane 0 (51 MB) and writes 8.3 MB.
+#include "edge_gemm.cuh"
+
+namespace pangu {
+
+constexpr int PZ = 2, PH = 4, PW = 4;  // the patch (recovery_supported)
+
+template <typename T>
+struct RecoveryOp {
+  static constexpr bool kLonOrder = true;
+  struct Row {
+    long long src, dst;
+    int lev0, lat0;
+  };
+  const T* skip;
+  const T* dec;
+  const T* w;     // (2C, N)
+  const T* bias;  // (N)
+  T* out;         // upper (B, V, levels, lat, lon); surface (B, V, lat, lon)
+  WmShape s;
+  int C, surface, planes, HT, V, levels, lat, lon, oz, olat, olon;
+  int K, N, M;
+
+  __device__ bool active(int) const { return true; }
+  __device__ const T* mat(int) const { return w; }
+  __device__ Row row(int g, int r) const {
+    const int h = g % HT, zp = (g / HT) % planes, b = g / (HT * planes);
+    Row q;
+    q.src = rolled_row(b, surface ? 0 : zp + 1, h, r, s, oz, olat, olon) * C;
+    q.lev0 = PZ * zp;
+    q.lat0 = PH * h;
+    q.dst = ((((long long)b * V) * levels + q.lev0) * lat + q.lat0) * lon + PW * r;
+    return q;
+  }
+  __device__ T load(const Row& q, int k) const {
+    return k < C ? skip[q.src + k] : dec[q.src + k - C];
+  }
+  __device__ void store(const Row& q, int n, float acc) const {
+    const int wo = n % PW, ho = (n / PW) % PH;
+    int var, zo;
+    if (surface) {
+      var = n / (PH * PW);
+      zo = 0;
+    } else {
+      var = n / (PZ * PH * PW);
+      zo = (n / (PH * PW)) % PZ;
+    }
+    if (q.lev0 + zo >= levels || q.lat0 + ho >= lat) return;
+    out[q.dst + (((long long)var * levels + zo) * lat + ho) * lon + wo] =
+        from_f<T>(acc + to_f(bias[n]));
+  }
+};
+
+template <typename T>
+int recovery_wm(int surface, const void* skip, const void* dec, const void* w,
+                const void* bias, void* out, int B, WmShape s, int C, int HT,
+                int V, int levels, int lat, int lon, int oz, int olat, int olon,
+                cudaStream_t st) {
+  RecoveryOp<T> op;
+  op.skip = (const T*)skip;
+  op.dec = (const T*)dec;
+  op.w = (const T*)w;
+  op.bias = (const T*)bias;
+  op.out = (T*)out;
+  op.s = s;
+  op.C = C;
+  op.surface = surface;
+  op.planes = surface ? 1 : s.nz * s.wz - 1;
+  op.HT = HT;
+  op.V = V;
+  op.levels = surface ? 1 : levels;
+  op.lat = lat;
+  op.lon = lon;
+  op.oz = oz;
+  op.olat = olat;
+  op.olon = olon;
+  op.K = 2 * C;
+  op.N = V * (surface ? 1 : PZ) * PH * PW;
+  op.M = s.nlon * s.ww;
+  edge_gemm(op, B * op.planes * HT, (T*)nullptr, st);
+  PANGU_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace pangu
+
+using namespace pangu;
+
+// dtype: 0 = float32, 1 = bfloat16; surface: 0 = upper branch, 1 = surface
+// branch.  Returns a cudaError_t (0 = ok).
+extern "C" int pangu_recovery_wm(int dtype, int surface, const void* skip,
+                                 const void* dec, const void* w, const void* bias,
+                                 void* out, int B, int nz, int nlat, int nlon,
+                                 int n, int C, int wz, int wh, int ww, int HT,
+                                 int V, int levels, int lat, int lon, int off_z,
+                                 int off_lat, int off_lon, void* stream) {
+  WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return recovery_wm<float>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
+                              levels, lat, lon, off_z, off_lat, off_lon, st);
+  if (dtype == 1)
+    return recovery_wm<bf16>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
+                             levels, lat, lon, off_z, off_lat, off_lon, st);
+  return (int)cudaErrorInvalidValue;
+}

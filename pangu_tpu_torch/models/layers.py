@@ -137,25 +137,36 @@ def dense_split_rows(pd, parts):
     return y.to(parts[0].dtype)
 
 
+def recover_upper(p, parts, cfg: ModelConfig):
+    """The upper branch of :func:`patch_recovery`: token planes 1.. of the
+    (skip, decoder) grids -> normalised (B, 5, levels, lat, lon)."""
+    B = parts[0].shape[0]
+    pz, ph, pw = cfg.patch
+    ZP, HT, WT = cfg.upper_planes, cfg.h_tokens, cfg.w_tokens
+    up = dense_split_rows(p, tuple(q[:, 1:] for q in parts))
+    up = up.reshape(B, ZP, HT, WT, cfg.upper_vars, pz, ph, pw)
+    up = up.permute(0, 4, 1, 5, 2, 6, 3, 7)
+    up = up.reshape(B, cfg.upper_vars, ZP * pz, HT * ph, WT * pw)
+    return up[:, :, :cfg.levels, :cfg.lat, :]
+
+
+def recover_surface(p, parts, cfg: ModelConfig):
+    """The surface branch of :func:`patch_recovery`: token plane 0 of the
+    (skip, decoder) grids -> normalised (B, 4, lat, lon)."""
+    B = parts[0].shape[0]
+    _, ph, pw = cfg.patch
+    HT, WT = cfg.h_tokens, cfg.w_tokens
+    sf = dense_split_rows(p, tuple(q[:, 0] for q in parts))
+    sf = sf.reshape(B, HT, WT, cfg.surface_vars, ph, pw)
+    sf = sf.permute(0, 3, 1, 4, 2, 5)
+    sf = sf.reshape(B, cfg.surface_vars, HT * ph, WT * pw)
+    return sf[:, :, :cfg.lat, :]
+
+
 def patch_recovery(p, parts, cfg: ModelConfig):
     """(skip, decoder) token grids, each (B, Z, H, W, C) -> normalised
     output fields (upper (B, 5, levels, lat, lon), surface (B, 4, lat, lon)).
     Output features are ordered (var, z_off, h_off, w_off), the pretrained
     Conv1d out-channel layout."""
-    B = parts[0].shape[0]
-    pz, ph, pw = cfg.patch
-    V, S = cfg.upper_vars, cfg.surface_vars
-    ZP, HT, WT = cfg.upper_planes, cfg.h_tokens, cfg.w_tokens
-
-    up = dense_split_rows(p["upper"], tuple(q[:, 1:] for q in parts))
-    up = up.reshape(B, ZP, HT, WT, V, pz, ph, pw)
-    up = up.permute(0, 4, 1, 5, 2, 6, 3, 7)
-    up = up.reshape(B, V, ZP * pz, HT * ph, WT * pw)
-    up = up[:, :, :cfg.levels, :cfg.lat, :]
-
-    sf = dense_split_rows(p["surface"], tuple(q[:, 0] for q in parts))
-    sf = sf.reshape(B, HT, WT, S, ph, pw)
-    sf = sf.permute(0, 3, 1, 4, 2, 5)
-    sf = sf.reshape(B, S, HT * ph, WT * pw)
-    sf = sf[:, :, :cfg.lat, :]
-    return up, sf
+    return (recover_upper(p["upper"], parts, cfg),
+            recover_surface(p["surface"], parts, cfg))

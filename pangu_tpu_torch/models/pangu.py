@@ -1,13 +1,15 @@
 """Top-level Pangu-Weather model of the port: parameter init and the served
 forward.  The counterpart of ``pangu_tpu/models/pangu.py`` (``init_params``,
-``forward_core_wm``, the edge-free window-major branch of ``forward``,
-``param_count``).
+``forward_core_wm``, the window-major branches of ``forward`` with and
+without the edge kernels, ``param_count``).
 
 embed -> enc(2 blocks @192) -> skip -> downsample -> enc(6 @384) ->
 dec(6 @384) -> upsample -> dec(2 @192) -> [skip | dec] -> recover, with the
 trunk in window-major storage: stage chains keep wm storage between blocks,
-DownSample / UpSample read the rolled storage directly, and the canonical
-token grid exists only after the embed and before the recovery.
+DownSample / UpSample read the rolled storage directly.  Without the edge
+kernels the canonical token grid exists after the embed and before the
+recovery; with ``cfg.edge_kernels`` the embed writes wm storage and the
+recovery reads the rolled pair, so it never exists.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import to_device
 from pangu_tpu_torch.models import layers as L
+from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
+from pangu_tpu_torch.ops.recovery_wm import recovery_wm, recovery_wm_plain
 from pangu_tpu_torch.ops.earth_block_wm import (run_stage_wm, to_window_major,
                                                 wm_to_canonical)
 from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
@@ -133,26 +137,49 @@ def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     return skip, dec, off3
 
 
+def embed_tokens(params, upper, surface, constants, cfg: ModelConfig, *,
+                 kernels: bool = True):
+    """Physical fields (compute dtype, on the params' device; ``constants``
+    tensors there too) -> stage-0 wm entry storage in canonical coordinates:
+    ``embed_wm`` with ``cfg.edge_kernels``, else patch embed, lat pad and the
+    wm relayout."""
+    if cfg.edge_kernels:
+        embed = embed_wm if kernels else embed_wm_plain
+        return embed(params["patch_embed"], upper, surface, constants, cfg)
+    g = cfg.stage(0)
+    x = L.patch_embed(params["patch_embed"], upper, surface, constants, cfg)
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
+    return to_window_major(x, g.window)
+
+
+def recover_fields(params, skip, dec, off, cfg: ModelConfig, *,
+                   kernels: bool = True):
+    """The rolled stage-3 exit pair -> the normalised (upper, surface)
+    fields: ``recovery_wm`` with ``cfg.edge_kernels``, else canonicalise
+    and patch recovery."""
+    if cfg.edge_kernels:
+        recover = recovery_wm if kernels else recovery_wm_plain
+        return recover(params["patch_recovery"], skip, dec, off, cfg)
+    g = cfg.stage(0)
+    return L.patch_recovery(params["patch_recovery"],
+                            (wm_to_canonical(skip, off, g),
+                             wm_to_canonical(dec, off, g)), cfg)
+
+
 def forward(params, upper, surface, constants, cfg: ModelConfig, *,
             device: _device.DeviceLike = "cuda", kernels: bool = True):
     """Full forward step: upper (B, 5, levels, lat, lon) and surface
     (B, 4, lat, lon) in physical units in, the *normalised* prediction
     (upper, surface) out.  Inputs and constants are moved to ``device``; the
-    params must already be there."""
+    params must already be there.  With ``cfg.edge_kernels``: embed_wm ->
+    trunk -> recovery_wm."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
         raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
     consts = to_device(constants, dev)
     cdt = _device.dtype_of(cfg.compute_dtype)
-    upper = upper.to(dev, cdt)
-    surface = surface.to(dev, cdt)
-
-    x = L.patch_embed(params["patch_embed"], upper, surface, consts, cfg)
-    g = cfg.stage(0)
-    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
-    skip, dec, off = forward_core_wm(params, to_window_major(x, g.window), cfg,
-                                     kernels=kernels)
-    return L.patch_recovery(params["patch_recovery"],
-                            (wm_to_canonical(skip, off, g),
-                             wm_to_canonical(dec, off, g)), cfg)
+    xs = embed_tokens(params, upper.to(dev, cdt), surface.to(dev, cdt), consts,
+                      cfg, kernels=kernels)
+    skip, dec, off = forward_core_wm(params, xs, cfg, kernels=kernels)
+    return recover_fields(params, skip, dec, off, cfg, kernels=kernels)

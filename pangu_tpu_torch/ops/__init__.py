@@ -5,22 +5,33 @@ Each wrapper launches its CUDA kernel for a CUDA tensor (and adds one to its
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 from pangu_tpu_torch.ops.earth_block_wm import block_wm
+from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface,
+                                             recovery_wm_upper)
 from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
 
-KERNELS = {
-    "block_wm": block_wm,
-    "down_sample_wm": down_sample_wm,
-    "up_sample_wm": up_sample_wm,
-}
+
+def kernels() -> Dict[str, Callable]:
+    """Every kernel wrapper by name.  (Two are imported here, not at the
+    top: ``engine.transition_wm`` imports this package, and a package-level
+    name ``embed_wm`` would hide the submodule of that name.)"""
+    from pangu_tpu_torch.engine.transition_wm import apply_transition_wm
+    from pangu_tpu_torch.ops.embed_wm import embed_wm
+    return {"block_wm": block_wm,
+            "down_sample_wm": down_sample_wm,
+            "up_sample_wm": up_sample_wm,
+            "embed_wm": embed_wm,
+            "transition_wm": apply_transition_wm,
+            "recovery_wm_upper": recovery_wm_upper,
+            "recovery_wm_surface": recovery_wm_surface}
 
 
 def reset_launches() -> None:
-    for fn in KERNELS.values():
+    for fn in kernels().values():
         fn.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in kernels().items()}

@@ -44,12 +44,39 @@ def test_pangu_24_full_width_geometry():
 
 
 @pytest.mark.parametrize("change,roadmap_item", [
-    ({"edge_kernels": True}, "queue B items 1, 3 and 4"),
     ({"lat_group": 2}, "queue B item 5"),
 ])
 def test_unsupported_values_raise_with_roadmap_item(change, roadmap_item):
     with pytest.raises(NotImplementedError, match=roadmap_item):
         dataclasses.replace(PC.PANGU_24, **change)
+
+
+GATE_VARIANTS = [{}, {"patch": (1, 4, 4)}, {"window": (2, 5, 12)},
+                 {"window": (1, 6, 12)}, {"upper_vars": 9}]
+
+
+@pytest.mark.parametrize("change", GATE_VARIANTS)
+@pytest.mark.parametrize("preset", PRESETS)
+def test_edge_gates_match_jax(preset, change):
+    want = dataclasses.replace(getattr(JC, preset), **change)
+    got = dataclasses.replace(getattr(PC, preset), **change)
+    from pangu_tpu.ops.embed_wm import embed_supported
+    from pangu_tpu.ops.recovery_wm import recovery_supported
+    assert PC.embed_supported(got) == embed_supported(want)
+    assert PC.recovery_supported(got) == recovery_supported(want)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_edge_kernels_accepted_on_presets(preset):
+    cfg = dataclasses.replace(getattr(PC, preset), edge_kernels=True)
+    assert cfg.edge_kernels
+
+
+@pytest.mark.parametrize("change", GATE_VARIANTS[1:])
+def test_edge_kernels_on_unsupported_geometry_raise(change):
+    dataclasses.replace(PC.TINY, **change)          # fine without the kernels
+    with pytest.raises(ValueError, match="embed_supported"):
+        dataclasses.replace(PC.TINY, edge_kernels=True, **change)
 
 
 @pytest.mark.parametrize("change", [{"gelu": "relu"},
