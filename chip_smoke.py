@@ -10,20 +10,36 @@ Phases, each with its wall seconds:
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
-     (the edge kernels: embed, transition and recovery upper / surface, the
-     last three at the stage-end offsets (0, 0, 0) and the served (1, 3, 6));
-     then full-width float32 forwards, without and with the edge kernels,
-     kernels against plain versions;
+     (the block wm -> wm, grouped at stage 1 (gh 2) beside the ungrouped one
+     on the same input, and with a canonical input or output at stages 0
+     and 1; DownSample / UpSample, window-major and canonical; the edge
+     kernels: embed, transition and recovery upper / surface, the last three
+     at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
+     8 through the stage-0 block and UpSample (more than 65,535 GEMM row
+     tiles), sample 7 against a batch-1 launch; then full-width float32
+     forwards, without and with the edge kernels, kernels against plain
+     versions;
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
-     tanh GELU, float32 LayerNorm statistics and softmax), batch 1, random
-     weights and synthetic constants from a seed, each driven with the launch
-     counters set to 0 just before it and read just after:
-     a. a 2-step full-step rollout with its trajectory: 2 x (16 blocks,
-        1 DownSample, 1 UpSample); step 1 must match the plain path;
-     b. a 3-step token-space rollout with the edge kernels: 48 blocks,
-        3 DownSample, 3 UpSample, 1 embed, 2 transitions, 1 recovery upper,
-        1 recovery surface; its final state must match the same rollout with
-        plain versions and the 3-step full-step rollout;
+     tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
+     batch 1, random weights and synthetic constants from a seed, each driven
+     with the launch counters set to 0 just before it and read just after:
+     a. a 2-step full-step rollout with its trajectory: 2 x (4 blocks, 12
+        grouped blocks, 1 DownSample, 1 UpSample); step 1 must match the
+        plain path;
+     b. a 3-step token-space rollout with the edge kernels: 12 blocks, 36
+        grouped blocks, 3 DownSample, 3 UpSample, 1 embed, 2 transitions,
+        1 recovery upper, 1 recovery surface; its final state must match the
+        same rollout with plain versions and the 3-step full-step rollout;
+        then (not gates) the bf16 drift of both rollouts against float32
+        over 3 and 7 chained steps;
+     c. the hierarchical rollout, two parameter sets (seeds 0 and 1) as the
+        24 h and 6 h models, horizon 30 h (schedule [24, 6]), full-step and
+        token-space with the edge kernels: the launch counters, the final
+        state against the plain path and token-space against full-step;
+     d. ``forward(taps={})`` in float32 (the canonical-layout trunk: 8
+        end-point blocks, 8 grouped blocks, 1 canonical DownSample and
+        UpSample): its output against the window-major forward, every tap
+        against the plain path;
   5. where the time goes: a full step (embed, trunk, recovery) and a
      token-space chained step (trunk, transition) (CUDA events).
 
@@ -59,6 +75,8 @@ TOL_FORWARD = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
 SEED = 0
 STEPS = 2
 TOKEN_STEPS = 3
+DRIFT_STEPS = (3, 7)
+HIER_HORIZON, HIER_MODELS = 30, (24, 6)
 
 
 def phase(name):
@@ -126,16 +144,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from pangu_tpu_torch import _build, ops
-    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.config import PANGU_24, _pick_gh
     from pangu_tpu_torch.data.constants import (denorm_data, norm_data,
                                                 synthetic_constants, to_device)
-    from pangu_tpu_torch.engine.rollout import make_rollout, single_step
+    from pangu_tpu_torch.engine.rollout import (make_hierarchical_rollout,
+                                                make_rollout, single_step)
     from pangu_tpu_torch.engine.transition_wm import (
         apply_transition_wm, apply_transition_wm_plain, build_transition_wm)
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.models import layers as L
     from pangu_tpu_torch.models.layers import window_region_ids
-    from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_plain,
+    from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
+                                                    block_wm_canon_plain,
+                                                    block_wm_group,
+                                                    block_wm_plain,
                                                     from_window_major,
                                                     to_window_major,
                                                     wm_to_canonical)
@@ -145,6 +167,8 @@ def main() -> int:
                                                  recovery_wm_surface_plain,
                                                  recovery_wm_upper,
                                                  recovery_wm_upper_plain)
+    from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
+                                            up_sample, up_sample_plain)
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                                down_sample_wm_plain,
                                                up_sample_wm, up_sample_wm_plain)
@@ -200,9 +224,9 @@ def main() -> int:
 
     u0, s0 = state(SEED + 2)
 
-    def storage(geom, dtype):
+    def storage(geom, dtype, batch=1):
         wz, wh, ww = geom.window
-        shape = (1, geom.z // wz, geom.h_padded // wh, geom.w // ww,
+        shape = (batch, geom.z // wz, geom.h_padded // wh, geom.w // ww,
                  wz * wh * ww, geom.dim)
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
@@ -254,6 +278,41 @@ def main() -> int:
                 lambda bp=bp, xs=xs, geom=geom, d=delta, c=canon, i=ids, t=tanh:
                     block_wm_plain(bp, xs, geom, d, c, i, t),
                 lambda out: out, label == "stage 0 shifted"))
+            if geom is g1:   # the grouped block on the same input
+                gh = _pick_gh(g1.h_padded // g1.window[1], perf.lat_group)
+                for glabel, gd, gc, gi in (
+                        (f"stage 1 unshifted, gh {gh}", (0, 0, 0), 0, None),
+                        (f"stage 1 shifted, gh {gh}", delta, canon, ids)):
+                    cases.append((
+                        "block_wm_group", glabel, dtype, flops, byts,
+                        lambda bp=bp, xs=xs, d=gd, c=gc, i=gi, t=tanh, gh=gh:
+                            block_wm_group(bp, xs, g1, d, c, i, t, gh),
+                        lambda bp=bp, xs=xs, d=gd, c=gc, i=gi, t=tanh:
+                            block_wm_plain(bp, xs, g1, d, c, i, t),
+                        lambda out: out, gd == delta))
+        for geom, bp in ((g0, pdt["s0"]), (g1, pdt["s1"])):
+            # the stage end-points: the unshifted first block reads the
+            # canonical grid, the shifted last block writes it
+            grid = torch.randn((1, geom.z, geom.h_padded, geom.w, geom.dim),
+                               generator=gen, device=dev).to(dtype)
+            xs = storage(geom, dtype)
+            ids = ids_of(geom)
+            flops, byts = block_cost(bp, xs, ids)
+            st = "stage 0" if geom is g0 else "stage 1"
+            for label, x, delta, canon, i, lin, lout in (
+                    (f"{st} canon in", grid, (0, 0, 0), 0, None, "canon", "wm"),
+                    (f"{st} canon out, shifted", xs, half, 3, ids, "wm",
+                     "canon")):
+                cases.append((
+                    "block_wm_canon", label, dtype, flops, byts,
+                    lambda bp=bp, x=x, g=geom, d=delta, c=canon, i=i, t=tanh,
+                    a=lin, o=lout:
+                        block_wm_canon(bp, x, g, d, c, i, t, in_layout=a,
+                                       out_layout=o),
+                    lambda bp=bp, x=x, g=geom, d=delta, c=canon, i=i, t=tanh,
+                    a=lin, o=lout:
+                        block_wm_canon_plain(bp, x, g, d, c, i, t, a, o),
+                    lambda out: out, label == "stage 0 canon out, shifted"))
         xs = storage(g0, dtype)
         c = g0.dim
         cases.append((       # work: the valid stage-1 rows; bytes: in + out
@@ -273,6 +332,28 @@ def main() -> int:
             lambda xs=xs, p=pdt["up"]: up_sample_wm(p, xs, g2, g3, half),
             lambda xs=xs, p=pdt["up"]: up_sample_wm_plain(p, xs, g2, g3, half),
             lambda out: from_window_major(out, g3.window)[:, :, :g3.h], True))
+        # the canonical pair on the canonical grids of the taps forward
+        x = torch.randn((1, g0.z, g0.h, g0.w, c0), generator=gen,
+                        device=dev).to(dtype)
+        cases.append((       # work: the output rows; bytes: in + out
+            "down_sample", "stage 0 -> 1, canonical grid", dtype,
+            2 * (g1.z * g1.h * g1.w) * 4 * c0 * 2 * c0,
+            nbytes(x) + g1.z * g1.h * g1.w * 2 * c0 * isz
+            + weight_bytes(pdt["down"], dtype),
+            lambda x=x, p=pdt["down"]: down_sample(p, x),
+            lambda x=x, p=pdt["down"]: down_sample_plain(p, x),
+            lambda out: out, True))
+        x = torch.randn((1, g2.z, g2.h, g2.w, c_in), generator=gen,
+                        device=dev).to(dtype)
+        cases.append((       # work: every input row feeds a kept output row
+            "up_sample", "stage 2 -> 3, canonical grid", dtype,
+            2 * (g2.z * g2.h * g2.w) * c_in * 4 * c_out
+            + 2 * (g3.z * g3.h * g3.w) * c_out * c_out,
+            nbytes(x) + g3.z * g3.h * g3.w * c_out * isz
+            + weight_bytes(pdt["up"], dtype),
+            lambda x=x, p=pdt["up"]: up_sample(p, x, g3.h),
+            lambda x=x, p=pdt["up"]: up_sample_plain(p, x, g3.h),
+            lambda out: out, True))
 
         # the edge kernels, on the compute-dtype state the served paths give
         ecfg = dataclasses.replace(
@@ -343,7 +424,33 @@ def main() -> int:
             records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "at": f"{label}, bf16"}
-    del cases, tp, skip, dec, xs
+    del cases, tp, skip, dec, xs, x, grid
+    torch.cuda.empty_cache()
+
+    # a batch of 8 at stage 0: 8 x 535,680 rows / 64 = 66,960 GEMM row tiles,
+    # more than a grid's y dimension holds; sample 7 against batch 1
+    s0b, ids0 = params["stages"][0]["blocks"][1], ids_of(g0)
+    x8 = storage(g0, torch.bfloat16, batch=8)
+    got = block_wm(s0b, x8, g0, half, 3, ids0, True)[7]
+    want = block_wm(s0b, x8[7:].contiguous(), g0, half, 3, ids0, True)[0]
+    torch.cuda.synchronize()
+    b8 = [("block_wm stage 0 shifted", got, want)]
+    del x8
+    x8 = storage(g2, torch.bfloat16, batch=8)
+    got = up_sample_wm(params["upsample"], x8, g2, g3, half)[7]
+    want = up_sample_wm(params["upsample"], x8[7:].contiguous(), g2, g3,
+                        half)[0]
+    torch.cuda.synchronize()
+    b8.append(("up_sample_wm", got, want))
+    for label, got, want in b8:
+        err, rel = rel_err(got, want)
+        same = bool(torch.equal(got, want))
+        print(f"batch 8, sample 7 vs batch 1: {label} bf16 max_abs_err "
+              f"{err:.3e} rel {rel:.3e} bit-equal {same} (tol "
+              f"{TOL[torch.bfloat16]:.1e})")
+        if rel > TOL[torch.bfloat16]:
+            raise AssertionError(f"batch 8 {label}: rel err {rel:.3e}")
+    del x8, got, want, b8
     torch.cuda.empty_cache()
 
     params32 = to_dtype(params, torch.float32)
@@ -365,6 +472,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("kernels vs plain versions, full width", t0)
 
+    # per trunk at lat_group 2: stages 0 and 3 (nlat 31, gh 1) through
+    # block_wm, the 12 blocks of stages 1-2 (nlat 16, gh 2) grouped
+    trunk_counts = {"block_wm": perf.depths[0] + perf.depths[3],
+                    "block_wm_group": perf.depths[1] + perf.depths[2],
+                    "down_sample_wm": 1, "up_sample_wm": 1}
+    path_counts = {}
+
     # ---- 4a. main path: a chained full-step rollout -----------------------
     t0 = phase(f"{STEPS}-step rollout, Pangu-24 perf config")
     rollout = make_rollout(perf, consts, STEPS, return_trajectory=True,
@@ -378,11 +492,11 @@ def main() -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t_run) * 1e3 / STEPS
     counts = ops.launches()
+    path_counts["full-step rollout"] = counts
     peak = torch.cuda.max_memory_allocated()
     print(f"launches {counts}")
     want_counts = {**{name: 0 for name in counts},
-                   "block_wm": STEPS * PANGU_24.total_blocks,
-                   "down_sample_wm": STEPS, "up_sample_wm": STEPS}
+                   **{k: STEPS * v for k, v in trunk_counts.items()}}
     if counts != want_counts:
         raise AssertionError(f"launch counts {counts} != {want_counts}")
     if ut.shape != (STEPS, 1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon) \
@@ -425,8 +539,9 @@ def main() -> int:
     (tu, ts), tok_ms, tok_counts, tok_peak = timed(make_rollout(
         perf_edge, consts, TOKEN_STEPS, token_space=True, device=dev))
     print(f"launches {tok_counts}")
-    want_counts = {"block_wm": TOKEN_STEPS * PANGU_24.total_blocks,
-                   "down_sample_wm": TOKEN_STEPS, "up_sample_wm": TOKEN_STEPS,
+    path_counts["token-space rollout"] = tok_counts
+    want_counts = {**{name: 0 for name in tok_counts},
+                   **{k: TOKEN_STEPS * v for k, v in trunk_counts.items()},
                    "embed_wm": 1, "transition_wm": TOKEN_STEPS - 1,
                    "recovery_wm_upper": 1, "recovery_wm_surface": 1}
     if tok_counts != want_counts:
@@ -441,47 +556,175 @@ def main() -> int:
     plain_u, plain_s = make_rollout(perf_edge, consts, TOKEN_STEPS,
                                     token_space=True, device=dev,
                                     kernels=False)(params, u0, s0)
-    # not a gate: both bf16 rollouts against the same full-step rollout in
-    # float32 (perf config otherwise), to show which one the other's error
-    # comes from
-    # (and the token-space rollout without the edge kernels: embed and
-    # recovery in plain PyTorch, transition kernel between steps)
-    perf32 = dataclasses.replace(perf, param_dtype="float32",
-                                 compute_dtype="float32")
-    ref_u, ref_s = make_rollout(perf32, consts, TOKEN_STEPS, device=dev)(
-        to_dtype(params, torch.float32), u0, s0)
-    nu, ns = make_rollout(perf, consts, TOKEN_STEPS, token_space=True,
-                          device=dev)(params, u0, s0)
     failed = []
     for other, (ou, os_) in (("plain versions", (plain_u, plain_s)),
-                             ("full-step rollout", (fu, fs)),
-                             ("float32 full-step rollout (not a gate)",
-                              (ref_u, ref_s))):
-        for name, (xu, xs_) in (("token-space", (tu, ts)),
-                                ("full-step", (fu, fs)),
-                                ("token-space without edge kernels", (nu, ns))):
-            if name != "token-space" and not other.startswith("float32"):
-                continue
-            for part, a, b in zip(("upper", "surface"),
-                                  norm_data(xu, xs_, consts_dev),
-                                  norm_data(ou, os_, consts_dev)):
-                err, rel = rel_err(a, b)
-                mean = float((a - b).abs().mean())
-                print(f"final state bf16 {name} {part} vs {other}: max_abs_err "
-                      f"{err:.3e} rel {rel:.3e} mean_abs_err {mean:.3e} "
-                      f"(tol {TOL_FORWARD[torch.bfloat16]:.1e})")
-                if not other.startswith("float32") \
-                        and rel > TOL_FORWARD[torch.bfloat16]:
-                    failed.append(f"{part} vs {other}: rel err {rel:.3e}")
+                             ("full-step rollout", (fu, fs))):
+        for part, a, b in zip(("upper", "surface"),
+                              norm_data(tu, ts, consts_dev),
+                              norm_data(ou, os_, consts_dev)):
+            err, rel = rel_err(a, b)
+            mean = float((a - b).abs().mean())
+            print(f"final state bf16 token-space {part} vs {other}: "
+                  f"max_abs_err {err:.3e} rel {rel:.3e} mean_abs_err "
+                  f"{mean:.3e} (tol {TOL_FORWARD[torch.bfloat16]:.1e})")
+            if rel > TOL_FORWARD[torch.bfloat16]:
+                failed.append(f"{part} vs {other}: rel err {rel:.3e}")
     if failed:
         raise AssertionError("token-space final state: " + "; ".join(failed))
+
+    # not gates: the bf16 rollouts against the full-step rollout in float32
+    # (perf config otherwise) after 3 and 7 chained steps, and the
+    # token-space rollout against the bf16 full-step one; also the
+    # token-space rollout without the edge kernels (plain embed and
+    # recovery, transition kernel between steps)
+    perf32 = dataclasses.replace(perf, param_dtype="float32",
+                                 compute_dtype="float32")
+    _, ref = make_rollout(perf32, consts, DRIFT_STEPS[-1],
+                          return_trajectory=True, device=dev)(
+        to_dtype(params, torch.float32), u0, s0)
+    _, full = make_rollout(perf, consts, DRIFT_STEPS[-1],
+                           return_trajectory=True, device=dev)(params, u0, s0)
+    for n in DRIFT_STEPS:
+        runs = {"full-step": (full[0][n - 1], full[1][n - 1]),
+                "token-space": (tu, ts) if n == TOKEN_STEPS else make_rollout(
+                    perf_edge, consts, n, token_space=True, device=dev)(
+                        params, u0, s0),
+                "token-space without edge kernels": make_rollout(
+                    perf, consts, n, token_space=True, device=dev)(
+                        params, u0, s0)}
+        refs = {"float32 full-step": (ref[0][n - 1], ref[1][n - 1]),
+                "bf16 full-step": runs["full-step"]}
+        for name, (xu, xs_) in runs.items():
+            for other, (ou, os_) in refs.items():
+                if other == "bf16 full-step" and name == "full-step":
+                    continue
+                for part, a, b in zip(("upper", "surface"),
+                                      norm_data(xu, xs_, consts_dev),
+                                      norm_data(ou, os_, consts_dev)):
+                    err, rel = rel_err(a, b)
+                    mean = float((a - b).abs().mean())
+                    print(f"drift (not a gate) {n} steps: bf16 {name} {part} "
+                          f"vs {other}: max_abs_err {err:.3e} rel {rel:.3e} "
+                          f"mean_abs_err {mean:.3e}")
+        del runs, refs
+    del ref, full
     print(f"token-space rollout: {tok_ms:.1f} ms per step ({TOKEN_STEPS} "
           f"steps, batch 1, bf16), peak memory {tok_peak / 2**30:.2f} GiB")
     print(f"full-step rollout:   {full_ms:.1f} ms per step ({TOKEN_STEPS} "
           f"steps, batch 1, bf16), peak memory {full_peak / 2**30:.2f} GiB")
-    del tu, ts, fu, fs, plain_u, plain_s, ref_u, ref_s, nu, ns
+    _, g1_ms, _, _ = timed(make_rollout(dataclasses.replace(perf, lat_group=1),
+                                        consts, TOKEN_STEPS, device=dev))
+    print(f"full-step rollout at lat_group 1 (not a gate): {g1_ms:.1f} ms per "
+          f"step ({TOKEN_STEPS} steps, batch 1, bf16)")
+    del tu, ts, fu, fs, plain_u, plain_s
     torch.cuda.empty_cache()
     done(f"{TOKEN_STEPS}-step token-space rollout, edge kernels", t0)
+
+    # ---- 4c. main path: the hierarchical rollout ----------------------------
+    t0 = phase(f"hierarchical rollout, {HIER_HORIZON} h from {HIER_MODELS} h "
+               "models")
+    params_by_h = {HIER_MODELS[0]: params,
+                   HIER_MODELS[1]: pangu.init_params(
+                       torch.Generator().manual_seed(SEED + 1), perf,
+                       device=dev)}
+    hier = {}
+    for name, cfg, token in (("full-step", perf, False),
+                             ("token-space", perf_edge, True)):
+        fn, schedule = make_hierarchical_rollout(
+            cfg, consts, HIER_HORIZON, HIER_MODELS, token_space=token,
+            device=dev)
+        fn(params_by_h, u0, s0)                 # warm the allocator
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        out = fn(params_by_h, u0, s0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3 / len(schedule)
+        counts = ops.launches()
+        path_counts[f"hierarchical {name} rollout"] = counts
+        steps = len(schedule)
+        want_counts = {**{k: 0 for k in counts},
+                       **{k: steps * v for k, v in trunk_counts.items()}}
+        if token:
+            want_counts.update({"embed_wm": 1, "transition_wm": steps - 1,
+                                "recovery_wm_upper": 1,
+                                "recovery_wm_surface": 1})
+        print(f"{name}: schedule {schedule}, {ms:.1f} ms per step, "
+              f"launches {counts}")
+        if schedule != [24, 6] or counts != want_counts:
+            raise AssertionError(f"hierarchical {name}: schedule {schedule}, "
+                                 f"launch counts {counts} != {want_counts}")
+        plain = make_hierarchical_rollout(
+            cfg, consts, HIER_HORIZON, HIER_MODELS, token_space=token,
+            device=dev, kernels=False)[0](params_by_h, u0, s0)
+        hier[name] = out
+        checks = [("plain path", plain)]
+        if token:
+            checks.append(("full-step hierarchical rollout", hier["full-step"]))
+        for other, ref in checks:
+            for part, a, b in zip(("upper", "surface"),
+                                  norm_data(*out, consts_dev),
+                                  norm_data(*ref, consts_dev)):
+                err, rel = rel_err(a, b)
+                print(f"hierarchical {name} final bf16 {part} vs {other}: "
+                      f"max_abs_err {err:.3e} rel {rel:.3e} "
+                      f"(tol {TOL_FORWARD[torch.bfloat16]:.1e})")
+                if rel > TOL_FORWARD[torch.bfloat16]:
+                    raise AssertionError(f"hierarchical {name} {part} vs "
+                                         f"{other}: rel err {rel:.3e}")
+        del plain
+    del params_by_h, hier, out
+    torch.cuda.empty_cache()
+    done(f"hierarchical rollout, {HIER_HORIZON} h from {HIER_MODELS} h models",
+         t0)
+
+    # ---- 4d. main path: forward(taps={}), the canonical-layout trunk ------
+    t0 = phase("forward with taps, float32")
+    params32 = to_dtype(params, torch.float32)
+    taps, plain_taps = {}, {}
+    ops.reset_launches()
+    got = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev,
+                        taps=taps)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    path_counts["forward with taps"] = counts
+    print(f"launches {counts}")
+    # per stage two end-point blocks, the rest of stages 1 and 2 grouped
+    want_counts = {**{k: 0 for k in counts},
+                   "block_wm_canon": 8, "block_wm": sum(
+                       d - 2 for d in (perf.depths[0], perf.depths[3])),
+                   "block_wm_group": sum(d - 2 for d in perf.depths[1:3]),
+                   "down_sample": 1, "up_sample": 1}
+    if counts != want_counts:
+        raise AssertionError(f"launch counts {counts} != {want_counts}")
+    want = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev,
+                         taps=plain_taps, kernels=False)
+    wm = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev)
+    checks = [(f"output {part} vs {other}", a, b)
+              for other, ref in (("window-major forward", wm),
+                                 ("plain path", want))
+              for part, a, b in zip(("upper", "surface"), got, ref)]
+    checks += [(f"tap {name} vs plain path", taps[name], plain_taps[name])
+               for name in plain_taps]
+    for label, a, b in checks:
+        err, rel = rel_err(a, b)
+        print(f"taps forward float32 {label}: max_abs_err {err:.3e} rel "
+              f"{rel:.3e} (tol {TOL_FORWARD[torch.float32]:.1e})")
+        if rel > TOL_FORWARD[torch.float32]:
+            raise AssertionError(f"taps forward {label}: rel err {rel:.3e}")
+    if sorted(taps) != sorted(["embed", "stage0", "downsample", "stage1",
+                               "stage2", "upsample", "stage3"]):
+        raise AssertionError(f"taps {sorted(taps)}")
+    for label, kw in (("with taps", {"taps": {}}), ("window-major", {})):
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev, **kw)
+        torch.cuda.synchronize()
+        print(f"forward float32 {label}: "
+              f"{(time.perf_counter() - t_run) * 1e3:.1f} ms (batch 1)")
+    del params32, taps, plain_taps, got, want, wm, checks
+    torch.cuda.empty_cache()
+    done("forward with taps, float32", t0)
 
     # ---- 5. where the time goes --------------------------------------------
     t0 = phase("step breakdown (CUDA events, 3 reps each)")
@@ -527,10 +770,42 @@ def main() -> int:
         print(f"{title}: {total:.3f} ms")
         for part, ms in parts.items():
             print(f"  {part:34s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
+    # inside one stage-1 block, ungrouped and grouped: device time by kernel
+    from torch.profiler import ProfilerActivity, profile
+    g1 = perf.stage(1)
+    xs1, ids1 = storage(g1, cdt), ids_of(g1)
+    bp1 = params["stages"][1]["blocks"][1]
+    gh = _pick_gh(g1.h_padded // g1.window[1], perf.lat_group)
+    for label, fn in (
+            ("block_wm", lambda: block_wm(bp1, xs1, g1, half, 3, ids1, True)),
+            (f"block_wm_group (gh {gh})",
+             lambda: block_wm_group(bp1, xs1, g1, half, 3, ids1, True, gh))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 3e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        total = sum(ms for _, ms in rows)
+        print(f"stage-1 shifted block, {label}: device time {total:.3f} ms "
+              "per block by kernel (torch.profiler)"
+              if rows else f"{label}: profiler saw no device time")
+        for key, ms in rows:
+            print(f"  {key[:60]:60s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
+    del xs1
     done("step breakdown (CUDA events, 3 reps each)", t0)
 
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
+               "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
+                                  "pangu_tpu/ops/earth_block_wm.py:848"),
+               "block_wm_canon": ("pangu_tpu_torch/csrc/block_wm.cu",
+                                  "pangu_tpu/ops/earth_block_wm.py:358"),
                "down_sample_wm": ("pangu_tpu_torch/csrc/updown_wm.cu",
                                   "pangu_tpu/ops/updown_wm.py:169"),
                "up_sample_wm": ("pangu_tpu_torch/csrc/updown_wm.cu",
@@ -542,9 +817,19 @@ def main() -> int:
                "recovery_wm_upper": ("pangu_tpu_torch/csrc/recovery_wm.cu",
                                      "pangu_tpu/ops/recovery_wm.py:231"),
                "recovery_wm_surface": ("pangu_tpu_torch/csrc/recovery_wm.cu",
-                                       "pangu_tpu/ops/recovery_wm.py:272")}
+                                       "pangu_tpu/ops/recovery_wm.py:272"),
+               "down_sample": ("pangu_tpu_torch/csrc/updown.cu",
+                               "pangu_tpu/ops/updown.py:93"),
+               "up_sample": ("pangu_tpu_torch/csrc/updown.cu",
+                             "pangu_tpu/ops/updown.py:193")}
+    # launches: each kernel's count on the main path that runs it most
+    launches = {name: max(c[name] for c in path_counts.values())
+                for name in sources}
+    unlaunched = [name for name, n in launches.items() if n == 0]
+    if unlaunched or set(sources) != set(ops.kernels()):
+        raise AssertionError(f"kernels no main path launched: {unlaunched}")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": tok_counts[name], **records[name],
+                "launches": launches[name], **records[name],
                 "library_ms": None}
                for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_all:.1f} s")

@@ -31,7 +31,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of every C entry: a pointer or the stream is c_void_p, an int c_int
 _SIGNATURES = {
-    "pangu_block_wm": [_I, _I] + [_P] * 17 + [_I] * 17 + [_P],
+    "pangu_block_wm": [_I, _I] + [_P] * 17 + [_I] * 20 + [_P],
+    "pangu_down_sample": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+    "pangu_up_sample": [_I] + [_P] * 7 + [_I] * 6 + [_P],
     "pangu_down_sample_wm": [_I] + [_P] * 6 + [_I] * 16 + [_P],
     "pangu_up_sample_wm": [_I] + [_P] * 7 + [_I] * 17 + [_P],
     "pangu_embed_wm": [_I] + [_P] * 6 + [_I] * 14 + [_P],

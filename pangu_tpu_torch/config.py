@@ -10,9 +10,9 @@ window-major trunk.
 ``edge_kernels=True`` selects the edge kernels (``ops/embed_wm``,
 ``ops/recovery_wm``) on geometries that pass :func:`embed_supported` and
 :func:`recovery_supported`, and raises ``ValueError`` on any other.
-``lat_group`` stays at the only value the port supports (``1``); any other
-value raises ``NotImplementedError`` that names the ROADMAP item that will
-add it.
+``lat_group`` (default 2, as in the JAX package) is the number of latitude
+windows the grouped block kernel takes together (:func:`_pick_gh`); it must
+be at least 1.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ class ModelConfig:
     compute_dtype: str = "float32"
     gelu: str = "erf"           # "erf" (exact, parity) | "tanh" (perf config)
     edge_kernels: bool = False  # True: embed_wm / recovery_wm kernels
-    lat_group: int = 1          # only 1: one lat window per block program
+    lat_group: int = 2          # lat windows per grouped block (_pick_gh)
 
     def __post_init__(self):
         pz, ph, pw = self.patch
@@ -95,10 +95,9 @@ class ModelConfig:
                 f"recovery_supported (patch {self.patch}, window "
                 f"{self.window}, {self.w_tokens} longitude tokens, "
                 f"{self.upper_vars} upper variables)")
-        if self.lat_group != 1:
-            raise NotImplementedError(
-                "lat_group > 1 (the lat-grouped block kernel, "
-                "_block_wm_group_call) is ROADMAP queue B item 5")
+        if self.lat_group < 1:
+            raise ValueError(f"lat_group must be at least 1, not "
+                             f"{self.lat_group}")
 
     @property
     def gelu_tanh(self) -> bool:
@@ -159,6 +158,15 @@ class ModelConfig:
     @property
     def total_blocks(self) -> int:
         return sum(self.depths)
+
+
+def _pick_gh(nlat: int, target: int) -> int:
+    """Largest divisor of nlat <= target: the latitude windows one grouped
+    block takes together (``pangu_tpu/ops/earth_block_wm.py::_pick_gh``)."""
+    for g in range(min(nlat, max(1, target)), 0, -1):
+        if nlat % g == 0:
+            return g
+    return 1
 
 
 def embed_supported(cfg: ModelConfig) -> bool:

@@ -1,9 +1,13 @@
 // One whole Earth-specific transformer block on window-major storage.
 //
-// Replaces the Pallas kernel pangu_tpu/ops/earth_block_wm.py::_block_wm_call
-// (kernel body _make_wm_kernel), wm -> wm layout.  Storage is
-// (B, nz, nlat, nlon, N, C) with N = wz*wh*ww tokens per window.  Window token
-// (rz, rh, rw) of window (zz, hh, l) reads storage token
+// Replaces the Pallas kernels pangu_tpu/ops/earth_block_wm.py::_block_wm_call
+// (kernel body _make_wm_kernel) in its three layouts -- wm -> wm, and the
+// stage end-points that read (in_layout="canon") or write
+// (out_layout="canon") the canonical (B, Z, Hp, W, C) token grid -- and
+// ::_block_wm_group_call (_make_wm_group_kernel), the same block with gh
+// latitude windows per program.  Storage is (B, nz, nlat, nlon, N, C) with
+// N = wz*wh*ww tokens per window.  Window token (rz, rh, rw) of window
+// (zz, hh, l) reads storage token
 //   (wz*zz + rz + dz, wh*hh + rh + dh, ww*l + rw + dw), each modulo its extent,
 // and the block writes its output in its own window coordinates.  On the TPU
 // that shift is a four-chunk BlockSpec stitch plus sublane rolls; here it is
@@ -11,7 +15,9 @@
 //
 // The unit is a short sequence of launches on the caller's stream:
 //   1. gather   xg = x at the shifted window coordinates, latitude-pad rows
-//               zeroed by their canonical latitude (wh*hh + rh + canon_add) % hp
+//               zeroed by their canonical latitude (wh*hh + rh + canon_add) % hp;
+//               a canonical input is read at the same coordinates in the
+//               (B, Z, Hp, W) grid (the window relayout is this gather)
 //   2. GEMM     qkv = round_T(xg @ Wqkv + bqkv)
 //   3. attention per (window, head): softmax(q.k * hd^-1/2 + bias[type, h]
 //               (+ -100 where region ids differ, shifted blocks)) in float32,
@@ -20,7 +26,17 @@
 //   5. LN       x1 = round_T(xg + round_T(LN1(a)))
 //   6. GEMM     h = round_T(GELU(round_T(x1 @ W1 + b1)))   (erf or tanh)
 //   7. GEMM     y = round_T(h @ W2 + b2)
-//   8. LN       out = round_T(x1 + round_T(LN2(y)))
+//   8. LN       out = round_T(x1 + round_T(LN2(y))); a canonical output row
+//               goes to its token's place in the (B, Z, Hp, W) grid, in the
+//               block's own window coordinates (the stage rolls back once)
+//
+// The grouped block differs only in step 3.  On the TPU, gh latitude windows
+// per program amortise the weight and bias-table streams into VMEM; here the
+// GEMMs already run over all rows, so grouping matters only in the attention:
+// one thread block per (sample, z window, group of gh lat windows, head)
+// stages each window type's (N, N) bias slice (and region ids) in shared
+// memory once and loops over the group's gh * nlon windows, instead of
+// re-reading the slice once per longitude window.
 //
 // What bounds it on an H100: arithmetic.  A stage-0 block at full width does
 // ~5.3e11 FLOP against ~0.45 GB of traffic (x in, out, the bias table), far
@@ -41,7 +57,7 @@ struct BlockShift {
 template <typename T>
 __global__ void __launch_bounds__(256)
 block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
-                    int C, WmShape s, BlockShift sh) {
+                    int C, WmShape s, BlockShift sh, int in_canon) {
   const int lane = threadIdx.x % 32;
   const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (m >= M) return;
@@ -55,34 +71,32 @@ block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
   const int z = pmod(s.wz * p.zz + p.rz + sh.dz, Z);
   const int lat = pmod(s.wh * p.hh + p.rh + sh.dh, hp);
   const int lon = pmod(s.ww * p.l + p.rw + sh.dw, W);
-  const T* src = x + wm_row(p.b, z, lat, lon, s) * C;
+  const T* src = x + (in_canon ? grid_row(p.b, z, lat, lon, s)
+                               : wm_row(p.b, z, lat, lon, s)) * C;
   for (int c = lane; c < C; c += 32) dst[c] = src[c];
 }
 
-// 3. windowed attention, one thread block per (window, head); q, k, v of the
-// window in shared memory as float32 (rows padded to hd+1 against bank
-// conflicts), one warp per query row.  Lane j holds scores j, j+32, ...
+// 3. windowed attention of one (window, head): q, k, v of the window in
+// shared memory as float32 (rows padded to hd+1 against bank conflicts), one
+// warp per query row; lane j holds scores j, j+32, ...  ``btab``/``id``: the
+// window type's (N, N) bias slice for this head and its region ids (null for
+// an unshifted block), in global or shared memory.
 constexpr int ATT_WARPS = 8;
+constexpr int GATT_WARPS = 16;
 constexpr int ATT_MAXJ = 8;  // N <= 256
 
 template <typename T, typename TB>
-__global__ void __launch_bounds__(32 * ATT_WARPS)
-window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                   const TB* __restrict__ bias_table, const int* __restrict__ ids,
-                   int N, int C, int heads, int hd, int nlon, int ntype_per_b,
-                   float scale) {
-  extern __shared__ float sm[];
+__device__ __forceinline__ void window_attend(
+    const T* __restrict__ qkv, T* __restrict__ out, long long base, int h,
+    const TB* btab, const int* id, float* sm, int N, int C, int hd,
+    float scale) {
   const int ld = hd + 1;
   float* q = sm;
   float* k = q + N * ld;
   float* v = k + N * ld;
-  float* prow = v + N * ld;  // ATT_WARPS rows of N probabilities
-
-  const long long win = blockIdx.x;
-  const int h = blockIdx.y;
-  const int type = (int)((win / nlon) % ntype_per_b);
-  const long long base = win * N;
+  float* prow = v + N * ld;  // one row of N probabilities per warp
   const int C3 = 3 * C;
+  const int nwarps = blockDim.x / 32;
 
   for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
     int t = idx / hd, d = idx % hd;
@@ -94,11 +108,8 @@ window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   __syncthreads();
 
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const TB* btab = bias_table + ((long long)type * heads + h) * N * N;
-  const int* id = ids ? ids + (long long)type * N : nullptr;
   float* pr = prow + warp * N;
-
-  for (int i = warp; i < N; i += ATT_WARPS) {
+  for (int i = warp; i < N; i += nwarps) {
     float s[ATT_MAXJ];
     float mx = -INFINITY;
 #pragma unroll
@@ -138,6 +149,62 @@ window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
+__host__ __device__ inline size_t attend_smem(int N, int hd, int warps) {
+  return (size_t)(3 * N * (hd + 1) + warps * N) * sizeof(float);
+}
+
+// one thread block per (window, head); type = zz * nlat + hh
+template <typename T, typename TB>
+__global__ void __launch_bounds__(32 * ATT_WARPS)
+window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                   const TB* __restrict__ bias_table, const int* __restrict__ ids,
+                   int N, int C, int heads, int hd, int nlon, int ntype_per_b,
+                   float scale) {
+  extern __shared__ float sm[];
+  const long long win = blockIdx.x;
+  const int h = blockIdx.y;
+  const int type = (int)((win / nlon) % ntype_per_b);
+  window_attend<T, TB>(qkv, out, win * N, h,
+                       bias_table + ((long long)type * heads + h) * N * N,
+                       ids ? ids + (long long)type * N : nullptr, sm, N, C,
+                       hd, scale);
+}
+
+// grouped: one thread block per (sample, z window, group of gh lat windows,
+// head); each window type's bias slice and region ids are staged in shared
+// memory once, behind the attention buffers, for the group's nlon windows
+template <typename T, typename TB>
+__global__ void __launch_bounds__(32 * GATT_WARPS)
+group_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
+                  const TB* __restrict__ bias_table, const int* __restrict__ ids,
+                  int N, int C, int heads, int hd, int nz, int nlat, int nlon,
+                  int gh, float scale) {
+  extern __shared__ float sm[];
+  const int ngrp = nlat / gh;
+  const long long bz = blockIdx.x / ngrp;  // b * nz + zz
+  const int grp = (int)(blockIdx.x % ngrp);
+  const int zz = (int)(bz % nz);
+  const int h = blockIdx.y;
+  int* id_s = (int*)(sm + attend_smem(N, hd, GATT_WARPS) / sizeof(float));
+  TB* bias_s = (TB*)(id_s + N);
+  for (int wi = 0; wi < gh; ++wi) {
+    const int hh = grp * gh + wi;
+    const int type = zz * nlat + hh;
+    __syncthreads();  // the previous type's slice is no longer read
+    const TB* src = bias_table + ((long long)type * heads + h) * N * N;
+    for (int idx = threadIdx.x; idx < N * N; idx += blockDim.x) bias_s[idx] = src[idx];
+    if (ids)
+      for (int idx = threadIdx.x; idx < N; idx += blockDim.x)
+        id_s[idx] = ids[(long long)type * N + idx];
+    for (int l = 0; l < nlon; ++l) {
+      __syncthreads();  // slice staged; the previous window's q, k, v read
+      const long long win = (bz * nlat + hh) * nlon + l;
+      window_attend<T, TB>(qkv, out, win * N, h, bias_s, ids ? id_s : nullptr,
+                           sm, N, C, hd, scale);
+    }
+  }
+}
+
 template <typename T, typename TB>
 int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
              const void* bqkv_, const void* wp_, const void* bp_,
@@ -145,7 +212,8 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
              const void* n1b_, const void* n2s_, const void* n2b_,
              const void* w1_, const void* b1_, const void* w2_, const void* b2_,
              int B, WmShape s, int C, int heads, int hidden, BlockShift sh,
-             int gelu_tanh, cudaStream_t st) {
+             int gelu_tanh, int gh, int in_canon, int out_canon,
+             cudaStream_t st) {
   const T* x = (const T*)x_;
   T* out = (T*)out_;
   const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
@@ -161,21 +229,36 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
   const PadRows none = {0};
   const int hd = C / heads;
 
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh);
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh,
+                                                        in_canon);
   PANGU_CHECK_LAUNCH();
   gemm(xg, (const T*)wqkv_, (const T*)bqkv_, qkv, (int)M, 3 * C, C, ACT_NONE,
        none, st);
   PANGU_CHECK_LAUNCH();
 
-  const size_t smem = (size_t)(3 * s.n * (hd + 1) + ATT_WARPS * s.n) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  dim3 agrid((unsigned)(M / s.n), heads);
-  window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
-      qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nlon,
-      s.nz * s.nlat, (float)pow((double)hd, -0.5));  // hd ** -0.5
+  const float scale = (float)pow((double)hd, -0.5);  // hd ** -0.5
+  if (gh > 1) {
+    const size_t smem = attend_smem(s.n, hd, GATT_WARPS) + s.n * sizeof(int) +
+                        (size_t)s.n * s.n * sizeof(TB);
+    cudaError_t e = cudaFuncSetAttribute(group_attn_kernel<T, TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 agrid((unsigned)((long long)B * s.nz * (s.nlat / gh)), heads);
+    group_attn_kernel<T, TB><<<agrid, 32 * GATT_WARPS, smem, st>>>(
+        qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nz, s.nlat,
+        s.nlon, gh, scale);
+  } else {
+    const size_t smem = attend_smem(s.n, hd, ATT_WARPS);
+    cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 agrid((unsigned)(M / s.n), heads);
+    window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
+        qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nlon,
+        s.nz * s.nlat, scale);
+  }
   PANGU_CHECK_LAUNCH();
 
   gemm(attn, (const T*)wp_, (const T*)bp_, a, (int)M, C, C, ACT_NONE, none, st);
@@ -187,7 +270,8 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
   PANGU_CHECK_LAUNCH();
   gemm(hb, (const T*)w2_, (const T*)b2_, y, (int)M, C, hidden, ACT_NONE, none, st);
   PANGU_CHECK_LAUNCH();
-  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st);
+  const RowMap out_map = {out_canon, s};
+  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st, out_map);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
@@ -196,7 +280,9 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
 
 using namespace pangu;
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok).
+// dtype codes: 0 = float32, 1 = bfloat16.  gh: lat windows per attention
+// program (1: one window per program); in_canon / out_canon: x / out is the
+// (B, Z, Hp, W, C) grid instead of wm storage.  Returns a cudaError_t (0 = ok).
 extern "C" int pangu_block_wm(
     int dtype, int table_dtype, const void* x, void* out, void* workspace,
     const void* wqkv, const void* bqkv, const void* wp, const void* bp,
@@ -204,16 +290,18 @@ extern "C" int pangu_block_wm(
     const void* n2s, const void* n2b, const void* w1, const void* b1,
     const void* w2, const void* b2, int B, int nz, int nlat, int nlon, int n,
     int C, int heads, int hidden, int wz, int wh, int ww, int dz, int dh,
-    int dw, int canon_add, int h_real, int gelu_tanh, void* stream) {
+    int dw, int canon_add, int h_real, int gelu_tanh, int gh, int in_canon,
+    int out_canon, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   BlockShift sh = {dz, dh, dw, canon_add, h_real};
   cudaStream_t st = (cudaStream_t)stream;
   const int* id = (const int*)ids;
-  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+  if (n > 32 * ATT_MAXJ || C % heads != 0 || gh < 1 || nlat % gh != 0)
+    return (int)cudaErrorInvalidValue;
 #define PANGU_BLOCK(T, TB)                                                     \
   return block_wm<T, TB>(x, out, workspace, wqkv, bqkv, wp, bp, table, id, \
                          n1s, n1b, n2s, n2b, w1, b1, w2, b2, B, s, C, heads,  \
-                         hidden, sh, gelu_tanh, st)
+                         hidden, sh, gelu_tanh, gh, in_canon, out_canon, st)
   if (dtype == 0 && table_dtype == 0) PANGU_BLOCK(float, float);
   if (dtype == 0 && table_dtype == 1) PANGU_BLOCK(float, bf16);
   if (dtype == 1 && table_dtype == 0) PANGU_BLOCK(bf16, float);

@@ -83,6 +83,27 @@ __device__ __forceinline__ long long wm_row(int b, int z, int lat, int lon,
   return win * s.n + ((z % s.wz) * s.wh + lat % s.wh) * s.ww + lon % s.ww;
 }
 
+// row of token (z, lat, lon) of sample b in the (B, Z, Hp, W) token grid
+__device__ __forceinline__ long long grid_row(int b, int z, int lat, int lon,
+                                              const WmShape& s) {
+  return (((long long)b * s.nz * s.wz + z) * (s.nlat * s.wh) + lat) *
+             (s.nlon * s.ww) + lon;
+}
+
+// Where a kernel writes wm row m: the row itself, or (canon) the row of the
+// same token in the (B, Z, Hp, W) grid, its window coordinates kept.
+struct RowMap {
+  int canon;
+  WmShape s;
+};
+
+__device__ __forceinline__ long long map_row(long long m, const RowMap& r) {
+  if (!r.canon) return m;
+  const WmPos p = wm_split(m, r.s);
+  return grid_row(p.b, r.s.wz * p.zz + p.rz, r.s.wh * p.hh + p.rh,
+                  r.s.ww * p.l + p.rw, r.s);
+}
+
 // Rows whose canonical latitude (wh*hh + rh + canon_add) mod hp is at or
 // beyond the real latitude count are latitude padding: zero-synthesised on
 // read, or zeroed on write.
@@ -115,9 +136,14 @@ __device__ __forceinline__ float warp_max(float v) {
 
 // ---------------------------------------------------------------------------
 // GEMM: C[M,N] = epilogue(A[M,K] @ B[K,N] + bias[N]); all row-major and
-// contiguous.  Epilogue: the sum (float32) is rounded to T; with GELU the
-// rounded value goes through GELU in float32 and is rounded again (the JAX
-// block tail's order).  Rows flagged by ``pad`` are written as zeros.
+// contiguous.  Column tiles run on gridDim.x and row tiles on gridDim.y,
+// which stops at 65,535 (a batch of 8 at stage 0 has 66,960 row tiles): a
+// block takes row tiles blockIdx.y, blockIdx.y + gridDim.y, ...  (A grid
+// flattened onto gridDim.x, the other way round the cap, ran the block
+// 15-20% slower on the H100.)  Epilogue: the sum (float32) is rounded to T;
+// with GELU the rounded value goes through GELU in float32 and is rounded
+// again (the JAX block tail's order).  Rows flagged by ``pad`` are written
+// as zeros.
 // ---------------------------------------------------------------------------
 
 enum Act { ACT_NONE = 0, ACT_GELU_ERF = 1, ACT_GELU_TANH = 2 };
@@ -151,51 +177,53 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   __shared__ float Bs[FK][FN + 4];
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const long long m0 = (long long)blockIdx.y * FM;
   const int n0 = blockIdx.x * FN;
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += FK) {
+  for (long long mt = blockIdx.y; mt * FM < M; mt += gridDim.y) {
+    const long long m0 = mt * FM;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += FK) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int idx = tid + i * 256;
-      int r = idx / FK, c = idx % FK;
-      long long gr = m0 + r;
-      int gc = k0 + c;
-      As[c][r] = (gr < M && gc < K) ? A[gr * K + gc] : 0.f;
+      for (int i = 0; i < 4; ++i) {
+        int idx = tid + i * 256;
+        int r = idx / FK, c = idx % FK;
+        long long gr = m0 + r;
+        int gc = k0 + c;
+        As[c][r] = (gr < M && gc < K) ? A[gr * K + gc] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        int idx = tid + i * 256;
+        int r = idx / FN, c = idx % FN;
+        int gr = k0 + r, gc = n0 + c;
+        Bs[r][c] = (gr < K && gc < N) ? B[(long long)gr * N + gc] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < FK; ++kk) {
+        float a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      int idx = tid + i * 256;
-      int r = idx / FN, c = idx % FN;
-      int gr = k0 + r, gc = n0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? B[(long long)gr * N + gc] : 0.f;
+      long long r = m0 + ty * 4 + i;
+      if (r >= M) continue;
+      bool zero = is_pad_row(r, pad);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        int c = n0 + tx * 4 + j;
+        if (c < N) C[r * N + c] = epilogue<float>(acc[i][j], bias, c, act, zero);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    long long r = m0 + ty * 4 + i;
-    if (r >= M) continue;
-    bool zero = is_pad_row(r, pad);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int c = n0 + tx * 4 + j;
-      if (c < N) C[r * N + c] = epilogue<float>(acc[i][j], bias, c, act, zero);
-    }
-  }
+  }  // row tiles
 }
 
 // bf16: WMMA 16x16x16 fragments, 64x64 tile, 32-deep, 4 warps x (32x32)
@@ -212,71 +240,79 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int wr = warp / 2, wc = warp % 2;
-  const long long m0 = (long long)blockIdx.y * HM;
   const int n0 = blockIdx.x * HN;
   const bf16 zero = __float2bfloat16(0.f);
+  for (long long mt = blockIdx.y; mt * HM < M; mt += gridDim.y) {
+    const long long m0 = mt * HM;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (int k0 = 0; k0 < K; k0 += HK) {
-    for (int idx = tid; idx < HM * HK; idx += 128) {
-      int r = idx / HK, c = idx % HK;
-      long long gr = m0 + r;
-      int gc = k0 + c;
-      As[r][c] = (gr < M && gc < K) ? A[gr * K + gc] : zero;
-    }
-    for (int idx = tid; idx < HK * HN; idx += 128) {
-      int r = idx / HN, c = idx % HN;
-      int gr = k0 + r, gc = n0 + c;
-      Bs[r][c] = (gr < K && gc < N) ? B[(long long)gr * N + gc] : zero;
-    }
-    __syncthreads();
+    for (int k0 = 0; k0 < K; k0 += HK) {
+      for (int idx = tid; idx < HM * HK; idx += 128) {
+        int r = idx / HK, c = idx % HK;
+        long long gr = m0 + r;
+        int gc = k0 + c;
+        As[r][c] = (gr < M && gc < K) ? A[gr * K + gc] : zero;
+      }
+      for (int idx = tid; idx < HK * HN; idx += 128) {
+        int r = idx / HN, c = idx % HN;
+        int gr = k0 + r, gc = n0 + c;
+        Bs[r][c] = (gr < K && gc < N) ? B[(long long)gr * N + gc] : zero;
+      }
+      __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < HK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+      for (int kk = 0; kk < HK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], &As[wr * 32 + i * 16][kk], HK + 8);
+        for (int i = 0; i < 2; ++i)
+          wmma::load_matrix_sync(fa[i], &As[wr * 32 + i * 16][kk], HK + 8);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          wmma::load_matrix_sync(fb[j], &Bs[kk][wc * 32 + j * 16], HN + 8);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], &Bs[kk][wc * 32 + j * 16], HN + 8);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
+        wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16], acc[i][j],
+                                HN + 4, wmma::mem_row_major);
     __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16], acc[i][j],
-                              HN + 4, wmma::mem_row_major);
-  __syncthreads();
-  for (int idx = tid; idx < HM * HN; idx += 128) {
-    int r = idx / HN, c = idx % HN;
-    long long gr = m0 + r;
-    int gc = n0 + c;
-    if (gr < M && gc < N)
-      C[gr * N + gc] = epilogue<bf16>(Cs[r][c], bias, gc, act, is_pad_row(gr, pad));
-  }
+    for (int idx = tid; idx < HM * HN; idx += 128) {
+      int r = idx / HN, c = idx % HN;
+      long long gr = m0 + r;
+      int gc = n0 + c;
+      if (gr < M && gc < N)
+        C[gr * N + gc] = epilogue<bf16>(Cs[r][c], bias, gc, act, is_pad_row(gr, pad));
+    }
+  }  // row tiles
+}
+
+// gridDim.y holds at most 65,535 row tiles; a block loops over the rest
+inline unsigned row_tile_blocks(int M, int tile) {
+  const int tiles = (M + tile - 1) / tile;
+  return (unsigned)(tiles < 65535 ? tiles : 65535);
 }
 
 inline void gemm(const float* A, const float* B, const float* bias, float* C,
                  int M, int N, int K, int act, PadRows pad, cudaStream_t st) {
-  dim3 grid((N + FN - 1) / FN, (M + FM - 1) / FM);
+  dim3 grid((N + FN - 1) / FN, row_tile_blocks(M, FM));
   gemm_f32_kernel<<<grid, 256, 0, st>>>(A, B, bias, C, M, N, K, act, pad);
 }
 
 inline void gemm(const bf16* A, const bf16* B, const bf16* bias, bf16* C, int M,
                  int N, int K, int act, PadRows pad, cudaStream_t st) {
-  dim3 grid((N + HN - 1) / HN, (M + HM - 1) / HM);
+  dim3 grid((N + HN - 1) / HN, row_tile_blocks(M, HM));
   gemm_bf16_kernel<<<grid, 128, 0, st>>>(A, B, bias, C, M, N, K, act, pad);
 }
 
@@ -284,12 +320,13 @@ inline void gemm(const bf16* A, const bf16* B, const bf16* bias, bf16* C, int M,
 // Row LayerNorm over C channels, float32 statistics, one warp per row:
 //   out = round_T(res + round_T(LN(y)))   (res given: the block tail)
 //   out = round_T(LN(y))                   (res null; may run in place)
+// Row m is written to out row map_row(m, out_map).
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const T* y, const T* res, T* out, const T* __restrict__ scale,
-               const T* __restrict__ shift, long long M, int C) {
+               const T* __restrict__ shift, long long M, int C, RowMap out_map) {
   const int lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= M) return;
@@ -303,20 +340,22 @@ ln_rows_kernel(const T* y, const T* res, T* out, const T* __restrict__ scale,
     v += d * d;
   }
   const float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
+  T* o = out + map_row(row, out_map) * C;
   for (int c = lane; c < C; c += 32) {
     float ln = round_t<T>((to_f(yr[c]) - mu) * rs * to_f(scale[c]) + to_f(shift[c]));
     if (res) ln += to_f(res[row * C + c]);
-    out[row * C + c] = from_f<T>(ln);
+    o[c] = from_f<T>(ln);
   }
 }
 
 template <typename T>
 inline void ln_rows(const T* y, const T* res, T* out, const T* scale,
-                    const T* shift, long long M, int C, cudaStream_t st) {
+                    const T* shift, long long M, int C, cudaStream_t st,
+                    RowMap out_map = RowMap{}) {
   const int rows_per_block = 8;
   long long blocks = (M + rows_per_block - 1) / rows_per_block;
   ln_rows_kernel<T><<<(unsigned)blocks, 32 * rows_per_block, 0, st>>>(
-      y, res, out, scale, shift, M, C);
+      y, res, out, scale, shift, M, C, out_map);
 }
 
 // sample rows a warp at a time: one thread block of 8 warps per 8 rows

@@ -54,40 +54,52 @@ def _patches(x, patch):
     return x.reshape(b, d // pz, h // ph, w // pw, v * pz * ph * pw)
 
 
+def _dot(x, w):
+    """x @ w with the product summed in float32 and rounded once to the
+    dtype of x (a matrix product of the compute dtype, as XLA runs it)."""
+    return (x.float() @ w.float()).to(x.dtype)
+
+
 def patch_embed(p, upper, surface, constants, cfg: ModelConfig):
     """Embed the raw ERA5 state into the (B, Z, H, W, C) token grid.
 
     upper (B, 5, levels, lat, lon) and surface (B, 4, lat, lon) in physical
-    units; ``constants`` as built by ``data.constants`` (float32 tensors, with
-    the ``const_h_patches`` and ``surface_mask_patches`` views).
-    Normalisation happens here, inside the model.  Computed in float32 and
-    rounded once to the dtype of ``upper``.  The surface plane is token plane
-    0 and the upper planes follow."""
+    units, in the compute dtype; ``constants`` as built by
+    ``data.constants`` (float32 tensors, with the ``const_h_patches`` and
+    ``surface_mask_patches`` views).  Normalisation happens here, inside the
+    model.  Values round where the JAX package's ``patch_embed`` rounds them:
+    the statistics are cast to the dtype of ``upper`` and the fields are
+    normalised in it; each projection term (the variables, the const_h or
+    mask term) is a product summed in float32 and rounded once; the terms
+    and the bias are added in the dtype.  The surface plane is token plane 0
+    and the upper planes follow."""
     pz, ph, pw = cfg.patch
     V, S = cfg.upper_vars, cfg.surface_vars
+    dt = upper.dtype
     F = torch.nn.functional
 
     # ---- upper-air branch: variables, then the const_h channel -----------
-    up = (upper.float() - constants["upper_mean"][None]) / constants["upper_std"][None]
+    up = ((upper - constants["upper_mean"].to(dt)[None])
+          / constants["upper_std"].to(dt)[None])
     up = F.pad(up, (0, 0, 0, cfg.lat_padded - cfg.lat,
                     0, cfg.levels_padded - cfg.levels))
-    wu = p["upper"]["kernel"].float()              # ((V+1)*pz*ph*pw, C)
+    wu = p["upper"]["kernel"].to(dt)               # ((V+1)*pz*ph*pw, C)
     k = pz * ph * pw
-    xu = (_patches(up, cfg.patch) @ wu[:V * k]
-          + constants["const_h_patches"] @ wu[V * k:]
-          + p["upper"]["bias"].float())            # (B, ZP, HT, WT, C)
+    xu = (_dot(_patches(up, cfg.patch), wu[:V * k])
+          + _dot(constants["const_h_patches"].to(dt), wu[V * k:])
+          + p["upper"]["bias"].to(dt))             # (B, ZP, HT, WT, C)
 
     # ---- surface branch: variables, then the constant masks --------------
-    sf = ((surface.float() - constants["surface_mean"][None])
-          / constants["surface_std"][None])
+    sf = ((surface.to(dt) - constants["surface_mean"].to(dt)[None])
+          / constants["surface_std"].to(dt)[None])
     sf = F.pad(sf, (0, 0, 0, cfg.lat_padded - cfg.lat))
-    ws = p["surface"]["kernel"].float()            # ((S+M)*ph*pw, C)
+    ws = p["surface"]["kernel"].to(dt)             # ((S+M)*ph*pw, C)
     k = ph * pw
-    xs = (_patches(sf[:, :, None], (1, ph, pw))[:, 0] @ ws[:S * k]
-          + constants["surface_mask_patches"] @ ws[S * k:]
-          + p["surface"]["bias"].float())          # (B, HT, WT, C)
+    xs = (_dot(_patches(sf[:, :, None], (1, ph, pw))[:, 0], ws[:S * k])
+          + _dot(constants["surface_mask_patches"].to(dt), ws[S * k:])
+          + p["surface"]["bias"].to(dt))           # (B, HT, WT, C)
 
-    return torch.cat([xs[:, None], xu], dim=1).to(upper.dtype)
+    return torch.cat([xs[:, None], xu], dim=1)
 
 
 # ---------------------------------------------------------------------------
@@ -125,16 +137,19 @@ def window_region_ids(z: int, hp: int,
 def dense_split_rows(pd, parts):
     """``dense`` over a feature-concatenated input given as separate
     ``parts``, without materialising the concat: y = a @ K[:Ca] + b @ K[Ca:]
-    + bias, summed in float32 and rounded once to the parts' dtype."""
+    + bias.  As in the JAX package: each part's product is summed in float32
+    and rounded to the parts' dtype, then the products and the bias are
+    added in that dtype."""
+    dt = parts[0].dtype
     off, y = 0, None
     for part in parts:
         c = part.shape[-1]
-        t = part.float() @ pd["kernel"][off:off + c].float()
+        t = _dot(part, pd["kernel"][off:off + c].to(dt))
         y = t if y is None else y + t
         off += c
     if "bias" in pd:
-        y = y + pd["bias"].float()
-    return y.to(parts[0].dtype)
+        y = y + pd["bias"].to(dt)
+    return y
 
 
 def recover_upper(p, parts, cfg: ModelConfig):

@@ -1,7 +1,8 @@
 """Top-level Pangu-Weather model of the port: parameter init and the served
 forward.  The counterpart of ``pangu_tpu/models/pangu.py`` (``init_params``,
 ``forward_core_wm``, the window-major branches of ``forward`` with and
-without the edge kernels, ``param_count``).
+without the edge kernels, the canonical-layout ``forward_core`` /
+``_run_stage`` that ``forward(taps=...)`` runs, ``param_count``).
 
 embed -> enc(2 blocks @192) -> skip -> downsample -> enc(6 @384) ->
 dec(6 @384) -> upsample -> dec(2 @192) -> [skip | dec] -> recover, with the
@@ -10,6 +11,12 @@ DownSample / UpSample read the rolled storage directly.  Without the edge
 kernels the canonical token grid exists after the embed and before the
 recovery; with ``cfg.edge_kernels`` the embed writes wm storage and the
 recovery reads the rolled pair, so it never exists.
+
+``forward(..., taps=dict)`` runs the canonical-layout trunk instead, as the
+JAX package does when it collects golden activations: each stage reads and
+writes the canonical (B, Z, H, W, C) grid (end-point blocks in canon
+layout), with the canonical DownSample / UpSample kernels between them, and
+every stage boundary lands in ``taps``.
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
 from pangu_tpu_torch.ops.recovery_wm import recovery_wm, recovery_wm_plain
 from pangu_tpu_torch.ops.earth_block_wm import (run_stage_wm, to_window_major,
                                                 wm_to_canonical)
+from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
+                                        up_sample, up_sample_plain)
 from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                            down_sample_wm_plain, up_sample_wm,
                                            up_sample_wm_plain)
@@ -123,7 +132,8 @@ def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     down = down_sample_wm if kernels else down_sample_wm_plain
     up = up_sample_wm if kernels else up_sample_wm_plain
-    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels,
+              lat_group=cfg.lat_group)
 
     skip, off0 = run_stage_wm(params["stages"][0], xs, g0, **kw)
     x = down(params["downsample"], skip, g0, g1, off0)
@@ -135,6 +145,50 @@ def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     if off0 != off3:
         raise AssertionError("even depths keep skip and decoder in step")
     return skip, dec, off3
+
+
+def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
+              kernels: bool = True):
+    """One EarthSpecificLayer on the canonical (B, Z, H, W, C) grid, as the
+    JAX package's ``_run_stage`` runs it for inference with the wm kernels:
+    ``run_stage_wm(io_layout="canon")``."""
+    return run_stage_wm(stage_params, x, cfg.stage(stage_idx),
+                        gelu_tanh=cfg.gelu_tanh, kernels=kernels,
+                        io_layout="canon", lat_group=cfg.lat_group)
+
+
+def forward_core(params, x, cfg: ModelConfig, *, taps=None,
+                 kernels: bool = True):
+    """The encoder/decoder trunk on the canonical embedded grid (B, Z, H, W,
+    C): stages, DownSample and UpSample.  Returns the pre-recovery pair
+    ``(skip, dec)``, each canonical (B, Z, H, W, C).  ``taps``: a dict that
+    receives ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample``
+    and ``stage3``; without it stages 1 and 2 run as one chain, as the JAX
+    package merges them."""
+    def tap(name, val):
+        if taps is not None:
+            taps[name] = val
+        return val
+
+    down = down_sample if kernels else down_sample_plain
+    up = up_sample if kernels else up_sample_plain
+    x = tap("stage0", run_stage(params["stages"][0], x, cfg, 0,
+                                kernels=kernels))
+    skip = x
+    x = tap("downsample", down(params["downsample"], x))
+    if taps is None:
+        combined = {"blocks": (list(params["stages"][1]["blocks"])
+                               + list(params["stages"][2]["blocks"]))}
+        x = run_stage(combined, x, cfg, 1, kernels=kernels)
+    else:
+        x = tap("stage1", run_stage(params["stages"][1], x, cfg, 1,
+                                    kernels=kernels))
+        x = tap("stage2", run_stage(params["stages"][2], x, cfg, 2,
+                                    kernels=kernels))
+    x = tap("upsample", up(params["upsample"], x, cfg.h_tokens))
+    x = tap("stage3", run_stage(params["stages"][3], x, cfg, 3,
+                                kernels=kernels))
+    return skip, x
 
 
 def embed_tokens(params, upper, surface, constants, cfg: ModelConfig, *,
@@ -167,18 +221,31 @@ def recover_fields(params, skip, dec, off, cfg: ModelConfig, *,
 
 
 def forward(params, upper, surface, constants, cfg: ModelConfig, *,
-            device: _device.DeviceLike = "cuda", kernels: bool = True):
+            device: _device.DeviceLike = "cuda", kernels: bool = True,
+            taps=None):
     """Full forward step: upper (B, 5, levels, lat, lon) and surface
     (B, 4, lat, lon) in physical units in, the *normalised* prediction
     (upper, surface) out.  Inputs and constants are moved to ``device``; the
     params must already be there.  With ``cfg.edge_kernels``: embed_wm ->
-    trunk -> recovery_wm."""
+    trunk -> recovery_wm.
+
+    ``taps``: a dict that receives the canonical activations ``embed``,
+    ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample`` and
+    ``stage3`` (tensors on ``device``); the step then runs patch embed, the
+    canonical-layout trunk (:func:`forward_core`) and patch recovery, as
+    the JAX package does when it is given taps."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
         raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
     consts = to_device(constants, dev)
     cdt = _device.dtype_of(cfg.compute_dtype)
+    if taps is not None:
+        x = L.patch_embed(params["patch_embed"], upper.to(dev, cdt),
+                          surface.to(dev, cdt), consts, cfg)
+        taps["embed"] = x
+        pair = forward_core(params, x, cfg, taps=taps, kernels=kernels)
+        return L.patch_recovery(params["patch_recovery"], pair, cfg)
     xs = embed_tokens(params, upper.to(dev, cdt), surface.to(dev, cdt), consts,
                       cfg, kernels=kernels)
     skip, dec, off = forward_core_wm(params, xs, cfg, kernels=kernels)

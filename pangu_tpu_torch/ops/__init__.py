@@ -7,9 +7,11 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
-from pangu_tpu_torch.ops.earth_block_wm import block_wm
+from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
+                                                block_wm_group)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface,
                                              recovery_wm_upper)
+from pangu_tpu_torch.ops.updown import down_sample, up_sample
 from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
 
 
@@ -20,12 +22,16 @@ def kernels() -> Dict[str, Callable]:
     from pangu_tpu_torch.engine.transition_wm import apply_transition_wm
     from pangu_tpu_torch.ops.embed_wm import embed_wm
     return {"block_wm": block_wm,
+            "block_wm_group": block_wm_group,
+            "block_wm_canon": block_wm_canon,
             "down_sample_wm": down_sample_wm,
             "up_sample_wm": up_sample_wm,
             "embed_wm": embed_wm,
             "transition_wm": apply_transition_wm,
             "recovery_wm_upper": recovery_wm_upper,
-            "recovery_wm_surface": recovery_wm_surface}
+            "recovery_wm_surface": recovery_wm_surface,
+            "down_sample": down_sample,
+            "up_sample": up_sample}
 
 
 def reset_launches() -> None:

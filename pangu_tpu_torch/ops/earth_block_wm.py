@@ -1,7 +1,8 @@
-"""Window-major whole-block kernel: the counterpart of
+"""Window-major whole-block kernels: the counterpart of
 ``pangu_tpu/ops/earth_block_wm.py`` (``to_window_major``,
-``from_window_major``, ``_block_wm_call`` in wm -> wm layout, and
-``run_stage_wm`` with ``io_layout="wm"``, ``lat_group=1``, one device).
+``from_window_major``, ``_block_wm_call`` in wm -> wm layout and with a
+canonical input or output, ``_block_wm_group_call``, ``_pick_gh`` and
+``run_stage_wm`` with either ``io_layout``, one device).
 
 The inter-block activation is stored as (B, nz, nlat, nlon, N, C), one row
 per window token, windows contiguous, N ordered (z, lat, lon).  A block reads
@@ -13,9 +14,16 @@ position p holds canonical token p + off).  Latitude-pad rows are zeroed by
 their canonical latitude (wh*hh + rh + canon_add) % hp before the block runs,
 as the reference re-pads zeros every block.
 
-``block_wm`` launches the CUDA kernel (``csrc/block_wm.cu``) on a CUDA tensor
-and runs ``block_wm_plain`` on a CPU tensor; ``block_wm.launches`` counts the
-kernel's launches.
+Three wrappers launch the one CUDA block kernel (``csrc/block_wm.cu``) on a
+CUDA tensor, each with its own ``launches`` count, and run their plain
+version on a CPU tensor:
+
+  * ``block_wm``: wm -> wm, one latitude window per attention program;
+  * ``block_wm_group``: wm -> wm, ``gh`` latitude windows per attention
+    program (the same function: on a CPU tensor it runs ``block_wm_plain``);
+  * ``block_wm_canon``: a stage end-point block that reads the canonical
+    (B, Z, Hp, W, C) grid (``in_layout="canon"``, unshifted) or writes it in
+    its own window coordinates (``out_layout="canon"``), or both.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from pangu_tpu_torch import _build
-from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.config import StageGeometry, _pick_gh
 from pangu_tpu_torch.models.layers import dense, window_region_ids
 from pangu_tpu_torch.ops.block_tail import tail_math
 
@@ -132,6 +140,54 @@ def block_wm_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     return tail_math(a, xg, p, gelu_tanh)
 
 
+def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
+            ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int,
+            in_canon: bool, out_canon: bool, what: str):
+    """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
+    the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take."""
+    wz, wh, ww = geom.window
+    n = wz * wh * ww
+    if in_canon:
+        b, z, hp, w, c = x.shape
+        nz, nlat, nlon = z // wz, hp // wh, w // ww
+        ok = (z, hp, w) == (geom.z, geom.h_padded, geom.w)
+    else:
+        b, nz, nlat, nlon, n_in, c = x.shape
+        ok = n_in == n and (nz * wz, nlat * wh, nlon * ww) == (
+            geom.z, geom.h_padded, geom.w)
+    if (not ok or x.dtype not in DTYPE_CODE or not x.is_contiguous()
+            or c % geom.heads or c != geom.dim or nlat % gh):
+        raise ValueError(f"{what}: unsupported input {tuple(x.shape)} "
+                         f"{x.dtype} for {geom}")
+    q = params_in(p, x.dtype)
+    require_device(q, x.device, what)
+    table = q["attn"]["bias_table"]
+    if table.dtype not in DTYPE_CODE or table.shape != (nz * nlat, geom.heads, n, n):
+        raise ValueError(f"{what}: bias table {tuple(table.shape)} {table.dtype}")
+    if ids is not None:
+        ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
+        if ids.shape != (nz * nlat, n):
+            raise ValueError(f"{what}: region ids {tuple(ids.shape)}")
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    rows = x.numel() // c
+    ws = torch.empty(rows * (6 * c + hidden), dtype=x.dtype, device=x.device)
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    code = _build.library().pangu_block_wm(
+        DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype], ptr(x), ptr(out), ptr(ws),
+        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
+        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
+        ptr(table), None if ids is None else ptr(ids),
+        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
+        ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
+        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
+        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
+        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
+        *delta, canon_add, geom.h, int(gelu_tanh), gh, int(in_canon),
+        int(out_canon), torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, what)
+    return out
+
+
 def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
              ids: Optional[torch.Tensor], gelu_tanh: bool):
     """One whole Earth-specific block on window-major storage: the CUDA
@@ -143,39 +199,8 @@ def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     (ntype, N) int32 region ids for a shifted block, else None."""
     if not xs.is_cuda:
         return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
-    b, nz, nlat, nlon, n, c = xs.shape
-    wz, wh, ww = geom.window
-    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
-            or n != wz * wh * ww or c % geom.heads or c != geom.dim):
-        raise ValueError(f"block_wm: unsupported input {tuple(xs.shape)} "
-                         f"{xs.dtype} for {geom}")
-    q = params_in(p, xs.dtype)
-    require_device(q, xs.device, "block_wm")
-    table = q["attn"]["bias_table"]
-    if table.dtype not in DTYPE_CODE or table.shape != (nz * nlat, geom.heads, n, n):
-        raise ValueError(f"block_wm: bias table {tuple(table.shape)} {table.dtype}")
-    if ids is not None:
-        ids = ids.to(device=xs.device, dtype=torch.int32).contiguous()
-        if ids.shape != (nz * nlat, n):
-            raise ValueError(f"block_wm: region ids {tuple(ids.shape)}")
-    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
-    rows = xs.numel() // c
-    out = torch.empty_like(xs)
-    ws = torch.empty(rows * (6 * c + hidden), dtype=xs.dtype, device=xs.device)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-    code = _build.library().pangu_block_wm(
-        DTYPE_CODE[xs.dtype], DTYPE_CODE[table.dtype], ptr(xs), ptr(out), ptr(ws),
-        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
-        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
-        ptr(table), None if ids is None else ptr(ids),
-        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
-        ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
-        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
-        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
-        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
-        *delta, canon_add, geom.h, int(gelu_tanh),
-        torch.cuda.current_stream(xs.device).cuda_stream)
-    _build.check(code, "block_wm")
+    out = _launch(p, xs, torch.empty_like(xs), geom, delta, canon_add, ids,
+                  gelu_tanh, 1, False, False, "block_wm")
     block_wm.launches += 1
     return out
 
@@ -183,35 +208,124 @@ def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
 block_wm.launches = 0
 
 
+def block_wm_group(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+                   ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int):
+    """``block_wm`` with ``gh`` latitude windows per attention program (gh
+    must divide the stage's latitude window count): the same function, so a
+    CPU tensor runs ``block_wm_plain``."""
+    if not xs.is_cuda:
+        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+    out = _launch(p, xs, torch.empty_like(xs), geom, delta, canon_add, ids,
+                  gelu_tanh, gh, False, False, "block_wm_group")
+    block_wm_group.launches += 1
+    return out
+
+
+block_wm_group.launches = 0
+
+
+def block_wm_canon_plain(p, x, geom: StageGeometry, delta: Offset,
+                         canon_add: int, ids: Optional[torch.Tensor],
+                         gelu_tanh: bool, in_layout: str, out_layout: str):
+    """Plain PyTorch version of the end-point block: the relayouts composed
+    with ``block_wm_plain`` (any device)."""
+    xs = to_window_major(x, geom.window) if in_layout == "canon" else x
+    y = block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+    return from_window_major(y, geom.window) if out_layout == "canon" else y
+
+
+def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
+                   ids: Optional[torch.Tensor], gelu_tanh: bool, *,
+                   in_layout: str = "wm", out_layout: str = "wm"):
+    """A stage end-point block.  ``in_layout="canon"``: ``x`` is the
+    (B, Z, Hp, W, C) grid in canonical coordinates, latitude-padded to Hp,
+    and the block is unshifted; ``out_layout="canon"``: the output is that
+    grid in the block's own window coordinates (the stage rolls back once).
+    At least one end is canonical.  The CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    in_canon, out_canon = in_layout == "canon", out_layout == "canon"
+    if not (in_canon or out_canon) or {in_layout, out_layout} - {"wm", "canon"}:
+        raise ValueError(f"block_wm_canon: layouts {in_layout!r} -> "
+                         f"{out_layout!r}")
+    if in_canon and tuple(delta) != (0, 0, 0):
+        raise ValueError("block_wm_canon: canonical entry blocks are unshifted")
+    if not x.is_cuda:
+        return block_wm_canon_plain(p, x, geom, delta, canon_add, ids,
+                                    gelu_tanh, in_layout, out_layout)
+    wz, wh, ww = geom.window
+    b, c = x.shape[0], x.shape[-1]
+    shape = ((b, geom.z, geom.h_padded, geom.w, c) if out_canon else
+             (b, geom.z // wz, geom.h_padded // wh, geom.w // ww,
+              wz * wh * ww, c))
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    _launch(p, x, out, geom, delta, canon_add, ids, gelu_tanh, 1, in_canon,
+            out_canon, "block_wm_canon")
+    block_wm_canon.launches += 1
+    return out
+
+
+block_wm_canon.launches = 0
+
+
 # ---------------------------------------------------------------------------
 # A stage chain on wm storage
 # ---------------------------------------------------------------------------
 
-def run_stage_wm(stage_params, xs, geom: StageGeometry, *,
-                 gelu_tanh: bool = False, kernels: bool = True):
-    """Run one EarthSpecificLayer on window-major storage.
+def run_stage_wm(stage_params, x, geom: StageGeometry, *,
+                 gelu_tanh: bool = False, kernels: bool = True,
+                 io_layout: str = "wm", lat_group: int = 1):
+    """Run one EarthSpecificLayer in window-major whole-block kernels.
 
-    ``xs``: wm entry storage in canonical coordinates (as written by the
-    embed or ``ops/updown_wm``).  Blocks alternate unshifted / shifted by
-    half a window; each writes in its own window coordinates, and the next
-    reads through ``delta = target - off``.  Returns the ROLLED storage and
-    its offset ``(xs, off)`` for the consumer to fold into its reads.
-    ``kernels=False`` runs the plain version on any device (the reference
-    the card's kernel is held against)."""
+    ``io_layout="wm"``: ``x`` is wm entry storage in canonical coordinates
+    (as written by the embed or ``ops/updown_wm``); returns the ROLLED
+    storage and its offset ``(xs, off)`` for the consumer to fold into its
+    reads.  ``io_layout="canon"``: ``x`` is the canonical (B, Z, H, W, C)
+    grid; the first block reads it (zero lat padding added here) and the
+    last writes it in its own window coordinates, and one roll by ``off``
+    plus a crop to H returns the canonical grid.
+
+    Blocks alternate unshifted / shifted by half a window; each writes in
+    its own window coordinates, and the next reads through ``delta = target
+    - off``.  Interior wm -> wm blocks take ``gh = _pick_gh(nlat,
+    lat_group)`` latitude windows per attention program when gh > 1.
+    ``kernels=False`` runs the plain versions on any device (the reference
+    the card's kernels are held against)."""
+    if io_layout not in ("wm", "canon"):
+        raise ValueError(f"io_layout must be 'wm' or 'canon', not {io_layout!r}")
     wz, wh, ww = geom.window
+    wm_io = io_layout == "wm"
+    if not wm_io:
+        h = x.shape[2]
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))
     half = (wz // 2, wh // 2, ww // 2)
     off = (0, 0, 0)
     ids = None
-    block = block_wm if kernels else block_wm_plain
-    for j, bp in enumerate(stage_params["blocks"]):
+    gh = _pick_gh(geom.h_padded // wh, lat_group)
+    blocks = stage_params["blocks"]
+    for j, bp in enumerate(blocks):
         shifted = j % 2 == 1
         target = half if shifted else (0, 0, 0)
         delta = tuple(t - o for t, o in zip(target, off))
         if shifted and ids is None:
             ids = torch.as_tensor(
                 window_region_ids(geom.z, geom.h_padded, geom.window),
-                device=xs.device)
-        xs = block(bp, xs, geom, delta, target[1], ids if shifted else None,
-                   gelu_tanh)
+                device=x.device)
+        args = (bp, x, geom, delta, target[1], ids if shifted else None,
+                gelu_tanh)
+        in_l = "wm" if (wm_io or j > 0) else "canon"
+        out_l = "wm" if (wm_io or j < len(blocks) - 1) else "canon"
+        if in_l == "canon" or out_l == "canon":
+            x = (block_wm_canon(*args, in_layout=in_l, out_layout=out_l)
+                 if kernels else block_wm_canon_plain(*args, in_l, out_l))
+        elif not kernels:
+            x = block_wm_plain(*args)
+        elif gh > 1:
+            x = block_wm_group(*args, gh)
+        else:
+            x = block_wm(*args)
         off = target
-    return xs, off
+    if wm_io:
+        return x, off
+    if any(off):
+        x = torch.roll(x, shifts=off, dims=(1, 2, 3))
+    return x[:, :, :h].contiguous()

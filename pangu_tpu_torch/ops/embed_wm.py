@@ -7,8 +7,8 @@ coordinates, latitude-pad token rows exact zeros, token plane 0 the surface.
 
 The prepass stays PyTorch, as the JAX package leaves it to XLA: the upper
 field normalised in the compute dtype, and the surface token plane (a small
-im2col and matrix product, float32 sum rounded once).  The kernel
-(``csrc/embed_wm.cu``) does the rest: the (var, z_off, h_off, w_off) patch
+im2col and matrix product) rounded where ``patch_embed`` rounds it.  The
+kernel (``csrc/embed_wm.cu``) does the rest: the (var, z_off, h_off, w_off) patch
 gather of the 5 upper variables plus const_h, the 192 -> C projection
 (float32 sum plus bias, rounded once) and the write into wm storage.
 
@@ -22,7 +22,7 @@ import torch
 
 from pangu_tpu_torch import _build, _device
 from pangu_tpu_torch.config import ModelConfig, embed_supported
-from pangu_tpu_torch.models.layers import _patches
+from pangu_tpu_torch.models.layers import _dot, _patches
 from pangu_tpu_torch.ops.earth_block_wm import DTYPE_CODE, to_window_major
 
 F = torch.nn.functional
@@ -39,12 +39,12 @@ def _prepass(p, upper, surface, constants, cfg: ModelConfig):
     sf = ((surface.to(dt) - constants["surface_mean"].to(dt)[None])
           / constants["surface_std"].to(dt)[None])
     sf = F.pad(sf, (0, 0, 0, cfg.lat_padded - cfg.lat))
-    ws = p["surface"]["kernel"].to(dt).float()
+    ws = p["surface"]["kernel"].to(dt)
     k = ph * pw
-    st = (_patches(sf[:, :, None], (1, ph, pw))[:, 0].float() @ ws[:S * k]
-          + constants["surface_mask_patches"].to(dt).float() @ ws[S * k:]
-          + p["surface"]["bias"].to(dt).float())
-    return un.contiguous(), st.to(dt).contiguous()
+    st = (_dot(_patches(sf[:, :, None], (1, ph, pw))[:, 0], ws[:S * k])
+          + _dot(constants["surface_mask_patches"].to(dt), ws[S * k:])
+          + p["surface"]["bias"].to(dt))
+    return un.contiguous(), st.contiguous()
 
 
 def embed_wm_plain(p, upper, surface, constants, cfg: ModelConfig):

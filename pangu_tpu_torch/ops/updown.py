@@ -1,0 +1,113 @@
+"""Canonical-layout DownSample / UpSample kernels: the counterpart of
+``pangu_tpu/ops/updown.py`` (``down_sample_fused`` / ``_down_pallas`` and
+``up_sample_fused`` / ``_up_pallas``), which the canonical-layout forward
+(``models/pangu.py::forward_core``, the ``taps`` path) runs between stages.
+
+  * ``down_sample``: (B, Z, H, W, C) -> (B, Z, ceil(H/2), W/2, 2C): a zero
+    latitude row where H is odd, 2x2 space-to-depth with merge order
+    (h_off, w_off, C), LayerNorm(4C), Linear(4C -> 2C, no bias);
+  * ``up_sample``: (B, Z, H, W, 2C) -> (B, Z, out_h, 2W, C'):
+    Linear(2C -> 4C', no bias), 2x2 depth-to-space in (h_off, w_off) order,
+    crop to ``out_h`` latitude rows, LayerNorm(C'), Linear(C' -> C', no bias).
+
+Each wrapper launches its CUDA kernel (``csrc/updown.cu``) on a CUDA tensor
+and counts the launch in ``launches``, and runs its plain version on a CPU
+tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pangu_tpu_torch import _build
+from pangu_tpu_torch.models.layers import dense, layer_norm
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, params_in,
+                                                require_device)
+
+
+def down_sample_plain(p, x):
+    """Plain PyTorch version of the DownSample kernel (any device)."""
+    p = params_in(p, x.dtype)
+    B, Z, H, W, C = x.shape
+    h2, w2 = -(-H // 2), W // 2
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 2 * h2 - H))
+    x = x.reshape(B, Z, h2, 2, w2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    x = x.reshape(B, Z, h2, w2, 4 * C)
+    return dense(p["reduce"], layer_norm(p["norm"], x))
+
+
+def down_sample(p, x):
+    """x: the canonical (B, Z, H, W, C) grid, W even.  The CUDA kernel for
+    a CUDA tensor, the plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return down_sample_plain(p, x)
+    B, Z, H, W, C = x.shape
+    if x.dtype not in DTYPE_CODE or not x.is_contiguous() or W % 2:
+        raise ValueError(f"down_sample: unsupported input {tuple(x.shape)} "
+                         f"{x.dtype}")
+    q = params_in(p, x.dtype)
+    require_device(q, x.device, "down_sample")
+    if q["reduce"]["kernel"].shape != (4 * C, 2 * C):
+        raise ValueError(f"down_sample: reduce kernel "
+                         f"{tuple(q['reduce']['kernel'].shape)} for C={C}")
+    out = torch.empty((B, Z, -(-H // 2), W // 2, 2 * C), dtype=x.dtype,
+                      device=x.device)
+    ws = torch.empty(out.numel() * 2, dtype=x.dtype, device=x.device)  # 4C rows
+    code = _build.library().pangu_down_sample(
+        DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        q["norm"]["scale"].data_ptr(), q["norm"]["bias"].data_ptr(),
+        q["reduce"]["kernel"].data_ptr(), B * Z, H, W, C,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "down_sample")
+    down_sample.launches += 1
+    return out
+
+
+down_sample.launches = 0
+
+
+def up_sample_plain(p, x, out_h: int):
+    """Plain PyTorch version of the UpSample kernel (any device)."""
+    p = params_in(p, x.dtype)
+    B, Z, H, W, _ = x.shape
+    e = dense(p["expand"], x)
+    c_out = e.shape[-1] // 4
+    e = e.reshape(B, Z, H, W, 2, 2, c_out).permute(0, 1, 2, 4, 3, 5, 6)
+    y = e.reshape(B, Z, 2 * H, 2 * W, c_out)[:, :, :out_h]
+    return dense(p["mix"], layer_norm(p["norm"], y))
+
+
+def up_sample(p, x, out_h: int):
+    """x: the canonical (B, Z, H, W, 2C) grid; ``out_h`` <= 2H latitude rows
+    are kept.  The CUDA kernel for a CUDA tensor, the plain version for a
+    CPU tensor."""
+    if not x.is_cuda:
+        return up_sample_plain(p, x, out_h)
+    B, Z, H, W, c_in = x.shape
+    if (x.dtype not in DTYPE_CODE or not x.is_contiguous()
+            or not 0 < out_h <= 2 * H):
+        raise ValueError(f"up_sample: unsupported input {tuple(x.shape)} "
+                         f"{x.dtype}, out_h {out_h}")
+    q = params_in(p, x.dtype)
+    require_device(q, x.device, "up_sample")
+    c_out = q["expand"]["kernel"].shape[-1] // 4
+    if (q["expand"]["kernel"].shape != (c_in, 4 * c_out)
+            or q["mix"]["kernel"].shape != (c_out, c_out)):
+        raise ValueError(f"up_sample: kernels for C={c_in} -> {c_out}")
+    out = torch.empty((B, Z, out_h, 2 * W, c_out), dtype=x.dtype,
+                      device=x.device)
+    # workspace: e (rows x 4C') | y (out rows x C')
+    ws = torch.empty(x.numel() // c_in * 4 * c_out + out.numel(),
+                     dtype=x.dtype, device=x.device)
+    code = _build.library().pangu_up_sample(
+        DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), ws.data_ptr(),
+        q["expand"]["kernel"].data_ptr(), q["norm"]["scale"].data_ptr(),
+        q["norm"]["bias"].data_ptr(), q["mix"]["kernel"].data_ptr(),
+        B * Z, H, W, c_in, c_out, out_h,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "up_sample")
+    up_sample.launches += 1
+    return out
+
+
+up_sample.launches = 0

@@ -12,8 +12,8 @@ window-major entry storage in canonical coordinates, latitude-pad rows zeroed:
 
 The JAX kernels' roll-back (``_lon_unroll`` and the chunk index maps) is
 index arithmetic in the CUDA gathers (``csrc/updown_wm.cu``); the plain
-versions here canonicalise with ``wm_to_canonical`` and run the reference
-composition.  The JAX UpSample kernel leaves junk in its latitude-pad rows;
+versions here canonicalise with ``wm_to_canonical`` and run the canonical
+pair's plain versions (``ops/updown``).  The JAX UpSample kernel leaves junk in its latitude-pad rows;
 both versions here write zeros there.
 """
 
@@ -23,11 +23,11 @@ import torch
 
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
-from pangu_tpu_torch.models.layers import dense, layer_norm
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
                                                 params_in, require_device,
                                                 to_window_major,
                                                 wm_to_canonical)
+from pangu_tpu_torch.ops.updown import down_sample_plain, up_sample_plain
 
 
 def _pad_lat(x, hp: int):
@@ -41,15 +41,9 @@ def _pad_lat(x, hp: int):
 
 def down_sample_wm_plain(p, xs, geom0: StageGeometry, geom1: StageGeometry,
                          off: Offset):
-    """Plain PyTorch version of the DownSample kernel (any device)."""
-    p = params_in(p, xs.dtype)
-    x = wm_to_canonical(xs, off, geom0)                  # (B, Z, h0, W, C)
-    B, Z, H, W, C = x.shape
-    h2, w2 = -(-H // 2), W // 2
-    x = _pad_lat(x, 2 * h2)
-    x = x.reshape(B, Z, h2, 2, w2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
-    x = x.reshape(B, Z, h2, w2, 4 * C)
-    y = dense(p["reduce"], layer_norm(p["norm"], x))
+    """Plain PyTorch version of the DownSample kernel (any device): the
+    canonical DownSample between the relayouts."""
+    y = down_sample_plain(p, wm_to_canonical(xs, off, geom0))
     return to_window_major(_pad_lat(y, geom1.h_padded), geom1.window)
 
 
@@ -93,15 +87,9 @@ down_sample_wm.launches = 0
 
 def up_sample_wm_plain(p, xs, geom2: StageGeometry, geom3: StageGeometry,
                        off: Offset):
-    """Plain PyTorch version of the UpSample kernel (any device)."""
-    p = params_in(p, xs.dtype)
-    x = wm_to_canonical(xs, off, geom2)                  # (B, Z, h2, W, C)
-    B, Z, H, W, _ = x.shape
-    e = dense(p["expand"], x)
-    c_out = e.shape[-1] // 4
-    e = e.reshape(B, Z, H, W, 2, 2, c_out).permute(0, 1, 2, 4, 3, 5, 6)
-    y = e.reshape(B, Z, 2 * H, 2 * W, c_out)[:, :, :geom3.h]
-    y = dense(p["mix"], layer_norm(p["norm"], y))
+    """Plain PyTorch version of the UpSample kernel (any device): the
+    canonical UpSample between the relayouts."""
+    y = up_sample_plain(p, wm_to_canonical(xs, off, geom2), geom3.h)
     return to_window_major(_pad_lat(y, geom3.h_padded), geom3.window)
 
 

@@ -1,5 +1,5 @@
 """The port's model geometry equals the JAX package's on every preset, and
-the values this slice does not support raise instead of being ignored."""
+values the port does not take raise instead of being ignored."""
 
 import dataclasses
 
@@ -15,7 +15,7 @@ DERIVED = ["lat_padded", "levels_padded", "upper_planes", "z_tokens",
 SHARED_FIELDS = ["upper_vars", "surface_vars", "const_masks", "levels", "lat",
                  "lon", "patch", "window", "depths", "heads", "dims",
                  "mlp_ratio", "param_dtype", "compute_dtype",
-                 "gelu"]
+                 "gelu", "lat_group"]
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -43,12 +43,28 @@ def test_pangu_24_full_width_geometry():
     assert g0.window_tokens == 144
 
 
-@pytest.mark.parametrize("change,roadmap_item", [
-    ({"lat_group": 2}, "queue B item 5"),
-])
-def test_unsupported_values_raise_with_roadmap_item(change, roadmap_item):
-    with pytest.raises(NotImplementedError, match=roadmap_item):
-        dataclasses.replace(PC.PANGU_24, **change)
+@pytest.mark.parametrize("lat_group", [1, 2, 3, 16])
+def test_lat_group_at_least_one_is_accepted(lat_group):
+    assert dataclasses.replace(PC.PANGU_24,
+                               lat_group=lat_group).lat_group == lat_group
+
+
+def test_lat_group_defaults_to_jax_default():
+    assert PC.ModelConfig().lat_group == JC.ModelConfig().lat_group == 2
+
+
+@pytest.mark.parametrize("lat_group", [0, -1])
+def test_lat_group_below_one_raises(lat_group):
+    with pytest.raises(ValueError, match="lat_group"):
+        dataclasses.replace(PC.PANGU_24, lat_group=lat_group)
+
+
+@pytest.mark.parametrize("nlat,target,want", [
+    (31, 2, 1), (16, 2, 2), (3, 2, 1), (6, 2, 2), (6, 4, 3), (2, 2, 2),
+    (16, 0, 1)])
+def test_pick_gh_matches_jax(nlat, target, want):
+    from pangu_tpu.ops.earth_block_wm import _pick_gh
+    assert PC._pick_gh(nlat, target) == _pick_gh(nlat, target) == want
 
 
 GATE_VARIANTS = [{}, {"patch": (1, 4, 4)}, {"window": (2, 5, 12)},

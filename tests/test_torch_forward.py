@@ -12,7 +12,11 @@ recovery and embed into one matrix per token type, which reassociates
 float32 sums once more per chained step; it stays within the same 5e-4 on
 normalised outputs, so the looser atol 5e-3 / rtol 1e-3 in physical units
 that ``tests/test_transition.py`` allows the JAX token-space rollout is not
-needed."""
+needed.
+
+``forward(taps=...)`` (the canonical-layout trunk) is held against the JAX
+``forward(taps=...)``: every tap (canonical activations) and the output,
+5e-4 abs."""
 
 import dataclasses
 
@@ -201,3 +205,55 @@ def test_forward_plain_path_equals_kernel_path_on_cpu(setup):
                       consts, TINY, device="cpu", kernels=False)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+TAPS = ["embed", "stage0", "downsample", "stage1", "stage2", "upsample",
+        "stage3"]
+
+
+@pytest.fixture(scope="module")
+def taps_both(setup):
+    """(JAX (output, taps), port (output, taps)) of one forward with taps."""
+    jparams, params, consts, upper, surface = setup
+    jc = {k: jnp.asarray(v) for k, v in consts.items()}
+
+    def jax_fwd(p, u, s):
+        taps = {}
+        out = jax_pangu.forward(p, u, s, jc, JAX_CFG, taps=taps)
+        return out, taps
+
+    want = jax.jit(jax_fwd)(jparams, jnp.asarray(upper), jnp.asarray(surface))
+    taps = {}
+    got = pangu.forward(params, torch.as_tensor(upper),
+                        torch.as_tensor(surface), consts, TINY, device="cpu",
+                        taps=taps)
+    return want, (got, taps)
+
+
+@pytest.mark.parametrize("name", TAPS)
+def test_forward_taps_match_jax(taps_both, name):
+    (_, want), (_, got) = taps_both
+    assert set(got) == set(want) == set(TAPS)
+    assert got[name].shape == want[name].shape
+    assert TP.max_abs_err(got[name], want[name]) <= TOL
+
+
+def test_forward_with_taps_output_matches_jax(taps_both, jax_forward):
+    (want, _), (got, _) = taps_both
+    for g, w, w_plain in zip(got, want, jax_forward):
+        assert g.shape == w.shape
+        assert TP.max_abs_err(g, w) <= TOL
+        assert TP.max_abs_err(g, w_plain) <= TOL
+
+
+def test_forward_taps_plain_path_equals_kernel_path_on_cpu(setup, taps_both):
+    _, params, consts, upper, surface = setup
+    _, (got, taps) = taps_both
+    plain_taps = {}
+    plain = pangu.forward(params, torch.as_tensor(upper),
+                          torch.as_tensor(surface), consts, TINY, device="cpu",
+                          taps=plain_taps, kernels=False)
+    for x, y in zip(got, plain):
+        assert torch.equal(x, y)
+    for name in TAPS:
+        assert torch.equal(taps[name], plain_taps[name])

@@ -2,8 +2,13 @@
 at TINY and MID widths (head dims 8 and 12, channel counts that are not
 multiples of the GEMM tiles, batch 2), float32 and bf16, every shift a stage
 chain uses; the edge kernels (embed, transition, recovery upper and surface)
-at the stage-end offsets (0, 0, 0) and (1, 3, 6).  Needs a CUDA device and nvcc: marked ``gpu``, skipped elsewhere.
-Run on the card with ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
+at the stage-end offsets (0, 0, 0) and (1, 3, 6); the grouped block (MID
+stage 1 has nlat 6: three groups of 2), the canonical end-point blocks and
+the canonical DownSample / UpSample; the canonical stage, ``forward(taps=)``
+and the hierarchical rollout; and a batch of 8 at full width, which passes
+the 65,535 row tiles that a grid's y dimension can hold.  Needs a CUDA
+device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
+``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
 Error measure: max |kernel - plain| / max |plain|.  Tolerances: 1e-4 in
 float32 (reassociation of float32 sums, amplified by the LayerNorms), 2**-6
@@ -15,20 +20,26 @@ import dataclasses
 import pytest
 import torch
 
-from pangu_tpu_torch.config import MID, TINY
+from pangu_tpu_torch.config import MID, PANGU_24, TINY, _pick_gh
 from pangu_tpu_torch.data.constants import synthetic_constants, to_device
-from pangu_tpu_torch.engine.rollout import make_rollout
+from pangu_tpu_torch.engine.rollout import (make_hierarchical_rollout,
+                                            make_rollout)
 from pangu_tpu_torch.engine.transition_wm import (apply_transition_wm,
                                                   apply_transition_wm_plain,
                                                   build_transition_wm)
 from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.models.layers import window_region_ids
-from pangu_tpu_torch.ops.earth_block_wm import block_wm, block_wm_plain
+from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
+                                                block_wm_canon_plain,
+                                                block_wm_group, block_wm_plain,
+                                                run_stage_wm)
 from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface,
                                              recovery_wm_surface_plain,
                                              recovery_wm_upper,
                                              recovery_wm_upper_plain)
+from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
+                                        up_sample, up_sample_plain)
 from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                            down_sample_wm_plain, up_sample_wm,
                                            up_sample_wm_plain)
@@ -201,3 +212,177 @@ def test_token_space_rollout_kernels_match_plain(cuda, cfg_name):
         for a, b in zip(runs[0], other):
             assert torch.isfinite(a).all()
             assert _rel_err(a, b) <= 1e-3
+
+
+def _ids(geom, dev):
+    return torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                             geom.window), device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("delta,canon_add,shifted", [
+    ((0, 0, 0), 0, False), ((1, 3, 6), 3, True), ((-1, -3, -6), 0, False)])
+def test_block_wm_group_kernel_matches_plain(cuda, cfg_name, dtype, delta,
+                                             canon_add, shifted):
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(1)
+    gh = _pick_gh(geom.h_padded // geom.window[1], 2)
+    assert gh == 2
+    bp = _params(cfg, cuda)["stages"][1]["blocks"][0]
+    xs = _storage(geom, cuda, dtype)
+    ids = _ids(geom, cuda) if shifted else None
+    got = block_wm_group(bp, xs, geom, delta, canon_add, ids, True, gh)
+    want = block_wm_plain(bp, xs, geom, delta, canon_add, ids, True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("in_layout,out_layout,delta,canon_add,shifted", [
+    ("canon", "wm", (0, 0, 0), 0, False),
+    ("wm", "canon", (1, 3, 6), 3, True),
+    ("wm", "canon", (0, 0, 0), 0, False),
+    ("canon", "canon", (0, 0, 0), 0, False)])
+def test_block_wm_canon_kernel_matches_plain(cuda, cfg_name, stage, dtype,
+                                             in_layout, out_layout, delta,
+                                             canon_add, shifted):
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][0]
+    x = _storage(geom, cuda, dtype)
+    if in_layout == "canon":
+        x = torch.randn((2, geom.z, geom.h_padded, geom.w, geom.dim),
+                        device=cuda).to(dtype)
+    ids = _ids(geom, cuda) if shifted else None
+    got = block_wm_canon(bp, x, geom, delta, canon_add, ids, True,
+                         in_layout=in_layout, out_layout=out_layout)
+    want = block_wm_canon_plain(bp, x, geom, delta, canon_add, ids, True,
+                                in_layout, out_layout)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_canonical_updown_kernels_match_plain(cuda, cfg_name, dtype):
+    cfg = CFGS[cfg_name]
+    params = _params(cfg, cuda)
+    g0, g2 = cfg.stage(0), cfg.stage(2)
+    x = torch.randn((2, g0.z, g0.h, g0.w, g0.dim), device=cuda).to(dtype)
+    got = down_sample(params["downsample"], x)
+    want = down_sample_plain(params["downsample"], x)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+    x = torch.randn((2, g2.z, g2.h, g2.w, g2.dim), device=cuda).to(dtype)
+    got = up_sample(params["upsample"], x, cfg.h_tokens)
+    want = up_sample_plain(params["upsample"], x, cfg.h_tokens)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_canon_stage_and_taps_forward_match_plain(cuda, cfg_name):
+    """The canonical stage chain at lat_group 2 and the whole ``forward``
+    with taps, float32, kernels against plain versions; the taps output
+    also against the window-major forward."""
+    cfg = CFGS[cfg_name]
+    params = _params(cfg, cuda)
+    geom = cfg.stage(1)
+    x = torch.randn((1, geom.z, geom.h, geom.w, geom.dim), device=cuda)
+    stage = {"blocks": params["stages"][1]["blocks"] * 2}
+    got = run_stage_wm(stage, x, geom, io_layout="canon", lat_group=2)
+    want = run_stage_wm(stage, x, geom, io_layout="canon", kernels=False)
+    assert _rel_err(got, want) <= TOL[torch.float32]
+    consts, upper, surface = _state(cfg, cuda, batch=1)
+    taps, plain_taps = {}, {}
+    got = pangu.forward(params, upper, surface, consts, cfg, device=cuda,
+                        taps=taps)
+    want = pangu.forward(params, upper, surface, consts, cfg, device=cuda,
+                         taps=plain_taps, kernels=False)
+    wm = pangu.forward(params, upper, surface, consts, cfg, device=cuda)
+    for a, b, c in zip(got, want, wm):
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= 1e-3
+        assert _rel_err(a, c) <= 1e-3
+    for name, t in plain_taps.items():
+        assert _rel_err(taps[name], t) <= 1e-3, name
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_hierarchical_rollout_kernels_match_plain(cuda, cfg_name):
+    cfg = dataclasses.replace(CFGS[cfg_name], edge_kernels=True)
+    pa = _params(cfg, cuda)
+    pb = pangu.init_params(torch.Generator(device=cuda).manual_seed(1), cfg,
+                           device=cuda)
+    consts, upper, surface = _state(cfg, cuda, batch=1)
+    runs = [make_hierarchical_rollout(cfg, consts, 54, (24, 6), token_space=t,
+                                      device=cuda, kernels=k)[0](
+                {24: pa, 6: pb}, upper, surface)
+            for t, k in ((True, True), (True, False), (False, True))]
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.isfinite(a).all()
+            assert _rel_err(a, b) <= 1e-3
+
+
+def _bf16_batch8_case(dev):
+    cfg = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
+                              compute_dtype="bfloat16", gelu="tanh")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g0, g2, g3 = cfg.stage(0), cfg.stage(2), cfg.stage(3)
+
+    def dense(i, o):
+        return {"kernel": (0.02 * torch.randn((i, o), generator=gen,
+                                              device=dev)).bfloat16()}
+
+    def norm(c):
+        return {"scale": torch.ones(c, device=dev).bfloat16(),
+                "bias": torch.zeros(c, device=dev).bfloat16()}
+
+    c = g0.dim
+    bp = {"norm1": norm(c), "norm2": norm(c),
+          "attn": {"qkv": {**dense(c, 3 * c),
+                           "bias": torch.zeros(3 * c, device=dev).bfloat16()},
+                   "proj": {**dense(c, c),
+                            "bias": torch.zeros(c, device=dev).bfloat16()},
+                   "bias_table": (0.02 * torch.randn(
+                       (g0.num_window_types, g0.heads, 144, 144),
+                       generator=gen, device=dev)).bfloat16()},
+          "mlp": {"fc1": {**dense(c, 4 * c),
+                          "bias": torch.zeros(4 * c, device=dev).bfloat16()},
+                  "fc2": {**dense(4 * c, c),
+                          "bias": torch.zeros(c, device=dev).bfloat16()}}}
+    up = {"expand": dense(g2.dim, 4 * g3.dim), "norm": norm(g3.dim),
+          "mix": dense(g3.dim, g3.dim)}
+    return cfg, bp, up, gen
+
+
+def test_batch8_full_width_matches_batch1(cuda):
+    """Batch 8 at stage 0 gives 8 x 535,680 / 64 = 66,960 row tiles per
+    GEMM: sample 7 of the batch-8 stage-0 block and UpSample equals the
+    batch-1 launch on that sample (bit for bit, or within the bf16 gate)."""
+    cfg, bp, up, gen = _bf16_batch8_case(cuda)
+    g0, g2, g3 = cfg.stage(0), cfg.stage(2), cfg.stage(3)
+    xs = torch.randn((8,) + _storage(g0, cuda, torch.bfloat16,
+                                     batch=1).shape[1:],
+                     generator=gen, device=cuda).bfloat16()
+    ids = _ids(g0, cuda)
+    got = block_wm(bp, xs, g0, (1, 3, 6), 3, ids, True)[7]
+    want = block_wm(bp, xs[7:].contiguous(), g0, (1, 3, 6), 3, ids, True)[0]
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= TOL[torch.bfloat16]
+    del got, want, xs
+    x2 = torch.randn((8,) + _storage(g2, cuda, torch.bfloat16,
+                                     batch=1).shape[1:],
+                     generator=gen, device=cuda).bfloat16()
+    got = up_sample_wm(up, x2, g2, g3, (1, 3, 6))[7]
+    want = up_sample_wm(up, x2[7:].contiguous(), g2, g3, (1, 3, 6))[0]
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= TOL[torch.bfloat16]
