@@ -41,7 +41,26 @@ Phases, each with its wall seconds:
         UpSample): its output against the window-major forward, every tap
         against the plain path;
   5. where the time goes: a full step (embed, trunk, recovery) and a
-     token-space chained step (trunk, transition) (CUDA events).
+     token-space chained step (trunk, transition) (CUDA events);
+  6. the training step, Pangu-24 at full width and depth, batch 1, edge
+     kernels, targets the inputs of a second seeded state:
+     a. the training kernels against their plain versions, float32 and
+        bf16: the block with per-sample branch scales (``drop``) and the
+        block backward at stages 0 and 1, shifted, scales from {0, 0.8,
+        1.25}; the recovery backward at offset (1, 3, 6); the upper embed
+        weight gradient;
+     b. the float32 train step (loss and every gradient) with the kernels
+        against ``kernels=False``, the same scales, both paths
+        back-propagating the same loss cotangent;
+     c. 3 Adam steps in the perf config with the launch counters read per
+        step (16 blocks with scales, 16 block backwards, 1 DownSample, 1
+        UpSample, embed, embed weight gradient, recovery upper and surface,
+        recovery backward), and two runs of one step's gradient on the same
+        input, which must agree bit for bit.
+
+Training gates: the float32 train step's loss within 1e-4 relative of the
+plain path's, every gradient leaf within 1e-3 of its max; the bf16 steps'
+losses and gradient norms finite.
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -60,6 +79,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -73,6 +93,11 @@ PEAK_FLOP_PER_S = {torch.bfloat16: 989e12,      # dense tensor-core bf16
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -6}
 TOL_FORWARD = {torch.float32: 1e-3, torch.bfloat16: 2.0 ** -4}
 SEED = 0
+TRAIN_STEPS = 3
+# outputs whose side of the target the two float32 train-step paths may
+# disagree on (of 7.2e7 at full width; expected a few: outputs within the
+# paths' ~1e-6 difference of their target)
+FLIPS_MAX = 64
 STEPS = 2
 TOKEN_STEPS = 3
 DRIFT_STEPS = (3, 7)
@@ -93,7 +118,10 @@ def rel_err(got, want):
     if not torch.isfinite(got).all():
         raise AssertionError("kernel output is not finite")
     err = float((got - want).abs().max())
-    return err, err / float(want.abs().max())
+    scale = float(want.abs().max())
+    if scale == 0.0:      # an all-zero plain result (a branch scaled by 0)
+        return err, 0.0 if err == 0.0 else float("inf")
+    return err, err / scale
 
 
 def time_ms(fn, reps):
@@ -191,6 +219,10 @@ def main() -> int:
                          capture_output=True, text=True).stdout.strip()
     smi = smi.splitlines()[0]
     print("card:", smi)
+    print("clocks, power:", subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], check=True,
+        capture_output=True, text=True).stdout.strip().splitlines()[0])
     done("environment", t0)
 
     # ---- 2. build ---------------------------------------------------------
@@ -800,6 +832,15 @@ def main() -> int:
     del xs1
     done("step breakdown (CUDA events, 3 reps each)", t0)
 
+    del xs, skip, dec, uc, sc, tp, trunk
+    torch.cuda.empty_cache()
+
+    # ---- 6. the training step -------------------------------------------
+    t0 = phase("training step, Pangu-24 full width")
+    train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
+                block_cost, weight_bytes, records, path_counts)
+    done("training step, Pangu-24 full width", t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -821,7 +862,13 @@ def main() -> int:
                "down_sample": ("pangu_tpu_torch/csrc/updown.cu",
                                "pangu_tpu/ops/updown.py:93"),
                "up_sample": ("pangu_tpu_torch/csrc/updown.cu",
-                             "pangu_tpu/ops/updown.py:193")}
+                             "pangu_tpu/ops/updown.py:193"),
+               "block_bwd": ("pangu_tpu_torch/csrc/block_bwd.cu",
+                             "pangu_tpu/ops/earth_block_bwd.py:555"),
+               "embed_dw_upper": ("pangu_tpu_torch/csrc/embed_dw.cu",
+                                  "pangu_tpu/ops/embed_wm.py:323"),
+               "recovery_bwd": ("pangu_tpu_torch/csrc/recovery_bwd.cu",
+                                "pangu_tpu/ops/recovery_wm.py:502")}
     # launches: each kernel's count on the main path that runs it most
     launches = {name: max(c[name] for c in path_counts.values())
                 for name in sources}
@@ -845,6 +892,339 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def named_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from named_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from named_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def tree_errs(got, want, path=""):
+    """(path, max abs error, error relative to max |want|) of every leaf of
+    two nested dict / list trees."""
+    if isinstance(want, dict):
+        return [e for k in want for e in tree_errs(got[k], want[k],
+                                                   f"{path}/{k}")]
+    if isinstance(want, (list, tuple)):
+        return [e for i, w in enumerate(want)
+                for e in tree_errs(got[i], w, f"{path}/{i}")]
+    return [(path, *rel_err(got, want))]
+
+
+def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
+                block_cost, weight_bytes, records, path_counts):
+    """Phase 6: the training kernels against their plain versions, the
+    float32 train step against the plain path, 3 bf16 Adam steps."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.data.constants import norm_data
+    from pangu_tpu_torch.engine.train import (create_train_state,
+                                              loss_and_grads, make_optimizer,
+                                              make_train_step,
+                                              weighted_l1_loss)
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
+    from pangu_tpu_torch.ops.earth_block_wm import block_wm, block_wm_plain
+    from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
+                                              embed_dw_upper_plain)
+    from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
+                                                 recovery_bwd_plain)
+
+    dev = torch.device("cuda")
+    half = (1, 3, 6)
+    g0, g1 = PANGU_24.stage(0), PANGU_24.stage(1)
+    u0, s0 = state(SEED + 2)
+    u1, s1 = state(SEED + 3)                    # the targets
+    field_u, field_s = u0.numel(), s0.numel()
+    cfg = PANGU_24
+
+    def kernels_vs_plain():
+        # ---- 6a. the training kernels against their plain versions -----------
+        for dtype in (torch.float32, torch.bfloat16):
+            tanh = dtype == torch.bfloat16
+            isz = torch.tensor([], dtype=dtype).element_size()
+            pdt = to_dtype({"s0": params["stages"][0]["blocks"][1],
+                            "s1": params["stages"][1]["blocks"][1],
+                            "pr": params["patch_recovery"]}, dtype)
+            ecfg = dataclasses.replace(cfg, compute_dtype="float32" if not tanh
+                                       else "bfloat16")
+            cases = []  # (name, label, flops, bytes, kernel, plain)
+            for label, geom, bp, drop in (
+                    ("stage 0 shifted, scales (0.8, 1.25)", g0, pdt["s0"],
+                     [[0.8, 1.25]]),
+                    ("stage 1 shifted, scales (1.25, 0)", g1, pdt["s1"],
+                     [[1.25, 0.0]])):
+                drop = torch.tensor(drop, device=dev)
+                xs, gx, ids = storage(geom, dtype), storage(geom, dtype), ids_of(geom)
+                flops, byts = block_cost(bp, xs, ids)
+                cases.append((
+                    "block_wm drop", label, flops, byts,
+                    lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
+                        block_wm(bp, xs, geom, half, 3, i, t, d),
+                    lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
+                        block_wm_plain(bp, xs, geom, half, 3, i, t, d)))
+                # three times the forward's operations (recompute, data and
+                # weight gradients); x, g read and dx written, the table read
+                # and its float32 gradient written, the weights and their
+                # float32 gradients
+                nw = sum(t.numel() for t in leaves(bp) if t.dim() < 4)
+                cases.append((
+                    "block_bwd", label, 3 * flops,
+                    3 * nbytes(xs) + nbytes(bp["attn"]["bias_table"])
+                    + bp["attn"]["bias_table"].numel() * 4 + nbytes(ids)
+                    + weight_bytes(bp, dtype) + 4 * nw,
+                    lambda bp=bp, xs=xs, gx=gx, geom=geom, i=ids, d=drop, t=tanh:
+                        block_bwd(bp, xs, gx, geom, half, half, 3, i, d, t),
+                    lambda bp=bp, xs=xs, gx=gx, geom=geom, i=ids, d=drop, t=tanh:
+                        block_bwd_plain(bp, xs, gx, geom, half, half, 3, i, d, t)))
+            skip, dec = storage(g0, dtype), storage(g0, dtype)
+            du, ds = u1.to(dtype), s1.to(dtype)      # field-shaped cotangents
+            c0 = g0.dim
+            rows_all = g0.z * g0.h_padded * g0.w
+            rows_real = g0.z * g0.h * g0.w
+            kf = 5 * 32 * (g0.z - 1) * g0.h * g0.w + 4 * 16 * g0.h * g0.w
+            cases.append((     # token cotangents of every row, head gradients
+                "recovery_bwd", "off (1, 3, 6)",
+                2 * rows_all * 160 * 2 * c0 + 2 * kf * 2 * c0,
+                (field_u + field_s) * isz + 2 * nbytes(skip)
+                + weight_bytes(pdt["pr"], dtype) + 2 * rows_all * c0 * isz
+                + 4 * (2 * c0 + 1) * (160 + 64),
+                lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
+                    recovery_bwd(p, a, b, u, v, half, cf),
+                lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
+                    recovery_bwd_plain(p, a, b, u, v, half, cf)))
+            dxs = storage(g0, dtype)
+            upper_rows = (g0.z - 1) * g0.h * g0.w
+            cases.append((     # the upper rows of the cotangent, the field
+                "embed_dw_upper", "full width",
+                2 * upper_rows * 193 * c0,
+                upper_rows * c0 * isz + field_u * 4
+                + consts_dev["const_h"].numel() * 4 + 193 * c0 * 4,
+                lambda d=dxs, cf=ecfg: embed_dw_upper(d, u0, consts_dev, cf),
+                lambda d=dxs, cf=ecfg: embed_dw_upper_plain(d, u0, consts_dev, cf)))
+            for name, label, flops, byts, kern, plain in cases:
+                got, want = kern(), plain()
+                torch.cuda.synchronize()
+                errs = tree_errs(got, want)
+                del got, want
+                err = max(e[1] for e in errs)
+                rel = max(e[2] for e in errs)
+                worst = max(errs, key=lambda e: e[2])[0]
+                ms = time_ms(kern, 2)
+                plain_ms = time_ms(plain, 1)
+                bound_ms, bound_by = bound(flops, byts, dtype)
+                ok = rel <= TOL[dtype]
+                print(f"{name:15s} {label:36s} {str(dtype):15s} max_abs_err "
+                      f"{err:.3e} rel {rel:.3e} (worst {worst or 'out'}, tol "
+                      f"{TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  kernel "
+                      f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+                      f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+                if not ok:
+                    raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
+                if (dtype == torch.bfloat16 and name in ops.kernels()
+                        and label.startswith(("stage 0", "off", "full"))):
+                    records[name] = {"max_abs_err": err, "ms": ms,
+                                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                     "bound_by": bound_by,
+                                     "at": f"{label}, bf16"}
+            del cases, skip, dec, dxs, du, ds
+            torch.cuda.empty_cache()
+
+    def float32_step():
+        # ---- 6b. the float32 train step, kernels against plain versions -------
+        # The weighted L1 loss has a kink at every output equal to its target:
+        # where the two paths' outputs (equal to float32 rounding) fall on
+        # either side of a target, their loss cotangents differ in sign.  Two
+        # gates: (1) both paths back-propagate the kernel path's loss
+        # cotangent, every leaf within 1e-3; (2) each path back-propagates its
+        # own, at most FLIPS_MAX outputs flip, and every leaf within 1e-3 plus
+        # what the flips alone move it (the plain path's gradient under the
+        # two cotangents): leaves the flips move by at most 1e-4 are held to
+        # 1e-3 itself.
+        cfg32 = dataclasses.replace(cfg, edge_kernels=True)
+        tgt = norm_data(u1, s1, consts_dev)
+        res = {}
+        d_out = None
+        for kernels in (True, False):
+            p32 = to_dtype(params, torch.float32)
+            for t in leaves(p32):
+                t.requires_grad_(True)
+            torch.cuda.synchronize()
+            t_run = time.perf_counter()
+            outs = pangu.forward(p32, u0, s0, consts_dev, cfg32, device=dev,
+                                 kernels=kernels, deterministic=False, drops=drops)
+            loss = weighted_l1_loss(*outs, *tgt, tcfg)[0]
+            if d_out is None:
+                d_out = torch.autograd.grad(loss, outs, retain_graph=True)
+            torch.autograd.backward(outs, d_out, retain_graph=not kernels)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_run) * 1e3
+            shared = {k: t.grad.clone() for k, t in named_leaves(p32)}
+            own = shared
+            if not kernels:
+                for t in leaves(p32):
+                    t.grad = None
+                loss.backward()
+                own = {k: t.grad for k, t in named_leaves(p32)}
+            signs = [torch.sign(o.detach().float() - t) for o, t in zip(outs, tgt)]
+            print(f"float32 train step, {'kernels' if kernels else 'plain'}: "
+                  f"loss {float(loss.detach()):.6f}, {ms:.1f} ms")
+            res[kernels] = (float(loss.detach()), shared, own, signs)
+            del p32, outs, loss
+        (lk, gk, _, sk), (lp, gps, gpo, sp) = res[True], res[False]
+        n_out = sum(t.numel() for t in sk)
+        flips = sum(int((a != b).sum()) for a, b in zip(sk, sp))
+        rel = abs(lk - lp) / abs(lp)
+        errs = tree_errs(gk, gps)
+        worst = max(errs, key=lambda e: e[2])
+        print(f"float32 train step kernels vs plain: loss rel {rel:.3e} (tol "
+              f"1.0e-4); gradients ({len(errs)} leaves, the same loss cotangent): "
+              f"worst {worst[0]} max_abs_err {worst[1]:.3e} rel {worst[2]:.3e} "
+              f"(tol 1.0e-3)")
+        # (path, own-cotangent error, the flips' own effect on the plain path)
+        own = [(e[0], e[2], f[2]) for e, f in zip(tree_errs(gk, gpo),
+                                                  tree_errs(gps, gpo))]
+        moved = [o for o in own if o[2] > 1e-4]
+        held = [o for o in own if o[2] <= 1e-4]
+        bad = ([o for o in held if o[1] > 1e-3]
+               + [o for o in moved if o[1] > 1e-3 + o[2]])
+        w_held = max(held, key=lambda o: o[1])
+        print(f"float32 train step, each path's own loss cotangent: {flips} of "
+              f"{n_out} outputs on the other side of their target (tol "
+              f"{FLIPS_MAX}); {len(held)} leaves the flips move by <= 1e-4, "
+              f"worst {w_held[0]} rel {w_held[1]:.3e} (tol 1.0e-3); "
+              f"{len(moved)} leaves they move more, tol 1e-3 + that move:")
+        for p, e, f in sorted(moved, key=lambda o: -o[2]):
+            print(f"  {p:45s} rel {e:.3e}, moved by the flips {f:.3e}")
+        if rel > 1e-4 or worst[2] > 1e-3 or flips > FLIPS_MAX or bad:
+            raise AssertionError(f"float32 train step: loss rel {rel:.3e}, "
+                                 f"gradient {worst}, {flips} flips, own "
+                                 f"cotangent {bad}")
+        del res, gk, gps, gpo
+        torch.cuda.empty_cache()
+
+    def bf16_steps():
+        # ---- 6c. Adam steps in the perf config ---------------------------------
+        perf_edge = dataclasses.replace(perf, edge_kernels=True)
+        # copies (bf16 -> float32 -> bf16 is exact): the steps update in place
+        ptrain = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
+        opt = make_optimizer(tcfg)
+        state_ = create_train_state(ptrain, opt)
+        step_counts = {"block_wm": 16, "block_bwd": 16, "down_sample_wm": 1,
+                       "up_sample_wm": 1, "embed_wm": 1, "embed_dw_upper": 1,
+                       "recovery_wm_upper": 1, "recovery_wm_surface": 1,
+                       "recovery_bwd": 1}
+        # two runs of one step's gradient on the same input and seed
+        runs = [[t.clone() for t in leaves(loss_and_grads(
+            ptrain, batch, consts_dev, perf_edge, tcfg, device=dev,
+            seed=SEED + 5)[2])] for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"bf16 gradient, two runs of one step: bit-identical {same}")
+        if not same:
+            raise AssertionError("bf16 gradients differ between two runs")
+        del runs
+        step = make_train_step(perf_edge, tcfg, consts_dev, opt, device=dev)
+        losses, norms, total = [], [], {k: 0 for k in ops.kernels()}
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t_run = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            ops.reset_launches()
+            state_, metrics = step(state_, batch, SEED + 10 + i)
+            counts = ops.launches()
+            want = {**{k: 0 for k in counts}, **step_counts}
+            if counts != want:
+                raise AssertionError(f"train step {i}: launch counts {counts} != "
+                                     f"{want}")
+            for k, v in counts.items():
+                total[k] += v
+            losses.append(metrics["loss"])
+            norms.append(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        train_ms = (time.perf_counter() - t_run) * 1e3 / TRAIN_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        norms = [float(v) for v in norms]
+        path_counts[f"{TRAIN_STEPS} train steps"] = total
+        print(f"launches per train step {step_counts}")
+        print(f"train steps (bf16, batch 1, Adam): losses {losses}, grad norms "
+              f"{norms}")
+        print(f"train step: {train_ms:.1f} ms per step ({TRAIN_STEPS} steps, "
+              f"batch 1, bf16), peak memory {peak / 2**30:.2f} GiB, of which "
+              f"{held / 2**30:.2f} GiB held before the steps (params, Adam "
+              f"state, gradients, inputs)")
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"train steps: losses {losses}, norms {norms}")
+        print(json.dumps({"train_step": {"ms_per_step": train_ms,
+                                         "steps": TRAIN_STEPS, "batch": 1,
+                                         "peak_bytes": peak, "losses": losses}}))
+
+        # where a bf16 train step's time and memory go: forward + loss, backward,
+        # Adam (host clock, synchronised), peak memory after each; then device
+        # time by kernel over one more step (torch.profiler)
+        from torch.profiler import ProfilerActivity, profile
+        for t in leaves(ptrain):
+            t.grad = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        outs = pangu.forward(ptrain, u0, s0, consts_dev, perf_edge, device=dev,
+                             deterministic=False,
+                             gen=torch.Generator(device=dev).manual_seed(SEED + 30))
+        loss = weighted_l1_loss(*outs, *norm_data(u1, s1, consts_dev), tcfg)[0]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        peak_fwd, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        loss.backward()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        peak_bwd = torch.cuda.max_memory_allocated()
+        opt.apply(state_.opt_state)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        del outs, loss
+        gib = 2.0 ** 30
+        print(f"train step parts (bf16, host clock): forward + loss "
+              f"{(t2 - t1) * 1e3:.1f} ms, backward {(t3 - t2) * 1e3:.1f} ms, Adam "
+              f"{(t4 - t3) * 1e3:.1f} ms; memory: before {base / gib:.2f} GiB, "
+              f"peak in forward {peak_fwd / gib:.2f} GiB, held for backward "
+              f"{held / gib:.2f} GiB, peak in backward {peak_bwd / gib:.2f} GiB")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state_, _ = step(state_, batch, SEED + 31)
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        total = sum(ms for _, ms in rows)
+        print(f"train step device time by kernel (torch.profiler): {total:.1f} ms")
+        for key, ms in rows[:25]:
+            print(f"  {key[:70]:70s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
+        del state_, step, ptrain
+        torch.cuda.empty_cache()
+
+    batch = {"upper": u0, "surface": s0, "target_upper": u1,
+             "target_surface": s1}
+    tcfg = TrainConfig()
+    rates = cfg.drop_path_rates()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    drops = [pangu._stage_drops(cfg.depths[i], rates, sum(cfg.depths[:i]),
+                                gen, 1) for i in range(4)]
+    print("stochastic-depth scales: "
+          + " ".join(f"{float(d[0, 0]):.3f}/{float(d[0, 1]):.3f}"
+                     for st in drops for d in st))
+    kernels_vs_plain()
+    float32_step()
+    bf16_steps()
 
 
 if __name__ == "__main__":

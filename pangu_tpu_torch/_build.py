@@ -31,7 +31,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # argtypes of every C entry: a pointer or the stream is c_void_p, an int c_int
 _SIGNATURES = {
-    "pangu_block_wm": [_I, _I] + [_P] * 17 + [_I] * 20 + [_P],
+    "pangu_block_wm": [_I, _I] + [_P] * 18 + [_I] * 20 + [_P],
     "pangu_down_sample": [_I] + [_P] * 6 + [_I] * 4 + [_P],
     "pangu_up_sample": [_I] + [_P] * 7 + [_I] * 6 + [_P],
     "pangu_down_sample_wm": [_I] + [_P] * 6 + [_I] * 16 + [_P],
@@ -39,6 +39,16 @@ _SIGNATURES = {
     "pangu_embed_wm": [_I] + [_P] * 6 + [_I] * 14 + [_P],
     "pangu_transition_wm": [_I] + [_P] * 10 + [_I] * 13 + [_P],
     "pangu_recovery_wm": [_I] * 2 + [_P] * 5 + [_I] * 17 + [_P],
+    "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 20 + [_P],
+    "pangu_embed_dw": [_I] + [_P] * 5 + [_I] * 14 + [_P],
+    "pangu_recovery_bwd": [_I] + [_P] * 11 + [_I] * 18 + [_P],
+}
+_LL = ctypes.c_longlong
+# entries that return a size (long long) instead of a cudaError_t
+_SIZE_SIGNATURES = {
+    "pangu_block_bwd_ws": [_LL, _I, _I, _I],
+    "pangu_embed_dw_ws": [_I] * 11,
+    "pangu_recovery_bwd_ws": [_I] * 7,
 }
 
 
@@ -104,6 +114,10 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in _SIZE_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _LL
     lib.pangu_error_string.argtypes = [ctypes.c_int]
     lib.pangu_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,12 @@
 """Model geometry of the port: the counterpart of ``pangu_tpu/config.py``.
 
-Only what the served forward needs is kept: ``ModelConfig`` with its derived
-token geometry, ``StageGeometry`` and the presets ``PANGU_24``, ``TINY`` and
-``MID``.  The JAX package's TPU tuning fields (``lon_chunk``,
-``attn_unroll``, ``grid_bwd``, its VMEM notes) and its training and layout
-switches have no counterpart here: the port has one inference path, the
-window-major trunk.
+Kept: ``ModelConfig`` with its derived token geometry and its
+stochastic-depth schedule (``drop_path_max``, ``drop_path_rates``),
+``StageGeometry``, ``TrainConfig`` (without the LoRA fields) and the presets
+``PANGU_24``, ``TINY`` and ``MID``.  The JAX package's TPU tuning fields
+(``lon_chunk``, ``attn_unroll``, ``grid_bwd``, its VMEM notes) and its
+layout switches have no counterpart here: the port has one path for serving
+and one for training, both through the window-major trunk.
 
 ``edge_kernels=True`` selects the edge kernels (``ops/embed_wm``,
 ``ops/recovery_wm``) on geometries that pass :func:`embed_supported` and
@@ -69,6 +70,7 @@ class ModelConfig:
     depths: Tuple[int, ...] = (2, 6, 6, 2)
     heads: Tuple[int, ...] = (6, 12, 12, 6)
     dims: Tuple[int, ...] = (192, 384, 384, 192)
+    drop_path_max: float = 0.2
     mlp_ratio: int = 4
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -158,6 +160,36 @@ class ModelConfig:
     @property
     def total_blocks(self) -> int:
         return sum(self.depths)
+
+    def drop_path_rates(self) -> Tuple[float, ...]:
+        """Linearly scheduled stochastic-depth rates over all blocks."""
+        n = self.total_blocks
+        if n == 1:
+            return (0.0,)
+        return tuple(self.drop_path_max * i / (n - 1) for i in range(n))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters, the JAX package's defaults: Adam with L2
+    folded into the gradient, a MultiStep schedule over epochs, the weighted
+    L1 loss and early stopping."""
+
+    epochs: int = 100
+    lr: float = 5e-6
+    weight_decay: float = 3e-6   # L2 into the gradient (torch Adam's meaning)
+    batch_size: int = 2
+    eval_batch_size: int = 1
+    lr_milestones: Tuple[int, ...] = (25, 50)   # epochs
+    lr_gamma: float = 0.5
+    upper_weights: Tuple[float, ...] = (3.00, 0.60, 1.50, 0.77, 0.54)
+    surface_weights: Tuple[float, ...] = (1.50, 0.77, 0.66, 3.00)
+    surface_loss_weight: float = 0.25
+    save_interval: int = 1       # epochs between checkpoints
+    save_steps: int = 0          # >0: also checkpoint every N optimizer steps
+    val_interval: int = 1
+    early_stop_patience: int = 5
+    seed: int = 99
 
 
 def _pick_gh(nlat: int, target: int) -> int:

@@ -1,0 +1,617 @@
+// Every gradient of one whole Earth-specific block on window-major storage.
+//
+// Replaces the Pallas kernel pangu_tpu/ops/earth_block_bwd.py::_block_bwd_call
+// (kernel body _make_block_bwd_kernel) in its wm -> wm layout.  Inputs: the
+// block's saved input x and the cotangent g of its output, both in stage
+// storage; x is read through the block's shift delta_x (latitude-pad rows
+// zero-synthesised), g through delta_g, the negated shift of the next block,
+// whose backward wrote its dx in its own window coordinates.  On the TPU both
+// reads are BlockSpec chunk stitches; here they are the forward's modular
+// gather.  The unit is a sequence of launches on the caller's stream:
+//
+//   recompute  xg, gg (gathers); qkv = round_T(xg Wqkv + b); attention as the
+//              forward; a = round_T(attn Wp + bp); LN1 statistics and
+//              x1 = round_T(xg + s1 * (ahat n1s + n1b)), the branch kept in
+//              float32 (the backward's rounding point, not the forward's);
+//              z = round_T(x1 W1 + b1), h = round_T(GELU(z));
+//              y = round_T(h W2 + b2)
+//   tail       dy2 = round_T(LN2'(s2 * g)); dW2, db2; dz = round_T(dy2 W2^T *
+//              GELU'(z)); dW1, db1; dx1 = g + dz W1^T (float32);
+//              da = round_T(LN1'(s1 * dx1)); dLN1, dLN2 (column sums)
+//   proj       dWp, dbp; datt = round_T(da Wp^T)
+//   attention  per (window type, head): P recomputed, dV = P^T dO,
+//              dS = P o (dP - rowsum(dP o P)) with dP = dO V^T,
+//              d table[type, h] += dS (float32), dQ = dS K hd^-1/2,
+//              dK = dS^T Q hd^-1/2 with dS rounded to T
+//   qkv        dWqkv, dbqkv; dx = round_T(dx1 + dqkv Wqkv^T), pad rows 0
+//
+// Weight gradients are transposed-A products over every row of the batch:
+// each split of WG_SPLIT_ROWS rows writes its own float32 partial and a
+// second pass adds them in order (grad_gemm.cuh), so the sums are the same
+// bit for bit in every run.  The bias gradient rides each weight gradient as
+// a row of ones.  The table gradient takes one thread block per (window
+// type, head), which loops over the type's B x nlon windows: each table
+// entry has one owner, so no atomics.
+//
+// What bounds it on an H100: arithmetic.  Four recomputed, four
+// data-gradient and four weight-gradient products, about three times the
+// forward block's operations (~1.6e12 FLOP at stage 0).  This first version
+// keeps every intermediate in device memory (about 15 C + 2 hidden values a
+// row, 4.7 GB at stage 0 in bf16) and runs every product through
+// grad_gemm.cuh's xgemm (the untuned tiles of common.cuh's gemm), so it runs
+// well below that bound.
+#include "block_common.cuh"
+#include "grad_gemm.cuh"
+
+namespace pangu {
+
+__device__ __forceinline__ float gelu_f(float v, int tanh_form) {
+  if (tanh_form)
+    return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  return v * 0.5f * (1.f + erff(v * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ float gelu_grad(float v, int tanh_form) {
+  if (tanh_form) {
+    const float k = 0.7978845608028654f;
+    const float t = tanhf(k * (v + 0.044715f * v * v * v));
+    const float du = k * (1.f + 3.f * 0.044715f * v * v);
+    return 0.5f * (1.f + t) + 0.5f * v * (1.f - t * t) * du;
+  }
+  const float phi = 0.5f * (1.f + erff(v * 0.7071067811865476f));
+  return phi + v * 0.3989422804014327f * expf(-0.5f * v * v);
+}
+
+// ---- GEMM epilogues ---------------------------------------------------------
+
+template <typename T>
+struct ZhEpi {  // z = round_T(acc + b1), h = round_T(GELU(z))
+  const T* b1;
+  T* z;
+  T* h;
+  int N, tanh_form;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    const float v = round_t<T>(acc + to_f(b1[c]));
+    z[r * N + c] = from_f<T>(v);
+    h[r * N + c] = from_f<T>(gelu_f(v, tanh_form));
+  }
+};
+
+template <typename T>
+struct DzEpi {  // dz = round_T(acc * GELU'(z)); may overwrite h
+  const T* z;
+  T* dz;
+  int N, tanh_form;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    dz[r * N + c] = from_f<T>(acc * gelu_grad(to_f(z[r * N + c]), tanh_form));
+  }
+};
+
+template <typename T>
+struct Dx1Epi {  // dx1 = g + acc, float32
+  const T* gg;
+  float* dx1;
+  int N;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    dx1[r * N + c] = to_f(gg[r * N + c]) + acc;
+  }
+};
+
+template <typename T>
+struct BiasEpi {  // out = round_T(acc + bias)
+  const T* bias;
+  T* out;
+  int N;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    out[r * N + c] = from_f<T>(acc + to_f(bias[c]));
+  }
+};
+
+template <typename T>
+struct RoundEpi {
+  T* out;
+  int N;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    out[r * N + c] = from_f<T>(acc);
+  }
+};
+
+template <typename T>
+struct DxEpi {  // dx = round_T(dx1 + acc), pad rows zero
+  const float* dx1;
+  T* dx;
+  int N;
+  PadRows pad;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    dx[r * N + c] = is_pad_row(r, pad) ? from_f<T>(0.f)
+                                       : from_f<T>(dx1[r * N + c] + acc);
+  }
+};
+
+// ---- row kernels: one warp per row -------------------------------------------
+
+__device__ __forceinline__ float branch_scale(const float* drop, long long row,
+                                              long long rows_per_sample,
+                                              int which) {
+  return drop ? drop[2 * (row / rows_per_sample) + which] : 1.f;
+}
+
+template <typename T>
+__device__ __forceinline__ void row_stats(const T* r, int C, float& mu,
+                                          float& rs) {
+  const int lane = threadIdx.x % 32;
+  float s = 0.f;
+  for (int c = lane; c < C; c += 32) s += to_f(r[c]);
+  mu = warp_sum(s) / C;
+  float v = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float d = to_f(r[c]) - mu;
+    v += d * d;
+  }
+  rs = rsqrtf(warp_sum(v) / C + 1e-5f);
+}
+
+// LN1 forward of the recompute: statistics of a, and
+// x1 = round_T(xg + s1 * (ahat * n1s + n1b)) with the branch in float32
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln1_fwd_kernel(const T* __restrict__ a, const T* __restrict__ xg,
+               const T* __restrict__ n1s, const T* __restrict__ n1b,
+               const float* __restrict__ drop, T* __restrict__ x1,
+               float* __restrict__ stats, long long M, int C,
+               long long rows_per_sample) {
+  const int lane = threadIdx.x % 32;
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M) return;
+  float mu, rs;
+  row_stats(a + m * C, C, mu, rs);
+  const float s1 = branch_scale(drop, m, rows_per_sample, 0);
+  for (int c = lane; c < C; c += 32) {
+    float br = (to_f(a[m * C + c]) - mu) * rs * to_f(n1s[c]) + to_f(n1b[c]);
+    if (drop) br *= s1;
+    x1[m * C + c] = from_f<T>(to_f(xg[m * C + c]) + br);
+  }
+  if (lane == 0) {
+    stats[2 * m] = mu;
+    stats[2 * m + 1] = rs;
+  }
+}
+
+// LayerNorm backward of one row: d = (dxhat - mean(dxhat) - xhat *
+// mean(dxhat * xhat)) * rstd with dxhat = s * dy * scale; dy read as float
+template <typename T, typename DY>
+__device__ __forceinline__ void ln_bwd_row(const T* x, DY dy, float s,
+                                           const T* scale, float mu, float rs,
+                                           int C, T* out) {
+  const int lane = threadIdx.x % 32;
+  float m1 = 0.f, m2 = 0.f;
+  for (int c = lane; c < C; c += 32) {
+    const float xh = (to_f(x[c]) - mu) * rs;
+    const float dxh = dy(c) * s * to_f(scale[c]);
+    m1 += dxh;
+    m2 += dxh * xh;
+  }
+  m1 = warp_sum(m1) / C;
+  m2 = warp_sum(m2) / C;
+  for (int c = lane; c < C; c += 32) {
+    const float xh = (to_f(x[c]) - mu) * rs;
+    const float dxh = dy(c) * s * to_f(scale[c]);
+    out[c] = from_f<T>((dxh - m1 - xh * m2) * rs);
+  }
+}
+
+template <typename T>
+struct ReadT {
+  const T* p;
+  __device__ __forceinline__ float operator()(int c) const { return to_f(p[c]); }
+};
+
+struct ReadF {
+  const float* p;
+  __device__ __forceinline__ float operator()(int c) const { return p[c]; }
+};
+
+// LN2 backward: statistics of y, dy2 = round_T(LN2'(s2 * g))
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln2_bwd_kernel(const T* __restrict__ y, const T* __restrict__ gg,
+               const T* __restrict__ n2s, const float* __restrict__ drop,
+               T* __restrict__ dy2, float* __restrict__ stats, long long M,
+               int C, long long rows_per_sample) {
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M) return;
+  float mu, rs;
+  row_stats(y + m * C, C, mu, rs);
+  ln_bwd_row(y + m * C, ReadT<T>{gg + m * C},
+             branch_scale(drop, m, rows_per_sample, 1), n2s, mu, rs, C,
+             dy2 + m * C);
+  if (threadIdx.x % 32 == 0) {
+    stats[2 * m] = mu;
+    stats[2 * m + 1] = rs;
+  }
+}
+
+// LN1 backward: da = round_T(LN1'(s1 * dx1)) with a's saved statistics
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln1_bwd_kernel(const T* __restrict__ a, const float* __restrict__ dx1,
+               const T* __restrict__ n1s, const float* __restrict__ drop,
+               const float* __restrict__ stats, T* __restrict__ da,
+               long long M, int C, long long rows_per_sample) {
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M) return;
+  ln_bwd_row(a + m * C, ReadF{dx1 + m * C},
+             branch_scale(drop, m, rows_per_sample, 0), n1s, stats[2 * m],
+             stats[2 * m + 1], C, da + m * C);
+}
+
+// LayerNorm parameter gradients, one split of rows per blockIdx.y:
+// part[split] = (sum dbr1*ahat, sum dbr1, sum dbr2*yhat, sum dbr2), each (C)
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln_grads_kernel(const T* __restrict__ a, const float* __restrict__ dx1,
+                const T* __restrict__ y, const T* __restrict__ gg,
+                const float* __restrict__ stats_a,
+                const float* __restrict__ stats_y,
+                const float* __restrict__ drop, float* __restrict__ part,
+                long long M, int C, long long rows_per_sample) {
+  __shared__ float sm[4][8][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int c = blockIdx.x * 32 + tx;
+  const long long r0 = (long long)blockIdx.y * WG_SPLIT_ROWS;
+  const long long r1 = min(M, r0 + WG_SPLIT_ROWS);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  if (c < C) {
+    for (long long r = r0 + ty; r < r1; r += 8) {
+      const float d1 = dx1[r * C + c] * branch_scale(drop, r, rows_per_sample, 0);
+      const float d2 = to_f(gg[r * C + c]) * branch_scale(drop, r, rows_per_sample, 1);
+      acc[0] += d1 * (to_f(a[r * C + c]) - stats_a[2 * r]) * stats_a[2 * r + 1];
+      acc[1] += d1;
+      acc[2] += d2 * (to_f(y[r * C + c]) - stats_y[2 * r]) * stats_y[2 * r + 1];
+      acc[3] += d2;
+    }
+  }
+  for (int k = 0; k < 4; ++k) sm[k][ty][tx] = acc[k];
+  __syncthreads();
+  if (ty < 4 && c < C) {
+    float s = 0.f;
+    for (int i = 0; i < 8; ++i) s += sm[ty][i][tx];
+    part[((long long)blockIdx.y * 4 + ty) * C + c] = s;
+  }
+}
+
+// ---- attention backward --------------------------------------------------------
+
+constexpr int BATT_WARPS = 16;
+
+// softmax probabilities (float32, unrounded) of query row i: lane j holds
+// p[i, lane + 32 jj]; the same arithmetic as window_attend's scores
+template <typename TB>
+__device__ __forceinline__ void prob_row(const float* q, const float* k,
+                                         int ld, int i, int N, int hd,
+                                         const TB* btab, const int* id,
+                                         float scale, float (&p)[ATT_MAXJ]) {
+  const int lane = threadIdx.x % 32;
+  float mx = -INFINITY;
+#pragma unroll
+  for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+    const int j = lane + 32 * jj;
+    p[jj] = -INFINITY;
+    if (j < N) {
+      float acc = 0.f;
+      for (int d = 0; d < hd; ++d) acc = fmaf(q[i * ld + d], k[j * ld + d], acc);
+      float b = to_f(btab[(long long)i * N + j]);
+      if (id) b += (id[i] != id[j]) ? -100.f : 0.f;
+      p[jj] = acc * scale + b;
+    }
+    mx = fmaxf(mx, p[jj]);
+  }
+  mx = warp_max(mx);
+  float sum = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+    const int j = lane + 32 * jj;
+    p[jj] = (j < N) ? expf(p[jj] - mx) : 0.f;
+    sum += p[jj];
+  }
+  sum = warp_sum(sum);
+#pragma unroll
+  for (int jj = 0; jj < ATT_MAXJ; ++jj) p[jj] /= sum;
+}
+
+__host__ __device__ inline size_t attn_bwd_smem(int N, int hd) {
+  return (size_t)(4 * N * (hd + 1) + N * N) * sizeof(float);
+}
+
+// one thread block per (window type, head), looping over the type's windows
+// (every sample, every longitude window); S holds one window's rounded dS,
+// later its rounded P
+template <typename T, typename TB>
+__global__ void __launch_bounds__(32 * BATT_WARPS)
+attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
+                T* __restrict__ dqkv, const TB* __restrict__ table,
+                const int* __restrict__ ids, float* __restrict__ dtable,
+                int B, int nz, int nlat, int nlon, int N, int C, int heads,
+                int hd, float scale) {
+  extern __shared__ float sm[];
+  const int type = blockIdx.x, h = blockIdx.y;
+  const int zz = type / nlat, hh = type % nlat;
+  const int ld = hd + 1;
+  float* q = sm;
+  float* k = q + N * ld;
+  float* v = k + N * ld;
+  float* dO = v + N * ld;
+  float* S = dO + N * ld;
+  const TB* btab = table + ((long long)type * heads + h) * N * N;
+  const int* id = ids ? ids + (long long)type * N : nullptr;
+  float* dtab = dtable + ((long long)type * heads + h) * N * N;
+  const int C3 = 3 * C;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int nwarps = blockDim.x / 32;
+
+  for (int b = 0; b < B; ++b) {
+    for (int l = 0; l < nlon; ++l) {
+      const long long base = ((((long long)b * nz + zz) * nlat + hh) * nlon + l) * N;
+      const bool first = b == 0 && l == 0;
+      __syncthreads();  // the previous window's shared memory is read
+      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
+        const int t = idx / hd, d = idx % hd;
+        const T* r = qkv + (base + t) * C3 + h * hd + d;
+        q[t * ld + d] = to_f(r[0]);
+        k[t * ld + d] = to_f(r[C]);
+        v[t * ld + d] = to_f(r[2 * C]);
+        dO[t * ld + d] = to_f(dout[(base + t) * C + h * hd + d]);
+      }
+      __syncthreads();
+
+      // rows: dS, the table gradient and dQ
+      for (int i = warp; i < N; i += nwarps) {
+        float p[ATT_MAXJ], dp[ATT_MAXJ];
+        prob_row(q, k, ld, i, N, hd, btab, id, scale, p);
+        float rs = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+          const int j = lane + 32 * jj;
+          dp[jj] = 0.f;
+          if (j < N) {
+            float acc = 0.f;
+            for (int d = 0; d < hd; ++d) acc = fmaf(dO[i * ld + d], v[j * ld + d], acc);
+            dp[jj] = acc;
+          }
+          rs += dp[jj] * p[jj];
+        }
+        rs = warp_sum(rs);
+#pragma unroll
+        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+          const int j = lane + 32 * jj;
+          if (j < N) {
+            const float ds = p[jj] * (dp[jj] - rs);
+            float* t = dtab + (long long)i * N + j;
+            *t = first ? ds : *t + ds;
+            S[i * N + j] = round_t<T>(ds);
+          }
+        }
+        __syncwarp();
+        for (int d = lane; d < hd; d += 32) {
+          float acc = 0.f;
+          for (int j = 0; j < N; ++j) acc = fmaf(S[i * N + j], k[j * ld + d], acc);
+          dqkv[(base + i) * C3 + h * hd + d] = from_f<T>(acc * scale);
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      // dK = dS^T Q
+      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
+        const int j = idx / hd, d = idx % hd;
+        float acc = 0.f;
+        for (int i = 0; i < N; ++i) acc = fmaf(S[i * N + j], q[i * ld + d], acc);
+        dqkv[(base + j) * C3 + C + h * hd + d] = from_f<T>(acc * scale);
+      }
+      __syncthreads();
+      // P again, rounded; dV = P^T dO
+      for (int i = warp; i < N; i += nwarps) {
+        float p[ATT_MAXJ];
+        prob_row(q, k, ld, i, N, hd, btab, id, scale, p);
+#pragma unroll
+        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
+          const int j = lane + 32 * jj;
+          if (j < N) S[i * N + j] = round_t<T>(p[jj]);
+        }
+      }
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
+        const int j = idx / hd, d = idx % hd;
+        float acc = 0.f;
+        for (int i = 0; i < N; ++i) acc = fmaf(S[i * N + j], dO[i * ld + d], acc);
+        dqkv[(base + j) * C3 + 2 * C + h * hd + d] = from_f<T>(acc);
+      }
+    }
+  }
+}
+
+// ---- the unit ------------------------------------------------------------------
+
+// workspace: T elements (which = 0) or float32 elements (which = 1)
+inline long long bwd_ws_elems(long long M, int C, int hidden, int which) {
+  if (which == 0) return M * (15LL * C + 2LL * hidden);
+  long long part = (long long)(C + 1) * 3 * C;
+  part = part > (long long)(C + 1) * hidden ? part : (long long)(C + 1) * hidden;
+  part = part > (long long)(hidden + 1) * C ? part : (long long)(hidden + 1) * C;
+  return M * C + 4 * M + wg_splits(M) * part;
+}
+
+template <typename T, typename TB>
+int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
+              const T* bqkv, const T* wp, const T* bp, const TB* table,
+              const int* ids, const T* n1s, const T* n1b, const T* n2s,
+              const T* w1, const T* b1, const T* w2, const T* b2,
+              const float* drop, float* dwqkv, float* dwp, float* dw1,
+              float* dw2, float* dln, float* dtable, int B, WmShape s, int C,
+              int heads, int hidden, BlockShift shx, BlockShift shg,
+              int gelu_tanh, cudaStream_t st) {
+  const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
+  const long long rps = M / B;
+  const int hd = C / heads;
+  // T workspace: xg gg (C) | qkv (3C) | attn a x1 y dy2 (C) | z hb (hidden) |
+  //              da datt (C) | dqkv (3C)
+  T* xg = ws;
+  T* gg = xg + M * C;
+  T* qkv = gg + M * C;
+  T* attn = qkv + M * 3 * C;
+  T* a = attn + M * C;
+  T* x1 = a + M * C;
+  T* y = x1 + M * C;
+  T* dy2 = y + M * C;
+  T* z = dy2 + M * C;
+  T* hb = z + M * hidden;  // h, then dz
+  T* da = hb + M * hidden;
+  T* datt = da + M * C;
+  T* dqkv = datt + M * C;
+  // float32 workspace: dx1 (C) | stats of a, of y (2 each) | split partials
+  float* dx1 = wsf;
+  float* stats_a = dx1 + M * C;
+  float* stats_y = stats_a + 2 * M;
+  float* part = stats_y + 2 * M;
+  const PadRows pad = {1, s, s.nlat * s.wh, shx.h_real, shx.canon_add};
+
+  // ---- recompute ----
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, shx, 0);
+  PANGU_CHECK_LAUNCH();
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(g, gg, M, C, s, shg, 0);
+  PANGU_CHECK_LAUNCH();
+  xgemm(xg, M, 3 * C, C, ARows<T>{xg, C}, BRows<T>{wqkv, 3 * C},
+        BiasEpi<T>{bqkv, qkv, 3 * C}, st);
+  PANGU_CHECK_LAUNCH();
+  const float scale = (float)pow((double)hd, -0.5);
+  {
+    const size_t smem = attend_smem(s.n, hd, ATT_WARPS);
+    cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 agrid((unsigned)(M / s.n), heads);
+    window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
+        qkv, attn, table, ids, s.n, C, heads, hd, s.nlon, s.nz * s.nlat, scale);
+    PANGU_CHECK_LAUNCH();
+  }
+  xgemm(attn, M, C, C, ARows<T>{attn, C}, BRows<T>{wp, C},
+        BiasEpi<T>{bp, a, C}, st);
+  PANGU_CHECK_LAUNCH();
+  ln1_fwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(a, xg, n1s, n1b, drop, x1,
+                                                   stats_a, M, C, rps);
+  PANGU_CHECK_LAUNCH();
+  xgemm(x1, M, hidden, C, ARows<T>{x1, C}, BRows<T>{w1, hidden},
+        ZhEpi<T>{b1, z, hb, hidden, gelu_tanh}, st);
+  PANGU_CHECK_LAUNCH();
+  xgemm(hb, M, C, hidden, ARows<T>{hb, hidden}, BRows<T>{w2, C},
+        BiasEpi<T>{b2, y, C}, st);
+  PANGU_CHECK_LAUNCH();
+
+  // ---- the tail ----
+  ln2_bwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(y, gg, n2s, drop, dy2,
+                                                   stats_y, M, C, rps);
+  PANGU_CHECK_LAUNCH();
+  wgrad<T>(M, hidden + 1, C, ACols<T>{hb, hidden, 1}, BRows<T>{dy2, C}, part,
+           dw2, st);
+  PANGU_CHECK_LAUNCH();
+  xgemm(dy2, M, hidden, C, ARows<T>{dy2, C}, BCols<T>{w2, C},
+        DzEpi<T>{z, hb, hidden, gelu_tanh}, st);
+  PANGU_CHECK_LAUNCH();
+  wgrad<T>(M, C + 1, hidden, ACols<T>{x1, C, 1}, BRows<T>{hb, hidden}, part,
+           dw1, st);
+  PANGU_CHECK_LAUNCH();
+  xgemm(hb, M, C, hidden, ARows<T>{hb, hidden}, BCols<T>{w1, hidden},
+        Dx1Epi<T>{gg, dx1, C}, st);
+  PANGU_CHECK_LAUNCH();
+  ln1_bwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(a, dx1, n1s, drop, stats_a,
+                                                   da, M, C, rps);
+  PANGU_CHECK_LAUNCH();
+  {
+    const int splits = wg_splits(M);
+    dim3 grid((C + 31) / 32, splits);
+    ln_grads_kernel<T><<<grid, 256, 0, st>>>(a, dx1, y, gg, stats_a, stats_y,
+                                             drop, part, M, C, rps);
+    PANGU_CHECK_LAUNCH();
+    split_sum(part, dln, 4LL * C, splits, st);
+    PANGU_CHECK_LAUNCH();
+  }
+
+  // ---- proj ----
+  wgrad<T>(M, C + 1, C, ACols<T>{attn, C, 1}, BRows<T>{da, C}, part, dwp, st);
+  PANGU_CHECK_LAUNCH();
+  xgemm(da, M, C, C, ARows<T>{da, C}, BCols<T>{wp, C}, RoundEpi<T>{datt, C},
+        st);
+  PANGU_CHECK_LAUNCH();
+
+  // ---- attention ----
+  {
+    const size_t smem = attn_bwd_smem(s.n, hd);
+    cudaError_t e = cudaFuncSetAttribute(attn_bwd_kernel<T, TB>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    dim3 grid(s.nz * s.nlat, heads);
+    attn_bwd_kernel<T, TB><<<grid, 32 * BATT_WARPS, smem, st>>>(
+        qkv, datt, dqkv, table, ids, dtable, B, s.nz, s.nlat, s.nlon, s.n, C,
+        heads, hd, scale);
+    PANGU_CHECK_LAUNCH();
+  }
+
+  // ---- qkv and the residual ----
+  wgrad<T>(M, C + 1, 3 * C, ACols<T>{xg, C, 1}, BRows<T>{dqkv, 3 * C}, part,
+           dwqkv, st);
+  PANGU_CHECK_LAUNCH();
+  xgemm(dqkv, M, C, 3 * C, ARows<T>{dqkv, 3 * C}, BCols<T>{wqkv, 3 * C},
+        DxEpi<T>{dx1, dx, C, pad}, st);
+  PANGU_CHECK_LAUNCH();
+  return 0;
+}
+
+}  // namespace pangu
+
+using namespace pangu;
+
+// Workspace the entry below needs for ``rows`` storage rows: elements of the
+// activation dtype (which = 0) or float32 elements (which = 1).
+extern "C" long long pangu_block_bwd_ws(long long rows, int C, int hidden,
+                                        int which) {
+  return bwd_ws_elems(rows, C, hidden, which);
+}
+
+// dtype codes: 0 = float32, 1 = bfloat16.  Outputs: dx (storage, the block's
+// window coordinates), and float32 dwqkv (C+1, 3C), dwp (C+1, C),
+// dw1 (C+1, hidden), dw2 (hidden+1, C) -- the last row the bias gradient --
+// dln (4, C) = (norm1 scale, norm1 bias, norm2 scale, norm2 bias), dtable
+// (ntype, heads, N, N).  drop: (B, 2) float32 branch scales or null.
+// Returns a cudaError_t (0 = ok).
+extern "C" int pangu_block_bwd(
+    int dtype, int table_dtype, const void* x, const void* g, void* dx,
+    void* ws, void* wsf, const void* wqkv, const void* bqkv, const void* wp,
+    const void* bp, const void* table, const void* ids, const void* n1s,
+    const void* n1b, const void* n2s, const void* w1, const void* b1,
+    const void* w2, const void* b2, const void* drop, void* dwqkv, void* dwp,
+    void* dw1, void* dw2, void* dln, void* dtable, int B, int nz, int nlat,
+    int nlon, int n, int C, int heads, int hidden, int wz, int wh, int ww,
+    int dxz, int dxh, int dxw, int dgz, int dgh, int dgw, int canon_add,
+    int h_real, int gelu_tanh, void* stream) {
+  WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
+  BlockShift shx = {dxz, dxh, dxw, canon_add, h_real};
+  BlockShift shg = {dgz, dgh, dgw, 0, nlat * wh};  // g: no pad rows synthesised
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+#define PANGU_BWD(T, TB)                                                       \
+  return block_bwd<T, TB>(                                                     \
+      (const T*)x, (const T*)g, (T*)dx, (T*)ws, (float*)wsf, (const T*)wqkv,   \
+      (const T*)bqkv, (const T*)wp, (const T*)bp, (const TB*)table,            \
+      (const int*)ids, (const T*)n1s, (const T*)n1b, (const T*)n2s,            \
+      (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,                  \
+      (const float*)drop, (float*)dwqkv, (float*)dwp, (float*)dw1,             \
+      (float*)dw2, (float*)dln, (float*)dtable, B, s, C, heads, hidden, shx,   \
+      shg, gelu_tanh, st)
+  if (dtype == 0 && table_dtype == 0) PANGU_BWD(float, float);
+  if (dtype == 0 && table_dtype == 1) PANGU_BWD(float, bf16);
+  if (dtype == 1 && table_dtype == 0) PANGU_BWD(bf16, float);
+  if (dtype == 1 && table_dtype == 1) PANGU_BWD(bf16, bf16);
+#undef PANGU_BWD
+  return (int)cudaErrorInvalidValue;
+}

@@ -24,6 +24,10 @@
 //               probabilities rounded to T before P.V; type = zz*nlat + hh
 //   4. GEMM     a = round_T(attn @ Wp + bp)
 //   5. LN       x1 = round_T(xg + round_T(LN1(a)))
+//               (training, with per-sample branch scales s1, s2 from a
+//               (B, 2) float32 ``drop``: x1 = round_T(xg +
+//               round_T(round_T(LN1(a)) * round_T(s1))), and likewise s2 in
+//               step 8; a null ``drop`` is the served block)
 //   6. GEMM     h = round_T(GELU(round_T(x1 @ W1 + b1)))   (erf or tanh)
 //   7. GEMM     y = round_T(h @ W2 + b2)
 //   8. LN       out = round_T(x1 + round_T(LN2(y))); a canonical output row
@@ -45,130 +49,9 @@
 // uses untuned WMMA (bf16) / FMA (float32) GEMMs and a one-warp-per-query
 // attention loop, so it runs well below that bound; fusing the steps and
 // moving the GEMMs to wgmma is later work.
-#include "common.cuh"
+#include "block_common.cuh"
 
 namespace pangu {
-
-struct BlockShift {
-  int dz, dh, dw, canon_add, h_real;
-};
-
-// 1. gather: one warp per window-coordinate row
-template <typename T>
-__global__ void __launch_bounds__(256)
-block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
-                    int C, WmShape s, BlockShift sh, int in_canon) {
-  const int lane = threadIdx.x % 32;
-  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (m >= M) return;
-  const WmPos p = wm_split(m, s);
-  const int Z = s.nz * s.wz, hp = s.nlat * s.wh, W = s.nlon * s.ww;
-  T* dst = xg + m * C;
-  if (pmod(s.wh * p.hh + p.rh + sh.canon_add, hp) >= sh.h_real) {
-    for (int c = lane; c < C; c += 32) dst[c] = from_f<T>(0.f);
-    return;
-  }
-  const int z = pmod(s.wz * p.zz + p.rz + sh.dz, Z);
-  const int lat = pmod(s.wh * p.hh + p.rh + sh.dh, hp);
-  const int lon = pmod(s.ww * p.l + p.rw + sh.dw, W);
-  const T* src = x + (in_canon ? grid_row(p.b, z, lat, lon, s)
-                               : wm_row(p.b, z, lat, lon, s)) * C;
-  for (int c = lane; c < C; c += 32) dst[c] = src[c];
-}
-
-// 3. windowed attention of one (window, head): q, k, v of the window in
-// shared memory as float32 (rows padded to hd+1 against bank conflicts), one
-// warp per query row; lane j holds scores j, j+32, ...  ``btab``/``id``: the
-// window type's (N, N) bias slice for this head and its region ids (null for
-// an unshifted block), in global or shared memory.
-constexpr int ATT_WARPS = 8;
-constexpr int GATT_WARPS = 16;
-constexpr int ATT_MAXJ = 8;  // N <= 256
-
-template <typename T, typename TB>
-__device__ __forceinline__ void window_attend(
-    const T* __restrict__ qkv, T* __restrict__ out, long long base, int h,
-    const TB* btab, const int* id, float* sm, int N, int C, int hd,
-    float scale) {
-  const int ld = hd + 1;
-  float* q = sm;
-  float* k = q + N * ld;
-  float* v = k + N * ld;
-  float* prow = v + N * ld;  // one row of N probabilities per warp
-  const int C3 = 3 * C;
-  const int nwarps = blockDim.x / 32;
-
-  for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
-    int t = idx / hd, d = idx % hd;
-    const T* r = qkv + (base + t) * C3 + h * hd + d;
-    q[t * ld + d] = to_f(r[0]);
-    k[t * ld + d] = to_f(r[C]);
-    v[t * ld + d] = to_f(r[2 * C]);
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float* pr = prow + warp * N;
-  for (int i = warp; i < N; i += nwarps) {
-    float s[ATT_MAXJ];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-      int j = lane + 32 * jj;
-      s[jj] = -INFINITY;
-      if (j < N) {
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(q[i * ld + d], k[j * ld + d], acc);
-        float b = to_f(btab[(long long)i * N + j]);
-        if (id) b += (id[i] != id[j]) ? -100.f : 0.f;
-        s[jj] = acc * scale + b;
-      }
-      mx = fmaxf(mx, s[jj]);
-    }
-    mx = warp_max(mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-      int j = lane + 32 * jj;
-      s[jj] = (j < N) ? expf(s[jj] - mx) : 0.f;
-      sum += s[jj];
-    }
-    sum = warp_sum(sum);
-#pragma unroll
-    for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-      int j = lane + 32 * jj;
-      if (j < N) pr[j] = round_t<T>(s[jj] / sum);
-    }
-    __syncwarp();
-    for (int d = lane; d < hd; d += 32) {
-      float o = 0.f;
-      for (int j = 0; j < N; ++j) o = fmaf(pr[j], v[j * ld + d], o);
-      out[(base + i) * C + h * hd + d] = from_f<T>(o);
-    }
-    __syncwarp();
-  }
-}
-
-__host__ __device__ inline size_t attend_smem(int N, int hd, int warps) {
-  return (size_t)(3 * N * (hd + 1) + warps * N) * sizeof(float);
-}
-
-// one thread block per (window, head); type = zz * nlat + hh
-template <typename T, typename TB>
-__global__ void __launch_bounds__(32 * ATT_WARPS)
-window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
-                   const TB* __restrict__ bias_table, const int* __restrict__ ids,
-                   int N, int C, int heads, int hd, int nlon, int ntype_per_b,
-                   float scale) {
-  extern __shared__ float sm[];
-  const long long win = blockIdx.x;
-  const int h = blockIdx.y;
-  const int type = (int)((win / nlon) % ntype_per_b);
-  window_attend<T, TB>(qkv, out, win * N, h,
-                       bias_table + ((long long)type * heads + h) * N * N,
-                       ids ? ids + (long long)type * N : nullptr, sm, N, C,
-                       hd, scale);
-}
 
 // grouped: one thread block per (sample, z window, group of gh lat windows,
 // head); each window type's bias slice and region ids are staged in shared
@@ -211,7 +94,8 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
              const void* table_, const int* ids, const void* n1s_,
              const void* n1b_, const void* n2s_, const void* n2b_,
              const void* w1_, const void* b1_, const void* w2_, const void* b2_,
-             int B, WmShape s, int C, int heads, int hidden, BlockShift sh,
+             const float* drop, int B, WmShape s, int C, int heads, int hidden,
+             BlockShift sh,
              int gelu_tanh, int gh, int in_canon, int out_canon,
              cudaStream_t st) {
   const T* x = (const T*)x_;
@@ -263,7 +147,9 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
 
   gemm(attn, (const T*)wp_, (const T*)bp_, a, (int)M, C, C, ACT_NONE, none, st);
   PANGU_CHECK_LAUNCH();
-  ln_rows<T>(a, xg, x1, (const T*)n1s_, (const T*)n1b_, M, C, st);
+  const long long rows_per_sample = M / B;
+  ln_rows<T>(a, xg, x1, (const T*)n1s_, (const T*)n1b_, M, C, st, RowMap{},
+             drop, 0, rows_per_sample);
   PANGU_CHECK_LAUNCH();
   gemm(x1, (const T*)w1_, (const T*)b1_, hb, (int)M, hidden, C,
        gelu_tanh ? ACT_GELU_TANH : ACT_GELU_ERF, none, st);
@@ -271,7 +157,8 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
   gemm(hb, (const T*)w2_, (const T*)b2_, y, (int)M, C, hidden, ACT_NONE, none, st);
   PANGU_CHECK_LAUNCH();
   const RowMap out_map = {out_canon, s};
-  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st, out_map);
+  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st, out_map,
+             drop, 1, rows_per_sample);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
@@ -280,7 +167,8 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
 
 using namespace pangu;
 
-// dtype codes: 0 = float32, 1 = bfloat16.  gh: lat windows per attention
+// dtype codes: 0 = float32, 1 = bfloat16.  drop: (B, 2) float32 branch
+// scales or null.  gh: lat windows per attention
 // program (1: one window per program); in_canon / out_canon: x / out is the
 // (B, Z, Hp, W, C) grid instead of wm storage.  Returns a cudaError_t (0 = ok).
 extern "C" int pangu_block_wm(
@@ -288,7 +176,8 @@ extern "C" int pangu_block_wm(
     const void* wqkv, const void* bqkv, const void* wp, const void* bp,
     const void* table, const void* ids, const void* n1s, const void* n1b,
     const void* n2s, const void* n2b, const void* w1, const void* b1,
-    const void* w2, const void* b2, int B, int nz, int nlat, int nlon, int n,
+    const void* w2, const void* b2, const void* drop, int B, int nz,
+    int nlat, int nlon, int n,
     int C, int heads, int hidden, int wz, int wh, int ww, int dz, int dh,
     int dw, int canon_add, int h_real, int gelu_tanh, int gh, int in_canon,
     int out_canon, void* stream) {
@@ -300,7 +189,8 @@ extern "C" int pangu_block_wm(
     return (int)cudaErrorInvalidValue;
 #define PANGU_BLOCK(T, TB)                                                     \
   return block_wm<T, TB>(x, out, workspace, wqkv, bqkv, wp, bp, table, id, \
-                         n1s, n1b, n2s, n2b, w1, b1, w2, b2, B, s, C, heads,  \
+                         n1s, n1b, n2s, n2b, w1, b1, w2, b2,                \
+                         (const float*)drop, B, s, C, heads,                  \
                          hidden, sh, gelu_tanh, gh, in_canon, out_canon, st)
   if (dtype == 0 && table_dtype == 0) PANGU_BLOCK(float, float);
   if (dtype == 0 && table_dtype == 1) PANGU_BLOCK(float, bf16);

@@ -320,13 +320,19 @@ inline void gemm(const bf16* A, const bf16* B, const bf16* bias, bf16* C, int M,
 // Row LayerNorm over C channels, float32 statistics, one warp per row:
 //   out = round_T(res + round_T(LN(y)))   (res given: the block tail)
 //   out = round_T(LN(y))                   (res null; may run in place)
-// Row m is written to out row map_row(m, out_map).
+// Row m is written to out row map_row(m, out_map).  With a branch-scale
+// pointer ``drop`` ((B, 2) float32, stochastic depth), the rounded LN value
+// is multiplied by round_T(drop[b, which]) and rounded again before the
+// residual is added, b = m / rows_per_sample; a null pointer is the plain
+// tail.
 // ---------------------------------------------------------------------------
 
 template <typename T>
 __global__ void __launch_bounds__(256)
 ln_rows_kernel(const T* y, const T* res, T* out, const T* __restrict__ scale,
-               const T* __restrict__ shift, long long M, int C, RowMap out_map) {
+               const T* __restrict__ shift, long long M, int C, RowMap out_map,
+               const float* __restrict__ drop, int which,
+               long long rows_per_sample) {
   const int lane = threadIdx.x % 32;
   const long long row = (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   if (row >= M) return;
@@ -341,8 +347,11 @@ ln_rows_kernel(const T* y, const T* res, T* out, const T* __restrict__ scale,
   }
   const float rs = rsqrtf(warp_sum(v) / C + 1e-5f);
   T* o = out + map_row(row, out_map) * C;
+  const float ds = drop ? round_t<T>(drop[2 * (row / rows_per_sample) + which])
+                        : 1.f;
   for (int c = lane; c < C; c += 32) {
     float ln = round_t<T>((to_f(yr[c]) - mu) * rs * to_f(scale[c]) + to_f(shift[c]));
+    if (drop) ln = round_t<T>(ln * ds);
     if (res) ln += to_f(res[row * C + c]);
     o[c] = from_f<T>(ln);
   }
@@ -351,11 +360,12 @@ ln_rows_kernel(const T* y, const T* res, T* out, const T* __restrict__ scale,
 template <typename T>
 inline void ln_rows(const T* y, const T* res, T* out, const T* scale,
                     const T* shift, long long M, int C, cudaStream_t st,
-                    RowMap out_map = RowMap{}) {
+                    RowMap out_map = RowMap{}, const float* drop = nullptr,
+                    int which = 0, long long rows_per_sample = 1) {
   const int rows_per_block = 8;
   long long blocks = (M + rows_per_block - 1) / rows_per_block;
   ln_rows_kernel<T><<<(unsigned)blocks, 32 * rows_per_block, 0, st>>>(
-      y, res, out, scale, shift, M, C, out_map);
+      y, res, out, scale, shift, M, C, out_map, drop, which, rows_per_sample);
 }
 
 // sample rows a warp at a time: one thread block of 8 warps per 8 rows

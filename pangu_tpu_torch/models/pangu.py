@@ -17,6 +17,13 @@ JAX package does when it collects golden activations: each stage reads and
 writes the canonical (B, Z, H, W, C) grid (end-point blocks in canon
 layout), with the canonical DownSample / UpSample kernels between them, and
 every stage boundary lands in ``taps``.
+
+``forward(..., deterministic=False)`` is the training forward, differentiable
+in every parameter: ``forward_core_wm_train`` (one autograd Function per
+stage call, the block kernels with per-sample stochastic-depth scales
+forward, the block backward kernel backward) between the differentiable edge
+(``embed_wm_train`` / ``recovery_wm_train`` with ``cfg.edge_kernels``, else
+patch embed and patch recovery by autograd).
 """
 
 from __future__ import annotations
@@ -27,15 +34,20 @@ from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import to_device
 from pangu_tpu_torch.models import layers as L
-from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
-from pangu_tpu_torch.ops.recovery_wm import recovery_wm, recovery_wm_plain
+from pangu_tpu_torch.ops.earth_block_bwd import run_stage_train_wm
+from pangu_tpu_torch.ops.embed_wm import (embed_wm, embed_wm_plain,
+                                          embed_wm_train)
+from pangu_tpu_torch.ops.recovery_wm import (recovery_wm, recovery_wm_plain,
+                                             recovery_wm_train)
 from pangu_tpu_torch.ops.earth_block_wm import (run_stage_wm, to_window_major,
                                                 wm_to_canonical)
 from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
                                         up_sample, up_sample_plain)
 from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
-                                           down_sample_wm_plain, up_sample_wm,
-                                           up_sample_wm_plain)
+                                           down_sample_wm_plain,
+                                           down_sample_wm_train, up_sample_wm,
+                                           up_sample_wm_plain,
+                                           up_sample_wm_train)
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +159,60 @@ def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     return skip, dec, off3
 
 
+def _stage_drops(n_blocks: int, rates, offset: int, gen, B: int):
+    """Per-block (B, 2) float32 stochastic-depth branch scales (timm
+    DropPath): for block j at rate r, each sample's scale is 0 with
+    probability r and 1/(1 - r) otherwise, drawn from ``gen`` (on its
+    device); ones at rate 0 or without a generator."""
+    dev = gen.device if gen is not None else torch.device("cpu")
+    drops = []
+    for j in range(n_blocks):
+        rate = rates[offset + j]
+        cols = []
+        for _ in range(2):
+            if gen is None or rate == 0.0:
+                cols.append(torch.ones(B, device=dev))
+            else:
+                keep = 1.0 - rate
+                m = torch.bernoulli(torch.full((B,), keep, device=dev),
+                                    generator=gen)
+                cols.append(m / keep)
+        drops.append(torch.stack(cols, dim=1))
+    return drops
+
+
+def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
+                          drops=None, kernels: bool = True):
+    """The training trunk in window-major storage, differentiable in ``xs``
+    and every trunk parameter: each stage call is one autograd Function
+    (block kernels forward, the block backward kernel backward), DownSample
+    and UpSample their kernels forward and autograd through the plain
+    recompute backward.  ``drops``: four per-stage lists of (B, 2) branch
+    scales, or None to draw them from ``gen`` (``cfg.drop_path_rates()``;
+    ones without a generator).  Returns ``(skip_wm, dec_wm, off)`` as
+    :func:`forward_core_wm` does."""
+    g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
+    if drops is None:
+        rates = cfg.drop_path_rates()
+        drops = [_stage_drops(cfg.depths[i], rates, sum(cfg.depths[:i]), gen,
+                              xs.shape[0]) for i in range(4)]
+    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+
+    skip, off0 = run_stage_train_wm(params["stages"][0], xs, g0, drops[0], **kw)
+    x = down_sample_wm_train(params["downsample"], skip, g0, g1, off0,
+                             kernels=kernels)
+    combined = {"blocks": (list(params["stages"][1]["blocks"])
+                           + list(params["stages"][2]["blocks"]))}
+    x, off12 = run_stage_train_wm(combined, x, g1,
+                                  list(drops[1]) + list(drops[2]), **kw)
+    x = up_sample_wm_train(params["upsample"], x, g2, g3, off12,
+                           kernels=kernels)
+    dec, off3 = run_stage_train_wm(params["stages"][3], x, g3, drops[3], **kw)
+    if off0 != off3:
+        raise AssertionError("even depths keep skip and decoder in step")
+    return skip, dec, off3
+
+
 def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
               kernels: bool = True):
     """One EarthSpecificLayer on the canonical (B, Z, H, W, C) grid, as the
@@ -222,7 +288,7 @@ def recover_fields(params, skip, dec, off, cfg: ModelConfig, *,
 
 def forward(params, upper, surface, constants, cfg: ModelConfig, *,
             device: _device.DeviceLike = "cuda", kernels: bool = True,
-            taps=None):
+            taps=None, deterministic: bool = True, gen=None, drops=None):
     """Full forward step: upper (B, 5, levels, lat, lon) and surface
     (B, 4, lat, lon) in physical units in, the *normalised* prediction
     (upper, surface) out.  Inputs and constants are moved to ``device``; the
@@ -233,13 +299,33 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample`` and
     ``stage3`` (tensors on ``device``); the step then runs patch embed, the
     canonical-layout trunk (:func:`forward_core`) and patch recovery, as
-    the JAX package does when it is given taps."""
+    the JAX package does when it is given taps.
+
+    ``deterministic=False``: the training forward, differentiable in the
+    params, with stochastic-depth scales ``drops`` (four per-stage lists of
+    (B, 2) tensors) or drawn from the ``torch.Generator`` ``gen`` (see
+    :func:`forward_core_wm_train`)."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
         raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
     consts = to_device(constants, dev)
     cdt = _device.dtype_of(cfg.compute_dtype)
+    if not deterministic:
+        if taps is not None:
+            raise ValueError("taps are collected by the served forward only")
+        u, s = upper.to(dev, cdt), surface.to(dev, cdt)
+        if cfg.edge_kernels:
+            xs = embed_wm_train(params["patch_embed"], u, s, consts, cfg,
+                                kernels=kernels)
+        else:
+            xs = embed_tokens(params, u, s, consts, cfg, kernels=kernels)
+        skip, dec, off = forward_core_wm_train(params, xs, cfg, gen=gen,
+                                               drops=drops, kernels=kernels)
+        if cfg.edge_kernels:
+            return recovery_wm_train(params["patch_recovery"], skip, dec, off,
+                                     cfg, kernels=kernels)
+        return recover_fields(params, skip, dec, off, cfg, kernels=kernels)
     if taps is not None:
         x = L.patch_embed(params["patch_embed"], upper.to(dev, cdt),
                           surface.to(dev, cdt), consts, cfg)

@@ -7,9 +7,10 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from pangu_tpu_torch.ops.earth_block_bwd import block_bwd
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
                                                 block_wm_group)
-from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface,
+from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd, recovery_wm_surface,
                                              recovery_wm_upper)
 from pangu_tpu_torch.ops.updown import down_sample, up_sample
 from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
@@ -20,7 +21,7 @@ def kernels() -> Dict[str, Callable]:
     top: ``engine.transition_wm`` imports this package, and a package-level
     name ``embed_wm`` would hide the submodule of that name.)"""
     from pangu_tpu_torch.engine.transition_wm import apply_transition_wm
-    from pangu_tpu_torch.ops.embed_wm import embed_wm
+    from pangu_tpu_torch.ops.embed_wm import embed_dw_upper, embed_wm
     return {"block_wm": block_wm,
             "block_wm_group": block_wm_group,
             "block_wm_canon": block_wm_canon,
@@ -31,7 +32,10 @@ def kernels() -> Dict[str, Callable]:
             "recovery_wm_upper": recovery_wm_upper,
             "recovery_wm_surface": recovery_wm_surface,
             "down_sample": down_sample,
-            "up_sample": up_sample}
+            "up_sample": up_sample,
+            "block_bwd": block_bwd,
+            "embed_dw_upper": embed_dw_upper,
+            "recovery_bwd": recovery_bwd}
 
 
 def reset_launches() -> None:

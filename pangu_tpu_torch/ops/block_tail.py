@@ -29,12 +29,22 @@ def gelu(x, tanh: bool):
     return y.to(x.dtype)
 
 
-def tail_math(a, s, p, gelu_tanh: bool):
+def _scaled(branch, s):
+    """A rounded LayerNorm branch times its stochastic-depth scale, the scale
+    cast to the branch's dtype and the product rounded to it (the JAX tail's
+    order)."""
+    return branch if s is None else branch * s.to(branch.dtype)
+
+
+def tail_math(a, s, p, gelu_tanh: bool, s1=None, s2=None):
     """The block tail on (..., C) tensors: ``a`` the attention branch, ``s``
     the shortcut, ``p`` the block's params (norm1, norm2, mlp), already in
-    the activation dtype."""
+    the activation dtype.  ``s1`` / ``s2``: optional per-sample
+    stochastic-depth scales of the two branches (float32, broadcastable
+    against ``a``); None means 1.  x1 = s + s1*LN1(a); out = x1 +
+    s2*LN2(MLP(x1))."""
     dt = a.dtype
-    x1 = (s.float() + layer_norm(p["norm1"], a).float()).to(dt)
+    x1 = (s.float() + _scaled(layer_norm(p["norm1"], a), s1).float()).to(dt)
     h = gelu(dense(p["mlp"]["fc1"], x1), gelu_tanh)
     y = dense(p["mlp"]["fc2"], h)
-    return (x1.float() + layer_norm(p["norm2"], y).float()).to(dt)
+    return (x1.float() + _scaled(layer_norm(p["norm2"], y), s2).float()).to(dt)

@@ -1,0 +1,393 @@
+"""Whole-block backward on window-major storage and the training stage chain:
+the counterpart of ``pangu_tpu/ops/earth_block_bwd.py`` (``_block_bwd_call``
+in wm -> wm layout, ``run_stage_train_wm`` on one device).
+
+``block_bwd`` recomputes one block's forward from its saved input and
+returns every gradient of it: the input cotangent ``dx`` in the block's OWN
+window coordinates (latitude-pad rows zeroed), and float32 sums for the
+dense kernels and biases, the LayerNorms and the bias table.  The output
+cotangent ``g`` is read through ``delta_g``, the negated window shift of the
+next block (whose backward wrote its dx in its own window coordinates), so
+no roll of a cotangent is ever materialised.  Rounding follows the JAX
+kernel body: the recomputed first branch stays float32 and ``x1`` is
+rounded once; every cotangent that feeds a product is rounded to the
+activation dtype; the bias-table gradient sums the unrounded float32 dS.
+
+``run_stage_train_wm`` is ONE ``torch.autograd.Function`` per stage call.
+Its forward runs the block kernels with their stochastic-depth scales and
+saves only each block's input (the remat of ``jax.checkpoint``); its
+backward walks the blocks in reverse through ``block_bwd``, one block at a
+time, so at most one block's recompute lives in memory.  ``kernels=False``
+runs the plain versions in both directions, on any device.
+
+``block_bwd`` launches the CUDA kernel unit (``csrc/block_bwd.cu``) on a
+CUDA tensor, with a ``launches`` count, and runs ``block_bwd_plain`` on a CPU
+tensor.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import torch
+
+from pangu_tpu_torch import _build
+from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.models.layers import dense, window_region_ids
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, block_wm,
+                                                block_wm_plain, check_drop,
+                                                drop_scales, from_window_major,
+                                                pad_rows_zeroed, params_in,
+                                                require_device,
+                                                to_window_major)
+
+# the leaves of one block's params, in the order the stage Function carries
+BLOCK_LEAVES = (("attn", "qkv", "kernel"), ("attn", "qkv", "bias"),
+                ("attn", "proj", "kernel"), ("attn", "proj", "bias"),
+                ("attn", "bias_table"), ("norm1", "scale"), ("norm1", "bias"),
+                ("norm2", "scale"), ("norm2", "bias"),
+                ("mlp", "fc1", "kernel"), ("mlp", "fc1", "bias"),
+                ("mlp", "fc2", "kernel"), ("mlp", "fc2", "bias"))
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _tree(values):
+    """BLOCK_LEAVES-ordered values -> a block's nested param dict."""
+    out = {}
+    for path, v in zip(BLOCK_LEAVES, values):
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Plain version
+# ---------------------------------------------------------------------------
+
+def _window_coords(t, geom: StageGeometry, delta: Offset):
+    """Storage -> window coordinates: position p reads storage p + delta."""
+    grid = from_window_major(t, geom.window)
+    if any(delta):
+        grid = torch.roll(grid, shifts=tuple(-d for d in delta), dims=(1, 2, 3))
+    return grid
+
+
+def _ln_stats(x32, eps: float = 1e-5):
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + eps)
+    return (x32 - mu) * rstd, rstd
+
+
+def _ln_bwd(dy32, xhat, rstd, scale32):
+    """dx of y = xhat*scale + bias given dy, and the (dscale, dbias) sums."""
+    dxhat = dy32 * scale32
+    dx = (dxhat - dxhat.mean(-1, keepdim=True)
+          - xhat * (dxhat * xhat).mean(-1, keepdim=True)) * rstd
+    rows = dy32.reshape(-1, dy32.shape[-1])
+    return dx, (rows * xhat.reshape(rows.shape)).sum(0), rows.sum(0)
+
+
+def gelu_and_grad(z32, tanh: bool):
+    """GELU and its derivative in float32 (erf form, or the tanh form)."""
+    if tanh:
+        k = math.sqrt(2.0 / math.pi)
+        t = torch.tanh(k * (z32 + 0.044715 * z32 ** 3))
+        du = k * (1.0 + 3 * 0.044715 * z32 * z32)
+        return 0.5 * z32 * (1.0 + t), 0.5 * (1.0 + t) + 0.5 * z32 * (1.0 - t * t) * du
+    phi = 0.5 * (1.0 + torch.erf(z32 * 0.7071067811865476))
+    pdf = 0.3989422804014327 * torch.exp(-0.5 * z32 * z32)
+    return z32 * phi, phi + z32 * pdf
+
+
+def _wgrad(x, dy):
+    """sum over rows of x^T dy, float32: (..., K), (..., N) -> (K, N)."""
+    return x.reshape(-1, x.shape[-1]).float().T @ dy.reshape(-1, dy.shape[-1]).float()
+
+
+def _colsum(dy):
+    return dy.reshape(-1, dy.shape[-1]).float().sum(0)
+
+
+def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
+                    delta_g: Offset, canon_add: int,
+                    ids: Optional[torch.Tensor],
+                    drop: Optional[torch.Tensor], gelu_tanh: bool):
+    """Plain PyTorch version of the block backward (any device).  Returns
+    ``(dx, grads)``: dx like ``xs`` in the block's window coordinates,
+    grads a block param tree of float32 sums."""
+    b, nz, nlat, nlon, n, c = xs.shape
+    heads = geom.heads
+    hd = c // heads
+    dt = xs.dtype
+    q = params_in(p, dt)
+    s1, s2 = drop_scales(drop, 6)
+
+    xg = to_window_major(pad_rows_zeroed(_window_coords(xs, geom, delta_x),
+                                         geom, canon_add), geom.window)
+    gf = to_window_major(_window_coords(g, geom, delta_g), geom.window).float()
+
+    # ---- recompute the forward --------------------------------------------
+    qkv = dense(q["attn"]["qkv"], xg).reshape(b, nz, nlat, nlon, n, 3, heads, hd)
+    qh, kh, vh = (qkv[..., i, :, :].transpose(-3, -2) for i in range(3))
+    bias = q["attn"]["bias_table"].float().reshape(nz, nlat, heads, n, n)
+    bias = bias[None, :, :, None]                    # type = zz * nlat + hh
+    if ids is not None:
+        r = ids.reshape(nz, nlat, n)
+        mask = torch.where(r[..., :, None] != r[..., None, :], -100.0, 0.0)
+        bias = bias + mask[None, :, :, None, None]
+    scale = hd ** -0.5
+    s = (qh.float() @ kh.float().transpose(-1, -2)) * scale + bias
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p32 = e / e.sum(-1, keepdim=True)
+    pr = p32.to(dt)
+    del s, e
+    o = (pr.float() @ vh.float()).to(dt)
+    af = o.transpose(-3, -2).reshape(b, nz, nlat, nlon, n, c)
+    a = dense(q["attn"]["proj"], af)
+
+    f = lambda t: t.float()  # noqa: E731
+    ahat, ra = _ln_stats(a.float())
+    br1 = ahat * f(q["norm1"]["scale"]) + f(q["norm1"]["bias"])
+    if s1 is not None:
+        br1 = br1 * s1
+    x1 = (xg.float() + br1).to(dt)
+    z = dense(q["mlp"]["fc1"], x1)
+    h32, dgelu = gelu_and_grad(z.float(), gelu_tanh)
+    h = h32.to(dt)
+    y = dense(q["mlp"]["fc2"], h)
+
+    # ---- backward: the tail --------------------------------------------------
+    dbr2 = gf if s2 is None else gf * s2
+    yhat, ry = _ln_stats(y.float())
+    dy2, dn2s, dn2b = _ln_bwd(dbr2, yhat, ry, f(q["norm2"]["scale"]))
+    dy2 = dy2.to(dt)
+    dw2, db2 = _wgrad(h, dy2), _colsum(dy2)
+    dz = ((dy2.float() @ f(q["mlp"]["fc2"]["kernel"]).T) * dgelu).to(dt)
+    dw1, db1 = _wgrad(x1, dz), _colsum(dz)
+    dx1 = gf + dz.float() @ f(q["mlp"]["fc1"]["kernel"]).T
+    dbr1 = dx1 if s1 is None else dx1 * s1
+    da, dn1s, dn1b = _ln_bwd(dbr1, ahat, ra, f(q["norm1"]["scale"]))
+    da = da.to(dt)
+
+    # ---- backward: proj and attention ---------------------------------------
+    dwp, dbp = _wgrad(af, da), _colsum(da)
+    datt = (da.float() @ f(q["attn"]["proj"]["kernel"]).T).to(dt)
+    do = datt.reshape(b, nz, nlat, nlon, n, heads, hd).transpose(-3, -2)
+    dv = (pr.float().transpose(-1, -2) @ do.float()).to(dt)
+    dp = do.float() @ vh.float().transpose(-1, -2)
+    ds32 = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
+    del dp
+    dtable = ds32.sum(dim=(0, 3)).reshape(nz * nlat, heads, n, n)
+    ds = ds32.to(dt)
+    del ds32, p32
+    dq = ((ds.float() @ kh.float()) * scale).to(dt)
+    dk = ((ds.float().transpose(-1, -2) @ qh.float()) * scale).to(dt)
+    dqkv = torch.stack([dq, dk, dv], dim=4)         # (.., 3, heads, n, hd)
+    dqkv = dqkv.permute(0, 1, 2, 3, 6, 4, 5, 7).reshape(b, nz, nlat, nlon, n, 3 * c)
+
+    # ---- backward: qkv and the residual --------------------------------------
+    dwqkv, dbqkv = _wgrad(xg, dqkv), _colsum(dqkv)
+    dx = (dx1 + dqkv.float() @ f(q["attn"]["qkv"]["kernel"]).T).to(dt)
+    dx = to_window_major(pad_rows_zeroed(from_window_major(dx, geom.window),
+                                         geom, canon_add), geom.window)
+    grads = {"attn": {"qkv": {"kernel": dwqkv, "bias": dbqkv},
+                      "proj": {"kernel": dwp, "bias": dbp},
+                      "bias_table": dtable},
+             "norm1": {"scale": dn1s, "bias": dn1b},
+             "norm2": {"scale": dn2s, "bias": dn2b},
+             "mlp": {"fc1": {"kernel": dw1, "bias": db1},
+                     "fc2": {"kernel": dw2, "bias": db2}}}
+    return dx, grads
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel unit
+# ---------------------------------------------------------------------------
+
+def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
+            canon_add: int, ids, drop, gelu_tanh: bool):
+    wz, wh, ww = geom.window
+    n = wz * wh * ww
+    b, nz, nlat, nlon, n_in, c = xs.shape
+    if (n_in != n or (nz * wz, nlat * wh, nlon * ww) != (geom.z, geom.h_padded,
+                                                        geom.w)
+            or xs.dtype not in DTYPE_CODE or c != geom.dim or c % geom.heads
+            or g.shape != xs.shape or g.dtype != xs.dtype
+            or not xs.is_contiguous() or not g.is_contiguous()):
+        raise ValueError(f"block_bwd: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype}, cotangent {tuple(g.shape)} {g.dtype} "
+                         f"for {geom}")
+    q = params_in(p, xs.dtype)
+    require_device(q, xs.device, "block_bwd")
+    table = q["attn"]["bias_table"]
+    ntype = nz * nlat
+    if table.dtype not in DTYPE_CODE or table.shape != (ntype, geom.heads, n, n):
+        raise ValueError(f"block_bwd: bias table {tuple(table.shape)} {table.dtype}")
+    if ids is not None:
+        ids = ids.to(device=xs.device, dtype=torch.int32).contiguous()
+        if ids.shape != (ntype, n):
+            raise ValueError(f"block_bwd: region ids {tuple(ids.shape)}")
+    drop = check_drop(drop, b, xs.device, "block_bwd")
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    rows = xs.numel() // c
+    dev = xs.device
+    lib = _build.library()
+    # workspace sizes come from the library, which also lays them out
+    ws_t = torch.empty(lib.pangu_block_bwd_ws(rows, c, hidden, 0),
+                       dtype=xs.dtype, device=dev)
+    ws_f = torch.empty(lib.pangu_block_bwd_ws(rows, c, hidden, 1),
+                       dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(xs)
+    dwqkv = torch.empty((c + 1, 3 * c), **f32)       # last row: the bias
+    dwp = torch.empty((c + 1, c), **f32)
+    dw1 = torch.empty((c + 1, hidden), **f32)
+    dw2 = torch.empty((hidden + 1, c), **f32)
+    dln = torch.empty((4, c), **f32)                  # dn1s, dn1b, dn2s, dn2b
+    dtable = torch.empty((ntype, geom.heads, n, n), **f32)
+    ptr = lambda t: t.data_ptr()  # noqa: E731
+    code = lib.pangu_block_bwd(
+        DTYPE_CODE[xs.dtype], DTYPE_CODE[table.dtype], ptr(xs), ptr(g), ptr(dx),
+        ptr(ws_t), ptr(ws_f),
+        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
+        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
+        ptr(table), None if ids is None else ptr(ids),
+        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
+        ptr(q["norm2"]["scale"]),
+        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
+        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
+        None if drop is None else ptr(drop),
+        ptr(dwqkv), ptr(dwp), ptr(dw1), ptr(dw2), ptr(dln), ptr(dtable),
+        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
+        *delta_x, *delta_g, canon_add, geom.h, int(gelu_tanh),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(code, "block_bwd")
+    grads = {"attn": {"qkv": {"kernel": dwqkv[:c], "bias": dwqkv[c]},
+                      "proj": {"kernel": dwp[:c], "bias": dwp[c]},
+                      "bias_table": dtable},
+             "norm1": {"scale": dln[0], "bias": dln[1]},
+             "norm2": {"scale": dln[2], "bias": dln[3]},
+             "mlp": {"fc1": {"kernel": dw1[:c], "bias": dw1[c]},
+                     "fc2": {"kernel": dw2[:hidden], "bias": dw2[hidden]}}}
+    return dx, grads
+
+
+def block_bwd(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
+              canon_add: int, ids: Optional[torch.Tensor],
+              drop: Optional[torch.Tensor], gelu_tanh: bool):
+    """Every gradient of one block on window-major storage: the CUDA kernel
+    unit for a CUDA tensor, the plain version for a CPU tensor.
+
+    ``xs``: the block's saved input storage; ``g``: the cotangent of its
+    output, stored so that position t holds the cotangent of output token
+    t - delta_g (``delta_g`` = minus the next block's ``delta``, (0, 0, 0)
+    for a stage's last block); ``delta_x``, ``canon_add``, ``ids`` and
+    ``drop`` as in ``block_wm``.  Returns ``(dx, grads)``: dx in the block's
+    window coordinates, pad rows zero; grads float32 sums in a block param
+    tree."""
+    if not xs.is_cuda:
+        return block_bwd_plain(p, xs, g, geom, delta_x, delta_g, canon_add,
+                               ids, drop, gelu_tanh)
+    out = _launch(p, xs, g, geom, delta_x, delta_g, canon_add, ids, drop,
+                  gelu_tanh)
+    block_bwd.launches += 1
+    return out
+
+
+block_bwd.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The training stage chain
+# ---------------------------------------------------------------------------
+
+def _schedule(geom: StageGeometry, depth: int):
+    """Per block: (delta, canon_add, shifted), and the stage's final offset,
+    as ``run_stage_wm`` chains them from canonical entry storage."""
+    wz, wh, ww = geom.window
+    half = (wz // 2, wh // 2, ww // 2)
+    off, out = (0, 0, 0), []
+    for j in range(depth):
+        shifted = j % 2 == 1
+        target = half if shifted else (0, 0, 0)
+        out.append((tuple(t - o for t, o in zip(target, off)), target[1],
+                    shifted))
+        off = target
+    return out, off
+
+
+class _StageTrain(torch.autograd.Function):
+    """One stage call: forward through the block kernels saving each block's
+    input, backward through ``block_bwd`` block by block in reverse."""
+
+    @staticmethod
+    def forward(ctx, meta, x, *leaves):
+        geom, drops, gelu_tanh, kernels = meta
+        nb = len(leaves) // len(BLOCK_LEAVES)
+        blocks = [_tree(leaves[j * len(BLOCK_LEAVES):(j + 1) * len(BLOCK_LEAVES)])
+                  for j in range(nb)]
+        sched, _ = _schedule(geom, nb)
+        ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                                geom.window), device=x.device)
+        fwd = block_wm if kernels else block_wm_plain
+        inputs = []
+        for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
+            inputs.append(x)
+            x = fwd(bp, x, geom, delta, canon_add, ids if shifted else None,
+                    gelu_tanh, None if drops is None else drops[j])
+        ctx.meta = meta
+        ctx.save_for_backward(*inputs, *leaves)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        geom, drops, gelu_tanh, kernels = ctx.meta
+        saved = ctx.saved_tensors
+        nl = len(BLOCK_LEAVES)
+        nb = len(saved) // (nl + 1)
+        inputs, leaves = saved[:nb], saved[nb:]
+        sched, _ = _schedule(geom, nb)
+        ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                                geom.window), device=g.device)
+        bwd = block_bwd if kernels else block_bwd_plain
+        g = g.contiguous()
+        dleaves: List[Optional[torch.Tensor]] = [None] * len(leaves)
+        for j in reversed(range(nb)):
+            delta, canon_add, shifted = sched[j]
+            delta_g = (tuple(-d for d in sched[j + 1][0]) if j + 1 < nb
+                       else (0, 0, 0))
+            bl = leaves[j * nl:(j + 1) * nl]
+            g, grads = bwd(_tree(bl), inputs[j], g, geom, delta, delta_g,
+                           canon_add, ids if shifted else None,
+                           None if drops is None else drops[j], gelu_tanh)
+            for i, (path, leaf) in enumerate(zip(BLOCK_LEAVES, bl)):
+                dleaves[j * nl + i] = _get(grads, path).to(leaf.dtype)
+        return (None, g, *dleaves)
+
+
+def run_stage_train_wm(stage_params, x, geom: StageGeometry,
+                       drops: Optional[list], *, gelu_tanh: bool = False,
+                       kernels: bool = True):
+    """Training forward of one EarthSpecificLayer on window-major storage,
+    differentiable in ``x`` and every block parameter.  ``x``: wm entry
+    storage in canonical coordinates; returns the ROLLED storage and its
+    offset ``(xs, off)``, as ``run_stage_wm(io_layout="wm")`` does.
+    ``drops``: one (B, 2) float32 tensor of branch scales per block, or None.
+    The backward hands back the input cotangent in the input's own storage
+    coordinates."""
+    blocks = stage_params["blocks"]
+    leaves = [_get(bp, path) for bp in blocks for path in BLOCK_LEAVES]
+    if drops is not None:
+        drops = [d.to(x.device) for d in drops]
+    meta = (geom, drops, gelu_tanh, kernels)
+    _, off = _schedule(geom, len(blocks))
+    return _StageTrain.apply(meta, x, *leaves), off

@@ -107,9 +107,21 @@ def params_in(p, dt):
             for k, v in p.items()}
 
 
+def drop_scales(drop, ndim: int):
+    """(B, 2) float32 branch scales -> the two (B, 1, ..., 1) scales that
+    broadcast against an ndim-dimensional activation (or None, None)."""
+    if drop is None:
+        return None, None
+    shape = (drop.shape[0],) + (1,) * (ndim - 1)
+    return drop[:, 0].reshape(shape), drop[:, 1].reshape(shape)
+
+
 def block_wm_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
-                   ids: Optional[torch.Tensor], gelu_tanh: bool):
-    """Plain PyTorch version of the block kernel (any device)."""
+                   ids: Optional[torch.Tensor], gelu_tanh: bool,
+                   drop: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the block kernel (any device).  ``drop``:
+    optional (B, 2) float32 stochastic-depth scales of the attention and MLP
+    branches of each sample."""
     b, nz, nlat, nlon, n, c = xs.shape
     heads = geom.heads
     hd = c // heads
@@ -137,14 +149,26 @@ def block_wm_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     o = o.transpose(-3, -2).reshape(b, nz, nlat, nlon, n, c)
 
     a = dense(p["attn"]["proj"], o)
-    return tail_math(a, xg, p, gelu_tanh)
+    return tail_math(a, xg, p, gelu_tanh, *drop_scales(drop, a.dim()))
+
+
+def check_drop(drop, b: int, device, what: str):
+    """A (B, 2) float32 contiguous drop tensor on ``device``, or None."""
+    if drop is None:
+        return None
+    if (drop.shape != (b, 2) or drop.dtype != torch.float32
+            or drop.device != device):
+        raise ValueError(f"{what}: drop {tuple(drop.shape)} {drop.dtype} on "
+                         f"{drop.device}, want ({b}, 2) float32 on {device}")
+    return drop.contiguous()
 
 
 def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
             ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int,
-            in_canon: bool, out_canon: bool, what: str):
+            in_canon: bool, out_canon: bool, what: str, drop=None):
     """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
-    the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take."""
+    the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take.
+    ``drop``: (B, 2) float32 branch scales or None (the served kernel)."""
     wz, wh, ww = geom.window
     n = wz * wh * ww
     if in_canon:
@@ -168,6 +192,7 @@ def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
         ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
         if ids.shape != (nz * nlat, n):
             raise ValueError(f"{what}: region ids {tuple(ids.shape)}")
+    drop = check_drop(drop, b, x.device, what)
     hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
     rows = x.numel() // c
     ws = torch.empty(rows * (6 * c + hidden), dtype=x.dtype, device=x.device)
@@ -181,6 +206,7 @@ def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
         ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
         ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
         ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
+        None if drop is None else ptr(drop),
         b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
         *delta, canon_add, geom.h, int(gelu_tanh), gh, int(in_canon),
         int(out_canon), torch.cuda.current_stream(x.device).cuda_stream)
@@ -189,18 +215,22 @@ def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
 
 
 def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
-             ids: Optional[torch.Tensor], gelu_tanh: bool):
+             ids: Optional[torch.Tensor], gelu_tanh: bool,
+             drop: Optional[torch.Tensor] = None):
     """One whole Earth-specific block on window-major storage: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor.
 
     ``delta``: shift from storage to window coordinates; ``canon_add``: the
     latitude component of this block's own offset (canonical latitude of
     window row rh of window hh is (wh*hh + rh + canon_add) % hp); ``ids``:
-    (ntype, N) int32 region ids for a shifted block, else None."""
+    (ntype, N) int32 region ids for a shifted block, else None; ``drop``:
+    (B, 2) float32 stochastic-depth scales of the attention and MLP branches
+    (training), else None (the served block)."""
     if not xs.is_cuda:
-        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
+                              drop)
     out = _launch(p, xs, torch.empty_like(xs), geom, delta, canon_add, ids,
-                  gelu_tanh, 1, False, False, "block_wm")
+                  gelu_tanh, 1, False, False, "block_wm", drop)
     block_wm.launches += 1
     return out
 

@@ -11,6 +11,13 @@ token planes 1.., the surface branch plane 0.
 ``recovery_wm_upper`` / ``recovery_wm_surface`` launch one CUDA kernel each
 (``csrc/recovery_wm.cu``) on a CUDA tensor, with a launch counter each, and
 run their plain versions on a CPU tensor; ``recovery_wm`` runs both.
+
+Training: ``recovery_wm_train`` is the differentiable recovery, an autograd
+Function whose backward is ``recovery_bwd`` alone (the kernel
+``csrc/recovery_bwd.cu``, counterpart of ``pangu_tpu/ops/recovery_wm.py::
+recovery_bwd_pallas``, with its own ``launches`` count): the field
+cotangents -> the pair's cotangents in its rolled storage and the heads'
+float32 gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import ModelConfig, recovery_supported
 from pangu_tpu_torch.models.layers import recover_surface, recover_upper
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, params_in,
+                                                to_window_major,
                                                 wm_to_canonical)
 
 
@@ -112,3 +120,154 @@ def recovery_wm(p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
     """Rolled stage-3 exit pair -> normalised (upper, surface) fields."""
     return (recovery_wm_upper(p, skip_wm, dec_wm, off, cfg),
             recovery_wm_surface(p, skip_wm, dec_wm, off, cfg))
+
+
+# ---------------------------------------------------------------------------
+# Training: the backward kernel and the differentiable recovery
+# ---------------------------------------------------------------------------
+
+def _feat_cotangents(dU, dS, cfg: ModelConfig):
+    """Field cotangents -> per-token feature cotangents (B, ZP, HT, WT,
+    V*pz*ph*pw) and (B, HT, WT, S*ph*pw): the inverse of the recovery's
+    interleave of non-overlapping patches, on the zero-padded fields."""
+    pz, ph, pw = cfg.patch
+    zp, ht, wt = cfg.upper_planes, cfg.h_tokens, cfg.w_tokens
+    b = dU.shape[0]
+    du = torch.nn.functional.pad(dU, (0, 0, 0, ht * ph - cfg.lat,
+                                      0, zp * pz - cfg.levels))
+    du = du.reshape(b, cfg.upper_vars, zp, pz, ht, ph, wt, pw)
+    du = du.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(b, zp, ht, wt, -1)
+    ds = torch.nn.functional.pad(dS, (0, 0, 0, ht * ph - cfg.lat))
+    ds = ds.reshape(b, cfg.surface_vars, ht, ph, wt, pw)
+    ds = ds.permute(0, 2, 4, 1, 3, 5).reshape(b, ht, wt, -1)
+    return du, ds
+
+
+def recovery_bwd_plain(p, skip_wm, dec_wm, dU, dS, off: Offset,
+                       cfg: ModelConfig):
+    """Plain PyTorch version of the recovery backward kernel (any device):
+    ``(grads, d_skip_wm, d_dec_wm)``, grads float32."""
+    g = cfg.stage(3)
+    dt = skip_wm.dtype
+    c = g.dim
+    ht = cfg.h_tokens
+    dF_u, dF_s = _feat_cotangents(dU.to(dt), dS.to(dt), cfg)
+    ku, ks = p["upper"]["kernel"].to(dt), p["surface"]["kernel"].to(dt)
+
+    def token_cotangent(rows_u, rows_s):
+        du = (dF_u.float() @ rows_u.float().T).to(dt)
+        ds = (dF_s.float() @ rows_s.float().T).to(dt)
+        t = torch.cat([ds[:, None], du], dim=1)          # (B, Z, HT, WT, C)
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, g.h_padded - ht))
+        t = torch.roll(t, shifts=tuple(-o for o in off), dims=(1, 2, 3))
+        return to_window_major(t, g.window)
+
+    cs = wm_to_canonical(skip_wm, off, g)
+    cd = wm_to_canonical(dec_wm, off, g)
+
+    def head(feat, plane):
+        feat = feat.reshape(-1, feat.shape[-1]).float()
+        parts = [(t[:, 1:] if plane == "upper" else t[:, 0]).reshape(-1, c)
+                 .float().T @ feat for t in (cs, cd)]
+        return {"kernel": torch.cat(parts), "bias": feat.sum(0)}
+
+    grads = {"upper": head(dF_u, "upper"), "surface": head(dF_s, "surface")}
+    return (grads, token_cotangent(ku[:c], ks[:c]),
+            token_cotangent(ku[c:], ks[c:]))
+
+
+def recovery_bwd(p, skip_wm, dec_wm, dU, dS, off: Offset, cfg: ModelConfig):
+    """The recovery backward: field cotangents dU (B, 5, levels, lat, lon)
+    and dS (B, 4, lat, lon) plus the saved rolled pair -> ``(grads,
+    d_skip_wm, d_dec_wm)``, the pair's cotangents rolled by ``off`` like
+    the pair, grads a float32 {"upper", "surface"} {"kernel", "bias"} tree.
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not skip_wm.is_cuda:
+        return recovery_bwd_plain(p, skip_wm, dec_wm, dU, dS, off, cfg)
+    g = cfg.stage(3)
+    wz, wh, ww = g.window
+    b, nz, nlat, nlon, n, c = skip_wm.shape
+    dt = skip_wm.dtype
+    want = (b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww, g.dim)
+    if (not recovery_supported(cfg) or dt not in DTYPE_CODE
+            or skip_wm.shape != want or dec_wm.shape != want
+            or dec_wm.dtype != dt or not skip_wm.is_contiguous()
+            or not dec_wm.is_contiguous()
+            or dU.shape != (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
+            or dS.shape != (b, cfg.surface_vars, cfg.lat, cfg.lon)):
+        raise ValueError(f"recovery_bwd: unsupported input {tuple(skip_wm.shape)}"
+                         f" {dt}, cotangents {tuple(dU.shape)} {tuple(dS.shape)}"
+                         f" for {cfg}")
+    q = {k: params_in(p[k], dt) for k in ("upper", "surface")}
+    for t in (q["upper"]["kernel"], q["surface"]["kernel"], dU, dS):
+        if t.device != skip_wm.device:
+            raise ValueError(f"recovery_bwd: operand on {t.device}, pair on "
+                             f"{skip_wm.device}")
+    du = dU.to(dt).contiguous()
+    ds = dS.to(dt).contiguous()
+    lib = _build.library()
+    part = torch.empty(lib.pangu_recovery_bwd_ws(
+        b, nz, wz, cfg.h_tokens, cfg.w_tokens, c, cfg.upper_vars),
+        dtype=torch.float32, device=skip_wm.device)
+    f32 = dict(dtype=torch.float32, device=skip_wm.device)
+    fu, fs = q["upper"]["kernel"].shape[1], q["surface"]["kernel"].shape[1]
+    dku = torch.empty((2 * c + 1, fu), **f32)
+    dks = torch.empty((2 * c + 1, fs), **f32)
+    d_skip, d_dec = torch.empty_like(skip_wm), torch.empty_like(dec_wm)
+    code = lib.pangu_recovery_bwd(
+        DTYPE_CODE[dt], du.data_ptr(), ds.data_ptr(), skip_wm.data_ptr(),
+        dec_wm.data_ptr(), q["upper"]["kernel"].data_ptr(),
+        q["surface"]["kernel"].data_ptr(), d_skip.data_ptr(),
+        d_dec.data_ptr(), part.data_ptr(), dku.data_ptr(), dks.data_ptr(),
+        b, nz, nlat, nlon, n, c, wz, wh, ww, cfg.h_tokens, cfg.upper_vars,
+        cfg.surface_vars, cfg.levels, cfg.lat, cfg.lon, *off,
+        torch.cuda.current_stream(skip_wm.device).cuda_stream)
+    _build.check(code, "recovery_bwd")
+    recovery_bwd.launches += 1
+    grads = {"upper": {"kernel": dku[:2 * c], "bias": dku[2 * c]},
+             "surface": {"kernel": dks[:2 * c], "bias": dks[2 * c]}}
+    return grads, d_skip, d_dec
+
+
+recovery_bwd.launches = 0
+
+
+class _RecoveryTrain(torch.autograd.Function):
+    """The recovery forward (kernels or plain); backward: ``recovery_bwd``
+    alone."""
+
+    @staticmethod
+    def forward(ctx, meta, skip_wm, dec_wm, ku, bu, ks, bs):
+        cfg, off, kernels = meta
+        p = {"upper": {"kernel": ku, "bias": bu},
+             "surface": {"kernel": ks, "bias": bs}}
+        out = (recovery_wm if kernels else recovery_wm_plain)(
+            p, skip_wm, dec_wm, off, cfg)
+        ctx.meta = meta
+        ctx.dtypes = (bu.dtype, bs.dtype)
+        ctx.save_for_backward(skip_wm, dec_wm, ku, ks)
+        return out
+
+    @staticmethod
+    def backward(ctx, dU, dS):
+        cfg, off, kernels = ctx.meta
+        skip_wm, dec_wm, ku, ks = ctx.saved_tensors
+        p = {"upper": {"kernel": ku}, "surface": {"kernel": ks}}
+        bwd = recovery_bwd if kernels else recovery_bwd_plain
+        grads, d_skip, d_dec = bwd(p, skip_wm, dec_wm, dU, dS, off, cfg)
+        bu_dt, bs_dt = ctx.dtypes
+        return (None, d_skip, d_dec,
+                grads["upper"]["kernel"].to(ku.dtype),
+                grads["upper"]["bias"].to(bu_dt),
+                grads["surface"]["kernel"].to(ks.dtype),
+                grads["surface"]["bias"].to(bs_dt))
+
+
+def recovery_wm_train(p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig, *,
+                      kernels: bool = True):
+    """Differentiable :func:`recovery_wm` (in the pair and the recovery
+    parameters): the two recovery kernels forward, ``recovery_bwd``
+    backward; ``kernels=False`` runs the plain versions on any device."""
+    return _RecoveryTrain.apply((cfg, tuple(off), kernels), skip_wm, dec_wm,
+                                p["upper"]["kernel"], p["upper"]["bias"],
+                                p["surface"]["kernel"], p["surface"]["bias"])

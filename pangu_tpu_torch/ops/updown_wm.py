@@ -15,6 +15,11 @@ index arithmetic in the CUDA gathers (``csrc/updown_wm.cu``); the plain
 versions here canonicalise with ``wm_to_canonical`` and run the canonical
 pair's plain versions (``ops/updown``).  The JAX UpSample kernel leaves junk in its latitude-pad rows;
 both versions here write zeros there.
+
+Training: ``down_sample_wm_train`` / ``up_sample_wm_train`` run the kernel
+forward and, backward, PyTorch autograd through a recompute of the plain
+version, as the JAX package's ``*_train`` take an XLA ``jax.vjp`` of their
+reference outside any Pallas kernel.
 """
 
 from __future__ import annotations
@@ -128,3 +133,59 @@ def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
 
 
 up_sample_wm.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel forward, autograd through the plain recompute backward
+# ---------------------------------------------------------------------------
+
+class _RecomputeTrain(torch.autograd.Function):
+    """``fwd`` forward; backward: autograd of ``plain`` recomputed from the
+    saved input and parameters."""
+
+    @staticmethod
+    def forward(ctx, meta, xs, *leaves):
+        fwd, plain, rebuild, args = meta
+        ctx.meta = meta
+        ctx.save_for_backward(xs, *leaves)
+        return fwd(rebuild(leaves), xs, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, plain, rebuild, args = ctx.meta
+        xs, *leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = xs.detach().requires_grad_(True)
+            leaves = [t.detach().requires_grad_(True) for t in leaves]
+            y = plain(rebuild(leaves), xs, *args)
+            grads = torch.autograd.grad(y, [xs, *leaves], g)
+        return (None, *grads)
+
+
+def _train(fwd, plain, p, xs, args, kernels: bool):
+    keys = [(k, j) for k in sorted(p) for j in sorted(p[k])]
+
+    def rebuild(leaves):
+        out = {}
+        for (k, j), t in zip(keys, leaves):
+            out.setdefault(k, {})[j] = t
+        return out
+
+    meta = (fwd if kernels else plain, plain, rebuild, args)
+    return _RecomputeTrain.apply(meta, xs, *(p[k][j] for k, j in keys))
+
+
+def down_sample_wm_train(p, xs, geom0: StageGeometry, geom1: StageGeometry,
+                         off: Offset, *, kernels: bool = True):
+    """Differentiable :func:`down_sample_wm` (in ``xs`` and ``p``): the
+    kernel forward (``kernels=False``: the plain version), the backward
+    through the plain recompute."""
+    return _train(down_sample_wm, down_sample_wm_plain, p, xs,
+                  (geom0, geom1, tuple(off)), kernels)
+
+
+def up_sample_wm_train(p, xs, geom2: StageGeometry, geom3: StageGeometry,
+                       off: Offset, *, kernels: bool = True):
+    """Differentiable :func:`up_sample_wm`, as :func:`down_sample_wm_train`."""
+    return _train(up_sample_wm, up_sample_wm_plain, p, xs,
+                  (geom2, geom3, tuple(off)), kernels)

@@ -15,7 +15,7 @@ DERIVED = ["lat_padded", "levels_padded", "upper_planes", "z_tokens",
 SHARED_FIELDS = ["upper_vars", "surface_vars", "const_masks", "levels", "lat",
                  "lon", "patch", "window", "depths", "heads", "dims",
                  "mlp_ratio", "param_dtype", "compute_dtype",
-                 "gelu", "lat_group"]
+                 "gelu", "lat_group", "drop_path_max"]
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -100,3 +100,20 @@ def test_edge_kernels_on_unsupported_geometry_raise(change):
 def test_invalid_values_raise(change):
     with pytest.raises(ValueError):
         dataclasses.replace(PC.TINY, **change)
+
+
+TRAIN_FIELDS = ["epochs", "lr", "weight_decay", "batch_size",
+                "eval_batch_size", "lr_milestones", "lr_gamma",
+                "upper_weights", "surface_weights", "surface_loss_weight",
+                "save_interval", "save_steps", "val_interval",
+                "early_stop_patience", "seed"]
+
+
+@pytest.mark.parametrize("field", TRAIN_FIELDS)
+def test_train_config_defaults_match_jax(field):
+    assert getattr(PC.TrainConfig(), field) == getattr(JC.TrainConfig(), field)
+
+
+def test_train_config_has_no_lora_fields():
+    names = {f.name for f in dataclasses.fields(PC.TrainConfig)}
+    assert names == set(TRAIN_FIELDS)

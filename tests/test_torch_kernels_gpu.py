@@ -5,8 +5,13 @@ chain uses; the edge kernels (embed, transition, recovery upper and surface)
 at the stage-end offsets (0, 0, 0) and (1, 3, 6); the grouped block (MID
 stage 1 has nlat 6: three groups of 2), the canonical end-point blocks and
 the canonical DownSample / UpSample; the canonical stage, ``forward(taps=)``
-and the hierarchical rollout; and a batch of 8 at full width, which passes
-the 65,535 row tiles that a grid's y dimension can hold.  Needs a CUDA
+and the hierarchical rollout; a batch of 8 at full width, which passes
+the 65,535 row tiles that a grid's y dimension can hold; and the training
+kernels: the block with per-sample branch scales (scales of 1 bit-equal to
+the served block), the block backward (every gradient, and bit-identical in
+two runs), the upper embed weight gradient, the recovery backward, and the
+float32 train step's loss (1e-4 relative) and gradients (1e-3 of each
+leaf's max) against the plain path.  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -386,3 +391,193 @@ def test_batch8_full_width_matches_batch1(cuda):
     want = up_sample_wm(up, x2[7:].contiguous(), g2, g3, (1, 3, 6))[0]
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= TOL[torch.bfloat16]
+
+
+# ---------------------------------------------------------------------------
+# Training kernels: the block with branch scales, the block backward, the
+# upper embed weight gradient and the recovery backward
+# ---------------------------------------------------------------------------
+
+def _drop(batch, dev, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    vals = torch.tensor([0.0, 0.8, 1.25])
+    return vals[torch.randint(0, 3, (batch, 2), generator=g)].to(dev)
+
+
+def _tree_rel_errs(got, want, path=""):
+    if isinstance(want, dict):
+        out = []
+        for k in want:
+            out += _tree_rel_errs(got[k], want[k], f"{path}/{k}")
+        return out
+    return [(path, _rel_err(got, want))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_block_wm_drop_kernel_matches_plain(cuda, cfg_name, stage, dtype):
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][1]
+    xs = _storage(geom, cuda, dtype)
+    ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                            geom.window), device=cuda)
+    drop = _drop(xs.shape[0], cuda)
+    for tanh in (False, True):
+        got = block_wm(bp, xs, geom, (1, 3, 6), 3, ids, tanh, drop)
+        want = block_wm_plain(bp, xs, geom, (1, 3, 6), 3, ids, tanh, drop)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_wm_unit_scales_bit_equal_to_served_block(cuda, dtype):
+    """Scales of 1 leave every value as the served block (drop=None) has
+    it: the scale path adds no rounding of its own."""
+    geom = MID.stage(0)
+    bp = _params(MID, cuda)["stages"][0]["blocks"][1]
+    xs = _storage(geom, cuda, dtype)
+    ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                            geom.window), device=cuda)
+    served = block_wm(bp, xs, geom, (1, 3, 6), 3, ids, True)
+    ones = block_wm(bp, xs, geom, (1, 3, 6), 3, ids, True,
+                    torch.ones(xs.shape[0], 2, device=cuda))
+    torch.cuda.synchronize()
+    assert torch.equal(served, ones)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_block_bwd_kernel_matches_plain(cuda, cfg_name, stage, dtype,
+                                        shifted):
+    from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][1]
+    xs, g = _storage(geom, cuda, dtype, 1), _storage(geom, cuda, dtype, 2)
+    drop = _drop(xs.shape[0], cuda)
+    if shifted:
+        args = ((1, 3, 6), (1, 3, 6), 3, torch.as_tensor(window_region_ids(
+            geom.z, geom.h_padded, geom.window), device=cuda))
+    else:
+        args = ((-1, -3, -6), (0, 0, 0), 0, None)
+    for tanh in (False, True):
+        got = block_bwd(bp, xs, g, geom, *args, drop, tanh)
+        want = block_bwd_plain(bp, xs, g, geom, *args, drop, tanh)
+        torch.cuda.synchronize()
+        errs = _tree_rel_errs({"dx": got[0], **got[1]},
+                              {"dx": want[0], **want[1]})
+        assert all(e <= TOL[dtype] for _, e in errs), errs
+        again = block_bwd(bp, xs, g, geom, *args, drop, tanh)
+        assert all(torch.equal(a, b) for a, b in zip(
+            [got[0], *_leaves(got[1])], [again[0], *_leaves(again[1])]))
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_embed_dw_kernel_matches_plain(cuda, cfg_name, dtype):
+    from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
+                                              embed_dw_upper_plain)
+    cfg = CFGS[cfg_name]
+    consts = to_device(synthetic_constants(cfg), cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    upper = (consts["upper_mean"][None] + consts["upper_std"][None]
+             * torch.randn((2, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                           device=cuda))
+    dxs = _storage(cfg.stage(0), cuda, dtype, 5)
+    got = embed_dw_upper(dxs, upper, consts, cfg)
+    want = embed_dw_upper_plain(dxs, upper, consts, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("off", [(0, 0, 0), (1, 3, 6)])
+def test_recovery_bwd_kernel_matches_plain(cuda, cfg_name, dtype, off):
+    from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
+                                                 recovery_bwd_plain)
+    cfg = CFGS[cfg_name]
+    p = _params(cfg, cuda)["patch_recovery"]
+    g3 = cfg.stage(3)
+    skip, dec = _storage(g3, cuda, dtype, 6), _storage(g3, cuda, dtype, 7)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    du = torch.randn((2, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                     device=cuda).to(dtype)
+    ds = torch.randn((2, 4, cfg.lat, cfg.lon), generator=g,
+                     device=cuda).to(dtype)
+    got = recovery_bwd(p, skip, dec, du, ds, off, cfg)
+    want = recovery_bwd_plain(p, skip, dec, du, ds, off, cfg)
+    torch.cuda.synchronize()
+    errs = _tree_rel_errs({"p": got[0], "skip": got[1], "dec": got[2]},
+                          {"p": want[0], "skip": want[1], "dec": want[2]})
+    assert all(e <= TOL[dtype] for _, e in errs), errs
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_train_step_kernels_match_plain(cuda, edge):
+    """The float32 train step's loss and every gradient, kernels against
+    plain versions, with stochastic-depth scales drawn once and shared."""
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    cfg = dataclasses.replace(TINY, edge_kernels=edge)
+    consts = to_device(synthetic_constants(cfg), cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+
+    def field(*shape, mean, std):
+        return mean[None] + std[None] * torch.randn(shape, generator=g,
+                                                    device=cuda)
+
+    batch = {k: field(2, v, *dims, mean=consts[f"{m}_mean"],
+                      std=consts[f"{m}_std"])
+             for k, v, dims, m in (
+                 ("upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("surface", 4, (cfg.lat, cfg.lon), "surface"),
+                 ("target_upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("target_surface", 4, (cfg.lat, cfg.lon), "surface"))}
+    rates = cfg.drop_path_rates()
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    drops = [pangu._stage_drops(cfg.depths[i], rates, sum(cfg.depths[:i]),
+                                gen, 2) for i in range(4)]
+    out = []
+    for kernels in (True, False):
+        params = _params(cfg, cuda)
+        for t in _param_leaves(params):
+            t.requires_grad_(True)
+        out.append(loss_and_grads(params, batch, consts, cfg, TrainConfig(),
+                                  device=cuda, kernels=kernels, drops=drops))
+    (lk, _, gk), (lp, _, gp) = out
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    errs = _tree_rel_errs(_as_dict(gk), _as_dict(gp))
+    assert all(e <= 1e-3 for _, e in errs), errs
+
+
+def _param_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _param_leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _param_leaves(v)
+    else:
+        yield tree
+
+
+def _as_dict(tree):
+    if isinstance(tree, list):
+        return {str(i): _as_dict(v) for i, v in enumerate(tree)}
+    if isinstance(tree, dict):
+        return {k: _as_dict(v) for k, v in tree.items()}
+    return tree
