@@ -56,11 +56,30 @@ Phases, each with its wall seconds:
         step (16 blocks with scales, 16 block backwards, 1 DownSample, 1
         UpSample, embed, embed weight gradient, recovery upper and surface,
         recovery backward), and two runs of one step's gradient on the same
-        input, which must agree bit for bit.
+        input, which must agree bit for bit;
+  7. the rolled-coordinate trunk, ``block_layout="v2"``, at full width and
+     depth:
+     a. its kernels against their plain versions, float32 and bf16: the grid
+        block at stages 0 and 1, shifted (half a window, region ids) and
+        back (minus half a window), with and without branch scales; the grid
+        attention and its backward at stage 0 with region ids and stage 1
+        without;
+     b. the float32 v2 forward against the plain path and against the
+        window-major forward from the same params (16 grid blocks, 1
+        DownSample, 1 UpSample);
+     c. a 2-step v2 full-step rollout (step 1 against the plain path) and a
+        3-step v2 token-space rollout (against the 3-step full-step one),
+        perf config, per step 16 grid blocks, 1 DownSample, 1 UpSample and
+        no other kernel;
+     d. the float32 v2 train step, kernels against plain versions on the
+        same loss cotangent; two runs of one bf16 step's gradient, bit for
+        bit; 3 bf16 Adam steps with the launch counters read per step (16
+        grid blocks with scales, 16 grid attentions, 16 grid attention
+        backwards, 1 DownSample, 1 UpSample) and device time by kernel.
 
-Training gates: the float32 train step's loss within 1e-4 relative of the
-plain path's, every gradient leaf within 1e-3 of its max; the bf16 steps'
-losses and gradient norms finite.
+Training gates (phases 6 and 7): the float32 train step's loss within 1e-4
+relative of the plain path's, every gradient leaf within 1e-3 of its max;
+the bf16 steps' losses and gradient norms finite.
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -517,6 +536,7 @@ def main() -> int:
                            device=dev)
     rollout(params, u0, s0)                     # warm the allocator
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     t_run = time.perf_counter()
@@ -549,7 +569,8 @@ def main() -> int:
         if rel > TOL_FORWARD[torch.bfloat16]:
             raise AssertionError(f"bf16 step 1 {part}: rel err {rel:.3e}")
     print(f"rollout: {step_ms:.1f} ms per step ({STEPS} steps, batch 1, bf16), "
-          f"peak memory {peak / 2**30:.2f} GiB")
+          f"peak memory {peak / 2**30:.2f} GiB, of which {held / 2**30:.2f} "
+          "GiB held before the rollout")
     del rollout, ut, st, pu, ps
     done(f"{STEPS}-step rollout, Pangu-24 perf config", t0)
 
@@ -841,6 +862,12 @@ def main() -> int:
                 block_cost, weight_bytes, records, path_counts)
     done("training step, Pangu-24 full width", t0)
 
+    # ---- 7. the block_layout="v2" trunk ---------------------------------
+    t0 = phase('block_layout="v2": kernels, forward, rollouts, training')
+    v2 = v2_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
+                  records, path_counts)
+    done('block_layout="v2": kernels, forward, rollouts, training', t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -868,7 +895,13 @@ def main() -> int:
                "embed_dw_upper": ("pangu_tpu_torch/csrc/embed_dw.cu",
                                   "pangu_tpu/ops/embed_wm.py:323"),
                "recovery_bwd": ("pangu_tpu_torch/csrc/recovery_bwd.cu",
-                                "pangu_tpu/ops/recovery_wm.py:502")}
+                                "pangu_tpu/ops/recovery_wm.py:502"),
+               "block_v2": ("pangu_tpu_torch/csrc/block_wm.cu",
+                            "pangu_tpu/ops/earth_block_fused.py:300"),
+               "grid_attention": ("pangu_tpu_torch/csrc/grid_attn.cu",
+                                  "pangu_tpu/ops/window_attention.py:502"),
+               "grid_attention_bwd": ("pangu_tpu_torch/csrc/grid_attn.cu",
+                                      "pangu_tpu/ops/window_attention.py:725")}
     # launches: each kernel's count on the main path that runs it most
     launches = {name: max(c[name] for c in path_counts.values())
                 for name in sources}
@@ -885,7 +918,8 @@ def main() -> int:
                       "token_space_rollout": {
                           "ms_per_step": tok_ms, "steps": TOKEN_STEPS,
                           "batch": 1, "peak_bytes": tok_peak,
-                          "full_step_ms_per_step": full_ms}}))
+                          "full_step_ms_per_step": full_ms},
+                      "v2": v2}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -917,17 +951,166 @@ def tree_errs(got, want, path=""):
     return [(path, *rel_err(got, want))]
 
 
-def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
-                block_cost, weight_bytes, records, path_counts):
-    """Phase 6: the training kernels against their plain versions, the
-    float32 train step against the plain path, 3 bf16 Adam steps."""
+def check_kernels(cases, dtype, records):
+    """Each case ``(name, label, flops, bytes, kernel, plain, (reps,
+    plain_reps))``: the kernel's result (a tensor or a tree of them) against
+    its plain version (the worst leaf, relative to its max), the kernel's and
+    the plain version's ms over that many launches and the bound; a case out
+    of tolerance raises.  A kernel's first bf16 case at stage 0, an offset
+    or full width is its record."""
     from pangu_tpu_torch import ops
-    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    for name, label, flops, byts, kern, plain, (reps, plain_reps) in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        errs = tree_errs(got, want)
+        del got, want
+        err = max(e[1] for e in errs)
+        rel = max(e[2] for e in errs)
+        worst = max(errs, key=lambda e: e[2])[0]
+        ms = time_ms(kern, reps)
+        plain_ms = time_ms(plain, plain_reps)
+        bound_ms, bound_by = bound(flops, byts, dtype)
+        ok = rel <= TOL[dtype]
+        print(f"{name:18s} {label:36s} {str(dtype):15s} max_abs_err "
+              f"{err:.3e} rel {rel:.3e} (worst {worst or 'out'}, tol "
+              f"{TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  kernel "
+              f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
+              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
+        if (dtype == torch.bfloat16 and name in ops.kernels()
+                and name not in records
+                and label.startswith(("stage 0", "off", "full"))):
+            records[name] = {"max_abs_err": err, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": bound_by, "at": f"{label}, bf16"}
+
+
+def adam_steps(cfg, params, batch, consts_dev, step_counts, path_counts,
+               label):
+    """bf16 training in ``cfg``: two runs of one step's gradient (they must
+    agree bit for bit), TRAIN_STEPS Adam steps with the launch counters read
+    per step (they must equal ``step_counts``), then one step in parts
+    (forward + loss, backward, Adam; host clock and memory after each) and
+    device time by kernel over one more step (torch.profiler).  Returns
+    (ms per step, peak bytes, losses)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import TrainConfig
     from pangu_tpu_torch.data.constants import norm_data
     from pangu_tpu_torch.engine.train import (create_train_state,
                                               loss_and_grads, make_optimizer,
                                               make_train_step,
                                               weighted_l1_loss)
+    from pangu_tpu_torch.models import pangu
+
+    dev = torch.device("cuda")
+    tcfg = TrainConfig()
+    # copies (bf16 -> float32 -> bf16 is exact): the steps update in place
+    ptrain = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
+    opt = make_optimizer(tcfg)
+    state_ = create_train_state(ptrain, opt)
+    # two runs of one step's gradient on the same input and seed
+    runs = [[t.clone() for t in leaves(loss_and_grads(
+        ptrain, batch, consts_dev, cfg, tcfg, device=dev,
+        seed=SEED + 5)[2])] for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"{label}bf16 gradient, two runs of one step: bit-identical {same}")
+    if not same:
+        raise AssertionError(f"{label}bf16 gradients differ between two runs")
+    del runs
+    step = make_train_step(cfg, tcfg, consts_dev, opt, device=dev)
+    losses, norms, total = [], [], {k: 0 for k in ops.kernels()}
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        ops.reset_launches()
+        state_, metrics = step(state_, batch, SEED + 10 + i)
+        counts = ops.launches()
+        want = {**{k: 0 for k in counts}, **step_counts}
+        if counts != want:
+            raise AssertionError(f"{label}train step {i}: launch counts "
+                                 f"{counts} != {want}")
+        for k, v in counts.items():
+            total[k] += v
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t_run) * 1e3 / TRAIN_STEPS
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(v) for v in losses]
+    norms = [float(v) for v in norms]
+    path_counts[f"{TRAIN_STEPS} {label}train steps"] = total
+    print(f"{label}launches per train step {step_counts}")
+    print(f"{label}train steps (bf16, batch 1, Adam): losses {losses}, grad "
+          f"norms {norms}")
+    print(f"{label}train step: {train_ms:.1f} ms per step ({TRAIN_STEPS} "
+          f"steps, batch 1, bf16), peak memory {peak / 2**30:.2f} GiB, of "
+          f"which {held / 2**30:.2f} GiB held before the steps (params, Adam "
+          f"state, gradients, inputs)")
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise AssertionError(f"{label}train steps: losses {losses}, norms "
+                             f"{norms}")
+
+    # where a step's time and memory go: forward + loss, backward, Adam
+    for t in leaves(ptrain):
+        t.grad = None
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    outs = pangu.forward(ptrain, batch["upper"], batch["surface"], consts_dev,
+                         cfg, device=dev, deterministic=False,
+                         gen=torch.Generator(device=dev).manual_seed(SEED + 30))
+    loss = weighted_l1_loss(*outs, *norm_data(batch["target_upper"],
+                                              batch["target_surface"],
+                                              consts_dev), tcfg)[0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak_fwd, held = (torch.cuda.max_memory_allocated(),
+                      torch.cuda.memory_allocated())
+    loss.backward()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    peak_bwd = torch.cuda.max_memory_allocated()
+    opt.apply(state_.opt_state)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    del outs, loss
+    gib = 2.0 ** 30
+    print(f"{label}train step parts (bf16, host clock): forward + loss "
+          f"{(t2 - t1) * 1e3:.1f} ms, backward {(t3 - t2) * 1e3:.1f} ms, Adam "
+          f"{(t4 - t3) * 1e3:.1f} ms; memory: before {base / gib:.2f} GiB, "
+          f"peak in forward {peak_fwd / gib:.2f} GiB, held for backward "
+          f"{held / gib:.2f} GiB, peak in backward {peak_bwd / gib:.2f} GiB")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state_, _ = step(state_, batch, SEED + 31)
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    total_ms = sum(ms for _, ms in rows)
+    print(f"{label}train step device time by kernel (torch.profiler): "
+          f"{total_ms:.1f} ms")
+    for key, ms in rows[:25]:
+        print(f"  {key[:70]:70s} {ms:9.3f} ms  {100 * ms / total_ms:5.1f}%")
+    del state_, step, ptrain
+    torch.cuda.empty_cache()
+    return train_ms, peak, losses
+
+
+def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
+                block_cost, weight_bytes, records, path_counts):
+    """Phase 6: the training kernels against their plain versions, the
+    float32 train step against the plain path, 3 bf16 Adam steps."""
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.data.constants import norm_data
+    from pangu_tpu_torch.engine.train import weighted_l1_loss
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
     from pangu_tpu_torch.ops.earth_block_wm import block_wm, block_wm_plain
@@ -954,7 +1137,7 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                             "pr": params["patch_recovery"]}, dtype)
             ecfg = dataclasses.replace(cfg, compute_dtype="float32" if not tanh
                                        else "bfloat16")
-            cases = []  # (name, label, flops, bytes, kernel, plain)
+            cases = []  # (name, label, flops, bytes, kernel, plain, reps)
             for label, geom, bp, drop in (
                     ("stage 0 shifted, scales (0.8, 1.25)", g0, pdt["s0"],
                      [[0.8, 1.25]]),
@@ -968,7 +1151,8 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                     lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
                         block_wm(bp, xs, geom, half, 3, i, t, d),
                     lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
-                        block_wm_plain(bp, xs, geom, half, 3, i, t, d)))
+                        block_wm_plain(bp, xs, geom, half, 3, i, t, d),
+                    (2, 1)))
                 # three times the forward's operations (recompute, data and
                 # weight gradients); x, g read and dx written, the table read
                 # and its float32 gradient written, the weights and their
@@ -982,7 +1166,8 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                     lambda bp=bp, xs=xs, gx=gx, geom=geom, i=ids, d=drop, t=tanh:
                         block_bwd(bp, xs, gx, geom, half, half, 3, i, d, t),
                     lambda bp=bp, xs=xs, gx=gx, geom=geom, i=ids, d=drop, t=tanh:
-                        block_bwd_plain(bp, xs, gx, geom, half, half, 3, i, d, t)))
+                        block_bwd_plain(bp, xs, gx, geom, half, half, 3, i, d, t),
+                    (2, 1)))
             skip, dec = storage(g0, dtype), storage(g0, dtype)
             du, ds = u1.to(dtype), s1.to(dtype)      # field-shaped cotangents
             c0 = g0.dim
@@ -998,7 +1183,7 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                 lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
                     recovery_bwd(p, a, b, u, v, half, cf),
                 lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
-                    recovery_bwd_plain(p, a, b, u, v, half, cf)))
+                    recovery_bwd_plain(p, a, b, u, v, half, cf), (2, 1)))
             dxs = storage(g0, dtype)
             upper_rows = (g0.z - 1) * g0.h * g0.w
             cases.append((     # the upper rows of the cotangent, the field
@@ -1007,32 +1192,9 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                 upper_rows * c0 * isz + field_u * 4
                 + consts_dev["const_h"].numel() * 4 + 193 * c0 * 4,
                 lambda d=dxs, cf=ecfg: embed_dw_upper(d, u0, consts_dev, cf),
-                lambda d=dxs, cf=ecfg: embed_dw_upper_plain(d, u0, consts_dev, cf)))
-            for name, label, flops, byts, kern, plain in cases:
-                got, want = kern(), plain()
-                torch.cuda.synchronize()
-                errs = tree_errs(got, want)
-                del got, want
-                err = max(e[1] for e in errs)
-                rel = max(e[2] for e in errs)
-                worst = max(errs, key=lambda e: e[2])[0]
-                ms = time_ms(kern, 2)
-                plain_ms = time_ms(plain, 1)
-                bound_ms, bound_by = bound(flops, byts, dtype)
-                ok = rel <= TOL[dtype]
-                print(f"{name:15s} {label:36s} {str(dtype):15s} max_abs_err "
-                      f"{err:.3e} rel {rel:.3e} (worst {worst or 'out'}, tol "
-                      f"{TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  kernel "
-                      f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
-                      f"{bound_ms:.3f} ms ({bound_by})", flush=True)
-                if not ok:
-                    raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
-                if (dtype == torch.bfloat16 and name in ops.kernels()
-                        and label.startswith(("stage 0", "off", "full"))):
-                    records[name] = {"max_abs_err": err, "ms": ms,
-                                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                                     "bound_by": bound_by,
-                                     "at": f"{label}, bf16"}
+                lambda d=dxs, cf=ecfg: embed_dw_upper_plain(d, u0, consts_dev, cf),
+                (2, 1)))
+            check_kernels(cases, dtype, records)
             del cases, skip, dec, dxs, du, ds
             torch.cuda.empty_cache()
 
@@ -1111,106 +1273,16 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
 
     def bf16_steps():
         # ---- 6c. Adam steps in the perf config ---------------------------------
-        perf_edge = dataclasses.replace(perf, edge_kernels=True)
-        # copies (bf16 -> float32 -> bf16 is exact): the steps update in place
-        ptrain = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
-        opt = make_optimizer(tcfg)
-        state_ = create_train_state(ptrain, opt)
         step_counts = {"block_wm": 16, "block_bwd": 16, "down_sample_wm": 1,
                        "up_sample_wm": 1, "embed_wm": 1, "embed_dw_upper": 1,
                        "recovery_wm_upper": 1, "recovery_wm_surface": 1,
                        "recovery_bwd": 1}
-        # two runs of one step's gradient on the same input and seed
-        runs = [[t.clone() for t in leaves(loss_and_grads(
-            ptrain, batch, consts_dev, perf_edge, tcfg, device=dev,
-            seed=SEED + 5)[2])] for _ in range(2)]
-        same = all(torch.equal(a, b) for a, b in zip(*runs))
-        print(f"bf16 gradient, two runs of one step: bit-identical {same}")
-        if not same:
-            raise AssertionError("bf16 gradients differ between two runs")
-        del runs
-        step = make_train_step(perf_edge, tcfg, consts_dev, opt, device=dev)
-        losses, norms, total = [], [], {k: 0 for k in ops.kernels()}
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t_run = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            ops.reset_launches()
-            state_, metrics = step(state_, batch, SEED + 10 + i)
-            counts = ops.launches()
-            want = {**{k: 0 for k in counts}, **step_counts}
-            if counts != want:
-                raise AssertionError(f"train step {i}: launch counts {counts} != "
-                                     f"{want}")
-            for k, v in counts.items():
-                total[k] += v
-            losses.append(metrics["loss"])
-            norms.append(metrics["grad_norm"])
-        torch.cuda.synchronize()
-        train_ms = (time.perf_counter() - t_run) * 1e3 / TRAIN_STEPS
-        peak = torch.cuda.max_memory_allocated()
-        losses = [float(v) for v in losses]
-        norms = [float(v) for v in norms]
-        path_counts[f"{TRAIN_STEPS} train steps"] = total
-        print(f"launches per train step {step_counts}")
-        print(f"train steps (bf16, batch 1, Adam): losses {losses}, grad norms "
-              f"{norms}")
-        print(f"train step: {train_ms:.1f} ms per step ({TRAIN_STEPS} steps, "
-              f"batch 1, bf16), peak memory {peak / 2**30:.2f} GiB, of which "
-              f"{held / 2**30:.2f} GiB held before the steps (params, Adam "
-              f"state, gradients, inputs)")
-        if not all(math.isfinite(v) for v in losses + norms):
-            raise AssertionError(f"train steps: losses {losses}, norms {norms}")
+        train_ms, peak, losses = adam_steps(
+            dataclasses.replace(perf, edge_kernels=True), params, batch,
+            consts_dev, step_counts, path_counts, "")
         print(json.dumps({"train_step": {"ms_per_step": train_ms,
                                          "steps": TRAIN_STEPS, "batch": 1,
                                          "peak_bytes": peak, "losses": losses}}))
-
-        # where a bf16 train step's time and memory go: forward + loss, backward,
-        # Adam (host clock, synchronised), peak memory after each; then device
-        # time by kernel over one more step (torch.profiler)
-        from torch.profiler import ProfilerActivity, profile
-        for t in leaves(ptrain):
-            t.grad = None
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t1 = time.perf_counter()
-        outs = pangu.forward(ptrain, u0, s0, consts_dev, perf_edge, device=dev,
-                             deterministic=False,
-                             gen=torch.Generator(device=dev).manual_seed(SEED + 30))
-        loss = weighted_l1_loss(*outs, *norm_data(u1, s1, consts_dev), tcfg)[0]
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        peak_fwd, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
-        loss.backward()
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        peak_bwd = torch.cuda.max_memory_allocated()
-        opt.apply(state_.opt_state)
-        torch.cuda.synchronize()
-        t4 = time.perf_counter()
-        del outs, loss
-        gib = 2.0 ** 30
-        print(f"train step parts (bf16, host clock): forward + loss "
-              f"{(t2 - t1) * 1e3:.1f} ms, backward {(t3 - t2) * 1e3:.1f} ms, Adam "
-              f"{(t4 - t3) * 1e3:.1f} ms; memory: before {base / gib:.2f} GiB, "
-              f"peak in forward {peak_fwd / gib:.2f} GiB, held for backward "
-              f"{held / gib:.2f} GiB, peak in backward {peak_bwd / gib:.2f} GiB")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            state_, _ = step(state_, batch, SEED + 31)
-            torch.cuda.synchronize()
-        rows = [(e.key, e.self_device_time_total / 1e3)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-        total = sum(ms for _, ms in rows)
-        print(f"train step device time by kernel (torch.profiler): {total:.1f} ms")
-        for key, ms in rows[:25]:
-            print(f"  {key[:70]:70s} {ms:9.3f} ms  {100 * ms / total:5.1f}%")
-        del state_, step, ptrain
-        torch.cuda.empty_cache()
 
     batch = {"upper": u0, "surface": s0, "target_upper": u1,
              "target_surface": s1}
@@ -1225,6 +1297,241 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
     kernels_vs_plain()
     float32_step()
     bf16_steps()
+
+
+def v2_phase(params, perf, consts_dev, state, ids_of, weight_bytes, records,
+             path_counts):
+    """Phase 7: the rolled-coordinate ``block_layout="v2"`` trunk: its three
+    kernels against their plain versions, its float32 forward, its served
+    rollouts and its training step.  Returns the numbers of its JSON line."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.data.constants import norm_data
+    from pangu_tpu_torch.engine.rollout import make_rollout, single_step
+    from pangu_tpu_torch.engine.train import weighted_l1_loss
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
+    from pangu_tpu_torch.ops.window_attention import (
+        grid_attention, grid_attention_bwd, grid_attention_bwd_plain,
+        grid_attention_plain)
+
+    dev = torch.device("cuda")
+    half, neg = (1, 3, 6), (-1, -3, -6)
+    g0, g1 = PANGU_24.stage(0), PANGU_24.stage(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    u0, s0 = state(SEED + 2)
+    u1, s1 = state(SEED + 3)                    # the training targets
+    v2 = dataclasses.replace(perf, block_layout="v2")
+    out = {}
+
+    def grid(geom, dtype):
+        return torch.randn((1, geom.z, geom.h_padded, geom.w, geom.dim),
+                           generator=gen, device=dev).to(dtype)
+
+    # ---- 7a. the v2 kernels against their plain versions --------------------
+    for dtype in (torch.float32, torch.bfloat16):
+        tanh = dtype == torch.bfloat16
+        pdt = to_dtype({"s0": params["stages"][0]["blocks"][1],
+                        "s1": params["stages"][1]["blocks"][1]}, dtype)
+        cases = []  # (name, label, flops, bytes, kernel, plain, timing reps)
+        for label, geom, bp, delta, canon, shifted, drop in (
+                ("stage 0 shifted", g0, pdt["s0"], half, 3, True, None),
+                ("stage 0 -half, scales (0.8, 1.25)", g0, pdt["s0"], neg, 0,
+                 False, [[0.8, 1.25]]),
+                ("stage 1 shifted, scales (1.25, 0)", g1, pdt["s1"], half, 3,
+                 True, [[1.25, 0.0]]),
+                ("stage 1 -half", g1, pdt["s1"], neg, 0, False, None)):
+            x = grid(geom, dtype)
+            ids = ids_of(geom) if shifted else None
+            d = None if drop is None else torch.tensor(drop, device=dev)
+            c, n = geom.dim, geom.window_tokens
+            rows = x.numel() // c
+            byts = (2 * nbytes(x) + nbytes(bp["attn"]["bias_table"])
+                    + weight_bytes(bp, dtype)
+                    + (nbytes(ids) if ids is not None else 0))
+            cases.append((
+                "block_v2", label, 2 * rows * c * (12 * c + 2 * n), byts,
+                lambda bp=bp, x=x, g=geom, dl=delta, ca=canon, i=ids, d=d,
+                t=tanh: block_v2(bp, x, g, dl, ca, i, t, d),
+                lambda bp=bp, x=x, g=geom, dl=delta, ca=canon, i=ids, d=d,
+                t=tanh: block_v2_plain(bp, x, g, dl, ca, i, t, d), (3, 2)))
+        for label, geom, bp, masked in (("stage 0, region ids", g0, pdt["s0"],
+                                         True),
+                                        ("stage 1, no ids", g1, pdt["s1"],
+                                         False)):
+            x, gy = grid(geom, dtype), grid(geom, dtype)
+            ids = ids_of(geom) if masked else None
+            at = bp["attn"]
+            w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+                 at["proj"]["bias"])
+            table = at["bias_table"]
+            c, n = geom.dim, geom.window_tokens
+            rows = x.numel() // c
+            idb = nbytes(ids) if ids is not None else 0
+            cases.append((   # qkv, q.k, p.v, proj; x in, out, weights, table
+                "grid_attention", label, 2 * rows * c * (4 * c + 2 * n),
+                2 * nbytes(x) + nbytes(*w, table) + idb,
+                lambda x=x, w=w, tb=table, g=geom, i=ids:
+                    grid_attention(x, *w, tb, g.window, i),
+                lambda x=x, w=w, tb=table, g=geom, i=ids:
+                    grid_attention_plain(x, *w, tb, g.window, i), (3, 2)))
+            # multiply-adds per row: recompute qkv 3C^2, dWp C^2, da C^2,
+            # dWqkv 3C^2, dx 3C^2; q.k, p.v, dV, dP, dQ, dK N*C each;
+            # x, g read, dx written, weights and table read, their float32
+            # gradients written
+            cases.append((
+                "grid_attention_bwd", label, 2 * rows * (11 * c * c + 6 * n * c),
+                3 * nbytes(x) + nbytes(*w[:3], table) + idb
+                + 4 * (sum(t.numel() for t in w) + table.numel()),
+                lambda x=x, gy=gy, w=w, tb=table, g=geom, i=ids:
+                    grid_attention_bwd(x, gy, *w[:3], tb, g.window, i),
+                lambda x=x, gy=gy, w=w, tb=table, g=geom, i=ids:
+                    grid_attention_bwd_plain(x, gy, *w[:3], tb, g.window, i),
+                (2, 1)))
+        check_kernels(cases, dtype, records)
+        del cases, x, gy
+        torch.cuda.empty_cache()
+
+    # ---- 7b. the float32 v2 forward ----------------------------------------
+    params32 = to_dtype(params, torch.float32)
+    cfg32 = dataclasses.replace(PANGU_24, gelu="erf")
+    v2_32 = dataclasses.replace(cfg32, block_layout="v2")
+    trunk_counts = {"block_v2": sum(perf.depths), "down_sample": 1,
+                    "up_sample": 1}
+    ops.reset_launches()
+    got = pangu.forward(params32, u0, s0, consts_dev, v2_32, device=dev)
+    torch.cuda.synchronize()
+    counts = ops.launches()
+    if counts != {**{k: 0 for k in counts}, **trunk_counts}:
+        raise AssertionError(f"v2 forward launch counts {counts}")
+    want = pangu.forward(params32, u0, s0, consts_dev, v2_32, device=dev,
+                         kernels=False)
+    wm = pangu.forward(params32, u0, s0, consts_dev, cfg32, device=dev)
+    for other, ref in (("plain path", want), ("window-major forward", wm)):
+        for part, a, b in zip(("upper", "surface"), got, ref):
+            err, rel = rel_err(a, b)
+            print(f"v2 forward float32 {part} vs {other}: max_abs_err "
+                  f"{err:.3e} rel {rel:.3e} (tol "
+                  f"{TOL_FORWARD[torch.float32]:.1e})")
+            if rel > TOL_FORWARD[torch.float32]:
+                raise AssertionError(f"v2 forward {part} vs {other}: rel "
+                                     f"err {rel:.3e}")
+    del got, want, wm, ref, a, b, params32
+    torch.cuda.empty_cache()
+
+    # ---- 7c, 7d. the served v2 rollouts ------------------------------------
+    def timed(fn, steps):
+        fn(params, u0, s0)                      # warm the allocator
+        torch.cuda.synchronize()
+        print(f"held before the v2 rollout: "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        res = fn(params, u0, s0)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3 / steps
+        counts = ops.launches()
+        want = {**{k: 0 for k in counts},
+                **{k: steps * v for k, v in trunk_counts.items()}}
+        if counts != want:
+            raise AssertionError(f"v2 launch counts {counts} != {want}")
+        return res, ms, counts, torch.cuda.max_memory_allocated()
+
+    (_, (ut, st)), step_ms, counts, peak = timed(
+        make_rollout(v2, consts_dev, STEPS, return_trajectory=True,
+                     device=dev), STEPS)
+    path_counts["v2 full-step rollout"] = counts
+    print(f"v2 full-step rollout launches {counts}")
+    if not (torch.isfinite(ut).all() and torch.isfinite(st).all()):
+        raise AssertionError("v2 rollout output is not finite")
+    pu, ps = single_step(params, u0, s0, consts_dev, v2, device=dev,
+                         kernels=False)
+    for part, a, b in zip(("upper", "surface"),
+                          norm_data(ut[0], st[0], consts_dev),
+                          norm_data(pu, ps, consts_dev)):
+        err, rel = rel_err(a, b)
+        print(f"v2 step 1 bf16 {part} vs plain path: max_abs_err {err:.3e} "
+              f"rel {rel:.3e} (tol {TOL_FORWARD[torch.bfloat16]:.1e})")
+        if rel > TOL_FORWARD[torch.bfloat16]:
+            raise AssertionError(f"v2 bf16 step 1 {part}: rel err {rel:.3e}")
+    del ut, st, pu, ps
+    (tu, ts), tok_ms, tok_counts, tok_peak = timed(
+        make_rollout(v2, consts_dev, TOKEN_STEPS, token_space=True,
+                     device=dev), TOKEN_STEPS)
+    path_counts["v2 token-space rollout"] = tok_counts
+    print(f"v2 token-space rollout launches {tok_counts}")
+    (fu, fs), full_ms, _, full_peak = timed(
+        make_rollout(v2, consts_dev, TOKEN_STEPS, device=dev), TOKEN_STEPS)
+    for part, a, b in zip(("upper", "surface"), norm_data(tu, ts, consts_dev),
+                          norm_data(fu, fs, consts_dev)):
+        err, rel = rel_err(a, b)
+        print(f"v2 final state bf16 token-space {part} vs full-step: "
+              f"max_abs_err {err:.3e} rel {rel:.3e} "
+              f"(tol {TOL_FORWARD[torch.bfloat16]:.1e})")
+        if rel > TOL_FORWARD[torch.bfloat16]:
+            raise AssertionError(f"v2 token-space {part}: rel err {rel:.3e}")
+    del tu, ts, fu, fs
+    print(f"v2 full-step rollout: {step_ms:.1f} ms per step ({STEPS} steps, "
+          f"batch 1, bf16), peak memory {peak / 2**30:.2f} GiB; "
+          f"{full_ms:.1f} ms per step over {TOKEN_STEPS} steps")
+    print(f"v2 token-space rollout: {tok_ms:.1f} ms per step ({TOKEN_STEPS} "
+          f"steps, batch 1, bf16), peak memory {tok_peak / 2**30:.2f} GiB")
+    out.update(rollout_ms_per_step=step_ms, rollout_peak_bytes=peak,
+               token_space_ms_per_step=tok_ms, token_space_peak_bytes=tok_peak)
+    torch.cuda.empty_cache()
+
+    # ---- 7e. the float32 v2 train step, kernels against plain versions ------
+    tcfg = TrainConfig()
+    cfg = dataclasses.replace(PANGU_24, block_layout="v2")
+    drops = pangu.draw_drops(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 4), 1)
+    tgt = norm_data(u1, s1, consts_dev)
+    res, d_out = {}, None
+    for kernels in (True, False):
+        p32 = to_dtype(params, torch.float32)
+        for t in leaves(p32):
+            t.requires_grad_(True)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        outs = pangu.forward(p32, u0, s0, consts_dev, cfg, device=dev,
+                             kernels=kernels, deterministic=False, drops=drops)
+        loss = weighted_l1_loss(*outs, *tgt, tcfg)[0]
+        if d_out is None:
+            d_out = torch.autograd.grad(loss, outs, retain_graph=True)
+        torch.autograd.backward(outs, d_out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3
+        print(f"v2 float32 train step, {'kernels' if kernels else 'plain'}: "
+              f"loss {float(loss.detach()):.6f}, {ms:.1f} ms")
+        res[kernels] = (float(loss.detach()),
+                        {k: t.grad for k, t in named_leaves(p32)})
+        del p32, outs, loss
+    (lk, gk), (lp, gp) = res[True], res[False]
+    rel = abs(lk - lp) / abs(lp)
+    errs = tree_errs(gk, gp)
+    worst = max(errs, key=lambda e: e[2])
+    print(f"v2 float32 train step kernels vs plain: loss rel {rel:.3e} (tol "
+          f"1.0e-4); gradients ({len(errs)} leaves, the same loss cotangent): "
+          f"worst {worst[0]} max_abs_err {worst[1]:.3e} rel {worst[2]:.3e} "
+          f"(tol 1.0e-3)")
+    if rel > 1e-4 or worst[2] > 1e-3:
+        raise AssertionError(f"v2 float32 train step: loss rel {rel:.3e}, "
+                             f"gradient {worst}")
+    del res, gk, gp, d_out
+    torch.cuda.empty_cache()
+
+    # ---- 7f. Adam steps in the perf config ---------------------------------
+    n = sum(perf.depths)
+    step_counts = {"block_v2": n, "grid_attention": n,
+                   "grid_attention_bwd": n, "down_sample": 1, "up_sample": 1}
+    batch = {"upper": u0, "surface": s0, "target_upper": u1,
+             "target_surface": s1}
+    train_ms, peak, losses = adam_steps(v2, params, batch, consts_dev,
+                                        step_counts, path_counts, "v2 ")
+    out.update(train_ms_per_step=train_ms, train_peak_bytes=peak,
+               train_losses=losses)
+    return out
 
 
 if __name__ == "__main__":

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 20 + [_P],
     "pangu_embed_dw": [_I] + [_P] * 5 + [_I] * 14 + [_P],
     "pangu_recovery_bwd": [_I] + [_P] * 11 + [_I] * 18 + [_P],
+    "pangu_grid_attn": [_I, _I] + [_P] * 9 + [_I] * 10 + [_P],
+    "pangu_grid_attn_bwd": [_I, _I] + [_P] * 13 + [_I] * 10 + [_P],
 }
 _LL = ctypes.c_longlong
 # entries that return a size (long long) instead of a cudaError_t
@@ -49,6 +51,7 @@ _SIZE_SIGNATURES = {
     "pangu_block_bwd_ws": [_LL, _I, _I, _I],
     "pangu_embed_dw_ws": [_I] * 11,
     "pangu_recovery_bwd_ws": [_I] * 7,
+    "pangu_grid_attn_ws": [_LL, _I, _I],
 }
 
 

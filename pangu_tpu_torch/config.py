@@ -4,13 +4,21 @@ Kept: ``ModelConfig`` with its derived token geometry and its
 stochastic-depth schedule (``drop_path_max``, ``drop_path_rates``),
 ``StageGeometry``, ``TrainConfig`` (without the LoRA fields) and the presets
 ``PANGU_24``, ``TINY`` and ``MID``.  The JAX package's TPU tuning fields
-(``lon_chunk``, ``attn_unroll``, ``grid_bwd``, its VMEM notes) and its
-layout switches have no counterpart here: the port has one path for serving
-and one for training, both through the window-major trunk.
+(``lon_chunk``, ``attn_unroll``, ``grid_bwd``, its VMEM notes) have no
+counterpart here.
+
+``block_layout`` selects the trunk's inter-block storage, served and
+trained: ``"wm"`` (default) the window-major trunk (``ops/earth_block_wm``,
+``ops/earth_block_bwd``), which needs even stage depths; ``"v2"`` the
+rolled-coordinate grid trunk (``ops/earth_block_fused``), whose stages roll
+back at their end and take any depth.  ``lat_group`` has no effect under
+``"v2"``, as in the JAX package.
 
 ``edge_kernels=True`` selects the edge kernels (``ops/embed_wm``,
 ``ops/recovery_wm``) on geometries that pass :func:`embed_supported` and
-:func:`recovery_supported`, and raises ``ValueError`` on any other.
+:func:`recovery_supported`, and raises ``ValueError`` on any other and under
+``block_layout="v2"`` (they read and write window-major storage, which the
+v2 trunk never holds; the JAX package silently skips them there).
 ``lat_group`` (default 2, as in the JAX package) is the number of latitude
 windows the grouped block kernel takes together (:func:`_pick_gh`); it must
 be at least 1.
@@ -77,6 +85,7 @@ class ModelConfig:
     gelu: str = "erf"           # "erf" (exact, parity) | "tanh" (perf config)
     edge_kernels: bool = False  # True: embed_wm / recovery_wm kernels
     lat_group: int = 2          # lat windows per grouped block (_pick_gh)
+    block_layout: str = "wm"    # "wm" window-major | "v2" rolled grid trunk
 
     def __post_init__(self):
         pz, ph, pw = self.patch
@@ -86,8 +95,14 @@ class ModelConfig:
             raise ValueError("lon tokens must be a multiple of the W window")
         if len(self.depths) != 4:
             raise ValueError("expect 4 stages (enc, enc, dec, dec)")
-        if any(d % 2 for d in self.depths):
+        if self.block_layout not in ("wm", "v2"):
+            raise ValueError(f"block_layout must be 'wm' or 'v2', not "
+                             f"{self.block_layout!r}")
+        if self.block_layout == "wm" and any(d % 2 for d in self.depths):
             raise ValueError("the window-major trunk needs even stage depths")
+        if self.edge_kernels and self.block_layout == "v2":
+            raise ValueError("edge_kernels=True needs block_layout='wm': the "
+                             "edge kernels read and write window-major storage")
         if self.gelu not in ("erf", "tanh"):
             raise ValueError(f"gelu must be 'erf' or 'tanh', not {self.gelu!r}")
         if self.edge_kernels and not (embed_supported(self)

@@ -31,7 +31,8 @@
 // bit for bit in every run.  The bias gradient rides each weight gradient as
 // a row of ones.  The table gradient takes one thread block per (window
 // type, head), which loops over the type's B x nlon windows: each table
-// entry has one owner, so no atomics.
+// entry has one owner, so no atomics.  (The attention backward lives in
+// attn_bwd.cuh, shared with the grid attention backward, grid_attn.cu.)
 //
 // What bounds it on an H100: arithmetic.  Four recomputed, four
 // data-gradient and four weight-gradient products, about three times the
@@ -40,8 +41,7 @@
 // row, 4.7 GB at stage 0 in bf16) and runs every product through
 // grad_gemm.cuh's xgemm (the untuned tiles of common.cuh's gemm), so it runs
 // well below that bound.
-#include "block_common.cuh"
-#include "grad_gemm.cuh"
+#include "attn_bwd.cuh"
 
 namespace pangu {
 
@@ -94,25 +94,6 @@ struct Dx1Epi {  // dx1 = g + acc, float32
   int N;
   __device__ void operator()(int, long long r, int c, float acc) const {
     dx1[r * N + c] = to_f(gg[r * N + c]) + acc;
-  }
-};
-
-template <typename T>
-struct BiasEpi {  // out = round_T(acc + bias)
-  const T* bias;
-  T* out;
-  int N;
-  __device__ void operator()(int, long long r, int c, float acc) const {
-    out[r * N + c] = from_f<T>(acc + to_f(bias[c]));
-  }
-};
-
-template <typename T>
-struct RoundEpi {
-  T* out;
-  int N;
-  __device__ void operator()(int, long long r, int c, float acc) const {
-    out[r * N + c] = from_f<T>(acc);
   }
 };
 
@@ -280,155 +261,6 @@ ln_grads_kernel(const T* __restrict__ a, const float* __restrict__ dx1,
   }
 }
 
-// ---- attention backward --------------------------------------------------------
-
-constexpr int BATT_WARPS = 16;
-
-// softmax probabilities (float32, unrounded) of query row i: lane j holds
-// p[i, lane + 32 jj]; the same arithmetic as window_attend's scores
-template <typename TB>
-__device__ __forceinline__ void prob_row(const float* q, const float* k,
-                                         int ld, int i, int N, int hd,
-                                         const TB* btab, const int* id,
-                                         float scale, float (&p)[ATT_MAXJ]) {
-  const int lane = threadIdx.x % 32;
-  float mx = -INFINITY;
-#pragma unroll
-  for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-    const int j = lane + 32 * jj;
-    p[jj] = -INFINITY;
-    if (j < N) {
-      float acc = 0.f;
-      for (int d = 0; d < hd; ++d) acc = fmaf(q[i * ld + d], k[j * ld + d], acc);
-      float b = to_f(btab[(long long)i * N + j]);
-      if (id) b += (id[i] != id[j]) ? -100.f : 0.f;
-      p[jj] = acc * scale + b;
-    }
-    mx = fmaxf(mx, p[jj]);
-  }
-  mx = warp_max(mx);
-  float sum = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-    const int j = lane + 32 * jj;
-    p[jj] = (j < N) ? expf(p[jj] - mx) : 0.f;
-    sum += p[jj];
-  }
-  sum = warp_sum(sum);
-#pragma unroll
-  for (int jj = 0; jj < ATT_MAXJ; ++jj) p[jj] /= sum;
-}
-
-__host__ __device__ inline size_t attn_bwd_smem(int N, int hd) {
-  return (size_t)(4 * N * (hd + 1) + N * N) * sizeof(float);
-}
-
-// one thread block per (window type, head), looping over the type's windows
-// (every sample, every longitude window); S holds one window's rounded dS,
-// later its rounded P
-template <typename T, typename TB>
-__global__ void __launch_bounds__(32 * BATT_WARPS)
-attn_bwd_kernel(const T* __restrict__ qkv, const T* __restrict__ dout,
-                T* __restrict__ dqkv, const TB* __restrict__ table,
-                const int* __restrict__ ids, float* __restrict__ dtable,
-                int B, int nz, int nlat, int nlon, int N, int C, int heads,
-                int hd, float scale) {
-  extern __shared__ float sm[];
-  const int type = blockIdx.x, h = blockIdx.y;
-  const int zz = type / nlat, hh = type % nlat;
-  const int ld = hd + 1;
-  float* q = sm;
-  float* k = q + N * ld;
-  float* v = k + N * ld;
-  float* dO = v + N * ld;
-  float* S = dO + N * ld;
-  const TB* btab = table + ((long long)type * heads + h) * N * N;
-  const int* id = ids ? ids + (long long)type * N : nullptr;
-  float* dtab = dtable + ((long long)type * heads + h) * N * N;
-  const int C3 = 3 * C;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int nwarps = blockDim.x / 32;
-
-  for (int b = 0; b < B; ++b) {
-    for (int l = 0; l < nlon; ++l) {
-      const long long base = ((((long long)b * nz + zz) * nlat + hh) * nlon + l) * N;
-      const bool first = b == 0 && l == 0;
-      __syncthreads();  // the previous window's shared memory is read
-      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
-        const int t = idx / hd, d = idx % hd;
-        const T* r = qkv + (base + t) * C3 + h * hd + d;
-        q[t * ld + d] = to_f(r[0]);
-        k[t * ld + d] = to_f(r[C]);
-        v[t * ld + d] = to_f(r[2 * C]);
-        dO[t * ld + d] = to_f(dout[(base + t) * C + h * hd + d]);
-      }
-      __syncthreads();
-
-      // rows: dS, the table gradient and dQ
-      for (int i = warp; i < N; i += nwarps) {
-        float p[ATT_MAXJ], dp[ATT_MAXJ];
-        prob_row(q, k, ld, i, N, hd, btab, id, scale, p);
-        float rs = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-          const int j = lane + 32 * jj;
-          dp[jj] = 0.f;
-          if (j < N) {
-            float acc = 0.f;
-            for (int d = 0; d < hd; ++d) acc = fmaf(dO[i * ld + d], v[j * ld + d], acc);
-            dp[jj] = acc;
-          }
-          rs += dp[jj] * p[jj];
-        }
-        rs = warp_sum(rs);
-#pragma unroll
-        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-          const int j = lane + 32 * jj;
-          if (j < N) {
-            const float ds = p[jj] * (dp[jj] - rs);
-            float* t = dtab + (long long)i * N + j;
-            *t = first ? ds : *t + ds;
-            S[i * N + j] = round_t<T>(ds);
-          }
-        }
-        __syncwarp();
-        for (int d = lane; d < hd; d += 32) {
-          float acc = 0.f;
-          for (int j = 0; j < N; ++j) acc = fmaf(S[i * N + j], k[j * ld + d], acc);
-          dqkv[(base + i) * C3 + h * hd + d] = from_f<T>(acc * scale);
-        }
-        __syncwarp();
-      }
-      __syncthreads();
-      // dK = dS^T Q
-      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
-        const int j = idx / hd, d = idx % hd;
-        float acc = 0.f;
-        for (int i = 0; i < N; ++i) acc = fmaf(S[i * N + j], q[i * ld + d], acc);
-        dqkv[(base + j) * C3 + C + h * hd + d] = from_f<T>(acc * scale);
-      }
-      __syncthreads();
-      // P again, rounded; dV = P^T dO
-      for (int i = warp; i < N; i += nwarps) {
-        float p[ATT_MAXJ];
-        prob_row(q, k, ld, i, N, hd, btab, id, scale, p);
-#pragma unroll
-        for (int jj = 0; jj < ATT_MAXJ; ++jj) {
-          const int j = lane + 32 * jj;
-          if (j < N) S[i * N + j] = round_t<T>(p[jj]);
-        }
-      }
-      __syncthreads();
-      for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
-        const int j = idx / hd, d = idx % hd;
-        float acc = 0.f;
-        for (int i = 0; i < N; ++i) acc = fmaf(S[i * N + j], dO[i * ld + d], acc);
-        dqkv[(base + j) * C3 + 2 * C + h * hd + d] = from_f<T>(acc);
-      }
-    }
-  }
-}
-
 // ---- the unit ------------------------------------------------------------------
 
 // workspace: T elements (which = 0) or float32 elements (which = 1)
@@ -451,7 +283,6 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
               int gelu_tanh, cudaStream_t st) {
   const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
   const long long rps = M / B;
-  const int hd = C / heads;
   // T workspace: xg gg (C) | qkv (3C) | attn a x1 y dy2 (C) | z hb (hidden) |
   //              da datt (C) | dqkv (3C)
   T* xg = ws;
@@ -482,17 +313,10 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
   xgemm(xg, M, 3 * C, C, ARows<T>{xg, C}, BRows<T>{wqkv, 3 * C},
         BiasEpi<T>{bqkv, qkv, 3 * C}, st);
   PANGU_CHECK_LAUNCH();
-  const float scale = (float)pow((double)hd, -0.5);
   {
-    const size_t smem = attend_smem(s.n, hd, ATT_WARPS);
-    cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 agrid((unsigned)(M / s.n), heads);
-    window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
-        qkv, attn, table, ids, s.n, C, heads, hd, s.nlon, s.nz * s.nlat, scale);
-    PANGU_CHECK_LAUNCH();
+    const int e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C,
+                                          heads, st);
+    if (e) return e;
   }
   xgemm(attn, M, C, C, ARows<T>{attn, C}, BRows<T>{wp, C},
         BiasEpi<T>{bp, a, C}, st);
@@ -545,16 +369,9 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
 
   // ---- attention ----
   {
-    const size_t smem = attn_bwd_smem(s.n, hd);
-    cudaError_t e = cudaFuncSetAttribute(attn_bwd_kernel<T, TB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(s.nz * s.nlat, heads);
-    attn_bwd_kernel<T, TB><<<grid, 32 * BATT_WARPS, smem, st>>>(
-        qkv, datt, dqkv, table, ids, dtable, B, s.nz, s.nlat, s.nlon, s.n, C,
-        heads, hd, scale);
-    PANGU_CHECK_LAUNCH();
+    const int e = attention_bwd<T, TB>(qkv, datt, dqkv, table, ids, dtable, B,
+                                       s, C, heads, st);
+    if (e) return e;
   }
 
   // ---- qkv and the residual ----

@@ -1,6 +1,6 @@
-// Device code the block kernel (block_wm.cu) and its backward (block_bwd.cu)
-// share: the shifted-window gather of a block's input and the windowed
-// attention of one (window, head).
+// Device code the block kernel (block_wm.cu), its backward (block_bwd.cu) and
+// the grid attention (grid_attn.cu) share: the shifted-window gather of a
+// block's input and the windowed attention of one (window, head).
 #pragma once
 
 #include "common.cuh"
@@ -126,6 +126,26 @@ window_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
                        bias_table + ((long long)type * heads + h) * N * N,
                        ids ? ids + (long long)type * N : nullptr, sm, N, C,
                        hd, scale);
+}
+
+inline float attn_scale(int hd) { return (float)pow((double)hd, -0.5); }
+
+// launch window_attn_kernel over every window of B samples (wm row order)
+template <typename T, typename TB>
+inline int window_attention(const T* qkv, T* out, const TB* table,
+                            const int* ids, int B, const WmShape& s, int C,
+                            int heads, cudaStream_t st) {
+  const int hd = C / heads;
+  const size_t smem = attend_smem(s.n, hd, ATT_WARPS);
+  cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid((unsigned)((long long)B * s.nz * s.nlat * s.nlon), heads);
+  window_attn_kernel<T, TB><<<grid, 32 * ATT_WARPS, smem, st>>>(
+      qkv, out, table, ids, s.n, C, heads, hd, s.nlon, s.nz * s.nlat,
+      attn_scale(hd));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace pangu

@@ -120,7 +120,6 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
        none, st);
   PANGU_CHECK_LAUNCH();
 
-  const float scale = (float)pow((double)hd, -0.5);  // hd ** -0.5
   if (gh > 1) {
     const size_t smem = attend_smem(s.n, hd, GATT_WARPS) + s.n * sizeof(int) +
                         (size_t)s.n * s.n * sizeof(TB);
@@ -131,19 +130,13 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
     dim3 agrid((unsigned)((long long)B * s.nz * (s.nlat / gh)), heads);
     group_attn_kernel<T, TB><<<agrid, 32 * GATT_WARPS, smem, st>>>(
         qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nz, s.nlat,
-        s.nlon, gh, scale);
+        s.nlon, gh, attn_scale(hd));
+    PANGU_CHECK_LAUNCH();
   } else {
-    const size_t smem = attend_smem(s.n, hd, ATT_WARPS);
-    cudaError_t e = cudaFuncSetAttribute(window_attn_kernel<T, TB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 agrid((unsigned)(M / s.n), heads);
-    window_attn_kernel<T, TB><<<agrid, 32 * ATT_WARPS, smem, st>>>(
-        qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nlon,
-        s.nz * s.nlat, scale);
+    const int e = window_attention<T, TB>(qkv, attn, (const TB*)table_, ids,
+                                          B, s, C, heads, st);
+    if (e) return e;
   }
-  PANGU_CHECK_LAUNCH();
 
   gemm(attn, (const T*)wp_, (const T*)bp_, a, (int)M, C, C, ACT_NONE, none, st);
   PANGU_CHECK_LAUNCH();

@@ -1,17 +1,21 @@
 """Autoregressive multi-day rollout: the counterpart of
 ``pangu_tpu/engine/rollout.py`` (``single_step``; ``make_rollout`` with
 ``token_space=False`` or, on one device, ``token_space=True`` through
-``rollout_tokens_wm``; ``greedy_schedule`` and ``make_hierarchical_rollout``
-on one device).  The JAX ``lax.scan`` is a Python loop over steps.
+``rollout_tokens_wm`` or, under ``block_layout="v2"``, ``rollout_tokens``;
+``greedy_schedule`` and ``make_hierarchical_rollout`` on one device).  The
+JAX ``lax.scan`` is a Python loop over steps.
 
 ``token_space=False``: each 24 h step is a full ``forward`` followed by
 de-normalisation, as ``cli/inference.py`` serves it.
 
-``token_space=True``: the state stays window-major token storage between
-steps.  Embed once; each chained step runs the trunk and then the composed
-recovery -> embed transition (``engine/transition_wm``); the fields are
-recovered only where an output is due (the last step, or every step with
-``return_trajectory``).
+``token_space=True``: the state stays token storage between steps.  Embed
+once; each chained step runs the trunk and then the composed recovery ->
+embed transition; the fields are recovered only where an output is due (the
+last step, or every step with ``return_trajectory``).  Under
+``block_layout="wm"`` the storage is window-major and the transition
+``engine/transition_wm`` (``rollout_tokens_wm``); under ``"v2"`` it is the
+canonical token grid, the transition ``engine/transition`` (the JAX
+package's ``rollout_tokens``).
 
 The hierarchical rollout chains a model hierarchy (24/6/3/1 h) by the
 greedy schedule, largest horizon first: full steps per model, or, with
@@ -30,8 +34,11 @@ import torch
 from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import denorm_data, to_device
+from pangu_tpu_torch.engine.transition import (apply_transition,
+                                               build_transition)
 from pangu_tpu_torch.engine.transition_wm import (apply_transition_wm,
                                                   build_transition_wm)
+from pangu_tpu_torch.models import layers as L
 from pangu_tpu_torch.models import pangu
 
 
@@ -46,6 +53,90 @@ def single_step(params, upper, surface, constants, cfg: ModelConfig, *,
     return denorm_data(out_u, out_s, consts)
 
 
+@dataclasses.dataclass
+class _Chain:
+    """What a token-space chain runs with; ``_WmChain`` and ``_CanonChain``
+    add the five steps (``embed``, ``core``, ``build``, ``transition``,
+    ``recover``) and ``recover_step``, the fields a trajectory records."""
+    cfg: ModelConfig
+    consts: dict
+    dev: torch.device
+    kernels: bool
+
+    def _fields_in(self, upper, surface):
+        cdt = _device.dtype_of(self.cfg.compute_dtype)
+        return upper.to(self.dev, cdt), surface.to(self.dev, cdt)
+
+
+class _WmChain(_Chain):
+    """The token-space chain of ``block_layout="wm"``: the state is stage-0
+    window-major storage, a step's pre-recovery pair the rolled ``(skip,
+    dec, off)``; embed and recovery by the edge kernels with
+    ``cfg.edge_kernels``."""
+
+    def embed(self, params, upper, surface):
+        return pangu.embed_tokens(params, *self._fields_in(upper, surface),
+                                  self.consts, self.cfg, kernels=self.kernels)
+
+    def core(self, params, x):
+        return pangu.forward_core_wm(params, x, self.cfg, kernels=self.kernels)
+
+    def build(self, params, embed_params=None):
+        return build_transition_wm(params, self.consts, self.cfg,
+                                   embed_params=embed_params)
+
+    def transition(self, tp, pair):
+        skip, dec, off = pair
+        return apply_transition_wm(tp, skip, dec, self.cfg.stage(0), off,
+                                   kernels=self.kernels)
+
+    def _recover(self, params, pair, cfg):
+        return denorm_data(*pangu.recover_fields(params, *pair, cfg,
+                                                 kernels=self.kernels),
+                           self.consts)
+
+    def recover(self, params, pair):
+        return self._recover(params, pair, self.cfg)
+
+    def recover_step(self, params, pair):
+        """Through the canonical grid and patch recovery even with the edge
+        kernels, as the JAX rollout records its trajectory."""
+        return self._recover(
+            params, pair, dataclasses.replace(self.cfg, edge_kernels=False))
+
+
+class _CanonChain(_Chain):
+    """The token-space chain of ``block_layout="v2"``: the state is the
+    canonical (B, Z, H, W, C) grid, a step's pre-recovery pair ``(skip,
+    dec)``; patch embed, patch recovery and ``engine/transition``."""
+
+    def embed(self, params, upper, surface):
+        return L.patch_embed(params["patch_embed"],
+                             *self._fields_in(upper, surface), self.consts,
+                             self.cfg)
+
+    def core(self, params, x):
+        return pangu.forward_core(params, x, self.cfg, kernels=self.kernels)
+
+    def build(self, params, embed_params=None):
+        return build_transition(params, self.consts, self.cfg,
+                                embed_params=embed_params)
+
+    def transition(self, tp, pair):
+        return apply_transition(tp, pair)
+
+    def recover(self, params, pair):
+        return denorm_data(*L.patch_recovery(params["patch_recovery"], pair,
+                                             self.cfg), self.consts)
+
+    recover_step = recover      # the canonical grid already
+
+
+def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool):
+    chain = _CanonChain if cfg.block_layout == "v2" else _WmChain
+    return chain(cfg, consts, dev, kernels)
+
+
 def make_rollout(cfg: ModelConfig, constants, steps: int, *,
                  return_trajectory: bool = False, token_space: bool = False,
                  device: _device.DeviceLike = "cuda", kernels: bool = True):
@@ -56,7 +147,6 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
     ``kernels=False`` runs every kernel's plain version instead."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
-    canonical_cfg = dataclasses.replace(cfg, edge_kernels=False)
     if steps < 1:
         raise ValueError(f"steps must be at least 1, not {steps}")
 
@@ -75,26 +165,19 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
         return stacked((u, s), traj) if return_trajectory else (u, s)
 
     def rollout_tokens(params, upper, surface):
-        cdt = _device.dtype_of(cfg.compute_dtype)
-        g = cfg.stage(0)
-        tp = build_transition_wm(params, consts, cfg)
-        xs = pangu.embed_tokens(params, upper.to(dev, cdt),
-                                surface.to(dev, cdt), consts, cfg,
-                                kernels=kernels)
+        chain = _token_chain(cfg, consts, dev, kernels)
+        tp = chain.build(params)
+        x = chain.embed(params, upper, surface)
         traj = []
         for step in range(steps):
-            skip, dec, off = pangu.forward_core_wm(params, xs, cfg,
-                                                   kernels=kernels)
-            if return_trajectory:       # every step through the canonical grid
-                traj.append(denorm_data(*pangu.recover_fields(
-                    params, skip, dec, off, canonical_cfg), consts))
+            pair = chain.core(params, x)
+            if return_trajectory:
+                traj.append(chain.recover_step(params, pair))
             if step < steps - 1:
-                xs = apply_transition_wm(tp, skip, dec, g, off,
-                                         kernels=kernels)
+                x = chain.transition(tp, pair)
         if return_trajectory:
             return stacked(traj[-1], traj)
-        return denorm_data(*pangu.recover_fields(params, skip, dec, off, cfg,
-                                                 kernels=kernels), consts)
+        return chain.recover(params, pair)
 
     return rollout_tokens if token_space else rollout
 
@@ -125,8 +208,9 @@ def greedy_schedule(horizon: int,
 
 def _canonical_token_branch_only(params_by_horizon) -> None:
     """Raise where the JAX package would take its canonical token-space
-    branch: under a multi-device mesh or with LoRA leaves (odd depths are
-    refused by the config)."""
+    branch for a reason the port does not serve yet: a multi-device mesh or
+    LoRA leaves.  (Its other reason, ``block_layout="v2"``, is served: the
+    canonical chain, ``_CanonChain``.)"""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
@@ -159,12 +243,13 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
     model horizons.  Consecutive steps of one model form a group.
 
     ``token_space=False``: full steps (``single_step``) per model.
-    ``token_space=True``: the single-device window-major chain, with the
-    edge kernels when ``cfg.edge_kernels``: embed with the first model; in a
-    group, trunk + that model's own transition; at a hand-off, trunk + the
-    transition from this model's recovery into the next model's embed
-    (``build_transition_wm(..., embed_params=next)``); trunk + recovery at
-    the end.  ``kernels=False`` runs every kernel's plain version."""
+    ``token_space=True``: the single-device token chain (window-major, with
+    the edge kernels when ``cfg.edge_kernels``; the canonical grid under
+    ``block_layout="v2"``): embed with the first model; in a group, trunk +
+    that model's own transition; at a hand-off, trunk + the transition from
+    this model's recovery into the next model's embed (``embed_params=
+    next``); trunk + recovery at the end.  ``kernels=False`` runs every
+    kernel's plain version."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
     schedule = greedy_schedule(horizon, model_horizons)
@@ -174,7 +259,6 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
             groups[-1] = (h, groups[-1][1] + 1)
         else:
             groups.append((h, 1))
-    g = cfg.stage(0)
 
     def rollout(params_by_horizon, upper, surface):
         u, s = upper.to(dev), surface.to(dev)
@@ -186,28 +270,19 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
 
     def rollout_tokens(params_by_horizon, upper, surface):
         _canonical_token_branch_only(params_by_horizon)
-        cdt = _device.dtype_of(cfg.compute_dtype)
-        xs = pangu.embed_tokens(params_by_horizon[groups[0][0]],
-                                upper.to(dev, cdt), surface.to(dev, cdt),
-                                consts, cfg, kernels=kernels)
+        chain = _token_chain(cfg, consts, dev, kernels)
+        x = chain.embed(params_by_horizon[groups[0][0]], upper, surface)
         for gi, (h, count) in enumerate(groups):
             params = params_by_horizon[h]
             if count > 1:
-                tp = build_transition_wm(params, consts, cfg)
+                tp = chain.build(params)
                 for _ in range(count - 1):
-                    skip, dec, off = pangu.forward_core_wm(params, xs, cfg,
-                                                           kernels=kernels)
-                    xs = apply_transition_wm(tp, skip, dec, g, off,
-                                             kernels=kernels)
-            skip, dec, off = pangu.forward_core_wm(params, xs, cfg,
-                                                   kernels=kernels)
+                    x = chain.transition(tp, chain.core(params, x))
+            pair = chain.core(params, x)
             if gi < len(groups) - 1:
-                tp = build_transition_wm(
-                    params, consts, cfg,
-                    embed_params=params_by_horizon[groups[gi + 1][0]])
-                xs = apply_transition_wm(tp, skip, dec, g, off,
-                                         kernels=kernels)
-        return denorm_data(*pangu.recover_fields(params, skip, dec, off, cfg,
-                                                 kernels=kernels), consts)
+                tp = chain.build(
+                    params, embed_params=params_by_horizon[groups[gi + 1][0]])
+                x = chain.transition(tp, pair)
+        return chain.recover(params, pair)
 
     return (rollout_tokens if token_space else rollout), schedule

@@ -1,5 +1,5 @@
 """Plain tensor layers of the port: the counterpart of
-``pangu_tpu/models/layers.py``, limited to what the served forward needs.
+``pangu_tpu/models/layers.py``, limited to what the port's paths need.
 
 Activations live in channels-last ``(B, Z, H, W, C)`` token grids and dense
 kernels use the ``(in, out)`` layout, as in the JAX package, so converted
@@ -100,6 +100,30 @@ def patch_embed(p, upper, surface, constants, cfg: ModelConfig):
           + p["surface"]["bias"].to(dt))           # (B, HT, WT, C)
 
     return torch.cat([xs[:, None], xu], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Window partition / reverse
+# ---------------------------------------------------------------------------
+
+def window_partition(x, window: Tuple[int, int, int]):
+    """(B, Z, Hp, W, C) -> (B, nlon, ntype, wz*wh*ww, C): longitude windows
+    outermost, window type = zz * nlat + hh, token index ((z_off * wh) +
+    h_off) * ww + w_off (the reference partition's order)."""
+    B, Z, Hp, W, C = x.shape
+    wz, wh, ww = window
+    x = x.reshape(B, Z // wz, wz, Hp // wh, wh, W // ww, ww, C)
+    x = x.permute(0, 5, 1, 3, 2, 4, 6, 7)
+    return x.reshape(B, W // ww, (Z // wz) * (Hp // wh), wz * wh * ww, C)
+
+
+def window_reverse(x, window: Tuple[int, int, int], z: int, hp: int, w: int):
+    """Inverse of :func:`window_partition`."""
+    B, C = x.shape[0], x.shape[-1]
+    wz, wh, ww = window
+    x = x.reshape(B, w // ww, z // wz, hp // wh, wz, wh, ww, C)
+    x = x.permute(0, 2, 4, 3, 5, 1, 6, 7)
+    return x.reshape(B, z, hp, w, C)
 
 
 # ---------------------------------------------------------------------------

@@ -24,9 +24,17 @@ stage call, the block kernels with per-sample stochastic-depth scales
 forward, the block backward kernel backward) between the differentiable edge
 (``embed_wm_train`` / ``recovery_wm_train`` with ``cfg.edge_kernels``, else
 patch embed and patch recovery by autograd).
+
+With ``cfg.block_layout="v2"`` every forward, served and trained, runs patch
+embed, the canonical-layout trunk (:func:`forward_core`) and patch recovery:
+each stage is a chain of rolled-coordinate grid blocks
+(``ops/earth_block_fused``) with the canonical DownSample / UpSample kernels
+between them, stages 1 and 2 one chain where stage 1's depth is even.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -35,6 +43,8 @@ from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import to_device
 from pangu_tpu_torch.models import layers as L
 from pangu_tpu_torch.ops.earth_block_bwd import run_stage_train_wm
+from pangu_tpu_torch.ops.earth_block_fused import (run_stage_fused,
+                                                   run_stage_train)
 from pangu_tpu_torch.ops.embed_wm import (embed_wm, embed_wm_plain,
                                           embed_wm_train)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm, recovery_wm_plain,
@@ -42,7 +52,8 @@ from pangu_tpu_torch.ops.recovery_wm import (recovery_wm, recovery_wm_plain,
 from pangu_tpu_torch.ops.earth_block_wm import (run_stage_wm, to_window_major,
                                                 wm_to_canonical)
 from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
-                                        up_sample, up_sample_plain)
+                                        down_sample_train, up_sample,
+                                        up_sample_plain, up_sample_train)
 from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                            down_sample_wm_plain,
                                            down_sample_wm_train, up_sample_wm,
@@ -181,6 +192,16 @@ def _stage_drops(n_blocks: int, rates, offset: int, gen, B: int):
     return drops
 
 
+def draw_drops(cfg: ModelConfig, gen, batch: int):
+    """Four per-stage lists of (B, 2) branch scales, stage by stage from one
+    generator (``cfg.drop_path_rates()``; ones without a generator): both
+    training trunks draw them so, and compute the same loss from one
+    seed."""
+    rates = cfg.drop_path_rates()
+    return [_stage_drops(cfg.depths[i], rates, sum(cfg.depths[:i]), gen,
+                         batch) for i in range(4)]
+
+
 def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
                           drops=None, kernels: bool = True):
     """The training trunk in window-major storage, differentiable in ``xs``
@@ -193,9 +214,7 @@ def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
     :func:`forward_core_wm` does."""
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     if drops is None:
-        rates = cfg.drop_path_rates()
-        drops = [_stage_drops(cfg.depths[i], rates, sum(cfg.depths[:i]), gen,
-                              xs.shape[0]) for i in range(4)]
+        drops = draw_drops(cfg, gen, xs.shape[0])
     kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels)
 
     skip, off0 = run_stage_train_wm(params["stages"][0], xs, g0, drops[0], **kw)
@@ -215,45 +234,77 @@ def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
 
 def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
               kernels: bool = True):
-    """One EarthSpecificLayer on the canonical (B, Z, H, W, C) grid, as the
-    JAX package's ``_run_stage`` runs it for inference with the wm kernels:
-    ``run_stage_wm(io_layout="canon")``."""
-    return run_stage_wm(stage_params, x, cfg.stage(stage_idx),
-                        gelu_tanh=cfg.gelu_tanh, kernels=kernels,
-                        io_layout="canon", lat_group=cfg.lat_group)
+    """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid,
+    as the JAX package's ``_run_stage`` runs it for inference: by
+    ``cfg.block_layout``, ``run_stage_wm(io_layout="canon")`` ("wm") or
+    ``run_stage_fused`` ("v2")."""
+    geom = cfg.stage(stage_idx)
+    if cfg.block_layout == "v2":
+        return run_stage_fused(stage_params, x, geom,
+                               gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+    return run_stage_wm(stage_params, x, geom, gelu_tanh=cfg.gelu_tanh,
+                        kernels=kernels, io_layout="canon",
+                        lat_group=cfg.lat_group)
 
 
 def forward_core(params, x, cfg: ModelConfig, *, taps=None,
-                 kernels: bool = True):
+                 kernels: bool = True, deterministic: bool = True, gen=None,
+                 drops=None):
     """The encoder/decoder trunk on the canonical embedded grid (B, Z, H, W,
     C): stages, DownSample and UpSample.  Returns the pre-recovery pair
     ``(skip, dec)``, each canonical (B, Z, H, W, C).  ``taps``: a dict that
     receives ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample``
-    and ``stage3``; without it stages 1 and 2 run as one chain, as the JAX
-    package merges them."""
+    and ``stage3``; without it stages 1 and 2 run as one chain where stage
+    1's depth is even (the block parity then runs on), as the JAX package
+    merges them.
+
+    ``deterministic=False`` (``block_layout="v2"`` only; the window-major
+    trunk trains through :func:`forward_core_wm_train`): the training trunk,
+    differentiable in ``x`` and every trunk parameter, each block one
+    autograd Function (``run_stage_train``), DownSample and UpSample their
+    kernels forward and the plain recompute backward.  ``drops``: four
+    per-stage lists of (B, 2) branch scales, or None to draw them from
+    ``gen`` (:func:`draw_drops`)."""
+    train = not deterministic
+    if train and (taps is not None or cfg.block_layout != "v2"):
+        raise ValueError("forward_core trains the block_layout='v2' trunk "
+                         "without taps; the window-major trunk trains "
+                         "through forward_core_wm_train")
+    if train and drops is None:
+        drops = draw_drops(cfg, gen, x.shape[0])
+    stages = params["stages"]
+
     def tap(name, val):
         if taps is not None:
             taps[name] = val
         return val
 
-    down = down_sample if kernels else down_sample_plain
-    up = up_sample if kernels else up_sample_plain
-    x = tap("stage0", run_stage(params["stages"][0], x, cfg, 0,
-                                kernels=kernels))
+    def stage(sp, xx, i, dr):
+        if train:
+            return run_stage_train(sp, xx, cfg.stage(i), dr,
+                                   gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+        return run_stage(sp, xx, cfg, i, kernels=kernels)
+
+    if train:
+        down = functools.partial(down_sample_train, kernels=kernels)
+        up = functools.partial(up_sample_train, kernels=kernels)
+    else:
+        down = down_sample if kernels else down_sample_plain
+        up = up_sample if kernels else up_sample_plain
+        drops = [None] * 4
+    x = tap("stage0", stage(stages[0], x, 0, drops[0]))
     skip = x
     x = tap("downsample", down(params["downsample"], x))
-    if taps is None:
-        combined = {"blocks": (list(params["stages"][1]["blocks"])
-                               + list(params["stages"][2]["blocks"]))}
-        x = run_stage(combined, x, cfg, 1, kernels=kernels)
+    if taps is None and cfg.depths[1] % 2 == 0:
+        combined = {"blocks": (list(stages[1]["blocks"])
+                               + list(stages[2]["blocks"]))}
+        x = stage(combined, x, 1,
+                  None if drops[1] is None else list(drops[1]) + list(drops[2]))
     else:
-        x = tap("stage1", run_stage(params["stages"][1], x, cfg, 1,
-                                    kernels=kernels))
-        x = tap("stage2", run_stage(params["stages"][2], x, cfg, 2,
-                                    kernels=kernels))
+        x = tap("stage1", stage(stages[1], x, 1, drops[1]))
+        x = tap("stage2", stage(stages[2], x, 2, drops[2]))
     x = tap("upsample", up(params["upsample"], x, cfg.h_tokens))
-    x = tap("stage3", run_stage(params["stages"][3], x, cfg, 3,
-                                kernels=kernels))
+    x = tap("stage3", stage(stages[3], x, 3, drops[3]))
     return skip, x
 
 
@@ -299,21 +350,30 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample`` and
     ``stage3`` (tensors on ``device``); the step then runs patch embed, the
     canonical-layout trunk (:func:`forward_core`) and patch recovery, as
-    the JAX package does when it is given taps.
+    the JAX package does when it is given taps.  ``cfg.block_layout="v2"``
+    runs that path with or without taps.
 
     ``deterministic=False``: the training forward, differentiable in the
     params, with stochastic-depth scales ``drops`` (four per-stage lists of
     (B, 2) tensors) or drawn from the ``torch.Generator`` ``gen`` (see
-    :func:`forward_core_wm_train`)."""
+    :func:`draw_drops`)."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
         raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
     consts = to_device(constants, dev)
     cdt = _device.dtype_of(cfg.compute_dtype)
-    if not deterministic:
+    if not deterministic and taps is not None:
+        raise ValueError("taps are collected by the served forward only")
+    if taps is not None or cfg.block_layout == "v2":
+        x = L.patch_embed(params["patch_embed"], upper.to(dev, cdt),
+                          surface.to(dev, cdt), consts, cfg)
         if taps is not None:
-            raise ValueError("taps are collected by the served forward only")
+            taps["embed"] = x
+        pair = forward_core(params, x, cfg, taps=taps, kernels=kernels,
+                            deterministic=deterministic, gen=gen, drops=drops)
+        return L.patch_recovery(params["patch_recovery"], pair, cfg)
+    if not deterministic:
         u, s = upper.to(dev, cdt), surface.to(dev, cdt)
         if cfg.edge_kernels:
             xs = embed_wm_train(params["patch_embed"], u, s, consts, cfg,
@@ -326,12 +386,6 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
             return recovery_wm_train(params["patch_recovery"], skip, dec, off,
                                      cfg, kernels=kernels)
         return recover_fields(params, skip, dec, off, cfg, kernels=kernels)
-    if taps is not None:
-        x = L.patch_embed(params["patch_embed"], upper.to(dev, cdt),
-                          surface.to(dev, cdt), consts, cfg)
-        taps["embed"] = x
-        pair = forward_core(params, x, cfg, taps=taps, kernels=kernels)
-        return L.patch_recovery(params["patch_recovery"], pair, cfg)
     xs = embed_tokens(params, upper.to(dev, cdt), surface.to(dev, cdt), consts,
                       cfg, kernels=kernels)
     skip, dec, off = forward_core_wm(params, xs, cfg, kernels=kernels)

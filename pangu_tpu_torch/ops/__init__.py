@@ -8,12 +8,15 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from pangu_tpu_torch.ops.earth_block_bwd import block_bwd
+from pangu_tpu_torch.ops.earth_block_fused import block_v2
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
                                                 block_wm_group)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd, recovery_wm_surface,
                                              recovery_wm_upper)
 from pangu_tpu_torch.ops.updown import down_sample, up_sample
 from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
+from pangu_tpu_torch.ops.window_attention import (grid_attention,
+                                                  grid_attention_bwd)
 
 
 def kernels() -> Dict[str, Callable]:
@@ -35,7 +38,10 @@ def kernels() -> Dict[str, Callable]:
             "up_sample": up_sample,
             "block_bwd": block_bwd,
             "embed_dw_upper": embed_dw_upper,
-            "recovery_bwd": recovery_bwd}
+            "recovery_bwd": recovery_bwd,
+            "block_v2": block_v2,
+            "grid_attention": grid_attention,
+            "grid_attention_bwd": grid_attention_bwd}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,203 @@
+"""Whole blocks on the rolled-coordinate token grid: the counterpart of
+``pangu_tpu/ops/earth_block_fused.py`` (``_block_v2_call``,
+``_block_v2_train_core``, ``run_stage_fused`` and ``run_stage_train`` on one
+device, ``stage_supports_fused``), the trunk of ``block_layout="v2"``.
+
+A stage keeps the (B, Z, Hp, W, C) grid, latitude-padded to Hp, between its
+blocks.  Block j reads the grid through its shift ``delta = target - off``
+(window token p reads grid row p + delta, each coordinate modulo its extent),
+zeroes the rows whose canonical latitude (row + canon_add) % Hp is padding,
+and writes its output in its own window coordinates, so the stage carries
+the offset ``off`` of its last block and rolls back once at its end.  The
+JAX kernel's BlockSpec chunk stitches and in-VMEM rotate are the modular
+gather of the port's block kernel (``csrc/block_wm.cu`` with a grid input
+and output).
+
+  * ``block_v2``: one whole block (attention and the tail), the CUDA block
+    kernel on a CUDA tensor (with its own ``launches`` count), its plain
+    version on a CPU tensor; ``drop`` carries the training block's
+    per-sample stochastic-depth scales;
+  * ``run_stage_fused``: a served stage, canonical (B, Z, H, W, C) in and
+    out, any depth;
+  * ``run_stage_train``: the training stage, one ``torch.autograd.Function``
+    per block (JAX's per-block ``custom_vjp``): forward ``block_v2`` with the
+    block's scales, saving only the block's input; backward the recompute of
+    the block through ``GridAttention`` (``ops/window_attention``: the grid
+    attention kernel forward, its backward kernel backward) and the plain
+    tail by autograd, as the JAX package takes ``jax.vjp`` of its reference
+    composition (XLA tail, Pallas attention).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.models.layers import window_region_ids
+from pangu_tpu_torch.ops.block_tail import tail_math
+from pangu_tpu_torch.ops.earth_block_bwd import (BLOCK_LEAVES, _get, _schedule,
+                                                 _tree)
+from pangu_tpu_torch.ops.earth_block_wm import (Offset, drop_scales,
+                                                launch_block, pad_rows_zeroed,
+                                                params_in)
+from pangu_tpu_torch.ops.window_attention import (GridAttention,
+                                                  grid_attention_plain)
+
+
+def _block_ref(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+               ids: Optional[torch.Tensor], gelu_tanh: bool, drop, attend):
+    """Roll into window coordinates, zero the pad rows, attention through
+    ``attend(x, q, ids)``, then the tail (``_block_v2_train_core.ref``)."""
+    x = xs
+    if any(delta):
+        x = torch.roll(x, shifts=tuple(-d for d in delta), dims=(1, 2, 3))
+    x = pad_rows_zeroed(x, geom, canon_add)
+    q = params_in(p, x.dtype)
+    a = attend(x, q, ids)
+    return tail_math(a, x, q, gelu_tanh, *drop_scales(drop, x.dim()))
+
+
+def _attention_args(q):
+    at = q["attn"]
+    return (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+            at["proj"]["bias"], at["bias_table"])
+
+
+def block_v2_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+                   ids: Optional[torch.Tensor], gelu_tanh: bool,
+                   drop: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the v2 block (any device)."""
+    def attend(x, q, ids):
+        return grid_attention_plain(x, *_attention_args(q), geom.window, ids)
+
+    return _block_ref(p, xs, geom, delta, canon_add, ids, gelu_tanh, drop,
+                      attend)
+
+
+def block_v2(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
+             ids: Optional[torch.Tensor], gelu_tanh: bool,
+             drop: Optional[torch.Tensor] = None):
+    """One whole Earth-specific block on the (B, Z, Hp, W, C) grid ``xs``,
+    read through ``delta``, written in the block's window coordinates.
+    ``canon_add``: the latitude offset from window to canonical coordinates
+    (pad rows are those whose canonical latitude is >= the real count);
+    ``ids``: (ntype, N) region ids of a shifted block, else None; ``drop``:
+    (B, 2) float32 branch scales (training) or None.  The CUDA block kernel
+    for a CUDA tensor, the plain version for a CPU tensor."""
+    if not xs.is_cuda:
+        return block_v2_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
+                              drop)
+    out = launch_block(p, xs, torch.empty_like(xs), geom, delta, canon_add,
+                       ids, gelu_tanh, 1, True, True, "block_v2", drop)
+    block_v2.launches += 1
+    return out
+
+
+block_v2.launches = 0
+
+
+def _has_lora(bp) -> bool:
+    return any("lora_a" in bp[a][b] for a, b in (
+        ("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")))
+
+
+def stage_supports_fused(stage_params) -> bool:
+    """False where a block carries LoRA leaves: the whole-block kernels take
+    plain dense layers only."""
+    return not any(_has_lora(bp) for bp in stage_params["blocks"])
+
+
+def _require_fused(stage_params) -> None:
+    if not stage_supports_fused(stage_params):
+        raise NotImplementedError(
+            "LoRA leaves on a block: the per-block path (the JAX package's "
+            "L.earth_block) is not ported yet")
+
+
+def _region_ids(geom: StageGeometry, device):
+    return torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                             geom.window), device=device)
+
+
+def _padded(x, geom: StageGeometry):
+    pad = geom.h_padded - x.shape[2]
+    return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
+
+
+def _canonical(xs, off: Offset, h: int):
+    """The stage's last block output -> the canonical grid: roll back by the
+    offset and crop the latitude padding."""
+    if any(off):
+        xs = torch.roll(xs, shifts=tuple(off), dims=(1, 2, 3))
+    return xs[:, :, :h].contiguous()
+
+
+def run_stage_fused(stage_params, x, geom: StageGeometry, *,
+                    gelu_tanh: bool = False, kernels: bool = True):
+    """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid
+    through ``block_v2``: pad, the block chain in rolled coordinates, one
+    roll back and a crop.  ``kernels=False`` runs the plain version."""
+    _require_fused(stage_params)
+    sched, off = _schedule(geom, len(stage_params["blocks"]))
+    ids = _region_ids(geom, x.device)
+    block = block_v2 if kernels else block_v2_plain
+    xs = _padded(x, geom)
+    for bp, (delta, canon_add, shifted) in zip(stage_params["blocks"], sched):
+        xs = block(bp, xs, geom, delta, canon_add, ids if shifted else None,
+                   gelu_tanh)
+    return _canonical(xs, off, x.shape[2])
+
+
+class _BlockTrain(torch.autograd.Function):
+    """One block: ``block_v2`` forward saving only its input; backward the
+    recompute through ``GridAttention`` and the plain tail, differentiated
+    with ``torch.autograd.grad`` (recompute-in-backward, as
+    ``jax.checkpoint``)."""
+
+    @staticmethod
+    def forward(ctx, meta, xs, *leaves):
+        geom, delta, canon_add, ids, drop, gelu_tanh, kernels = meta
+        ctx.meta = meta
+        ctx.save_for_backward(xs, *leaves)
+        block = block_v2 if kernels else block_v2_plain
+        return block(_tree(leaves), xs, geom, delta, canon_add, ids,
+                     gelu_tanh, drop)
+
+    @staticmethod
+    def backward(ctx, g):
+        geom, delta, canon_add, ids, drop, gelu_tanh, kernels = ctx.meta
+
+        def attend(x, q, ids):
+            return GridAttention.apply((geom.window, ids, kernels), x,
+                                       *_attention_args(q))
+
+        with torch.enable_grad():
+            xs, *leaves = (t.detach().requires_grad_(True)
+                           for t in ctx.saved_tensors)
+            y = _block_ref(_tree(leaves), xs, geom, delta, canon_add, ids,
+                           gelu_tanh, drop, attend)
+            grads = torch.autograd.grad(y, [xs, *leaves], g)
+        return (None, *grads)
+
+
+def run_stage_train(stage_params, x, geom: StageGeometry,
+                    drops: Optional[list], *, gelu_tanh: bool = False,
+                    kernels: bool = True):
+    """Training forward of one EarthSpecificLayer on the canonical grid,
+    differentiable in ``x`` and every block parameter: the served stage's
+    chain with one autograd Function per block.  ``drops``: one (B, 2)
+    float32 tensor of branch scales per block, or None."""
+    _require_fused(stage_params)
+    blocks = stage_params["blocks"]
+    sched, off = _schedule(geom, len(blocks))
+    ids = _region_ids(geom, x.device)
+    xs = _padded(x, geom)
+    for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
+        drop = None if drops is None else drops[j].to(x.device)
+        meta = (geom, delta, canon_add, ids if shifted else None, drop,
+                gelu_tanh, kernels)
+        xs = _BlockTrain.apply(meta, xs,
+                               *(_get(bp, path) for path in BLOCK_LEAVES))
+    return _canonical(xs, off, x.shape[2])

@@ -163,9 +163,10 @@ def check_drop(drop, b: int, device, what: str):
     return drop.contiguous()
 
 
-def _launch(p, x, out, geom: StageGeometry, delta: Offset, canon_add: int,
-            ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int,
-            in_canon: bool, out_canon: bool, what: str, drop=None):
+def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
+                 canon_add: int, ids: Optional[torch.Tensor], gelu_tanh: bool,
+                 gh: int, in_canon: bool, out_canon: bool, what: str,
+                 drop=None):
     """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
     the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take.
     ``drop``: (B, 2) float32 branch scales or None (the served kernel)."""
@@ -229,8 +230,8 @@ def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     if not xs.is_cuda:
         return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
                               drop)
-    out = _launch(p, xs, torch.empty_like(xs), geom, delta, canon_add, ids,
-                  gelu_tanh, 1, False, False, "block_wm", drop)
+    out = launch_block(p, xs, torch.empty_like(xs), geom, delta, canon_add,
+                       ids, gelu_tanh, 1, False, False, "block_wm", drop)
     block_wm.launches += 1
     return out
 
@@ -245,8 +246,8 @@ def block_wm_group(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     CPU tensor runs ``block_wm_plain``."""
     if not xs.is_cuda:
         return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
-    out = _launch(p, xs, torch.empty_like(xs), geom, delta, canon_add, ids,
-                  gelu_tanh, gh, False, False, "block_wm_group")
+    out = launch_block(p, xs, torch.empty_like(xs), geom, delta, canon_add,
+                       ids, gelu_tanh, gh, False, False, "block_wm_group")
     block_wm_group.launches += 1
     return out
 
@@ -288,8 +289,8 @@ def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
              (b, geom.z // wz, geom.h_padded // wh, geom.w // ww,
               wz * wh * ww, c))
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
-    _launch(p, x, out, geom, delta, canon_add, ids, gelu_tanh, 1, in_canon,
-            out_canon, "block_wm_canon")
+    launch_block(p, x, out, geom, delta, canon_add, ids, gelu_tanh, 1,
+                 in_canon, out_canon, "block_wm_canon")
     block_wm_canon.launches += 1
     return out
 

@@ -1,7 +1,8 @@
 """Canonical-layout DownSample / UpSample kernels: the counterpart of
 ``pangu_tpu/ops/updown.py`` (``down_sample_fused`` / ``_down_pallas`` and
 ``up_sample_fused`` / ``_up_pallas``), which the canonical-layout forward
-(``models/pangu.py::forward_core``, the ``taps`` path) runs between stages.
+(``models/pangu.py::forward_core``: the ``taps`` path and the
+``block_layout="v2"`` trunk) runs between stages.
 
   * ``down_sample``: (B, Z, H, W, C) -> (B, Z, ceil(H/2), W/2, 2C): a zero
     latitude row where H is odd, 2x2 space-to-depth with merge order
@@ -12,7 +13,11 @@
 
 Each wrapper launches its CUDA kernel (``csrc/updown.cu``) on a CUDA tensor
 and counts the launch in ``launches``, and runs its plain version on a CPU
-tensor.
+tensor.  ``down_sample_train`` / ``up_sample_train`` (the ``block_layout=
+"v2"`` training trunk) run the kernel forward and, backward, autograd
+through a recompute of the plain version (``recompute_train``, which the
+window-major pair in ``ops/updown_wm`` shares), as the JAX package's
+``_down_core`` / ``_up_core`` take an XLA ``jax.vjp`` of their reference.
 """
 
 from __future__ import annotations
@@ -111,3 +116,60 @@ def up_sample(p, x, out_h: int):
 
 
 up_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Training: kernel forward, autograd through the plain recompute backward
+# ---------------------------------------------------------------------------
+
+class _RecomputeTrain(torch.autograd.Function):
+    """``fwd`` forward; backward: autograd of ``plain`` recomputed from the
+    saved input and parameters."""
+
+    @staticmethod
+    def forward(ctx, meta, xs, *leaves):
+        fwd, plain, rebuild, args = meta
+        ctx.meta = meta
+        ctx.save_for_backward(xs, *leaves)
+        return fwd(rebuild(leaves), xs, *args)
+
+    @staticmethod
+    def backward(ctx, g):
+        _, plain, rebuild, args = ctx.meta
+        xs, *leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = xs.detach().requires_grad_(True)
+            leaves = [t.detach().requires_grad_(True) for t in leaves]
+            y = plain(rebuild(leaves), xs, *args)
+            grads = torch.autograd.grad(y, [xs, *leaves], g)
+        return (None, *grads)
+
+
+def recompute_train(fwd, plain, p, xs, args, kernels: bool):
+    """``fwd(p, xs, *args)`` forward (``kernels=False``: ``plain``), the
+    backward through autograd of ``plain`` recomputed from ``xs`` and the
+    leaves of the two-level param dict ``p``."""
+    keys = [(k, j) for k in sorted(p) for j in sorted(p[k])]
+
+    def rebuild(leaves):
+        out = {}
+        for (k, j), t in zip(keys, leaves):
+            out.setdefault(k, {})[j] = t
+        return out
+
+    meta = (fwd if kernels else plain, plain, rebuild, args)
+    return _RecomputeTrain.apply(meta, xs, *(p[k][j] for k, j in keys))
+
+
+def down_sample_train(p, x, *, kernels: bool = True):
+    """Differentiable :func:`down_sample` (in ``x`` and ``p``): the kernel
+    forward (``kernels=False``: the plain version), the backward through the
+    plain recompute, as the JAX package's ``_down_core``."""
+    return recompute_train(down_sample, down_sample_plain, p, x, (), kernels)
+
+
+def up_sample_train(p, x, out_h: int, *, kernels: bool = True):
+    """Differentiable :func:`up_sample`, as :func:`down_sample_train` (the
+    JAX package's ``_up_core``)."""
+    return recompute_train(up_sample, up_sample_plain, p, x, (out_h,),
+                           kernels)

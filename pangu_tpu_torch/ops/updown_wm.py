@@ -32,7 +32,8 @@ from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
                                                 params_in, require_device,
                                                 to_window_major,
                                                 wm_to_canonical)
-from pangu_tpu_torch.ops.updown import down_sample_plain, up_sample_plain
+from pangu_tpu_torch.ops.updown import (down_sample_plain, recompute_train,
+                                        up_sample_plain)
 
 
 def _pad_lat(x, hp: int):
@@ -139,53 +140,17 @@ up_sample_wm.launches = 0
 # Training: kernel forward, autograd through the plain recompute backward
 # ---------------------------------------------------------------------------
 
-class _RecomputeTrain(torch.autograd.Function):
-    """``fwd`` forward; backward: autograd of ``plain`` recomputed from the
-    saved input and parameters."""
-
-    @staticmethod
-    def forward(ctx, meta, xs, *leaves):
-        fwd, plain, rebuild, args = meta
-        ctx.meta = meta
-        ctx.save_for_backward(xs, *leaves)
-        return fwd(rebuild(leaves), xs, *args)
-
-    @staticmethod
-    def backward(ctx, g):
-        _, plain, rebuild, args = ctx.meta
-        xs, *leaves = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = xs.detach().requires_grad_(True)
-            leaves = [t.detach().requires_grad_(True) for t in leaves]
-            y = plain(rebuild(leaves), xs, *args)
-            grads = torch.autograd.grad(y, [xs, *leaves], g)
-        return (None, *grads)
-
-
-def _train(fwd, plain, p, xs, args, kernels: bool):
-    keys = [(k, j) for k in sorted(p) for j in sorted(p[k])]
-
-    def rebuild(leaves):
-        out = {}
-        for (k, j), t in zip(keys, leaves):
-            out.setdefault(k, {})[j] = t
-        return out
-
-    meta = (fwd if kernels else plain, plain, rebuild, args)
-    return _RecomputeTrain.apply(meta, xs, *(p[k][j] for k, j in keys))
-
-
 def down_sample_wm_train(p, xs, geom0: StageGeometry, geom1: StageGeometry,
                          off: Offset, *, kernels: bool = True):
     """Differentiable :func:`down_sample_wm` (in ``xs`` and ``p``): the
     kernel forward (``kernels=False``: the plain version), the backward
     through the plain recompute."""
-    return _train(down_sample_wm, down_sample_wm_plain, p, xs,
-                  (geom0, geom1, tuple(off)), kernels)
+    return recompute_train(down_sample_wm, down_sample_wm_plain, p, xs,
+                           (geom0, geom1, tuple(off)), kernels)
 
 
 def up_sample_wm_train(p, xs, geom2: StageGeometry, geom3: StageGeometry,
                        off: Offset, *, kernels: bool = True):
     """Differentiable :func:`up_sample_wm`, as :func:`down_sample_wm_train`."""
-    return _train(up_sample_wm, up_sample_wm_plain, p, xs,
-                  (geom2, geom3, tuple(off)), kernels)
+    return recompute_train(up_sample_wm, up_sample_wm_plain, p, xs,
+                           (geom2, geom3, tuple(off)), kernels)

@@ -1,5 +1,8 @@
 """The port's model geometry equals the JAX package's on every preset, and
-values the port does not take raise instead of being ignored."""
+values the port does not take raise instead of being ignored: an unknown
+``block_layout``, odd stage depths under the window-major layout (the v2
+stages take any depth), and the edge kernels under ``block_layout="v2"``
+(the JAX package silently skips them there)."""
 
 import dataclasses
 
@@ -15,7 +18,7 @@ DERIVED = ["lat_padded", "levels_padded", "upper_planes", "z_tokens",
 SHARED_FIELDS = ["upper_vars", "surface_vars", "const_masks", "levels", "lat",
                  "lon", "patch", "window", "depths", "heads", "dims",
                  "mlp_ratio", "param_dtype", "compute_dtype",
-                 "gelu", "lat_group", "drop_path_max"]
+                 "gelu", "lat_group", "drop_path_max", "block_layout"]
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -100,6 +103,35 @@ def test_edge_kernels_on_unsupported_geometry_raise(change):
 def test_invalid_values_raise(change):
     with pytest.raises(ValueError):
         dataclasses.replace(PC.TINY, **change)
+
+
+@pytest.mark.parametrize("layout", ["wm", "v2"])
+def test_block_layout_values_of_jax_are_accepted(layout):
+    want = dataclasses.replace(JC.TINY, block_layout=layout)
+    assert dataclasses.replace(PC.TINY, block_layout=layout).block_layout \
+        == want.block_layout == layout
+
+
+@pytest.mark.parametrize("layout", ["canon", "V2", ""])
+def test_unknown_block_layout_raises(layout):
+    with pytest.raises(ValueError, match="block_layout"):
+        dataclasses.replace(PC.TINY, block_layout=layout)
+
+
+@pytest.mark.parametrize("depths", [(2, 3, 3, 2), (1, 1, 1, 1), (3, 6, 5, 2)])
+def test_odd_depths_only_under_v2(depths):
+    with pytest.raises(ValueError, match="even stage depths"):
+        dataclasses.replace(PC.TINY, depths=depths)
+    cfg = dataclasses.replace(PC.TINY, depths=depths, block_layout="v2")
+    assert cfg.depths == depths and cfg.total_blocks == sum(depths)
+
+
+@pytest.mark.parametrize("preset", PRESETS)
+def test_v2_refuses_edge_kernels(preset):
+    v2 = dataclasses.replace(getattr(PC, preset), block_layout="v2")
+    assert not v2.edge_kernels
+    with pytest.raises(ValueError, match="block_layout"):
+        dataclasses.replace(v2, edge_kernels=True)
 
 
 TRAIN_FIELDS = ["epochs", "lr", "weight_decay", "batch_size",

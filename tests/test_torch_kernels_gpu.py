@@ -11,7 +11,12 @@ kernels: the block with per-sample branch scales (scales of 1 bit-equal to
 the served block), the block backward (every gradient, and bit-identical in
 two runs), the upper embed weight gradient, the recovery backward, and the
 float32 train step's loss (1e-4 relative) and gradients (1e-3 of each
-leaf's max) against the plain path.  Needs a CUDA
+leaf's max) against the plain path; and the ``block_layout="v2"`` kernels:
+the grid block at the three shifts a v2 stage uses, with and without
+branch scales, the grid attention (with and without region ids) and its
+backward (every gradient, bit-identical in two runs), the v2 forward (1e-3,
+against plain versions and the wm forward), the v2 rollouts' launch counts
+and the float32 v2 train step against the plain path.  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -581,3 +586,156 @@ def _as_dict(tree):
     if isinstance(tree, dict):
         return {k: _as_dict(v) for k, v in tree.items()}
     return tree
+
+
+# ---------------------------------------------------------------------------
+# block_layout="v2": the grid block (B10), the grid attention (B14) and its
+# backward (B15)
+# ---------------------------------------------------------------------------
+
+def _grid(geom, dev, dtype, seed=1, batch=2):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    shape = (batch, geom.z, geom.h_padded, geom.w, geom.dim)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+def _ids(geom, dev):
+    return torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                             geom.window), device=dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("delta,canon_add,shifted", [
+    ((0, 0, 0), 0, False), ((1, 3, 6), 3, True), ((-1, -3, -6), 0, False)])
+@pytest.mark.parametrize("with_drop", [False, True])
+def test_block_v2_kernel_matches_plain(cuda, cfg_name, stage, dtype, delta,
+                                       canon_add, shifted, with_drop):
+    from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][1]
+    x = _grid(geom, cuda, dtype)
+    ids = _ids(geom, cuda) if shifted else None
+    drop = _drop(x.shape[0], cuda) if with_drop else None
+    for tanh in (False, True):
+        got = block_v2(bp, x, geom, delta, canon_add, ids, tanh, drop)
+        want = block_v2_plain(bp, x, geom, delta, canon_add, ids, tanh, drop)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape == x.shape and got.dtype == dtype
+        assert _rel_err(got, want) <= TOL[dtype]
+
+
+def _attn_args(bp):
+    a = bp["attn"]
+    return (a["qkv"]["kernel"], a["qkv"]["bias"], a["proj"]["kernel"],
+            a["proj"]["bias"], a["bias_table"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_grid_attention_kernels_match_plain(cuda, cfg_name, stage, dtype,
+                                            masked):
+    """The forward, and every gradient of the backward (also bit-identical
+    in two runs); random biases so that the bias gradients are not trivial."""
+    from pangu_tpu_torch.ops.window_attention import (
+        grid_attention, grid_attention_bwd, grid_attention_bwd_plain,
+        grid_attention_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    wqkv, _, wp, _, table = _attn_args(
+        _params(cfg, cuda)["stages"][stage]["blocks"][0])
+    g = torch.Generator(device=cuda).manual_seed(11)
+    bqkv = 0.02 * torch.randn(3 * geom.dim, generator=g, device=cuda)
+    bp = 0.02 * torch.randn(geom.dim, generator=g, device=cuda)
+    x, dy = _grid(geom, cuda, dtype, 1), _grid(geom, cuda, dtype, 2)
+    ids = _ids(geom, cuda) if masked else None
+    args = (wqkv.to(dtype), bqkv.to(dtype), wp.to(dtype))
+    got = grid_attention(x, *args, bp.to(dtype), table, geom.window, ids)
+    want = grid_attention_plain(x, *args, bp.to(dtype), table, geom.window,
+                                ids)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and _rel_err(got, want) <= TOL[dtype]
+    got = grid_attention_bwd(x, dy, *args, table, geom.window, ids)
+    want = grid_attention_bwd_plain(x, dy, *args, table, geom.window, ids)
+    torch.cuda.synchronize()
+    names = ("dx", "dwqkv", "dbqkv", "dwp", "dbp", "dbias")
+    errs = [(n, _rel_err(a, b)) for n, a, b in zip(names, got, want)]
+    assert all(e <= TOL[dtype] for _, e in errs), errs
+    assert got[0].dtype == dtype and all(t.dtype == torch.float32
+                                         for t in got[1:])
+    again = grid_attention_bwd(x, dy, *args, table, geom.window, ids)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_v2_paths_match_plain(cuda, cfg_name):
+    """The v2 forward (kernels against plain versions, and against the wm
+    forward from the same params), and the full-step and token-space v2
+    rollouts with their launch counts."""
+    from pangu_tpu_torch import ops
+    cfg = dataclasses.replace(CFGS[cfg_name], block_layout="v2")
+    params = _params(cfg, cuda)
+    consts = synthetic_constants(cfg)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    upper = torch.randn((1, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                        device=cuda)
+    surface = torch.randn((1, 4, cfg.lat, cfg.lon), generator=g, device=cuda)
+    got = pangu.forward(params, upper, surface, consts, cfg, device=cuda)
+    want = pangu.forward(params, upper, surface, consts, cfg, device=cuda,
+                         kernels=False)
+    wm = pangu.forward(params, upper, surface, consts, CFGS[cfg_name],
+                       device=cuda)
+    for a, b, c in zip(got, want, wm):
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= 1e-3 and _rel_err(a, c) <= 1e-3
+    per_step = {"block_v2": sum(cfg.depths), "down_sample": 1, "up_sample": 1}
+    for token in (False, True):
+        ops.reset_launches()
+        make_rollout(cfg, consts, 2, token_space=token, device=cuda)(
+            params, upper, surface)
+        counts = ops.launches()
+        assert counts == {**{k: 0 for k in counts},
+                          **{k: 2 * v for k, v in per_step.items()}}, counts
+
+
+def test_v2_train_step_kernels_match_plain(cuda):
+    """The float32 v2 train step's loss and every gradient, kernels against
+    plain versions, the scales drawn once and shared; the per-step launch
+    counts."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    cfg = dataclasses.replace(TINY, block_layout="v2")
+    consts = to_device(synthetic_constants(cfg), cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    batch = {k: consts[f"{m}_mean"][None] + consts[f"{m}_std"][None]
+             * torch.randn((2, v, *dims), generator=g, device=cuda)
+             for k, v, dims, m in (
+                 ("upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("surface", 4, (cfg.lat, cfg.lon), "surface"),
+                 ("target_upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("target_surface", 4, (cfg.lat, cfg.lon), "surface"))}
+    drops = pangu.draw_drops(cfg, torch.Generator(device=cuda).manual_seed(10),
+                             2)
+    out = []
+    for kernels in (True, False):
+        params = _params(cfg, cuda)
+        for t in _param_leaves(params):
+            t.requires_grad_(True)
+        ops.reset_launches()
+        out.append(loss_and_grads(params, batch, consts, cfg, TrainConfig(),
+                                  device=cuda, kernels=kernels, drops=drops))
+        if kernels:
+            counts = ops.launches()
+    n = sum(cfg.depths)
+    assert counts == {**{k: 0 for k in counts}, "block_v2": n,
+                      "grid_attention": n, "grid_attention_bwd": n,
+                      "down_sample": 1, "up_sample": 1}, counts
+    (lk, _, gk), (lp, _, gp) = out
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    errs = _tree_rel_errs(_as_dict(gk), _as_dict(gp))
+    assert all(e <= 1e-3 for _, e in errs), errs

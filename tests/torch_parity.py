@@ -19,6 +19,16 @@ def jax_and_port_params(jax_cfg, seed: int = 0):
                                    device="cpu")
 
 
+def port_and_jax_params(port_cfg, seed: int = 0):
+    """The port's ``init_params`` on the CPU -> (the JAX-shaped tree of the
+    same values, the port's tree): quicker than tracing the JAX init where
+    only equal parameters matter."""
+    from pangu_tpu_torch.models import pangu
+    params = pangu.init_params(torch.Generator().manual_seed(seed), port_cfg,
+                               device="cpu")
+    return jax.tree.map(lambda t: jax.numpy.asarray(t.numpy()), params), params
+
+
 def normal(shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).normal(size=shape).astype(np.float32)
 
