@@ -77,9 +77,34 @@ Phases, each with its wall seconds:
         grid blocks with scales, 16 grid attentions, 16 grid attention
         backwards, 1 DownSample, 1 UpSample) and device time by kernel.
 
-Training gates (phases 6 and 7): the float32 train step's loss within 1e-4
-relative of the plain path's, every gradient leaf within 1e-3 of its max;
-the bf16 steps' losses and gradient norms finite.
+  8. the per-block path (``L.earth_block``) and LoRA, at full width and
+     depth:
+     a. its kernels against their plain versions, float32 and bf16: the
+        no-roll block and the block tail at stages 0 and 1, the windowed
+        sdpa and its backward at stages 0 and 1 with and without the folded
+        mask; the sdpa beside ``scaled_dot_product_attention`` (the library
+        column only, never on a path);
+     b. the served per-block step: ``forward`` with ``lora_fused=False`` on
+        adapters (rank 16, B non-zero) on the first block of each stage
+        only: per step 4 no-roll blocks, 8 grid attentions, 8 block tails, 1
+        DownSample, 1 UpSample; float32 against the merged forward
+        (``lora_fused=True``, the window-major trunk) and against
+        ``kernels=False``, bf16 against ``kernels=False``;
+     c. the per-block train step (``train_fused=False``, ``remat``): float32
+        against the fused step with the same scales and against each other
+        (``grid_bwd`` "pallas" and "xla") on a shared loss cotangent; 3 bf16
+        Adam steps each, counters per step (the grid attention and its
+        backward, or the sdpa and its backward);
+     d. one bf16 ``block_layout="v2"`` train step with ``grid_bwd="xla"``;
+     e. LoRA fine-tuning as ``cli/lora_tune.py`` sets it up (every site,
+        rank 16, alpha 16): element-mode dropout 0.1 (unmerged, every site
+        plain), feature-mode dropout 0.1 and dropout 0 (merged, the fused
+        window-major trunk), 2 bf16 steps each; ``audit`` must show only
+        LoRA factors and ``patch_recovery`` updated.
+
+Training gates (phases 6, 7 and 8): the float32 train step's loss within
+1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
+max; the bf16 steps' losses and gradient norms finite.
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -868,6 +893,12 @@ def main() -> int:
                   records, path_counts)
     done('block_layout="v2": kernels, forward, rollouts, training', t0)
 
+    # ---- 8. the per-block path and LoRA ----------------------------------
+    t0 = phase("per-block path and LoRA: kernels, served step, training")
+    per_block = per_block_phase(params, perf, consts_dev, state, ids_of,
+                                weight_bytes, records, path_counts)
+    done("per-block path and LoRA: kernels, served step, training", t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -901,7 +932,15 @@ def main() -> int:
                "grid_attention": ("pangu_tpu_torch/csrc/grid_attn.cu",
                                   "pangu_tpu/ops/window_attention.py:502"),
                "grid_attention_bwd": ("pangu_tpu_torch/csrc/grid_attn.cu",
-                                      "pangu_tpu/ops/window_attention.py:725")}
+                                      "pangu_tpu/ops/window_attention.py:725"),
+               "sdpa": ("pangu_tpu_torch/csrc/sdpa.cu",
+                        "pangu_tpu/ops/window_attention.py:95"),
+               "sdpa_bwd": ("pangu_tpu_torch/csrc/sdpa.cu",
+                            "pangu_tpu/ops/window_attention.py:190"),
+               "block_noroll_fused": ("pangu_tpu_torch/csrc/block_wm.cu",
+                                      "pangu_tpu/ops/window_attention.py:882"),
+               "fused_block_tail": ("pangu_tpu_torch/csrc/block_tail.cu",
+                                    "pangu_tpu/ops/block_tail.py:130")}
     # launches: each kernel's count on the main path that runs it most
     launches = {name: max(c[name] for c in path_counts.values())
                 for name in sources}
@@ -909,8 +948,8 @@ def main() -> int:
     if unlaunched or set(sources) != set(ops.kernels()):
         raise AssertionError(f"kernels no main path launched: {unlaunched}")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[name], **records[name],
-                "library_ms": None}
+                "launches": launches[name], "library_ms": None,
+                **records[name]}
                for name, (src, rep) in sources.items()]
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"rollout": {"ms_per_step": step_ms, "steps": STEPS,
@@ -919,7 +958,7 @@ def main() -> int:
                           "ms_per_step": tok_ms, "steps": TOKEN_STEPS,
                           "batch": 1, "peak_bytes": tok_peak,
                           "full_step_ms_per_step": full_ms},
-                      "v2": v2}))
+                      "v2": v2, "per_block": per_block}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -949,6 +988,55 @@ def tree_errs(got, want, path=""):
         return [e for i, w in enumerate(want)
                 for e in tree_errs(got[i], w, f"{path}/{i}")]
     return [(path, *rel_err(got, want))]
+
+
+def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
+    """Float32 train steps at full width from the same parameters and
+    stochastic-depth scales, each run ``(name, cfg, kernels)``
+    back-propagating the first run's loss cotangent; then each pair
+    ``(a, b)`` of names is held to the gates: loss within 1e-4 relative,
+    every gradient leaf within 1e-3 of its max."""
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.engine.train import weighted_l1_loss
+    from pangu_tpu_torch.models import pangu
+
+    dev = torch.device("cuda")
+    drops = pangu.draw_drops(
+        PANGU_24, torch.Generator(device=dev).manual_seed(SEED + 4), 1)
+    res, d_out = {}, None
+    for name, cfg, kernels in runs:
+        p32 = to_dtype(params, torch.float32)
+        for t in leaves(p32):
+            t.requires_grad_(True)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter()
+        outs = pangu.forward(p32, *fields, consts_dev, cfg, device=dev,
+                             kernels=kernels, deterministic=False, drops=drops)
+        loss = weighted_l1_loss(*outs, *tgt, TrainConfig())[0]
+        if d_out is None:
+            d_out = torch.autograd.grad(loss, outs, retain_graph=True)
+        torch.autograd.backward(outs, d_out)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3
+        print(f"{label}float32 train step, {name}: loss "
+              f"{float(loss.detach()):.6f}, {ms:.1f} ms")
+        res[name] = (float(loss.detach()),
+                     {k: t.grad for k, t in named_leaves(p32)})
+        del p32, outs, loss
+    for a, b in pairs:
+        (la, ga), (lb, gb) = res[a], res[b]
+        rel = abs(la - lb) / abs(lb)
+        errs = tree_errs(ga, gb)
+        worst = max(errs, key=lambda e: e[2])
+        print(f"{label}float32 train step {a} vs {b}: loss rel {rel:.3e} (tol "
+              f"1.0e-4); gradients ({len(errs)} leaves, the same loss "
+              f"cotangent): worst {worst[0]} max_abs_err {worst[1]:.3e} rel "
+              f"{worst[2]:.3e} (tol 1.0e-3)")
+        if rel > 1e-4 or worst[2] > 1e-3:
+            raise AssertionError(f"{label}float32 train step {a} vs {b}: "
+                                 f"loss rel {rel:.3e}, gradient {worst}")
+    del res, d_out
+    torch.cuda.empty_cache()
 
 
 def check_kernels(cases, dtype, records):
@@ -1305,10 +1393,9 @@ def v2_phase(params, perf, consts_dev, state, ids_of, weight_bytes, records,
     kernels against their plain versions, its float32 forward, its served
     rollouts and its training step.  Returns the numbers of its JSON line."""
     from pangu_tpu_torch import ops
-    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.config import PANGU_24
     from pangu_tpu_torch.data.constants import norm_data
     from pangu_tpu_torch.engine.rollout import make_rollout, single_step
-    from pangu_tpu_torch.engine.train import weighted_l1_loss
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
     from pangu_tpu_torch.ops.window_attention import (
@@ -1482,44 +1569,11 @@ def v2_phase(params, perf, consts_dev, state, ids_of, weight_bytes, records,
     torch.cuda.empty_cache()
 
     # ---- 7e. the float32 v2 train step, kernels against plain versions ------
-    tcfg = TrainConfig()
     cfg = dataclasses.replace(PANGU_24, block_layout="v2")
-    drops = pangu.draw_drops(
-        cfg, torch.Generator(device=dev).manual_seed(SEED + 4), 1)
-    tgt = norm_data(u1, s1, consts_dev)
-    res, d_out = {}, None
-    for kernels in (True, False):
-        p32 = to_dtype(params, torch.float32)
-        for t in leaves(p32):
-            t.requires_grad_(True)
-        torch.cuda.synchronize()
-        t_run = time.perf_counter()
-        outs = pangu.forward(p32, u0, s0, consts_dev, cfg, device=dev,
-                             kernels=kernels, deterministic=False, drops=drops)
-        loss = weighted_l1_loss(*outs, *tgt, tcfg)[0]
-        if d_out is None:
-            d_out = torch.autograd.grad(loss, outs, retain_graph=True)
-        torch.autograd.backward(outs, d_out)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t_run) * 1e3
-        print(f"v2 float32 train step, {'kernels' if kernels else 'plain'}: "
-              f"loss {float(loss.detach()):.6f}, {ms:.1f} ms")
-        res[kernels] = (float(loss.detach()),
-                        {k: t.grad for k, t in named_leaves(p32)})
-        del p32, outs, loss
-    (lk, gk), (lp, gp) = res[True], res[False]
-    rel = abs(lk - lp) / abs(lp)
-    errs = tree_errs(gk, gp)
-    worst = max(errs, key=lambda e: e[2])
-    print(f"v2 float32 train step kernels vs plain: loss rel {rel:.3e} (tol "
-          f"1.0e-4); gradients ({len(errs)} leaves, the same loss cotangent): "
-          f"worst {worst[0]} max_abs_err {worst[1]:.3e} rel {worst[2]:.3e} "
-          f"(tol 1.0e-3)")
-    if rel > 1e-4 or worst[2] > 1e-3:
-        raise AssertionError(f"v2 float32 train step: loss rel {rel:.3e}, "
-                             f"gradient {worst}")
-    del res, gk, gp, d_out
-    torch.cuda.empty_cache()
+    float32_train_steps(params, (u0, s0), norm_data(u1, s1, consts_dev),
+                        consts_dev, [("kernels", cfg, True),
+                                     ("plain", cfg, False)],
+                        [("kernels", "plain")], "v2 ")
 
     # ---- 7f. Adam steps in the perf config ---------------------------------
     n = sum(perf.depths)
@@ -1531,6 +1585,306 @@ def v2_phase(params, perf, consts_dev, state, ids_of, weight_bytes, records,
                                         step_counts, path_counts, "v2 ")
     out.update(train_ms_per_step=train_ms, train_peak_bytes=peak,
                train_losses=losses)
+    return out
+
+
+def per_block_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
+                    records, path_counts):
+    """Phase 8: the per-block path (``L.earth_block``) and LoRA: the four
+    kernels against their plain versions, the served per-block step, the
+    per-block train step under both grid attention backwards, a v2 step
+    with the "xla" backward and the LoRA fine-tuning steps.  Returns the
+    numbers of its JSON line."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig
+    from pangu_tpu_torch.data.constants import norm_data
+    from pangu_tpu_torch.engine.train import (attach_lora, create_train_state,
+                                              loss_and_grads, make_train_step)
+    from pangu_tpu_torch.models import lora, pangu
+    from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
+                                                fused_block_tail_plain)
+    from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
+                                                      block_noroll_plain,
+                                                      sdpa, sdpa_bwd,
+                                                      sdpa_bwd_plain,
+                                                      sdpa_plain)
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    g0, g1 = PANGU_24.stage(0), PANGU_24.stage(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    u0, s0 = state(SEED + 2)
+    u1, s1 = state(SEED + 3)                    # the training targets
+    batch = {"upper": u0, "surface": s0, "target_upper": u1,
+             "target_surface": s1}
+    tgt = norm_data(u1, s1, consts_dev)
+    out = {}
+
+    # ---- 8a. the kernels against their plain versions -----------------------
+    def sdpa_inputs(geom, dtype, masked):
+        nwin, ntype, heads = geom.w // geom.window[2], geom.num_window_types, \
+            geom.heads
+        hd, n = geom.dim // heads, geom.window_tokens
+        qkv = torch.randn((nwin, ntype, 3, heads, hd, n), generator=gen,
+                          device=dev).to(dtype)
+        g = torch.randn((nwin, ntype, heads, hd, n), generator=gen,
+                        device=dev).to(dtype)
+        bp = params["stages"][0 if geom is g0 else 1]["blocks"][0]
+        bias = bp["attn"]["bias_table"].float()
+        if masked:
+            ids = ids_of(geom)
+            bias = bias + torch.where(ids[:, None, :] != ids[:, :, None],
+                                      -100.0, 0.0)[:, None]
+        return qkv, bias.contiguous(), g
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tanh = dtype == torch.bfloat16
+        pdt = to_dtype({"s0": params["stages"][0]["blocks"][0],
+                        "s1": params["stages"][1]["blocks"][0]}, dtype)
+        cases = []  # (name, label, flops, bytes, kernel, plain, timing reps)
+        for label, geom, bp in (("stage 0", g0, pdt["s0"]),
+                                ("stage 1", g1, pdt["s1"])):
+            c, n = geom.dim, geom.window_tokens
+            hidden = bp["mlp"]["fc1"]["kernel"].shape[-1]
+            xg = torch.randn((1, geom.z, geom.h_padded, geom.w, c),
+                             generator=gen, device=dev).to(dtype)
+            xg[:, :, geom.h:] = 0                   # the caller's zero pad
+            rows = xg.numel() // c
+            cases.append((
+                "block_noroll_fused", f"{label}, padded grid",
+                2 * rows * c * (12 * c + 2 * n),
+                2 * nbytes(xg) + nbytes(bp["attn"]["bias_table"])
+                + weight_bytes(bp, dtype),
+                lambda bp=bp, x=xg, g=geom, t=tanh:
+                    block_noroll_fused(bp, x, g, t)[:, :, :g.h],
+                lambda bp=bp, x=xg, g=geom, t=tanh:
+                    block_noroll_plain(bp, x, g, t)[:, :, :g.h], (3, 2)))
+            a = torch.randn((1, geom.z, geom.h, geom.w, c), generator=gen,
+                            device=dev).to(dtype)
+            sc = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
+            tail = {k: bp[k] for k in ("norm1", "norm2", "mlp")}
+            rows = a.numel() // c
+            cases.append((
+                "fused_block_tail", f"{label}, cropped grid",
+                4 * rows * c * hidden, 3 * nbytes(a) + weight_bytes(tail, dtype),
+                lambda p=tail, a=a, s=sc, t=tanh: fused_block_tail(p, a, s, t),
+                lambda p=tail, a=a, s=sc, t=tanh:
+                    fused_block_tail_plain(p, a, s, t), (3, 2)))
+            for masked in (True, False):
+                qkv, bias, gy = sdpa_inputs(geom, dtype, masked)
+                nwh = qkv.shape[0] * qkv.shape[1] * qkv.shape[3]
+                hd = qkv.shape[4]
+                m = "folded mask" if masked else "no mask"
+                cases.append((
+                    "sdpa", f"{label}, {m}", 4 * nwh * n * n * hd,
+                    nbytes(qkv, bias) + nbytes(gy),
+                    lambda q=qkv, b=bias: sdpa(q, b),
+                    lambda q=qkv, b=bias: sdpa_plain(q, b), (3, 2)))
+                # s, dV, dP, dQ, dK: 2 N^2 hd multiply-adds each; qkv, bias,
+                # g read, dqkv and the float32 dbias written
+                cases.append((
+                    "sdpa_bwd", f"{label}, {m}", 10 * nwh * n * n * hd,
+                    2 * nbytes(qkv) + 2 * nbytes(bias) + nbytes(gy),
+                    lambda q=qkv, b=bias, g=gy: sdpa_bwd(q, b, g),
+                    lambda q=qkv, b=bias, g=gy: sdpa_bwd_plain(q, b, g),
+                    (2, 1)))
+        check_kernels(cases, dtype, records)
+        del cases
+        torch.cuda.empty_cache()
+
+    # the library column: scaled_dot_product_attention on the same inputs in
+    # its own (batch, heads, N, hd) layout, the float bias as attn_mask
+    qkv, bias, gy = sdpa_inputs(g0, torch.bfloat16, True)
+    nwin, ntype, _, heads, hd, n = qkv.shape
+    q, k, v = (qkv[:, :, i].reshape(nwin * ntype, heads, hd, n)
+               .transpose(-1, -2).contiguous() for i in range(3))
+    mask = bias.to(torch.bfloat16)[None].expand(nwin, -1, -1, -1, -1) \
+        .reshape(nwin * ntype, heads, n, n)
+    sdpa_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), 3)
+    records["sdpa"]["library_ms"] = sdpa_lib_ms
+    go = gy.reshape(nwin * ntype, heads, hd, n).transpose(-1, -2).contiguous()
+    try:
+        leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        mask_g = mask.detach().clone().requires_grad_(True)
+        o = F.scaled_dot_product_attention(*leaves_, attn_mask=mask_g)
+        sdpa_bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+            o, leaves_ + [mask_g], go, retain_graph=True), 2)
+        del o
+    except RuntimeError as e:           # no gradient of a float mask here
+        print(f"scaled_dot_product_attention backward with a float mask: {e}")
+        sdpa_bwd_lib_ms = None
+    records["sdpa_bwd"]["library_ms"] = sdpa_bwd_lib_ms
+    print(f"library: scaled_dot_product_attention (stage 0, bf16, folded "
+          f"mask) {sdpa_lib_ms:.3f} ms, its backward with the mask's "
+          f"gradient {sdpa_bwd_lib_ms} ms")
+    del q, k, v, mask, go, qkv, bias, gy
+    torch.cuda.empty_cache()
+
+    # ---- 8b. the served per-block step: adapters on each stage's first block
+    tree = lora.init_lora(gen, params, rank=16, alpha=16.0)
+    for sp in tree["stages"]:
+        sp["blocks"] = [sp["blocks"][0]] + [lora.strip_lora(bp)
+                                            for bp in sp["blocks"][1:]]
+    tree["downsample"] = lora.strip_lora(tree["downsample"])
+    tree["upsample"] = lora.strip_lora(tree["upsample"])
+    for bp in (sp["blocks"][0] for sp in tree["stages"]):
+        for site in (bp["attn"]["qkv"], bp["attn"]["proj"], bp["mlp"]["fc1"],
+                     bp["mlp"]["fc2"]):
+            site["lora_b"] = (0.02 * torch.randn(
+                site["lora_b"].shape, generator=gen, device=dev)).to(
+                    site["lora_b"].dtype)
+    served = {"block_noroll_fused": 4, "grid_attention": 8,
+              "fused_block_tail": 8, "down_sample": 1, "up_sample": 1}
+    cfg_pb = dataclasses.replace(perf, lora_fused=False)
+    with torch.no_grad():
+        pangu.forward(tree, u0, s0, consts_dev, cfg_pb, device=dev)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        got = pangu.forward(tree, u0, s0, consts_dev, cfg_pb, device=dev)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t_run) * 1e3
+        counts = ops.launches()
+        peak = torch.cuda.max_memory_allocated()
+        if counts != {**{k: 0 for k in counts}, **served}:
+            raise AssertionError(f"served per-block launch counts {counts}")
+        path_counts["served per-block step"] = counts
+        print(f"served per-block step launches {counts}")
+        pangu.forward(tree, u0, s0, consts_dev, perf, device=dev)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        merged_bf16 = pangu.forward(tree, u0, s0, consts_dev, perf,
+                                    device=dev)
+        torch.cuda.synchronize()
+        merged_ms = (time.perf_counter() - t_run) * 1e3
+        print(f"merged (lora_fused=True) step launches {ops.launches()}")
+        print(f"served per-block step (bf16, batch 1, partial adapters): "
+              f"{step_ms:.1f} ms, peak {peak / 2**30:.2f} GiB ({held / 2**30:.2f}"
+              f" held before); the merged window-major step {merged_ms:.1f} ms "
+              f"(each after one warm-up call)")
+        want = pangu.forward(tree, u0, s0, consts_dev, cfg_pb, device=dev,
+                             kernels=False)
+        checks = [("bf16 vs kernels=False", got, want, torch.bfloat16)]
+        tree32 = to_dtype(tree, torch.float32)
+        cfg32 = dataclasses.replace(PANGU_24, gelu="erf", lora_fused=False)
+        got32 = pangu.forward(tree32, u0, s0, consts_dev, cfg32, device=dev)
+        checks += [
+            ("float32 vs merged", got32, pangu.forward(
+                tree32, u0, s0, consts_dev,
+                dataclasses.replace(cfg32, lora_fused=True), device=dev),
+             torch.float32),
+            ("float32 vs kernels=False", got32, pangu.forward(
+                tree32, u0, s0, consts_dev, cfg32, device=dev, kernels=False),
+             torch.float32)]
+        for label, a_, b_, dt in checks:
+            for part, x, y in zip(("upper", "surface"), a_, b_):
+                err, rel = rel_err(x, y)
+                print(f"served per-block {label} {part}: max_abs_err "
+                      f"{err:.3e} rel {rel:.3e} (tol {TOL_FORWARD[dt]:.1e})")
+                if rel > TOL_FORWARD[dt]:
+                    raise AssertionError(f"served per-block {label} {part}: "
+                                         f"rel err {rel:.3e}")
+        del got, want, got32, tree32, merged_bf16, checks
+    out.update(served_ms_per_step=step_ms, served_peak_bytes=peak,
+               merged_ms_per_step=merged_ms)
+    torch.cuda.empty_cache()
+
+    # ---- 8c. the per-block train step ---------------------------------------
+    tcfg = TrainConfig()
+    per_block = dataclasses.replace(PANGU_24, train_fused=False)
+    float32_train_steps(
+        params, (u0, s0), tgt, consts_dev,
+        [("fused", PANGU_24, True), ("per-block pallas", per_block, True),
+         ("per-block xla", dataclasses.replace(per_block, grid_bwd="xla"),
+          True)],
+        [("per-block pallas", "fused"), ("per-block xla", "per-block pallas")],
+        "")
+    n = sum(perf.depths)
+    for grid_bwd, bwd_counts in (("pallas", {"grid_attention_bwd": n}),
+                                 ("xla", {"sdpa": n, "sdpa_bwd": n})):
+        cfg = dataclasses.replace(perf, train_fused=False, remat=True,
+                                  grid_bwd=grid_bwd)
+        # forward and the remat recompute each run the grid attention
+        step_counts = {"grid_attention": 2 * n, "down_sample": 1,
+                       "up_sample": 1, **bwd_counts}
+        ms, peak_, losses = adam_steps(cfg, params, batch, consts_dev,
+                                       step_counts, path_counts,
+                                       f"per-block {grid_bwd} ")
+        out[f"train_{grid_bwd}_ms_per_step"] = ms
+        out[f"train_{grid_bwd}_peak_bytes"] = peak_
+        out[f"train_{grid_bwd}_losses"] = losses
+
+    # ---- 8d. a v2 train step with the "xla" grid attention backward ---------
+    v2x = dataclasses.replace(perf, block_layout="v2", grid_bwd="xla")
+    p2 = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
+    for t in leaves(p2):
+        t.requires_grad_(True)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    loss, _, grads = loss_and_grads(p2, batch, consts_dev, v2x, tcfg,
+                                    device=dev, seed=SEED + 12)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_run) * 1e3
+    counts = ops.launches()
+    path_counts["v2 xla train step"] = counts
+    want = {"block_v2": n, "grid_attention": n, "sdpa": n, "sdpa_bwd": n,
+            "down_sample": 1, "up_sample": 1}
+    finite = all(bool(torch.isfinite(g).all()) for g in leaves(grads))
+    print(f"v2 train step, grid_bwd='xla' (bf16): loss {float(loss):.6f}, "
+          f"{ms:.1f} ms, launches {counts}, gradients finite {finite}")
+    if counts != {**{k: 0 for k in counts}, **want} or not finite:
+        raise AssertionError(f"v2 xla train step: counts {counts}, finite "
+                             f"{finite}")
+    out["v2_xla_train_ms"] = ms
+    del p2, grads, loss
+    torch.cuda.empty_cache()
+
+    # ---- 8e. LoRA fine-tuning as cli/lora_tune.py sets it up ----------------
+    for mode, rate in (("element", 0.1), ("feature", 0.1), ("element", 0.0)):
+        label = f"LoRA {mode} dropout {rate}"
+        ltcfg = dataclasses.replace(tcfg, lora_dropout=rate,
+                                    lora_dropout_mode=mode)
+        base = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
+        ltree, opt = attach_lora(torch.Generator(device=dev).manual_seed(
+            SEED + 60), base, ltcfg)
+        before = to_dtype(ltree, torch.float32)
+        st = create_train_state(ltree, opt)
+        step = make_train_step(perf, ltcfg, consts_dev, opt, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, counts = [], None
+        t_run = time.perf_counter()
+        for i in range(2):
+            ops.reset_launches()
+            st, metrics = step(st, batch, SEED + 70 + i)
+            counts = ops.launches()
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t_run) * 1e3 / 2
+        peak_ = torch.cuda.max_memory_allocated()
+        report = lora.audit(before, st.params)
+        wrong = [k for k in report["updated"]
+                 if not (k.endswith(("lora_a", "lora_b"))
+                         or k.startswith("patch_recovery"))]
+        n_b = sum(k.endswith("lora_b") for k in report["updated"])
+        path_counts[label] = counts
+        print(f"{label}: {ms:.1f} ms per step (2 steps, bf16, batch 1), peak "
+              f"{peak_ / 2**30:.2f} GiB, losses {losses}, launches per step "
+              f"{ {k: v for k, v in counts.items() if v} }; audit: "
+              f"{len(report['updated'])} updated ({n_b} lora_b), "
+              f"{len(report['frozen'])} frozen, updated outside LoRA and "
+              f"patch_recovery: {wrong}")
+        if wrong or not n_b or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: audit {wrong}, losses {losses}")
+        out[f"lora_{mode}_{rate}_ms_per_step"] = ms
+        out[f"lora_{mode}_{rate}_peak_bytes"] = peak_
+        del st, step, ltree, before, base, opt
+        torch.cuda.empty_cache()
     return out
 
 

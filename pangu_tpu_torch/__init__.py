@@ -8,5 +8,10 @@ window-major trunk, and the canonical-layout forward with taps: hand-written
 CUDA C++ kernels (``csrc/``: whole Earth-specific block, ungrouped, grouped
 by latitude windows or with a canonical end, DownSample and UpSample in both
 layouts, and the edge kernels embed, transition and recovery), each with a
-plain PyTorch version that serves CPU tensors.
+plain PyTorch version that serves CPU tensors.  It trains on either trunk
+(the whole-block backward, or the rolled-coordinate blocks through the grid
+attention and its backward), and serves and trains LoRA adapters
+(``models/lora.py``), merged into the fused trunks or unmerged on the
+per-block path (``models/layers.py::earth_block``: the no-roll block, the
+block tail and the windowed sdpa kernels).
 """

@@ -44,6 +44,10 @@ _SIGNATURES = {
     "pangu_recovery_bwd": [_I] + [_P] * 11 + [_I] * 18 + [_P],
     "pangu_grid_attn": [_I, _I] + [_P] * 9 + [_I] * 10 + [_P],
     "pangu_grid_attn_bwd": [_I, _I] + [_P] * 13 + [_I] * 10 + [_P],
+    "pangu_block_noroll": [_I, _I] + [_P] * 16 + [_I] * 12 + [_P],
+    "pangu_block_tail": [_I] + [_P] * 12 + [_I] * 4 + [_P],
+    "pangu_sdpa": [_I] + [_P] * 3 + [_I] * 5 + [_P],
+    "pangu_sdpa_bwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
 }
 _LL = ctypes.c_longlong
 # entries that return a size (long long) instead of a cudaError_t

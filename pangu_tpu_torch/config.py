@@ -2,10 +2,19 @@
 
 Kept: ``ModelConfig`` with its derived token geometry and its
 stochastic-depth schedule (``drop_path_max``, ``drop_path_rates``),
-``StageGeometry``, ``TrainConfig`` (without the LoRA fields) and the presets
+``StageGeometry``, ``TrainConfig`` (its LoRA fields included) and the presets
 ``PANGU_24``, ``TINY`` and ``MID``.  The JAX package's TPU tuning fields
-(``lon_chunk``, ``attn_unroll``, ``grid_bwd``, its VMEM notes) have no
-counterpart here.
+(``lon_chunk``, ``attn_unroll``, its VMEM notes) have no counterpart here.
+
+Training and LoRA, as in the JAX package: ``remat`` recomputes each block of
+the per-block path in the backward (``torch.utils.checkpoint``); ``train_fused``
+trains through the whole-block kernels (False: the per-block path,
+``models/pangu.py::run_stage_blocks``); ``grid_bwd`` is the grid attention's
+backward, ``"pallas"`` (one kernel, ``grid_attention_bwd``) or ``"xla"``
+(autograd of the reference composition through the ``sdpa`` kernels), on the
+per-block path and in the v2 training stage; ``lora_fused`` merges LoRA
+factors into the dense kernels inside ``forward`` where that is exact (served,
+or trained without element-mode LoRA dropout) so the fused trunks run.
 
 ``block_layout`` selects the trunk's inter-block storage, served and
 trained: ``"wm"`` (default) the window-major trunk (``ops/earth_block_wm``,
@@ -86,6 +95,10 @@ class ModelConfig:
     edge_kernels: bool = False  # True: embed_wm / recovery_wm kernels
     lat_group: int = 2          # lat windows per grouped block (_pick_gh)
     block_layout: str = "wm"    # "wm" window-major | "v2" rolled grid trunk
+    remat: bool = True          # recompute per-block training blocks
+    train_fused: bool = True    # train through the whole-block kernels
+    grid_bwd: str = "pallas"    # grid attention backward: "pallas" | "xla"
+    lora_fused: bool = True     # merge LoRA into the kernels where exact
 
     def __post_init__(self):
         pz, ph, pw = self.patch
@@ -112,6 +125,9 @@ class ModelConfig:
                 f"recovery_supported (patch {self.patch}, window "
                 f"{self.window}, {self.w_tokens} longitude tokens, "
                 f"{self.upper_vars} upper variables)")
+        if self.grid_bwd not in ("pallas", "xla"):
+            raise ValueError(f"grid_bwd must be 'pallas' or 'xla', not "
+                             f"{self.grid_bwd!r}")
         if self.lat_group < 1:
             raise ValueError(f"lat_group must be at least 1, not "
                              f"{self.lat_group}")
@@ -188,7 +204,7 @@ class ModelConfig:
 class TrainConfig:
     """Training hyper-parameters, the JAX package's defaults: Adam with L2
     folded into the gradient, a MultiStep schedule over epochs, the weighted
-    L1 loss and early stopping."""
+    L1 loss, early stopping and the LoRA fine-tuning set-up."""
 
     epochs: int = 100
     lr: float = 5e-6
@@ -205,6 +221,13 @@ class TrainConfig:
     val_interval: int = 1
     early_stop_patience: int = 5
     seed: int = 99
+    # LoRA (``models/lora.py::init_lora``): rank, alpha, dropout rate of the
+    # branch input and its mode ("element": per-token masks, unmerged;
+    # "feature": one token-constant mask per step, merged exactly)
+    lora_rank: int = 16
+    lora_alpha: float = 16.0
+    lora_dropout: float = 0.1
+    lora_dropout_mode: str = "element"
 
 
 def _pick_gh(nlat: int, target: int) -> int:
@@ -251,6 +274,7 @@ TINY = ModelConfig(
     depths=(2, 2, 2, 2),
     heads=(2, 4, 4, 2),
     dims=(16, 32, 32, 16),
+    remat=False,
 )
 
 # Mid-size geometry (~1/3 linear of the full grid, full level count).
@@ -261,4 +285,5 @@ MID = ModelConfig(
     depths=(2, 2, 2, 2),
     heads=(4, 8, 8, 4),
     dims=(48, 96, 96, 48),
+    remat=False,
 )

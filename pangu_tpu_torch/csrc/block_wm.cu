@@ -193,6 +193,27 @@ extern "C" int pangu_block_wm(
   return (int)cudaErrorInvalidValue;
 }
 
+// The whole unshifted block on the lat-padded (B, Z, Hp, W, C) grid, its pad
+// rows taken as data (B16, pangu_tpu/ops/window_attention.py::
+// _block_fused_pallas): the block with zero shift, no region ids, a grid
+// input and output and no pad rows synthesised (h_real = Hp).  The output's
+// pad rows hold the block applied to the input's pad rows, as the Pallas
+// kernel writes them; the caller crops them.
+extern "C" int pangu_block_noroll(
+    int dtype, int table_dtype, const void* x, void* out, void* workspace,
+    const void* wqkv, const void* bqkv, const void* wp, const void* bp,
+    const void* table, const void* n1s, const void* n1b, const void* n2s,
+    const void* n2b, const void* w1, const void* b1, const void* w2,
+    const void* b2, int B, int nz, int nlat, int nlon, int n, int C,
+    int heads, int hidden, int wz, int wh, int ww, int gelu_tanh,
+    void* stream) {
+  return pangu_block_wm(dtype, table_dtype, x, out, workspace, wqkv, bqkv, wp,
+                        bp, table, nullptr, n1s, n1b, n2s, n2b, w1, b1, w2, b2,
+                        nullptr, B, nz, nlat, nlon, n, C, heads, hidden, wz,
+                        wh, ww, 0, 0, 0, 0, nlat * wh, gelu_tanh, 1, 1, 1,
+                        stream);
+}
+
 extern "C" const char* pangu_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

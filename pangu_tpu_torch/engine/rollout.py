@@ -1,7 +1,7 @@
 """Autoregressive multi-day rollout: the counterpart of
 ``pangu_tpu/engine/rollout.py`` (``single_step``; ``make_rollout`` with
-``token_space=False`` or, on one device, ``token_space=True`` through
-``rollout_tokens_wm`` or, under ``block_layout="v2"``, ``rollout_tokens``;
+``token_space=False`` or, on one device, ``token_space=True`` through ``rollout_tokens_wm`` or, under
+``block_layout="v2"`` or with LoRA leaves on the trunk, ``rollout_tokens``;
 ``greedy_schedule`` and ``make_hierarchical_rollout`` on one device).  The
 JAX ``lax.scan`` is a Python loop over steps.
 
@@ -13,9 +13,10 @@ once; each chained step runs the trunk and then the composed recovery ->
 embed transition; the fields are recovered only where an output is due (the
 last step, or every step with ``return_trajectory``).  Under
 ``block_layout="wm"`` the storage is window-major and the transition
-``engine/transition_wm`` (``rollout_tokens_wm``); under ``"v2"`` it is the
-canonical token grid, the transition ``engine/transition`` (the JAX
-package's ``rollout_tokens``).
+``engine/transition_wm`` (``rollout_tokens_wm``); under ``"v2"``, or with
+LoRA leaves on the trunk (the chain runs them unmerged, block by block
+where a stage carries them), it is the canonical token grid, the transition
+``engine/transition`` (the JAX package's ``rollout_tokens``).
 
 The hierarchical rollout chains a model hierarchy (24/6/3/1 h) by the
 greedy schedule, largest horizon first: full steps per model, or, with
@@ -132,9 +133,13 @@ class _CanonChain(_Chain):
     recover_step = recover      # the canonical grid already
 
 
-def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool):
-    chain = _CanonChain if cfg.block_layout == "v2" else _WmChain
-    return chain(cfg, consts, dev, kernels)
+def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool, trees):
+    """The window-major chain where every parameter tree of the rollout
+    takes the window-major trunk (``pangu.wm_core_supported``), else the
+    canonical chain (``block_layout="v2"``, or LoRA leaves left unmerged on
+    the trunk, as the JAX package's token-space dispatch)."""
+    wm = all(pangu.wm_core_supported(p, cfg) for p in trees)
+    return (_WmChain if wm else _CanonChain)(cfg, consts, dev, kernels)
 
 
 def make_rollout(cfg: ModelConfig, constants, steps: int, *,
@@ -165,7 +170,7 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
         return stacked((u, s), traj) if return_trajectory else (u, s)
 
     def rollout_tokens(params, upper, surface):
-        chain = _token_chain(cfg, consts, dev, kernels)
+        chain = _token_chain(cfg, consts, dev, kernels, [params])
         tp = chain.build(params)
         x = chain.embed(params, upper, surface)
         traj = []
@@ -206,29 +211,15 @@ def greedy_schedule(horizon: int,
     return steps
 
 
-def _canonical_token_branch_only(params_by_horizon) -> None:
+def _single_device_only() -> None:
     """Raise where the JAX package would take its canonical token-space
-    branch for a reason the port does not serve yet: a multi-device mesh or
-    LoRA leaves.  (Its other reason, ``block_layout="v2"``, is served: the
-    canonical chain, ``_CanonChain``.)"""
+    branch for a multi-device mesh, which the port does not serve yet."""
     dist = torch.distributed
     if dist.is_available() and dist.is_initialized() \
             and dist.get_world_size() > 1:
         raise NotImplementedError(
             "the hierarchical token-space rollout under a multi-device mesh "
             "is ROADMAP queue A item 9")
-    for params in params_by_horizon.values():
-        stack = [params]
-        while stack:
-            node = stack.pop()
-            if isinstance(node, dict):
-                if any(str(k).startswith("lora") for k in node):
-                    raise NotImplementedError(
-                        "the hierarchical token-space rollout with LoRA "
-                        "leaves is ROADMAP queue A items 8 and 3")
-                stack.extend(node.values())
-            elif isinstance(node, list):
-                stack.extend(node)
 
 
 def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
@@ -269,8 +260,9 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
         return u, s
 
     def rollout_tokens(params_by_horizon, upper, surface):
-        _canonical_token_branch_only(params_by_horizon)
-        chain = _token_chain(cfg, consts, dev, kernels)
+        _single_device_only()
+        chain = _token_chain(cfg, consts, dev, kernels,
+                             [params_by_horizon[h] for h, _ in groups])
         x = chain.embed(params_by_horizon[groups[0][0]], upper, surface)
         for gi, (h, count) in enumerate(groups):
             params = params_by_horizon[h]

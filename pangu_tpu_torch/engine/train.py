@@ -7,7 +7,12 @@ epoch loop), on one device.
 * ``make_optimizer``: Adam(0.9, 0.999, 1e-8) with L2 folded into the gradient
   before the moments -- ``torch.optim.Adam``'s ``weight_decay`` -- under a
   MultiStep schedule (x ``lr_gamma`` at each milestone epoch), stepped per
-  optimizer step;
+  optimizer step; with a ``trainable_mask`` the frozen leaves get no update
+  and no decay (``optax.multi_transform`` with ``set_to_zero`` in the JAX
+  package);
+* ``attach_lora``: the LoRA fine-tuning set-up of ``cli/lora_tune.py``,
+  adapters by the ``TrainConfig``'s LoRA fields and the optimizer that
+  trains only them and ``patch_recovery``;
 * ``make_train_step``: raw-unit batch in, targets normalised on the device,
   the training forward (``pangu.forward(..., deterministic=False)``), the
   loss, its gradient (the block backward kernels run inside it), one Adam
@@ -34,7 +39,7 @@ import torch
 from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig, TrainConfig
 from pangu_tpu_torch.data.constants import norm_data, to_device
-from pangu_tpu_torch.models import pangu
+from pangu_tpu_torch.models import lora, pangu
 
 
 def _leaves(tree):
@@ -93,14 +98,23 @@ def lr_schedule(tcfg: TrainConfig, steps_per_epoch: int) -> Callable[[int], floa
 class Optimizer:
     """Adam with L2 into the gradient under the MultiStep schedule:
     ``init(params)`` builds its state (a ``torch.optim.Adam`` over the
-    param leaves and the step count), ``apply(state)`` takes one step with
-    the gradients the leaves hold."""
+    param leaves, or over those the ``trainable_mask`` tree marks True, and
+    the step count), ``apply(state)`` takes one step with the gradients the
+    leaves hold; a frozen leaf is left as it is, bit for bit."""
 
     tcfg: TrainConfig
     steps_per_epoch: int = 1
+    trainable_mask: Any = None
 
     def init(self, params) -> Dict[str, Any]:
-        adam = torch.optim.Adam(list(_leaves(params)), lr=self.tcfg.lr,
+        leaves = list(_leaves(params))
+        if self.trainable_mask is not None:
+            mask = list(_leaves(self.trainable_mask))
+            if len(mask) != len(leaves):
+                raise ValueError(f"trainable_mask has {len(mask)} leaves, "
+                                 f"the params {len(leaves)}")
+            leaves = [t for t, m in zip(leaves, mask) if m]
+        adam = torch.optim.Adam(leaves, lr=self.tcfg.lr,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=self.tcfg.weight_decay)
         return {"adam": adam, "count": 0}
@@ -113,8 +127,25 @@ class Optimizer:
         opt_state["count"] += 1
 
 
-def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int = 1) -> Optimizer:
-    return Optimizer(tcfg, steps_per_epoch)
+def make_optimizer(tcfg: TrainConfig, steps_per_epoch: int = 1,
+                   trainable_mask: Any = None) -> Optimizer:
+    """The optimizer; ``trainable_mask``: a tree of bools like the params
+    (``models/lora.py::trainable_mask``), True for the leaves it trains."""
+    return Optimizer(tcfg, steps_per_epoch, trainable_mask)
+
+
+def attach_lora(gen: torch.Generator, params, tcfg: TrainConfig,
+                steps_per_epoch: int = 1):
+    """LoRA fine-tuning as ``cli/lora_tune.py`` sets it up: adapters on
+    every Linear site (``lora.init_lora`` with ``tcfg.lora_rank``,
+    ``lora_alpha``, ``lora_dropout`` and ``lora_dropout_mode``, A drawn from
+    ``gen``) and the optimizer that trains only the factors and
+    ``patch_recovery``.  Returns ``(params, optimizer)``."""
+    params = lora.init_lora(gen, params, rank=tcfg.lora_rank,
+                            alpha=tcfg.lora_alpha, dropout=tcfg.lora_dropout,
+                            dropout_mode=tcfg.lora_dropout_mode)
+    return params, make_optimizer(tcfg, steps_per_epoch,
+                                  lora.trainable_mask(params))
 
 
 # ---------------------------------------------------------------------------

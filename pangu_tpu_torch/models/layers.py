@@ -1,5 +1,5 @@
 """Plain tensor layers of the port: the counterpart of
-``pangu_tpu/models/layers.py``, limited to what the port's paths need.
+``pangu_tpu/models/layers.py``.
 
 Activations live in channels-last ``(B, Z, H, W, C)`` token grids and dense
 kernels use the ``(in, out)`` layout, as in the JAX package, so converted
@@ -7,6 +7,19 @@ parameters load without transposition.  Patch embed and patch recovery are
 plain matrix products here (the JAX package leaves them to XLA outside any
 kernel); a stride-equals-kernel convolution is a reshape plus a matmul, which
 also keeps float32 off cuDNN's TF32 default.
+
+The per-block path (the JAX package's ``_run_stage`` fallback loop, taken for
+stages whose blocks carry LoRA leaves and for training with
+``train_fused=False``): ``linear`` (the JAX ``dense`` with LoRA leaves,
+unmerged, and their dropout), ``drop_path``, ``mlp``, ``earth_attention``,
+``earth_block`` (which dispatches to the no-roll block kernel, the grid
+attention and the block tail kernel where the JAX package runs its Pallas
+kernels) and ``down_sample`` / ``up_sample`` (for LoRA leaves at
+``reduce`` / ``expand`` / ``mix``).  They round where XLA rounds the JAX
+layers: each product to the activation dtype before its bias is added in
+it, the LoRA term rounded and scaled in the dtype.  LoRA dropout masks come
+from an explicit ``torch.Generator``; a block's generators are made from
+one seed, so a recomputed block draws the same masks.
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import numpy as np
 import torch
 
 from pangu_tpu_torch.config import ModelConfig
+from pangu_tpu_torch.models.lora import has_lora
 
 
 def dense(p, x):
@@ -58,6 +72,178 @@ def _dot(x, w):
     """x @ w with the product summed in float32 and rounded once to the
     dtype of x (a matrix product of the compute dtype, as XLA runs it)."""
     return (x.float() @ w.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# The per-block path
+# ---------------------------------------------------------------------------
+
+def _lora_input(p, x, gen):
+    """The LoRA branch input: ``x``, or, with a generator and a dropout-rate
+    leaf, ``x`` under its dropout mask, kept values divided by the keep
+    probability in x's dtype (``lora_drop``: a mask per token and feature;
+    ``lora_drop_feat``: one per input feature, shared by every token)."""
+    if gen is None:
+        return x
+    if "lora_drop" in p:
+        rate, shape = p["lora_drop"], x.shape
+    elif "lora_drop_feat" in p:
+        rate, shape = p["lora_drop_feat"], x.shape[-1:]
+    else:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep.to(x.dtype),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def linear(p, x, gen=None):
+    """The JAX package's ``dense`` as its per-block path runs it: x @ kernel
+    rounded to x's dtype; with LoRA leaves the unmerged low-rank term
+    ((drop(x) @ A) @ B, each product rounded) times ``lora_scale`` in the
+    dtype is added; then the bias in the dtype.  ``gen``: the generator of
+    this site's LoRA dropout mask (training), or None (no dropout)."""
+    dt = x.dtype
+    y = _dot(x, p["kernel"].to(dt))
+    if "lora_a" in p:
+        lo = _dot(_dot(_lora_input(p, x, gen), p["lora_a"].to(dt)),
+                  p["lora_b"].to(dt))
+        y = y + lo * p["lora_scale"].to(dt)
+    if "bias" in p:
+        y = y + p["bias"].to(dt)
+    return y
+
+
+def _lora_gens(seed, n: int, device):
+    """``n`` generators for the LoRA dropout of n dense sites, seeded
+    ``seed``, ``seed + 1``, ...; n Nones without a seed."""
+    if seed is None:
+        return (None,) * n
+    return tuple(torch.Generator(device=device).manual_seed(seed + i)
+                 for i in range(n))
+
+
+def drop_path(x, scale):
+    """Stochastic depth on a residual branch: ``x`` times the per-sample
+    ``scale`` ((B,) float32, 0 or 1/keep, as ``models/pangu.py::draw_drops``
+    gives them to every trunk), cast to x's dtype; None is the identity."""
+    if scale is None:
+        return x
+    return x * scale.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+
+
+def mlp(p, x, gelu_tanh: bool, gens=(None, None)):
+    """Linear(C, 4C) -> GELU (erf, or tanh) -> Linear(4C, C)."""
+    from pangu_tpu_torch.ops.block_tail import gelu
+    return linear(p["fc2"], gelu(linear(p["fc1"], x, gens[0]), gelu_tanh),
+                  gens[1])
+
+
+def earth_attention(p, x, heads: int, ids=None, gens=(None, None)):
+    """Windowed attention with the earth-specific bias on partitioned windows
+    ``x`` (B, nlon, ntype, N, C): q scaled in x's dtype, float32 logits plus
+    the bias table (and -100 between tokens of different regions where
+    ``ids``, the (ntype, N) region ids of a shifted block, are given),
+    float32 softmax rounded to the dtype, P.V rounded, the proj product."""
+    B, nlon, ntype, N, C = x.shape
+    hd = C // heads
+    dt = x.dtype
+    qkv = linear(p["qkv"], x, gens[0])
+    qkv = qkv.reshape(B, nlon, ntype, N, 3, heads, hd).permute(
+        4, 0, 1, 2, 5, 3, 6)                    # (3, B, nlon, ntype, heads, N, hd)
+    q = qkv[0] * torch.tensor(hd ** -0.5, dtype=dt, device=x.device)
+    s = q.float() @ qkv[1].float().transpose(-1, -2) + p["bias_table"].float()
+    if ids is not None:
+        ids = ids.to(x.device)
+        s = s + torch.where(ids[:, None, :] != ids[:, :, None], -100.0,
+                            0.0)[:, None]
+    attn = torch.softmax(s, dim=-1).to(dt)
+    out = (attn.float() @ qkv[2].float()).to(dt)
+    out = out.permute(0, 1, 2, 4, 3, 5).reshape(B, nlon, ntype, N, C)
+    return linear(p["proj"], out, gens[1])
+
+
+def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
+                deterministic: bool = True, gelu_tanh: bool = False,
+                kernels: bool = True, grid_bwd: str = "pallas"):
+    """One Earth-specific block on the canonical (B, Z, H, W, C) grid, the
+    JAX package's ``earth_block`` with ``attn_impl="pallas"`` on one device:
+    pad the latitude (and, with ``roll``, shift by half a window, region ids
+    masking the wrapped windows), then
+
+      * an unshifted served block without LoRA leaves: the whole no-roll
+        block kernel (``block_noroll_fused``), cropped;
+      * otherwise the attention: the grid attention (``window_attention_
+        grid``, its backward by ``grid_bwd``) unless qkv or proj carries LoRA
+        leaves, else :func:`earth_attention`; shifted back and cropped;
+      * the tail: served and without LoRA at fc1 / fc2 the block tail kernel
+        (``fused_block_tail``), else x1 = x + drop_path(LN1(a)), out = x1 +
+        drop_path(LN2(mlp(x1))) with the per-sample scales ``drop`` ((B, 2)
+        float32 or None).
+
+    ``lora_seed``: the seed of this block's LoRA dropout generators (one per
+    dense site), or None for no dropout.  ``kernels=False`` runs every
+    kernel's plain version instead, on any device."""
+    from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
+                                                fused_block_tail_plain)
+    from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
+                                                      block_noroll_plain,
+                                                      window_attention_grid)
+    B, Z, H, W, C = x.shape
+    wz, wh, ww = geom.window
+    half = (wz // 2, wh // 2, ww // 2)
+    hp = geom.h_padded
+    xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, hp - H))
+    ids = None
+    if roll:
+        xp = torch.roll(xp, shifts=tuple(-h for h in half), dims=(1, 2, 3))
+        ids = torch.as_tensor(window_region_ids(Z, hp, geom.window),
+                              device=x.device)
+    if not roll and deterministic and not has_lora(p):
+        block = block_noroll_fused if kernels else block_noroll_plain
+        return block(p, xp, geom, gelu_tanh)[:, :, :H].contiguous()
+    gens = _lora_gens(lora_seed, 4, x.device)   # qkv, proj, fc1, fc2
+    a = window_attention_grid(p["attn"], xp, geom, ids, bwd_impl=grid_bwd,
+                              kernels=kernels)
+    if a is None:
+        win = earth_attention(p["attn"], window_partition(xp, geom.window),
+                              geom.heads, ids, gens[:2])
+        a = window_reverse(win, geom.window, Z, hp, W)
+    if roll:
+        a = torch.roll(a, shifts=half, dims=(1, 2, 3))
+    a = a[:, :, :H]
+    if (deterministic and "lora_a" not in p["mlp"]["fc1"]
+            and "lora_a" not in p["mlp"]["fc2"]):
+        tail = fused_block_tail if kernels else fused_block_tail_plain
+        return tail(p, a, x, gelu_tanh)
+    s1, s2 = (None, None) if drop is None else (drop[:, 0], drop[:, 1])
+    x = x + drop_path(layer_norm(p["norm1"], a), s1)
+    return x + drop_path(layer_norm(p["norm2"],
+                                    mlp(p["mlp"], x, gelu_tanh, gens[2:])), s2)
+
+
+def down_sample(p, x, gen=None):
+    """DownSample as the JAX package's XLA layer (LoRA leaves at ``reduce``
+    unmerged): a zero latitude row where H is odd, 2x2 space-to-depth in
+    (h_off, w_off, C) order, LayerNorm(4C), Linear(4C -> 2C, no bias)."""
+    B, Z, H, W, C = x.shape
+    h2, w2 = -(-H // 2), W // 2
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 2 * h2 - H))
+    x = x.reshape(B, Z, h2, 2, w2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
+    x = x.reshape(B, Z, h2, w2, 4 * C)
+    return linear(p["reduce"], layer_norm(p["norm"], x), gen)
+
+
+def up_sample(p, x, out_h: int, gen=None):
+    """UpSample as the JAX package's XLA layer (LoRA leaves at ``expand`` /
+    ``mix`` unmerged): Linear(2C -> 4C', no bias), 2x2 depth-to-space, crop
+    to ``out_h`` latitude rows, LayerNorm(C'), Linear(C' -> C', no bias)."""
+    B, Z, H, W, _ = x.shape
+    x = linear(p["expand"], x, gen)
+    c = x.shape[-1] // 4
+    x = x.reshape(B, Z, H, W, 2, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
+    x = x.reshape(B, Z, 2 * H, 2 * W, c)[:, :, :out_h]
+    return linear(p["mix"], layer_norm(p["norm"], x), gen)
 
 
 def patch_embed(p, upper, surface, constants, cfg: ModelConfig):

@@ -30,6 +30,17 @@ embed, the canonical-layout trunk (:func:`forward_core`) and patch recovery:
 each stage is a chain of rolled-coordinate grid blocks
 (``ops/earth_block_fused``) with the canonical DownSample / UpSample kernels
 between them, stages 1 and 2 one chain where stage 1's depth is even.
+
+LoRA and the per-block path, as the JAX package routes them: under
+``cfg.lora_fused`` ``forward`` first merges LoRA factors into the kernels
+where that is exact (served, or trained without element-mode dropout;
+feature-mode masks folded in), so the fused trunks run.  Unmerged LoRA
+leaves anywhere on the trunk (:func:`wm_core_supported` fails), or training
+with ``cfg.train_fused=False``, take the same canonical path as ``v2``: each
+stage runs fused where ``stage_supports_fused`` holds (and training is
+fused), else block by block (:func:`run_stage_blocks`, ``L.earth_block``);
+DownSample / UpSample run their kernels unless their dense sites carry LoRA
+leaves (then ``L.down_sample`` / ``L.up_sample``).
 """
 
 from __future__ import annotations
@@ -37,14 +48,18 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.utils.checkpoint
 
 from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import to_device
 from pangu_tpu_torch.models import layers as L
+from pangu_tpu_torch.models.lora import (has_lora, has_lora_dropout,
+                                         merge_lora)
 from pangu_tpu_torch.ops.earth_block_bwd import run_stage_train_wm
 from pangu_tpu_torch.ops.earth_block_fused import (run_stage_fused,
-                                                   run_stage_train)
+                                                   run_stage_train,
+                                                   stage_supports_fused)
 from pangu_tpu_torch.ops.embed_wm import (embed_wm, embed_wm_plain,
                                           embed_wm_train)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm, recovery_wm_plain,
@@ -146,12 +161,31 @@ def param_count(params) -> int:
 # Forward
 # ---------------------------------------------------------------------------
 
+def wm_core_supported(params, cfg: ModelConfig) -> bool:
+    """True where the all-window-major trunk applies: ``block_layout="wm"``
+    and no LoRA leaves on any block, ``reduce``, ``expand`` or ``mix`` (the
+    JAX package's gate on one device)."""
+    return (cfg.block_layout == "wm"
+            and all(stage_supports_fused(sp) for sp in params["stages"])
+            and not any("lora_a" in p for p in (
+                params["downsample"]["reduce"], params["upsample"]["expand"],
+                params["upsample"]["mix"])))
+
+
+def _require_wm_core(params, cfg: ModelConfig) -> None:
+    if not wm_core_supported(params, cfg):
+        raise ValueError("the window-major trunk takes block_layout='wm' "
+                         "and no LoRA leaves on the trunk; forward routes "
+                         "other trees through forward_core")
+
+
 def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     """The encoder/decoder trunk entirely in window-major storage.  ``xs``:
     stage-0 wm entry storage in canonical coordinates (B, nz, nlat, nlon, N,
     C).  Returns ``(skip_wm, dec_wm, off)``, the pre-recovery pair, each
     still rolled by ``off``.  ``kernels=False`` runs every kernel's plain
     version instead, on any device."""
+    _require_wm_core(params, cfg)
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     down = down_sample_wm if kernels else down_sample_wm_plain
     up = up_sample_wm if kernels else up_sample_wm_plain
@@ -212,6 +246,7 @@ def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
     scales, or None to draw them from ``gen`` (``cfg.drop_path_rates()``;
     ones without a generator).  Returns ``(skip_wm, dec_wm, off)`` as
     :func:`forward_core_wm` does."""
+    _require_wm_core(params, cfg)
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     if drops is None:
         drops = draw_drops(cfg, gen, xs.shape[0])
@@ -237,7 +272,11 @@ def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
     """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid,
     as the JAX package's ``_run_stage`` runs it for inference: by
     ``cfg.block_layout``, ``run_stage_wm(io_layout="canon")`` ("wm") or
-    ``run_stage_fused`` ("v2")."""
+    ``run_stage_fused`` ("v2"); block by block (:func:`run_stage_blocks`)
+    where a block carries LoRA leaves."""
+    if not stage_supports_fused(stage_params):
+        return run_stage_blocks(stage_params, x, cfg, stage_idx,
+                                kernels=kernels)
     geom = cfg.stage(stage_idx)
     if cfg.block_layout == "v2":
         return run_stage_fused(stage_params, x, geom,
@@ -245,6 +284,44 @@ def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
     return run_stage_wm(stage_params, x, geom, gelu_tanh=cfg.gelu_tanh,
                         kernels=kernels, io_layout="canon",
                         lat_group=cfg.lat_group)
+
+
+def _lora_seed(bp, gen):
+    """The seed of one block's LoRA dropout generators, drawn from ``gen``;
+    None without a generator or a dropout-rate leaf in the block."""
+    if gen is None or not (has_lora_dropout(bp)
+                           or has_lora_dropout(bp, "lora_drop_feat")):
+        return None
+    return int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                             device=gen.device))
+
+
+def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
+                     deterministic: bool = True, drops=None, gen=None,
+                     kernels: bool = True):
+    """One EarthSpecificLayer block by block on the canonical grid, the JAX
+    package's ``_run_stage`` fallback loop: ``L.earth_block`` per block,
+    unshifted and shifted in turn.  Training (``deterministic=False``):
+    ``drops`` the blocks' (B, 2) branch scales; each block's LoRA dropout
+    seed is drawn from ``gen`` before the block runs, so under
+    ``cfg.remat`` the block, recomputed in the backward
+    (``torch.utils.checkpoint``), draws the same masks; the grid attention's
+    backward is ``cfg.grid_bwd``."""
+    geom = cfg.stage(stage_idx)
+    train = not deterministic
+    for j, bp in enumerate(stage_params["blocks"]):
+        block = functools.partial(
+            L.earth_block, bp, geom=geom, roll=j % 2 == 1,
+            drop=None if drops is None else drops[j].to(x.device),
+            lora_seed=_lora_seed(bp, gen) if train else None,
+            deterministic=deterministic, gelu_tanh=cfg.gelu_tanh,
+            kernels=kernels, grid_bwd=cfg.grid_bwd)
+        if train and cfg.remat:
+            x = torch.utils.checkpoint.checkpoint(
+                block, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = block(x)
+    return x
 
 
 def forward_core(params, x, cfg: ModelConfig, *, taps=None,
@@ -255,24 +332,32 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
     ``(skip, dec)``, each canonical (B, Z, H, W, C).  ``taps``: a dict that
     receives ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample``
     and ``stage3``; without it stages 1 and 2 run as one chain where stage
-    1's depth is even (the block parity then runs on), as the JAX package
-    merges them.
+    1's depth is even and both run fused (the block parity then runs on),
+    as the JAX package merges them.
 
-    ``deterministic=False`` (``block_layout="v2"`` only; the window-major
-    trunk trains through :func:`forward_core_wm_train`): the training trunk,
-    differentiable in ``x`` and every trunk parameter, each block one
-    autograd Function (``run_stage_train``), DownSample and UpSample their
-    kernels forward and the plain recompute backward.  ``drops``: four
-    per-stage lists of (B, 2) branch scales, or None to draw them from
-    ``gen`` (:func:`draw_drops`)."""
+    Each stage runs fused where ``stage_supports_fused`` holds (served: by
+    layout, :func:`run_stage`; trained with ``cfg.train_fused``: one
+    autograd Function per block under ``v2`` (``run_stage_train``), the
+    window-major stage Function between relayouts under ``wm``), else block
+    by block (:func:`run_stage_blocks`).  DownSample and UpSample run their
+    kernels (trained: the kernel forward and the plain recompute backward)
+    unless their dense sites carry LoRA leaves.
+
+    ``deterministic=False``: the training trunk, differentiable in ``x`` and
+    every trunk parameter.  ``drops``: four per-stage lists of (B, 2) branch
+    scales, or None to draw them from ``gen`` (:func:`draw_drops`); ``gen``
+    also draws the LoRA dropout of unmerged adapters."""
     train = not deterministic
-    if train and (taps is not None or cfg.block_layout != "v2"):
-        raise ValueError("forward_core trains the block_layout='v2' trunk "
-                         "without taps; the window-major trunk trains "
-                         "through forward_core_wm_train")
+    if train and taps is not None:
+        raise ValueError("taps are collected by the served trunk only")
     if train and drops is None:
         drops = draw_drops(cfg, gen, x.shape[0])
+    if not train:
+        drops, gen = [None] * 4, None
     stages = params["stages"]
+
+    def fused_ok(sp):
+        return stage_supports_fused(sp) and (not train or cfg.train_fused)
 
     def tap(name, val):
         if taps is not None:
@@ -280,22 +365,43 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
         return val
 
     def stage(sp, xx, i, dr):
-        if train:
-            return run_stage_train(sp, xx, cfg.stage(i), dr,
-                                   gelu_tanh=cfg.gelu_tanh, kernels=kernels)
-        return run_stage(sp, xx, cfg, i, kernels=kernels)
+        if not train:
+            return run_stage(sp, xx, cfg, i, kernels=kernels)
+        if not fused_ok(sp):
+            return run_stage_blocks(sp, xx, cfg, i, deterministic=False,
+                                    drops=dr, gen=gen, kernels=kernels)
+        geom = cfg.stage(i)
+        if cfg.block_layout == "v2":
+            return run_stage_train(sp, xx, geom, dr, gelu_tanh=cfg.gelu_tanh,
+                                   kernels=kernels, grid_bwd=cfg.grid_bwd)
+        # the window-major training stage with canonical ends: relayouts
+        # around the wm stage Function
+        xs = to_window_major(torch.nn.functional.pad(
+            xx, (0, 0, 0, 0, 0, geom.h_padded - xx.shape[2])), geom.window)
+        ys, off = run_stage_train_wm(sp, xs, geom, dr,
+                                     gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+        return wm_to_canonical(ys, off, geom).contiguous()
 
-    if train:
-        down = functools.partial(down_sample_train, kernels=kernels)
-        up = functools.partial(up_sample_train, kernels=kernels)
-    else:
-        down = down_sample if kernels else down_sample_plain
-        up = up_sample if kernels else up_sample_plain
-        drops = [None] * 4
+    def down(p, xx):
+        if "lora_a" in p["reduce"]:
+            return L.down_sample(p, xx, gen)
+        if train:
+            return down_sample_train(p, xx, kernels=kernels)
+        return (down_sample if kernels else down_sample_plain)(p, xx)
+
+    def up(p, xx):
+        if "lora_a" in p["expand"] or "lora_a" in p["mix"]:
+            return L.up_sample(p, xx, cfg.h_tokens, gen)
+        if train:
+            return up_sample_train(p, xx, cfg.h_tokens, kernels=kernels)
+        return (up_sample if kernels else up_sample_plain)(p, xx,
+                                                           cfg.h_tokens)
+
     x = tap("stage0", stage(stages[0], x, 0, drops[0]))
     skip = x
     x = tap("downsample", down(params["downsample"], x))
-    if taps is None and cfg.depths[1] % 2 == 0:
+    if (taps is None and cfg.depths[1] % 2 == 0 and fused_ok(stages[1])
+            and fused_ok(stages[2])):
         combined = {"blocks": (list(stages[1]["blocks"])
                                + list(stages[2]["blocks"]))}
         x = stage(combined, x, 1,
@@ -303,7 +409,7 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
     else:
         x = tap("stage1", stage(stages[1], x, 1, drops[1]))
         x = tap("stage2", stage(stages[2], x, 2, drops[2]))
-    x = tap("upsample", up(params["upsample"], x, cfg.h_tokens))
+    x = tap("upsample", up(params["upsample"], x))
     x = tap("stage3", stage(stages[3], x, 3, drops[3]))
     return skip, x
 
@@ -350,43 +456,56 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     ``stage0``, ``downsample``, ``stage1``, ``stage2``, ``upsample`` and
     ``stage3`` (tensors on ``device``); the step then runs patch embed, the
     canonical-layout trunk (:func:`forward_core`) and patch recovery, as
-    the JAX package does when it is given taps.  ``cfg.block_layout="v2"``
-    runs that path with or without taps.
+    the JAX package does when it is given taps.  ``cfg.block_layout="v2"``,
+    unmerged LoRA leaves on the trunk and training with
+    ``cfg.train_fused=False`` run that path too.
+
+    LoRA: under ``cfg.lora_fused`` the factors are merged into the kernels
+    first (:func:`~pangu_tpu_torch.models.lora.merge_lora`, differentiable)
+    when serving, or when training without element-mode dropout (a
+    feature-mode mask drawn from ``gen``).
 
     ``deterministic=False``: the training forward, differentiable in the
     params, with stochastic-depth scales ``drops`` (four per-stage lists of
     (B, 2) tensors) or drawn from the ``torch.Generator`` ``gen`` (see
-    :func:`draw_drops`)."""
+    :func:`draw_drops`) before anything else draws from it, so every path
+    sees one drop stream."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
         raise ValueError(f"params are on {leaf.device}, forward runs on {dev}")
     consts = to_device(constants, dev)
     cdt = _device.dtype_of(cfg.compute_dtype)
-    if not deterministic and taps is not None:
+    train = not deterministic
+    if train and taps is not None:
         raise ValueError("taps are collected by the served forward only")
-    if taps is not None or cfg.block_layout == "v2":
-        x = L.patch_embed(params["patch_embed"], upper.to(dev, cdt),
-                          surface.to(dev, cdt), consts, cfg)
+    if train and drops is None:
+        drops = draw_drops(cfg, gen, upper.shape[0])
+    if (cfg.lora_fused and has_lora(params)
+            and (not train or not has_lora_dropout(params))):
+        feature = train and has_lora_dropout(params, "lora_drop_feat")
+        params = merge_lora(params, gen if feature else None)
+    u, s = upper.to(dev, cdt), surface.to(dev, cdt)
+    if (taps is not None or not wm_core_supported(params, cfg)
+            or (train and not cfg.train_fused)):
+        x = L.patch_embed(params["patch_embed"], u, s, consts, cfg)
         if taps is not None:
             taps["embed"] = x
         pair = forward_core(params, x, cfg, taps=taps, kernels=kernels,
                             deterministic=deterministic, gen=gen, drops=drops)
         return L.patch_recovery(params["patch_recovery"], pair, cfg)
-    if not deterministic:
-        u, s = upper.to(dev, cdt), surface.to(dev, cdt)
+    if train:
         if cfg.edge_kernels:
             xs = embed_wm_train(params["patch_embed"], u, s, consts, cfg,
                                 kernels=kernels)
         else:
             xs = embed_tokens(params, u, s, consts, cfg, kernels=kernels)
-        skip, dec, off = forward_core_wm_train(params, xs, cfg, gen=gen,
-                                               drops=drops, kernels=kernels)
+        skip, dec, off = forward_core_wm_train(params, xs, cfg, drops=drops,
+                                               kernels=kernels)
         if cfg.edge_kernels:
             return recovery_wm_train(params["patch_recovery"], skip, dec, off,
                                      cfg, kernels=kernels)
         return recover_fields(params, skip, dec, off, cfg, kernels=kernels)
-    xs = embed_tokens(params, upper.to(dev, cdt), surface.to(dev, cdt), consts,
-                      cfg, kernels=kernels)
+    xs = embed_tokens(params, u, s, consts, cfg, kernels=kernels)
     skip, dec, off = forward_core_wm(params, xs, cfg, kernels=kernels)
     return recover_fields(params, skip, dec, off, cfg, kernels=kernels)

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict
 
+from pangu_tpu_torch.ops.block_tail import fused_block_tail
 from pangu_tpu_torch.ops.earth_block_bwd import block_bwd
 from pangu_tpu_torch.ops.earth_block_fused import block_v2
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
@@ -15,8 +16,10 @@ from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd, recovery_wm_surface,
                                              recovery_wm_upper)
 from pangu_tpu_torch.ops.updown import down_sample, up_sample
 from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
-from pangu_tpu_torch.ops.window_attention import (grid_attention,
-                                                  grid_attention_bwd)
+from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
+                                                  grid_attention,
+                                                  grid_attention_bwd, sdpa,
+                                                  sdpa_bwd)
 
 
 def kernels() -> Dict[str, Callable]:
@@ -41,7 +44,11 @@ def kernels() -> Dict[str, Callable]:
             "recovery_bwd": recovery_bwd,
             "block_v2": block_v2,
             "grid_attention": grid_attention,
-            "grid_attention_bwd": grid_attention_bwd}
+            "grid_attention_bwd": grid_attention_bwd,
+            "sdpa": sdpa,
+            "sdpa_bwd": sdpa_bwd,
+            "block_noroll_fused": block_noroll_fused,
+            "fused_block_tail": fused_block_tail}
 
 
 def reset_launches() -> None:

@@ -1,7 +1,11 @@
-"""Plain math of the block tail.
+"""The block tail: its plain math and its kernel.
 
-The counterpart of ``pangu_tpu/ops/block_tail.py::tail_math`` (with
-``_kernel_ln``, ``_kernel_erf``, ``_kernel_gelu``): ``x1 = s + LN1(a)``;
+The counterpart of ``pangu_tpu/ops/block_tail.py``: ``tail_math`` (with
+``_kernel_ln``, ``_kernel_erf``, ``_kernel_gelu``) and ``fused_block_tail``,
+which the per-block path (``models/layers.py::earth_block``) runs after the
+attention of a served block: ``fused_block_tail`` launches the CUDA kernel
+(``csrc/block_tail.cu``) on a CUDA tensor, with a ``launches`` count, and
+runs ``fused_block_tail_plain`` on a CPU tensor.  ``x1 = s + LN1(a)``;
 ``out = x1 + LN2(MLP(x1))``, LayerNorm statistics in float32, erf GELU for
 parity and tanh GELU for the perf config.  Every product accumulates in
 float32 and is rounded to the activation dtype where the JAX kernel rounds it,
@@ -15,6 +19,7 @@ import math
 
 import torch
 
+from pangu_tpu_torch import _build
 from pangu_tpu_torch.models.layers import dense, layer_norm
 
 
@@ -48,3 +53,53 @@ def tail_math(a, s, p, gelu_tanh: bool, s1=None, s2=None):
     h = gelu(dense(p["mlp"]["fc1"], x1), gelu_tanh)
     y = dense(p["mlp"]["fc2"], h)
     return (x1.float() + _scaled(layer_norm(p["norm2"], y), s2).float()).to(dt)
+
+
+def fused_block_tail_plain(p, a, s, gelu_tanh: bool):
+    """Plain PyTorch version of :func:`fused_block_tail` (any device)."""
+    from pangu_tpu_torch.ops.earth_block_wm import params_in
+    q = params_in({k: p[k] for k in ("norm1", "norm2", "mlp")}, a.dtype)
+    return tail_math(a, s, q, gelu_tanh)
+
+
+def fused_block_tail(p, a, s, gelu_tanh: bool):
+    """The tail of one block: ``a`` the attention branch and ``s`` the
+    block's input, (B, Z, H, W, C) each (any shape ending in C; token-local),
+    ``p`` the block's params (norm1, norm2, mlp; cast to a's dtype).  The
+    CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not a.is_cuda:
+        return fused_block_tail_plain(p, a, s, gelu_tanh)
+    from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, params_in,
+                                                    require_device)
+    c = a.shape[-1]
+    q = params_in({k: p[k] for k in ("norm1", "norm2", "mlp")}, a.dtype)
+    require_device(q, a.device, "fused_block_tail")
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    if (a.dtype not in DTYPE_CODE or s.shape != a.shape or s.dtype != a.dtype
+            or s.device != a.device or "lora_a" in p["mlp"]["fc1"]
+            or "lora_a" in p["mlp"]["fc2"]
+            or q["mlp"]["fc1"]["kernel"].shape != (c, hidden)
+            or q["mlp"]["fc2"]["kernel"].shape != (hidden, c)):
+        raise ValueError(f"fused_block_tail: unsupported a {tuple(a.shape)} "
+                         f"{a.dtype}, s {tuple(s.shape)} {s.dtype}, hidden "
+                         f"{hidden}")
+    a2, s2 = a.contiguous(), s.contiguous()
+    rows = a2.numel() // c
+    out = torch.empty_like(a2)
+    ws = torch.empty(rows * (2 * c + hidden), dtype=a.dtype, device=a.device)
+    code = _build.library().pangu_block_tail(
+        DTYPE_CODE[a.dtype], a2.data_ptr(), s2.data_ptr(), out.data_ptr(),
+        ws.data_ptr(),
+        *(t.data_ptr() for t in (
+            q["norm1"]["scale"], q["norm1"]["bias"], q["norm2"]["scale"],
+            q["norm2"]["bias"], q["mlp"]["fc1"]["kernel"],
+            q["mlp"]["fc1"]["bias"], q["mlp"]["fc2"]["kernel"],
+            q["mlp"]["fc2"]["bias"])),
+        rows, c, hidden, int(gelu_tanh),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(code, "fused_block_tail")
+    fused_block_tail.launches += 1
+    return out
+
+
+fused_block_tail.launches = 0

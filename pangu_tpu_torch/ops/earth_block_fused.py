@@ -23,9 +23,12 @@ and output).
     per block (JAX's per-block ``custom_vjp``): forward ``block_v2`` with the
     block's scales, saving only the block's input; backward the recompute of
     the block through ``GridAttention`` (``ops/window_attention``: the grid
-    attention kernel forward, its backward kernel backward) and the plain
-    tail by autograd, as the JAX package takes ``jax.vjp`` of its reference
-    composition (XLA tail, Pallas attention).
+    attention kernel forward; backward its backward kernel, or with
+    ``grid_bwd="xla"`` the sdpa kernels through the reference composition)
+    and the plain tail by autograd, as the JAX package takes ``jax.vjp`` of
+    its reference composition (XLA tail, Pallas attention);
+  * ``stage_supports_fused``: False for a stage with LoRA leaves on a
+    block, which ``models/pangu.py`` runs block by block instead.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from pangu_tpu_torch.models.layers import window_region_ids
 from pangu_tpu_torch.ops.block_tail import tail_math
 from pangu_tpu_torch.ops.earth_block_bwd import (BLOCK_LEAVES, _get, _schedule,
                                                  _tree)
+from pangu_tpu_torch.models.lora import has_lora
 from pangu_tpu_torch.ops.earth_block_wm import (Offset, drop_scales,
                                                 launch_block, pad_rows_zeroed,
                                                 params_in)
@@ -98,22 +102,17 @@ def block_v2(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
 block_v2.launches = 0
 
 
-def _has_lora(bp) -> bool:
-    return any("lora_a" in bp[a][b] for a, b in (
-        ("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")))
-
-
 def stage_supports_fused(stage_params) -> bool:
     """False where a block carries LoRA leaves: the whole-block kernels take
-    plain dense layers only."""
-    return not any(_has_lora(bp) for bp in stage_params["blocks"])
+    plain dense layers only, and the caller runs the stage block by block
+    (``models/pangu.py::run_stage_blocks``)."""
+    return not any(has_lora(bp) for bp in stage_params["blocks"])
 
 
-def _require_fused(stage_params) -> None:
+def _fused_only(stage_params, what: str) -> None:
     if not stage_supports_fused(stage_params):
-        raise NotImplementedError(
-            "LoRA leaves on a block: the per-block path (the JAX package's "
-            "L.earth_block) is not ported yet")
+        raise ValueError(f"{what}: LoRA leaves on a block; such a stage runs "
+                         "block by block (models/pangu.py::run_stage_blocks)")
 
 
 def _region_ids(geom: StageGeometry, device):
@@ -139,7 +138,7 @@ def run_stage_fused(stage_params, x, geom: StageGeometry, *,
     """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid
     through ``block_v2``: pad, the block chain in rolled coordinates, one
     roll back and a crop.  ``kernels=False`` runs the plain version."""
-    _require_fused(stage_params)
+    _fused_only(stage_params, "run_stage_fused")
     sched, off = _schedule(geom, len(stage_params["blocks"]))
     ids = _region_ids(geom, x.device)
     block = block_v2 if kernels else block_v2_plain
@@ -152,13 +151,13 @@ def run_stage_fused(stage_params, x, geom: StageGeometry, *,
 
 class _BlockTrain(torch.autograd.Function):
     """One block: ``block_v2`` forward saving only its input; backward the
-    recompute through ``GridAttention`` and the plain tail, differentiated
-    with ``torch.autograd.grad`` (recompute-in-backward, as
-    ``jax.checkpoint``)."""
+    recompute through ``GridAttention`` (its backward by ``grid_bwd``) and
+    the plain tail, differentiated with ``torch.autograd.grad``
+    (recompute-in-backward, as ``jax.checkpoint``)."""
 
     @staticmethod
     def forward(ctx, meta, xs, *leaves):
-        geom, delta, canon_add, ids, drop, gelu_tanh, kernels = meta
+        geom, delta, canon_add, ids, drop, gelu_tanh, kernels, _ = meta
         ctx.meta = meta
         ctx.save_for_backward(xs, *leaves)
         block = block_v2 if kernels else block_v2_plain
@@ -167,11 +166,12 @@ class _BlockTrain(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        geom, delta, canon_add, ids, drop, gelu_tanh, kernels = ctx.meta
+        geom, delta, canon_add, ids, drop, gelu_tanh, kernels, grid_bwd = \
+            ctx.meta
 
         def attend(x, q, ids):
-            return GridAttention.apply((geom.window, ids, kernels), x,
-                                       *_attention_args(q))
+            return GridAttention.apply((geom.window, ids, kernels, grid_bwd),
+                                       x, *_attention_args(q))
 
         with torch.enable_grad():
             xs, *leaves = (t.detach().requires_grad_(True)
@@ -184,12 +184,13 @@ class _BlockTrain(torch.autograd.Function):
 
 def run_stage_train(stage_params, x, geom: StageGeometry,
                     drops: Optional[list], *, gelu_tanh: bool = False,
-                    kernels: bool = True):
+                    kernels: bool = True, grid_bwd: str = "pallas"):
     """Training forward of one EarthSpecificLayer on the canonical grid,
     differentiable in ``x`` and every block parameter: the served stage's
     chain with one autograd Function per block.  ``drops``: one (B, 2)
-    float32 tensor of branch scales per block, or None."""
-    _require_fused(stage_params)
+    float32 tensor of branch scales per block, or None; ``grid_bwd``: the
+    grid attention's backward in the recompute ("pallas" | "xla")."""
+    _fused_only(stage_params, "run_stage_train")
     blocks = stage_params["blocks"]
     sched, off = _schedule(geom, len(blocks))
     ids = _region_ids(geom, x.device)
@@ -197,7 +198,7 @@ def run_stage_train(stage_params, x, geom: StageGeometry,
     for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
         drop = None if drops is None else drops[j].to(x.device)
         meta = (geom, delta, canon_add, ids if shifted else None, drop,
-                gelu_tanh, kernels)
+                gelu_tanh, kernels, grid_bwd)
         xs = _BlockTrain.apply(meta, xs,
                                *(_get(bp, path) for path in BLOCK_LEAVES))
     return _canonical(xs, off, x.shape[2])

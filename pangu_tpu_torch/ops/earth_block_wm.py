@@ -35,6 +35,7 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry, _pick_gh
 from pangu_tpu_torch.models.layers import dense, window_region_ids
+from pangu_tpu_torch.models.lora import has_lora
 from pangu_tpu_torch.ops.block_tail import tail_math
 
 Offset = Tuple[int, int, int]
@@ -163,13 +164,11 @@ def check_drop(drop, b: int, device, what: str):
     return drop.contiguous()
 
 
-def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
-                 canon_add: int, ids: Optional[torch.Tensor], gelu_tanh: bool,
-                 gh: int, in_canon: bool, out_canon: bool, what: str,
-                 drop=None):
-    """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
-    the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take.
-    ``drop``: (B, 2) float32 branch scales or None (the served kernel)."""
+def block_operands(p, x, geom: StageGeometry, gh: int, in_canon: bool,
+                   what: str):
+    """Check what a block kernel takes and raise on the rest; return the
+    params in x's dtype, the bias table, the launch dimensions ``(b, nz,
+    nlat, nlon, n, c, heads, hidden, wz, wh, ww)`` and the workspace."""
     wz, wh, ww = geom.window
     n = wz * wh * ww
     if in_canon:
@@ -184,19 +183,33 @@ def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
             or c % geom.heads or c != geom.dim or nlat % gh):
         raise ValueError(f"{what}: unsupported input {tuple(x.shape)} "
                          f"{x.dtype} for {geom}")
+    if has_lora(p):
+        raise ValueError(f"{what}: LoRA leaves on the block")
     q = params_in(p, x.dtype)
     require_device(q, x.device, what)
     table = q["attn"]["bias_table"]
     if table.dtype not in DTYPE_CODE or table.shape != (nz * nlat, geom.heads, n, n):
         raise ValueError(f"{what}: bias table {tuple(table.shape)} {table.dtype}")
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    ws = torch.empty(x.numel() // c * (6 * c + hidden), dtype=x.dtype,
+                     device=x.device)
+    return q, table, (b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh,
+                      ww), ws
+
+
+def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
+                 canon_add: int, ids: Optional[torch.Tensor], gelu_tanh: bool,
+                 gh: int, in_canon: bool, out_canon: bool, what: str,
+                 drop=None):
+    """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
+    the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take.
+    ``drop``: (B, 2) float32 branch scales or None (the served kernel)."""
+    q, table, dims, ws = block_operands(p, x, geom, gh, in_canon, what)
     if ids is not None:
         ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
-        if ids.shape != (nz * nlat, n):
+        if ids.shape != (table.shape[0], dims[4]):
             raise ValueError(f"{what}: region ids {tuple(ids.shape)}")
-    drop = check_drop(drop, b, x.device, what)
-    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
-    rows = x.numel() // c
-    ws = torch.empty(rows * (6 * c + hidden), dtype=x.dtype, device=x.device)
+    drop = check_drop(drop, dims[0], x.device, what)
     ptr = lambda t: t.data_ptr()  # noqa: E731
     code = _build.library().pangu_block_wm(
         DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype], ptr(x), ptr(out), ptr(ws),
@@ -207,8 +220,7 @@ def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
         ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
         ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
         ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
-        None if drop is None else ptr(drop),
-        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
+        None if drop is None else ptr(drop), *dims,
         *delta, canon_add, geom.h, int(gelu_tanh), gh, int(in_canon),
         int(out_canon), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, what)

@@ -1,7 +1,8 @@
-"""Windowed attention on the token grid: the counterpart of the grid part of
-``pangu_tpu/ops/window_attention.py`` (``_grid_attention_pallas``,
-``_grid_attention_bwd_pallas``, ``_grid_core`` with its ``pallas``
-backward).
+"""Windowed attention on the token grid: the counterpart of
+``pangu_tpu/ops/window_attention.py`` (``_sdpa_pallas``, ``_sdpa_pallas_bwd``
+and ``_sdpa``; ``_grid_attention_pallas``, ``_grid_attention_bwd_pallas`` and
+``_grid_core`` with either backward; ``_block_fused_pallas`` with
+``block_noroll_fused``; ``window_attention_grid``).
 
 The input is a (B, Z, Hp, W, C) token grid already in a block's window
 coordinates, latitude-pad rows already zeroed: window (zz, hh, l) is rows
@@ -16,14 +17,28 @@ output projections included, on the same grid.
     ``dbias``, each summed over every window of the batch;
   * ``GridAttention``: the ``torch.autograd.Function`` of the two, which the
     rolled-coordinate training block (``ops/earth_block_fused``) recomputes
-    through; its gradients come back in the dtypes of its inputs.
+    through; its gradients come back in the dtypes of its inputs.  Its
+    backward is ``bwd_impl="pallas"`` (``grid_attention_bwd``) or ``"xla"``:
+    autograd of the reference composition (partition, qkv product, ``Sdpa``,
+    proj product, reverse) recomputed from the saved inputs, as
+    ``_grid_core``'s ``jax.vjp`` of its ``ref``;
+  * ``sdpa`` / ``sdpa_bwd``: softmax(q scale k^T + bias) v per window and
+    head on the transposed (hd, N) qkv layout, and its backward (CUDA
+    ``csrc/sdpa.cu``); ``Sdpa`` their autograd Function;
+  * ``block_noroll_fused``: the whole unshifted block on the lat-padded grid,
+    pad rows as data (the block kernel, ``csrc/block_wm.cu``);
+  * ``window_attention_grid``: the per-block path's attention, None where
+    the qkv or proj site carries LoRA leaves.
 
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 ``launches``) and runs its plain version for a CPU tensor.  The plain
 versions round where the Pallas bodies do: qkv once after the bias,
 probabilities before P.V, the attention output, and in the backward P in
 float32 for dS but rounded for dV, dS summed unrounded into dbias and
-rounded before dQ / dK, da, dqkv and dx rounded.
+rounded before dQ / dK, da, dqkv and dx rounded.  ``sdpa`` scales q in the
+input dtype (q times the scale rounded to it, the product rounded), and its
+backward takes dK from the unscaled q; the ``"xla"`` composition rounds each
+product before adding its bias in the dtype, as XLA's dot.
 """
 
 from __future__ import annotations
@@ -33,10 +48,14 @@ from typing import Optional, Tuple
 import torch
 
 from pangu_tpu_torch import _build
-from pangu_tpu_torch.models.layers import (dense, window_partition,
+from pangu_tpu_torch.config import StageGeometry
+from pangu_tpu_torch.models.layers import (_dot, dense, window_partition,
                                           window_reverse)
+from pangu_tpu_torch.ops.block_tail import tail_math
 from pangu_tpu_torch.ops.earth_block_bwd import _colsum, _wgrad
-from pangu_tpu_torch.ops.earth_block_wm import DTYPE_CODE
+from pangu_tpu_torch.models.lora import has_lora
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, block_operands,
+                                                params_in)
 
 Window = Tuple[int, int, int]
 
@@ -239,26 +258,246 @@ grid_attention_bwd.launches = 0
 # Autograd
 # ---------------------------------------------------------------------------
 
+def _grid_ref(x, wqkv, bqkv, wp, bp, table, window: Window, ids,
+              kernels: bool):
+    """``_grid_core``'s reference composition on the grid ``x``: partition,
+    qkv product, ``Sdpa`` on the folded float32 bias, proj product,
+    reverse; each product rounded to x's dtype before its bias is added in
+    it.  Differentiable in every input."""
+    dt = x.dtype
+    b, z, hp, w, c = x.shape
+    heads = table.shape[1]
+    win = window_partition(x, window)              # (B, nlon, ntype, N, C)
+    nlon, ntype, n = win.shape[1:4]
+    qkv = _dot(win, wqkv.to(dt)) + bqkv.to(dt)
+    qkv = qkv.reshape(b * nlon, ntype, n, 3, heads, c // heads)
+    qkv = qkv.permute(0, 1, 3, 4, 5, 2).contiguous()
+    out = Sdpa.apply(kernels, qkv, _full_bias(table, ids))
+    out = out.permute(0, 1, 4, 2, 3).reshape(b, nlon, ntype, n, c)
+    y = _dot(out, wp.to(dt)) + bp.to(dt)
+    return window_reverse(y, window, z, hp, w)
+
+
 class GridAttention(torch.autograd.Function):
     """``GridAttention.apply(meta, x, wqkv, bqkv, wp, bp, table)``, meta =
-    ``(window, ids, kernels)``: :func:`grid_attention` forward,
-    :func:`grid_attention_bwd` backward (``kernels=False``: their plain
-    versions on any device).  The gradients come back in the dtypes of the
-    inputs, as ``_grid_core``'s backward casts them."""
+    ``(window, ids, kernels[, bwd_impl])``: :func:`grid_attention` forward;
+    backward :func:`grid_attention_bwd` (``bwd_impl="pallas"``, the
+    default) or autograd of :func:`_grid_ref` recomputed from the saved
+    inputs (``"xla"``: the ``sdpa`` kernel in the recompute, ``sdpa_bwd`` in
+    its backward);
+    ``kernels=False``: the plain versions on any device.  The gradients come
+    back in the dtypes of the inputs, as ``_grid_core``'s backward casts
+    them."""
 
     @staticmethod
     def forward(ctx, meta, x, wqkv, bqkv, wp, bp, table):
-        window, ids, kernels = meta
-        ctx.meta = meta
+        window, ids, kernels = meta[:3]
+        ctx.meta = (*meta[:3], meta[3] if len(meta) > 3 else "pallas")
         ctx.dtypes = [t.dtype for t in (x, wqkv, bqkv, wp, bp, table)]
-        ctx.save_for_backward(x, wqkv, bqkv, wp, table)
+        ctx.save_for_backward(x, wqkv, bqkv, wp, bp, table)
         fwd = grid_attention if kernels else grid_attention_plain
         return fwd(x, wqkv, bqkv, wp, bp, table, window, ids)
 
     @staticmethod
     def backward(ctx, g):
-        window, ids, kernels = ctx.meta
-        x, wqkv, bqkv, wp, table = ctx.saved_tensors
-        bwd = grid_attention_bwd if kernels else grid_attention_bwd_plain
-        grads = bwd(x, g, wqkv, bqkv, wp, table, window, ids)
+        window, ids, kernels, bwd_impl = ctx.meta
+        x, wqkv, bqkv, wp, bp, table = ctx.saved_tensors
+        if bwd_impl == "xla":
+            with torch.enable_grad():
+                inputs = [t.detach().requires_grad_(True)
+                          for t in (x, wqkv, bqkv, wp, bp, table)]
+                y = _grid_ref(*inputs, window, ids, kernels)
+                grads = torch.autograd.grad(y, inputs, g)
+        else:
+            bwd = grid_attention_bwd if kernels else grid_attention_bwd_plain
+            grads = bwd(x, g, wqkv, bqkv, wp, table, window, ids)
         return (None, *(d.to(dt) for d, dt in zip(grads, ctx.dtypes)))
+
+
+def window_attention_grid(p, xg, geom: StageGeometry,
+                          ids: Optional[torch.Tensor] = None, *,
+                          bwd_impl: str = "pallas", kernels: bool = True):
+    """The attention branch of one block on the padded (B, Z, Hp, W, C)
+    grid ``xg`` in window coordinates (``p``: the block's ``attn`` params;
+    ``ids``: region ids of a shifted block), differentiable through
+    :class:`GridAttention` with the backward ``bwd_impl``; None where the
+    qkv or proj site carries LoRA leaves (the caller runs the plain
+    attention), as the JAX package's ``window_attention_grid``."""
+    if "lora_a" in p["qkv"] or "lora_a" in p["proj"]:
+        return None
+    return GridAttention.apply(
+        (geom.window, ids, kernels, bwd_impl), xg, p["qkv"]["kernel"],
+        p["qkv"]["bias"], p["proj"]["kernel"], p["proj"]["bias"],
+        p["bias_table"])
+
+
+# ---------------------------------------------------------------------------
+# The windowed sdpa on the transposed qkv layout
+# ---------------------------------------------------------------------------
+
+def _sdpa_probs(qkv, bias):
+    """``(q_raw, qs, k, v, p32)``: q scaled in qkv's dtype (the scale
+    rounded to it, the product rounded) and the float32 softmax of
+    qs^T k + bias, (nwin, ntype, heads, N, N)."""
+    dt = qkv.dtype
+    hd = qkv.shape[-2]
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    qs = q * torch.tensor(hd ** -0.5, dtype=dt, device=qkv.device)
+    s = qs.float().transpose(-1, -2) @ k.float() + bias.float()[None]
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return q, qs, k, v, e / e.sum(-1, keepdim=True)
+
+
+def sdpa_plain(qkv, bias):
+    """Plain PyTorch version of :func:`sdpa` (any device)."""
+    _, _, _, v, p32 = _sdpa_probs(qkv, bias)
+    return (v.float() @ p32.to(qkv.dtype).float().transpose(-1, -2)).to(
+        qkv.dtype)
+
+
+def sdpa_bwd_plain(qkv, bias, g):
+    """Plain PyTorch version of :func:`sdpa_bwd` (any device)."""
+    dt = qkv.dtype
+    scale = qkv.shape[-2] ** -0.5
+    q, _, k, v, p32 = _sdpa_probs(qkv, bias)
+    do = g.to(dt).float()
+    dv = (do @ p32.to(dt).float()).to(dt)
+    dp = do.transpose(-1, -2) @ v.float()
+    ds32 = p32 * (dp - (dp * p32).sum(-1, keepdim=True))
+    del dp, p32
+    dbias = ds32.sum(0)
+    ds = ds32.to(dt).float()
+    del ds32
+    dq = ((k.float() @ ds.transpose(-1, -2)) * scale).to(dt)
+    dk = ((q.float() @ ds) * scale).to(dt)
+    return torch.stack([dq, dk, dv], dim=2), dbias
+
+
+def _sdpa_checked(qkv, bias, what: str):
+    nwin, ntype, three, heads, hd, n = qkv.shape
+    if (three != 3 or qkv.dtype not in DTYPE_CODE or not qkv.is_contiguous()
+            or bias.dtype != torch.float32 or not bias.is_contiguous()
+            or bias.shape != (ntype, heads, n, n)
+            or bias.device != qkv.device):
+        raise ValueError(f"{what}: unsupported qkv {tuple(qkv.shape)} "
+                         f"{qkv.dtype}, bias {tuple(bias.shape)} "
+                         f"{bias.dtype} on {bias.device}")
+    return nwin, ntype, heads, hd, n
+
+
+def sdpa(qkv, bias):
+    """softmax(q scale k^T + bias) v per window and head: ``qkv`` (nwin,
+    ntype, 3, heads, hd, N) with q, k, v stored transposed (hd, N), in the
+    model dtype; ``bias`` (ntype, heads, N, N) float32 with the mask folded
+    in.  Returns (nwin, ntype, heads, hd, N) in qkv's dtype.  The CUDA
+    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if not qkv.is_cuda:
+        return sdpa_plain(qkv, bias)
+    dims = _sdpa_checked(qkv, bias, "sdpa")
+    out = torch.empty(qkv.shape[:2] + qkv.shape[3:], dtype=qkv.dtype,
+                      device=qkv.device)
+    code = _build.library().pangu_sdpa(
+        DTYPE_CODE[qkv.dtype], qkv.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), *dims, torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(code, "sdpa")
+    sdpa.launches += 1
+    return out
+
+
+sdpa.launches = 0
+
+
+def sdpa_bwd(qkv, bias, g):
+    """The gradients of :func:`sdpa` given the cotangent ``g`` of its output:
+    ``(dqkv, dbias)``, dqkv in qkv's layout and dtype, dbias float32 summed
+    over the windows in a fixed order.  The CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if not qkv.is_cuda:
+        return sdpa_bwd_plain(qkv, bias, g)
+    dims = _sdpa_checked(qkv, bias, "sdpa_bwd")
+    want = qkv.shape[:2] + qkv.shape[3:]
+    if g.shape != want or g.device != qkv.device:
+        raise ValueError(f"sdpa_bwd: cotangent {tuple(g.shape)} on "
+                         f"{g.device}, want {tuple(want)} on {qkv.device}")
+    g = g.to(qkv.dtype).contiguous()
+    dqkv = torch.empty_like(qkv)
+    dbias = torch.empty(bias.shape, dtype=torch.float32, device=qkv.device)
+    code = _build.library().pangu_sdpa_bwd(
+        DTYPE_CODE[qkv.dtype], qkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
+        dqkv.data_ptr(), dbias.data_ptr(), *dims,
+        torch.cuda.current_stream(qkv.device).cuda_stream)
+    _build.check(code, "sdpa_bwd")
+    sdpa_bwd.launches += 1
+    return dqkv, dbias
+
+
+sdpa_bwd.launches = 0
+
+
+class Sdpa(torch.autograd.Function):
+    """``Sdpa.apply(kernels, qkv, bias)``: :func:`sdpa` forward,
+    :func:`sdpa_bwd` backward (``kernels=False``: their plain versions on
+    any device), the counterpart of the JAX package's ``_sdpa``."""
+
+    @staticmethod
+    def forward(ctx, kernels, qkv, bias):
+        ctx.kernels = kernels
+        ctx.save_for_backward(qkv, bias)
+        return (sdpa if kernels else sdpa_plain)(qkv, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, bias = ctx.saved_tensors
+        bwd = sdpa_bwd if ctx.kernels else sdpa_bwd_plain
+        dqkv, dbias = bwd(qkv, bias, g)
+        return None, dqkv, dbias
+
+
+# ---------------------------------------------------------------------------
+# The whole unshifted block on the padded grid
+# ---------------------------------------------------------------------------
+
+def block_noroll_plain(p, xg, geom: StageGeometry, gelu_tanh: bool):
+    """Plain PyTorch version of :func:`block_noroll_fused` (any device): the
+    grid attention and the tail, pad rows as data."""
+    q = params_in(p, xg.dtype)
+    at = q["attn"]
+    a = grid_attention_plain(xg, at["qkv"]["kernel"], at["qkv"]["bias"],
+                             at["proj"]["kernel"], at["proj"]["bias"],
+                             at["bias_table"], geom.window)
+    return tail_math(a, xg, q, gelu_tanh)
+
+
+def block_noroll_fused(p, xg, geom: StageGeometry, gelu_tanh: bool):
+    """The whole unshifted block (grid attention, then the tail) on the
+    lat-padded (B, Z, Hp, W, C) grid ``xg``, its pad rows taken as data,
+    as the JAX package's ``_block_fused_pallas``: the output is the same
+    grid; its pad rows hold the block applied to the input's pad rows and
+    the caller crops them.  None where any of the block's four dense sites
+    carries LoRA leaves.  The CUDA block kernel for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if has_lora(p):
+        return None
+    if not xg.is_cuda:
+        return block_noroll_plain(p, xg, geom, gelu_tanh)
+    q, table, dims, ws = block_operands(p, xg, geom, 1, True,
+                                        "block_noroll_fused")
+    out = torch.empty_like(xg)
+    code = _build.library().pangu_block_noroll(
+        DTYPE_CODE[xg.dtype], DTYPE_CODE[table.dtype], xg.data_ptr(),
+        out.data_ptr(), ws.data_ptr(),
+        *(t.data_ptr() for t in (
+            q["attn"]["qkv"]["kernel"], q["attn"]["qkv"]["bias"],
+            q["attn"]["proj"]["kernel"], q["attn"]["proj"]["bias"], table,
+            q["norm1"]["scale"], q["norm1"]["bias"], q["norm2"]["scale"],
+            q["norm2"]["bias"], q["mlp"]["fc1"]["kernel"],
+            q["mlp"]["fc1"]["bias"], q["mlp"]["fc2"]["kernel"],
+            q["mlp"]["fc2"]["bias"])),
+        *dims, int(gelu_tanh),
+        torch.cuda.current_stream(xg.device).cuda_stream)
+    _build.check(code, "block_noroll_fused")
+    block_noroll_fused.launches += 1
+    return out
+
+
+block_noroll_fused.launches = 0

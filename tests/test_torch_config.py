@@ -1,8 +1,11 @@
 """The port's model geometry equals the JAX package's on every preset, and
 values the port does not take raise instead of being ignored: an unknown
-``block_layout``, odd stage depths under the window-major layout (the v2
-stages take any depth), and the edge kernels under ``block_layout="v2"``
-(the JAX package silently skips them there)."""
+``block_layout`` or ``grid_bwd``, odd stage depths under the window-major
+layout (the v2 stages take any depth), and the edge kernels under
+``block_layout="v2"`` (the JAX package silently skips them there).  The
+training and LoRA fields (``remat``, ``train_fused``, ``grid_bwd``,
+``lora_fused``; ``TrainConfig``'s ``lora_*``) equal the JAX package's on
+every preset."""
 
 import dataclasses
 
@@ -18,7 +21,8 @@ DERIVED = ["lat_padded", "levels_padded", "upper_planes", "z_tokens",
 SHARED_FIELDS = ["upper_vars", "surface_vars", "const_masks", "levels", "lat",
                  "lon", "patch", "window", "depths", "heads", "dims",
                  "mlp_ratio", "param_dtype", "compute_dtype",
-                 "gelu", "lat_group", "drop_path_max", "block_layout"]
+                 "gelu", "lat_group", "drop_path_max", "block_layout",
+                 "remat", "train_fused", "grid_bwd", "lora_fused"]
 
 
 @pytest.mark.parametrize("stage", [0, 1, 2, 3])
@@ -112,6 +116,19 @@ def test_block_layout_values_of_jax_are_accepted(layout):
         == want.block_layout == layout
 
 
+@pytest.mark.parametrize("grid_bwd", ["pallas", "xla"])
+def test_grid_bwd_values_of_jax_are_accepted(grid_bwd):
+    want = dataclasses.replace(JC.TINY, grid_bwd=grid_bwd)
+    assert dataclasses.replace(PC.TINY, grid_bwd=grid_bwd).grid_bwd \
+        == want.grid_bwd == grid_bwd
+
+
+@pytest.mark.parametrize("grid_bwd", ["cuda", "XLA", ""])
+def test_unknown_grid_bwd_raises(grid_bwd):
+    with pytest.raises(ValueError, match="grid_bwd"):
+        dataclasses.replace(PC.TINY, grid_bwd=grid_bwd)
+
+
 @pytest.mark.parametrize("layout", ["canon", "V2", ""])
 def test_unknown_block_layout_raises(layout):
     with pytest.raises(ValueError, match="block_layout"):
@@ -138,7 +155,8 @@ TRAIN_FIELDS = ["epochs", "lr", "weight_decay", "batch_size",
                 "eval_batch_size", "lr_milestones", "lr_gamma",
                 "upper_weights", "surface_weights", "surface_loss_weight",
                 "save_interval", "save_steps", "val_interval",
-                "early_stop_patience", "seed"]
+                "early_stop_patience", "seed", "lora_rank", "lora_alpha",
+                "lora_dropout", "lora_dropout_mode"]
 
 
 @pytest.mark.parametrize("field", TRAIN_FIELDS)
@@ -147,5 +165,9 @@ def test_train_config_defaults_match_jax(field):
 
 
 def test_train_config_has_no_lora_fields():
+    """Named for the slices before LoRA; the fields are now exactly the
+    compared ones, the JAX package's LoRA fields among them."""
     names = {f.name for f in dataclasses.fields(PC.TrainConfig)}
     assert names == set(TRAIN_FIELDS)
+    assert {"lora_rank", "lora_alpha", "lora_dropout",
+            "lora_dropout_mode"} <= names

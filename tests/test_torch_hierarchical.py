@@ -93,14 +93,27 @@ def test_hierarchical_rollout_uses_each_model(setup):
 
 
 def test_hierarchical_token_space_refuses_lora(setup):
+    """Named for the slices that refused LoRA leaves: the token-space
+    hierarchy now takes them, unmerged, on the canonical chain (block by
+    block where a stage carries adapters), and agrees with the same rollout
+    of the merged tree (the window-major chain); the adapters count."""
+    from pangu_tpu_torch.models import lora
     params, consts, upper, surface, _, _ = setup
-    lora = dict(params[24])
-    lora["patch_embed"] = {**params[24]["patch_embed"], "lora_a": torch.zeros(1)}
+    tree = lora.init_lora(torch.Generator().manual_seed(5), params[24],
+                          rank=2, alpha=2.0)
+    site = tree["stages"][0]["blocks"][0]["attn"]["qkv"]
+    site["lora_b"] = 0.1 * torch.as_tensor(TP.normal(site["lora_b"].shape, 9))
     rollout, _ = make_hierarchical_rollout(TINY, consts, 30, MODELS,
                                            token_space=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item"):
-        rollout({24: lora, 6: params[6]}, torch.as_tensor(upper),
-                torch.as_tensor(surface))
+    args = (torch.as_tensor(upper), torch.as_tensor(surface))
+    got = rollout({24: tree, 6: params[6]}, *args)
+    merged = rollout({24: lora.merge_lora(tree), 6: params[6]}, *args)
+    base = rollout({24: params[24], 6: params[6]}, *args)
+    c = {k: torch.as_tensor(v) for k, v in consts.items()}
+    for g, m, b in zip(norm_data(*got, c), norm_data(*merged, c),
+                       norm_data(*base, c)):
+        assert TP.max_abs_err(g, m) <= 1e-5
+        assert TP.max_abs_err(g, b) > 1e-3
 
 
 def test_hierarchical_rollout_defaults_to_the_card(monkeypatch):

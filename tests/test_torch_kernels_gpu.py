@@ -16,7 +16,12 @@ the grid block at the three shifts a v2 stage uses, with and without
 branch scales, the grid attention (with and without region ids) and its
 backward (every gradient, bit-identical in two runs), the v2 forward (1e-3,
 against plain versions and the wm forward), the v2 rollouts' launch counts
-and the float32 v2 train step against the plain path.  Needs a CUDA
+and the float32 v2 train step against the plain path; and the per-block
+path: the no-roll block and the block tail, the windowed sdpa and its
+backward (with and without the folded mask), the served forward with
+adapters on each stage's first block (against plain versions and the
+merged forward) and the float32 per-block train step under both grid
+attention backwards (against plain versions and the fused step).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -739,3 +744,175 @@ def test_v2_train_step_kernels_match_plain(cuda):
     assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
     errs = _tree_rel_errs(_as_dict(gk), _as_dict(gp))
     assert all(e <= 1e-3 for _, e in errs), errs
+
+
+# ---------------------------------------------------------------------------
+# The per-block path: the no-roll block, the block tail, the windowed sdpa
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_block_noroll_and_tail_kernels_match_plain(cuda, cfg_name, stage,
+                                                   dtype):
+    """The no-roll block on a padded grid whose pad rows hold data (the
+    whole grid), and the block tail on a cropped grid."""
+    from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
+                                                fused_block_tail_plain)
+    from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
+                                                      block_noroll_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][0]
+    tanh = dtype == torch.bfloat16
+    x = _grid(geom, cuda, dtype, 3)
+    got = block_noroll_fused(bp, x, geom, tanh)
+    want = block_noroll_plain(bp, x, geom, tanh)
+    torch.cuda.synchronize()
+    assert got.shape == x.shape and _rel_err(got, want) <= TOL[dtype]
+    a, s = x[:, :, :geom.h], _grid(geom, cuda, dtype, 4)[:, :, :geom.h]
+    got = fused_block_tail(bp, a, s, tanh)
+    want = fused_block_tail_plain(bp, a, s, tanh)
+    torch.cuda.synchronize()
+    assert got.shape == a.shape and _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_sdpa_kernels_match_plain(cuda, cfg_name, stage, dtype, masked):
+    """The sdpa forward and every output of its backward (also bit-identical
+    in two runs), on the stage's bias table with and without the folded
+    mask, two longitude windows."""
+    from pangu_tpu_torch.ops.window_attention import (sdpa, sdpa_bwd,
+                                                      sdpa_bwd_plain,
+                                                      sdpa_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    table = _params(cfg, cuda)["stages"][stage]["blocks"][0]["attn"][
+        "bias_table"].float()
+    if masked:
+        ids = _ids(geom, cuda)
+        table = table + torch.where(ids[:, None, :] != ids[:, :, None],
+                                    -100.0, 0.0)[:, None]
+    bias = table.contiguous()
+    ntype, heads, n, _ = bias.shape
+    hd = geom.dim // heads
+    g = torch.Generator(device=cuda).manual_seed(12)
+    qkv = torch.randn((2, ntype, 3, heads, hd, n), generator=g,
+                      device=cuda).to(dtype)
+    dy = torch.randn((2, ntype, heads, hd, n), generator=g,
+                     device=cuda).to(dtype)
+    got, want = sdpa(qkv, bias), sdpa_plain(qkv, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and _rel_err(got, want) <= TOL[dtype]
+    got, want = sdpa_bwd(qkv, bias, dy), sdpa_bwd_plain(qkv, bias, dy)
+    torch.cuda.synchronize()
+    errs = [_rel_err(a, b) for a, b in zip(got, want)]
+    assert all(e <= TOL[dtype] for e in errs), errs
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    again = sdpa_bwd(qkv, bias, dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_per_block_forward_matches_plain(cuda, cfg_name):
+    """The served forward with adapters (B non-zero at qkv) on each stage's
+    first block and none on DownSample / UpSample, unmerged: kernels against
+    plain versions and against the merged forward (1e-3, float32), and its
+    launch counts."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.models import lora
+    cfg = dataclasses.replace(CFGS[cfg_name], lora_fused=False)
+    params = _params(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    tree = lora.init_lora(g, params, rank=4, alpha=4.0)
+    for sp in tree["stages"]:
+        sp["blocks"] = [sp["blocks"][0]] + [lora.strip_lora(bp)
+                                            for bp in sp["blocks"][1:]]
+        site = sp["blocks"][0]["attn"]["qkv"]
+        site["lora_b"] = 0.05 * torch.randn(site["lora_b"].shape,
+                                            generator=g, device=cuda)
+    tree["downsample"] = lora.strip_lora(tree["downsample"])
+    tree["upsample"] = lora.strip_lora(tree["upsample"])
+    consts = synthetic_constants(cfg)
+    upper = torch.randn((1, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                        device=cuda)
+    surface = torch.randn((1, 4, cfg.lat, cfg.lon), generator=g, device=cuda)
+    ops.reset_launches()
+    got = pangu.forward(tree, upper, surface, consts, cfg, device=cuda)
+    counts = ops.launches()
+    want = pangu.forward(tree, upper, surface, consts, cfg, device=cuda,
+                         kernels=False)
+    merged = pangu.forward(tree, upper, surface, consts,
+                           dataclasses.replace(cfg, lora_fused=True),
+                           device=cuda)
+    for a, b, c in zip(got, want, merged):
+        assert torch.isfinite(a).all()
+        assert _rel_err(a, b) <= 1e-3 and _rel_err(a, c) <= 1e-3
+    half = [d // 2 for d in cfg.depths]
+    assert counts == {**{k: 0 for k in counts},
+                      "block_noroll_fused": sum(h - 1 for h in half),
+                      "grid_attention": sum(half),
+                      "fused_block_tail": sum(half),
+                      "down_sample": 1, "up_sample": 1}, counts
+
+
+def _flat_grads(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_grads(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _flat_grads(v, f"{path}/{i}")
+    else:
+        yield path, tree.float()
+
+
+@pytest.mark.parametrize("grid_bwd", ["pallas", "xla"])
+def test_per_block_train_step_matches_plain(cuda, grid_bwd):
+    """The float32 per-block train step (``train_fused=False``, ``remat``)
+    against the plain path and against the fused step, scales shared; its
+    launch counts."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    cfg = dataclasses.replace(TINY, train_fused=False, remat=True,
+                              grid_bwd=grid_bwd)
+    consts = to_device(synthetic_constants(cfg), cuda)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    batch = {k: consts[f"{m}_mean"][None] + consts[f"{m}_std"][None]
+             * torch.randn((1, v, *dims), generator=g, device=cuda)
+             for k, v, dims, m in (
+                 ("upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("surface", 4, (cfg.lat, cfg.lon), "surface"),
+                 ("target_upper", 5, (cfg.levels, cfg.lat, cfg.lon), "upper"),
+                 ("target_surface", 4, (cfg.lat, cfg.lon), "surface"))}
+    drops = pangu.draw_drops(cfg, torch.Generator(device=cuda).manual_seed(15),
+                             1)
+    out = []
+    for c, kernels in ((cfg, True), (cfg, False), (TINY, True)):
+        params = _params(cfg, cuda)
+        for t in _param_leaves(params):
+            t.requires_grad_(True)
+        ops.reset_launches()
+        out.append(loss_and_grads(params, batch, consts, c, TrainConfig(),
+                                  device=cuda, kernels=kernels, drops=drops))
+        if c is cfg and kernels:
+            counts = ops.launches()
+    n = sum(cfg.depths)
+    bwd = ({"grid_attention_bwd": n} if grid_bwd == "pallas"
+           else {"sdpa": n, "sdpa_bwd": n})
+    assert counts == {**{k: 0 for k in counts}, "grid_attention": 2 * n,
+                      "down_sample": 1, "up_sample": 1, **bwd}, counts
+    (lk, _, gk), (lp, _, gp), (lf, _, gf) = out
+    for lw, gw in ((lp, gp), (lf, gf)):
+        assert abs(float(lk) - float(lw)) <= 1e-4 * abs(float(lw))
+        # a branch scaled by 0 leaves its leaves' gradients all zero in
+        # both paths: those compare equal, not as 0 / 0
+        bad = [(p, float((a - b).abs().max()), float(b.abs().max()))
+               for (p, a), (_, b) in zip(_flat_grads(gk), _flat_grads(gw))
+               if float((a - b).abs().max())
+               > 1e-3 * float(b.abs().max())]
+        assert not bad, bad
