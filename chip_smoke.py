@@ -101,6 +101,29 @@ Phases, each with its wall seconds:
         plain), feature-mode dropout 0.1 and dropout 0 (merged, the fused
         window-major trunk), 2 bf16 steps each; ``audit`` must show only
         LoRA factors and ``patch_recovery`` updated.
+  9. the last kernel sites, the canonical training route and ``attn_impl``,
+     at full width and depth:
+     a. float32 and bf16 against the plain versions: the fused window
+        attention (``window_attention_pallas``) forward on the stage-0
+        windows (1, 30, 124, 144, 192) and the stage-1 windows (1, 15, 64,
+        144, 384), with and without region ids, and every gradient of its
+        drop-in at stage 0; the block backward with a canonical end
+        (``block_bwd_canon``: the first block reading the grid, the shifted
+        last block reading its cotangent as the grid) at stages 0 and 1
+        with branch scales; the grouped block with branch scales at stage 1,
+        gh 2;
+     b. the drop-in on the stage-0 windows of the embedded state, forward
+        and every gradient: 1 fused attention, 1 sdpa, 1 sdpa backward;
+     c. the canonical training route: adapters (rank 16) only at
+        ``downsample.reduce``, ``upsample.expand`` and ``upsample.mix``,
+        ``lora_fused=False``, so ``wm_core_supported`` is false and every
+        stage trains through ``run_stage_train_wm(io canon)``: the float32
+        step against the window-major trunk's from the same base params on
+        one loss cotangent (B zero: the same function), then 3 bf16 Adam
+        steps, per step 10 blocks and 6 canonical end-point blocks, 10 block
+        backwards and 6 canonical ones;
+     d. ``attn_impl="xla"``: the served step against "pallas" in bf16 and
+        float32 and one bf16 train step, with no kernel launched.
 
 Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
@@ -899,6 +922,14 @@ def main() -> int:
                                 weight_bytes, records, path_counts)
     done("per-block path and LoRA: kernels, served step, training", t0)
 
+    # ---- 9. the last kernel sites, the canonical route and attn_impl -----
+    t0 = phase("fused window attention, canonical training route, "
+               'attn_impl="xla"')
+    canon = canon_phase(params, perf, consts_dev, state, storage, ids_of,
+                        block_cost, weight_bytes, records, path_counts)
+    done("fused window attention, canonical training route, "
+         'attn_impl="xla"', t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -923,6 +954,8 @@ def main() -> int:
                              "pangu_tpu/ops/updown.py:193"),
                "block_bwd": ("pangu_tpu_torch/csrc/block_bwd.cu",
                              "pangu_tpu/ops/earth_block_bwd.py:555"),
+               "block_bwd_canon": ("pangu_tpu_torch/csrc/block_bwd.cu",
+                                   "pangu_tpu/ops/earth_block_bwd.py:555"),
                "embed_dw_upper": ("pangu_tpu_torch/csrc/embed_dw.cu",
                                   "pangu_tpu/ops/embed_wm.py:323"),
                "recovery_bwd": ("pangu_tpu_torch/csrc/recovery_bwd.cu",
@@ -940,7 +973,10 @@ def main() -> int:
                "block_noroll_fused": ("pangu_tpu_torch/csrc/block_wm.cu",
                                       "pangu_tpu/ops/window_attention.py:882"),
                "fused_block_tail": ("pangu_tpu_torch/csrc/block_tail.cu",
-                                    "pangu_tpu/ops/block_tail.py:130")}
+                                    "pangu_tpu/ops/block_tail.py:130"),
+               "window_attention_pallas": (
+                   "pangu_tpu_torch/csrc/window_attn.cu",
+                   "pangu_tpu/ops/window_attention.py:294")}
     # launches: each kernel's count on the main path that runs it most
     launches = {name: max(c[name] for c in path_counts.values())
                 for name in sources}
@@ -958,7 +994,7 @@ def main() -> int:
                           "ms_per_step": tok_ms, "steps": TOKEN_STEPS,
                           "batch": 1, "peak_bytes": tok_peak,
                           "full_step_ms_per_step": full_ms},
-                      "v2": v2, "per_block": per_block}))
+                      "v2": v2, "per_block": per_block, "canon": canon}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -992,10 +1028,11 @@ def tree_errs(got, want, path=""):
 
 def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
     """Float32 train steps at full width from the same parameters and
-    stochastic-depth scales, each run ``(name, cfg, kernels)``
-    back-propagating the first run's loss cotangent; then each pair
-    ``(a, b)`` of names is held to the gates: loss within 1e-4 relative,
-    every gradient leaf within 1e-3 of its max."""
+    stochastic-depth scales, each run ``(name, cfg, kernels)`` or ``(name,
+    cfg, kernels, tree)`` (its own parameter tree) back-propagating the first
+    run's loss cotangent; then each pair ``(a, b)`` of names is held to the
+    gates: loss within 1e-4 relative, every gradient leaf of b within 1e-3
+    of its max (the leaves the two trees share)."""
     from pangu_tpu_torch.config import PANGU_24, TrainConfig
     from pangu_tpu_torch.engine.train import weighted_l1_loss
     from pangu_tpu_torch.models import pangu
@@ -1004,8 +1041,8 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
     drops = pangu.draw_drops(
         PANGU_24, torch.Generator(device=dev).manual_seed(SEED + 4), 1)
     res, d_out = {}, None
-    for name, cfg, kernels in runs:
-        p32 = to_dtype(params, torch.float32)
+    for name, cfg, kernels, *tree in runs:
+        p32 = to_dtype(tree[0] if tree else params, torch.float32)
         for t in leaves(p32):
             t.requires_grad_(True)
         torch.cuda.synchronize()
@@ -1885,6 +1922,271 @@ def per_block_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
         out[f"lora_{mode}_{rate}_peak_bytes"] = peak_
         del st, step, ltree, before, base, opt
         torch.cuda.empty_cache()
+    return out
+
+
+def canon_phase(params, perf, consts_dev, state, storage, ids_of, block_cost,
+                weight_bytes, records, path_counts):
+    """Phase 9: the last three kernel sites and ``attn_impl``: the fused
+    window attention (B13) forward and its drop-in's every gradient, the
+    block backward with canonical ends (B7-canon) and the grouped block with
+    branch scales (B6g) against their plain versions; the drop-in on the
+    embedded state; the canonical training route (adapters at Down/UpSample
+    only): the float32 gate against the wm trunk, 3 bf16 Adam steps;
+    ``attn_impl="xla"`` served against "pallas" and trained, no kernel
+    launched.  Returns the numbers of its JSON line."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import PANGU_24, TrainConfig, _pick_gh
+    from pangu_tpu_torch.data.constants import norm_data
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    from pangu_tpu_torch.models import layers as L
+    from pangu_tpu_torch.models import lora, pangu
+    from pangu_tpu_torch.ops.earth_block_bwd import (block_bwd_canon,
+                                                     block_bwd_plain)
+    from pangu_tpu_torch.ops.earth_block_wm import (block_wm_group,
+                                                    block_wm_plain)
+    from pangu_tpu_torch.ops.window_attention import (window_attention_fused,
+                                                      window_attention_pallas,
+                                                      window_attention_plain)
+
+    dev = torch.device("cuda")
+    F = torch.nn.functional
+    half = (1, 3, 6)
+    g0, g1 = PANGU_24.stage(0), PANGU_24.stage(1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    u0, s0 = state(SEED + 2)
+    u1, s1 = state(SEED + 3)                    # the training targets
+    batch = {"upper": u0, "surface": s0, "target_upper": u1,
+             "target_surface": s1}
+    tgt = norm_data(u1, s1, consts_dev)
+    out = {}
+
+    def grid(geom, dtype):
+        return torch.randn((1, geom.z, geom.h_padded, geom.w, geom.dim),
+                           generator=gen, device=dev).to(dtype)
+
+    def folded(table, ids):
+        bias = table.float()
+        if ids is not None:
+            bias = bias + torch.where(ids[:, None, :] != ids[:, :, None],
+                                      -100.0, 0.0)[:, None]
+        return bias.contiguous()
+
+    def attn_tree(leaves):
+        return {"qkv": {"kernel": leaves[0], "bias": leaves[1]},
+                "proj": {"kernel": leaves[2], "bias": leaves[3]},
+                "bias_table": leaves[4]}
+
+    def attn_grads(at, x, ids, dy, heads, kernels):
+        leaves = [t.detach().requires_grad_(True) for t in (
+            x, at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+            at["proj"]["bias"], at["bias_table"])]
+        y = window_attention_pallas(attn_tree(leaves[1:]), leaves[0], heads,
+                                    ids, kernels=kernels)
+        return list(torch.autograd.grad(y, leaves, dy))
+
+    # ---- 9a. the three kernel sites against their plain versions -----------
+    for dtype in (torch.float32, torch.bfloat16):
+        tanh = dtype == torch.bfloat16
+        pdt = to_dtype({"s0": params["stages"][0]["blocks"][1],
+                        "s1": params["stages"][1]["blocks"][1]}, dtype)
+        cases = []  # (name, label, flops, bytes, kernel, plain, timing reps)
+        for st, geom, bp in (("stage 0", g0, pdt["s0"]),
+                             ("stage 1", g1, pdt["s1"])):
+            c, n, at = geom.dim, geom.window_tokens, bp["attn"]
+            x = L.window_partition(grid(geom, dtype), geom.window).contiguous()
+            rows = x.numel() // c
+            w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+                 at["proj"]["bias"])
+            for ids in (ids_of(geom), None):
+                bias = folded(at["bias_table"], ids)
+                m = "region ids" if ids is not None else "no ids"
+                cases.append((   # qkv, attention, proj; x, bias in, out
+                    "window_attention_pallas",
+                    f"{st} windows {tuple(x.shape)}, {m}",
+                    2 * rows * c * (4 * c + 2 * n),
+                    2 * nbytes(x) + nbytes(bias) + weight_bytes(at, dtype),
+                    lambda x=x, w=w, b=bias: window_attention_fused(x, *w, b),
+                    lambda x=x, w=w, b=bias: window_attention_plain(x, *w, b),
+                    (3, 2)))
+            if geom is g0:
+                ids = ids_of(geom)
+                dy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+                nw = sum(t.numel() for t in w)
+                cases.append((   # the kernel forward, the composition's
+                    # recompute (qkv, sdpa, proj) and its gradients
+                    "window_attention_pallas backward",
+                    f"{st}, region ids, every gradient",
+                    rows * (32 * c * c + 18 * n * c),
+                    3 * nbytes(x) + 2 * nbytes(folded(at["bias_table"], ids))
+                    + weight_bytes(at, dtype) + 4 * nw,
+                    lambda at=at, x=x, i=ids, d=dy, h=geom.heads:
+                        attn_grads(at, x, i, d, h, True),
+                    lambda at=at, x=x, i=ids, d=dy, h=geom.heads:
+                        attn_grads(at, x, i, d, h, False), (2, 1)))
+            # the block backward with a canonical end, scales (0.8, 1.25)
+            drop = torch.tensor([[0.8, 1.25]], device=dev)
+            xs, xg = storage(geom, dtype), grid(geom, dtype)
+            gs, gg = storage(geom, dtype), grid(geom, dtype)
+            ids = ids_of(geom)
+            flops, byts = block_cost(bp, xs, ids)
+            nw = sum(t.numel() for t in leaves(bp) if t.dim() < 4)
+            bbytes = (3 * nbytes(xs) + nbytes(bp["attn"]["bias_table"])
+                      + bp["attn"]["bias_table"].numel() * 4 + nbytes(ids)
+                      + weight_bytes(bp, dtype) + 4 * nw)
+            for label, xa, ga, args, xl, gl in (
+                    (f"{st} canon x, first block", xg, gs,
+                     ((0, 0, 0), (-1, -3, -6), 0, None), "canon", "wm"),
+                    (f"{st} canon g, last block shifted", xs, gg,
+                     (half, (0, 0, 0), 3, ids), "wm", "canon")):
+                cases.append((
+                    "block_bwd_canon", f"{label}, scales (0.8, 1.25)",
+                    3 * flops, bbytes,
+                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=drop,
+                    t=tanh, xl=xl, gl=gl:
+                        block_bwd_canon(bp, x, g, geom, *a, d, t,
+                                        x_layout=xl, g_layout=gl),
+                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=drop,
+                    t=tanh, xl=xl, gl=gl:
+                        block_bwd_plain(bp, x, g, geom, *a, d, t, xl, gl),
+                    (2, 1)))
+            if geom is g1:   # the grouped block with branch scales
+                gh = _pick_gh(g1.h_padded // g1.window[1], perf.lat_group)
+                drop = torch.tensor([[1.25, 0.0]], device=dev)
+                cases.append((
+                    "block_wm_group", f"stage 1 shifted, gh {gh}, scales "
+                    "(1.25, 0)", flops, block_cost(bp, xs, ids)[1],
+                    lambda bp=bp, xs=xs, i=ids, t=tanh, gh=gh, d=drop:
+                        block_wm_group(bp, xs, g1, half, 3, i, t, gh, d),
+                    lambda bp=bp, xs=xs, i=ids, t=tanh, d=drop:
+                        block_wm_plain(bp, xs, g1, half, 3, i, t, d),
+                    (3, 2)))
+        check_kernels(cases, dtype, records)
+        del cases
+        torch.cuda.empty_cache()
+
+    # ---- 9b. the drop-in on the embedded state: a path of its own ----------
+    at = params["stages"][0]["blocks"][0]["attn"]
+    xe = L.patch_embed(params["patch_embed"], u0.to(torch.bfloat16),
+                       s0.to(torch.bfloat16), consts_dev, perf)
+    win = L.window_partition(F.pad(xe, (0, 0, 0, 0, 0, g0.h_padded - g0.h)),
+                             g0.window).contiguous()
+    dy = torch.randn(win.shape, generator=gen, device=dev).to(torch.bfloat16)
+    attn_grads(at, win, None, dy, g0.heads, True)      # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t_run = time.perf_counter()
+    got = attn_grads(at, win, None, dy, g0.heads, True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_run) * 1e3
+    counts = ops.launches()
+    want_counts = {"window_attention_pallas": 1, "sdpa": 1, "sdpa_bwd": 1}
+    path_counts["drop-in window attention, embedded state"] = counts
+    want = attn_grads(at, win, None, dy, g0.heads, False)
+    errs = [rel_err(a, b)[1] for a, b in zip(got, want)]
+    print(f"drop-in window attention (stage-0 windows of the embedded state, "
+          f"bf16, forward and every gradient): {ms:.1f} ms, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, gradients against "
+          f"kernels=False: worst rel {max(errs):.3e} (tol "
+          f"{TOL[torch.bfloat16]:.1e})")
+    if (counts != {**{k: 0 for k in counts}, **want_counts}
+            or max(errs) > TOL[torch.bfloat16]):
+        raise AssertionError(f"drop-in window attention: counts {counts}, "
+                             f"errors {errs}")
+    out["drop_in_window_attention_ms"] = ms
+    del got, want, win, xe, dy
+    torch.cuda.empty_cache()
+
+    # ---- 9c. the canonical training route ----------------------------------
+    # adapters only at reduce / expand / mix, unmerged: wm_core_supported is
+    # false and every stage trains through run_stage_train_wm(io canon)
+    tree = lora.init_lora(gen, params, rank=16, alpha=16.0)
+    tree["stages"] = lora.strip_lora({"s": tree["stages"]})["s"]
+    canon_cfg = dataclasses.replace(PANGU_24, lora_fused=False)
+    if pangu.wm_core_supported(tree, canon_cfg):
+        raise AssertionError("the adapter tree took the window-major trunk")
+    float32_train_steps(
+        params, (u0, s0), tgt, consts_dev,
+        [("canonical route", canon_cfg, True, tree),
+         ("wm trunk", PANGU_24, True)], [("canonical route", "wm trunk")],
+        "")
+    nb = sum(perf.depths)
+    ends = 6          # the first and last block of stages 0, 1 + 2 and 3
+    step_counts = {"block_wm": nb - ends, "block_wm_canon": ends,
+                   "block_bwd": nb - ends, "block_bwd_canon": ends}
+    ms, peak, losses = adam_steps(
+        dataclasses.replace(perf, lora_fused=False), tree, batch, consts_dev,
+        step_counts, path_counts, "canonical route ")
+    print(f"canonical route: {ends} of {nb} block backwards per step read or "
+          f"write the canonical grid (block_bwd_canon); no relayout of the "
+          f"trunk's ends")
+    out.update(canon_train_ms_per_step=ms, canon_train_peak_bytes=peak,
+               canon_train_losses=losses)
+    del tree
+    torch.cuda.empty_cache()
+
+    # ---- 9d. attn_impl="xla" -----------------------------------------------
+    params32 = to_dtype(params, torch.float32)
+    cfg32 = dataclasses.replace(PANGU_24, gelu="erf")
+    with torch.no_grad():
+        for label, cfg, p, dt in (("bf16", perf, params, torch.bfloat16),
+                                  ("float32", cfg32, params32,
+                                   torch.float32)):
+            xla = dataclasses.replace(cfg, attn_impl="xla")
+            pangu.forward(p, u0, s0, consts_dev, xla, device=dev)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launches()
+            t_run = time.perf_counter()
+            got = pangu.forward(p, u0, s0, consts_dev, xla, device=dev)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t_run) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            counts = ops.launches()
+            path_counts[f"attn_impl xla served step, {label}"] = counts
+            want = pangu.forward(p, u0, s0, consts_dev, cfg, device=dev)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            print(f'attn_impl="xla" served step ({label}, batch 1): {ms:.1f} '
+                  f"ms, peak {peak / 2**30:.2f} GiB ({held / 2**30:.2f} held "
+                  f"before), kernel launches {sum(counts.values())}; against "
+                  f'"pallas": upper rel {errs[0][1]:.3e}, surface rel '
+                  f"{errs[1][1]:.3e} (tol {TOL_FORWARD[dt]:.1e})")
+            if any(counts.values()) or max(e[1] for e in errs) > TOL_FORWARD[dt]:
+                raise AssertionError(f"attn_impl xla served {label}: counts "
+                                     f"{counts}, errors {errs}")
+            out[f"xla_served_{label}_ms"] = ms
+            del got, want
+    del params32
+    torch.cuda.empty_cache()
+    xla = dataclasses.replace(perf, attn_impl="xla")
+    p2 = to_dtype(to_dtype(params, torch.float32), torch.bfloat16)
+    for t in leaves(p2):
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t_run = time.perf_counter()
+    loss, _, grads = loss_and_grads(p2, batch, consts_dev, xla, TrainConfig(),
+                                    device=dev, seed=SEED + 13)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t_run) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    counts = ops.launches()
+    path_counts["attn_impl xla train step"] = counts
+    finite = math.isfinite(float(loss)) and all(
+        bool(torch.isfinite(g).all()) for g in leaves(grads))
+    print(f'attn_impl="xla" train step (bf16, batch 1, remat): loss '
+          f"{float(loss):.6f}, {ms:.1f} ms, peak {peak / 2**30:.2f} GiB "
+          f"({held / 2**30:.2f} held before), kernel launches "
+          f"{sum(counts.values())}, gradients finite {finite}")
+    if any(counts.values()) or not finite:
+        raise AssertionError(f"attn_impl xla train step: counts {counts}, "
+                             f"finite {finite}")
+    out.update(xla_train_ms=ms, xla_train_peak_bytes=peak)
+    del p2, grads, loss
+    torch.cuda.empty_cache()
     return out
 
 

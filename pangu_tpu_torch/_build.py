@@ -39,7 +39,7 @@ _SIGNATURES = {
     "pangu_embed_wm": [_I] + [_P] * 6 + [_I] * 14 + [_P],
     "pangu_transition_wm": [_I] + [_P] * 10 + [_I] * 13 + [_P],
     "pangu_recovery_wm": [_I] * 2 + [_P] * 5 + [_I] * 17 + [_P],
-    "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 20 + [_P],
+    "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 22 + [_P],
     "pangu_embed_dw": [_I] + [_P] * 5 + [_I] * 14 + [_P],
     "pangu_recovery_bwd": [_I] + [_P] * 11 + [_I] * 18 + [_P],
     "pangu_grid_attn": [_I, _I] + [_P] * 9 + [_I] * 10 + [_P],
@@ -48,6 +48,7 @@ _SIGNATURES = {
     "pangu_block_tail": [_I] + [_P] * 12 + [_I] * 4 + [_P],
     "pangu_sdpa": [_I] + [_P] * 3 + [_I] * 5 + [_P],
     "pangu_sdpa_bwd": [_I] + [_P] * 5 + [_I] * 5 + [_P],
+    "pangu_window_attn": [_I] + [_P] * 8 + [_I] * 5 + [_P],
 }
 _LL = ctypes.c_longlong
 # entries that return a size (long long) instead of a cudaError_t
@@ -56,6 +57,7 @@ _SIZE_SIGNATURES = {
     "pangu_embed_dw_ws": [_I] * 11,
     "pangu_recovery_bwd_ws": [_I] * 7,
     "pangu_grid_attn_ws": [_LL, _I, _I],
+    "pangu_window_attn_ws": [_LL, _I],
 }
 
 

@@ -16,18 +16,30 @@ per-block path and in the v2 training stage; ``lora_fused`` merges LoRA
 factors into the dense kernels inside ``forward`` where that is exact (served,
 or trained without element-mode LoRA dropout) so the fused trunks run.
 
+``attn_impl`` switches the whole dispatch, as in the JAX package:
+``"pallas"`` runs the port's kernels wherever the JAX package runs its
+Pallas kernels; ``"xla"`` runs the model as the JAX package's XLA layers,
+block by block (``models/layers.py::earth_block``, ``down_sample``,
+``up_sample``), with no kernel at all.  The port's default is ``"pallas"``
+(every preset means the kernel path); the JAX package's is ``"xla"``, which
+its command lines turn to ``"pallas"`` with ``--pallas``.
+
 ``block_layout`` selects the trunk's inter-block storage, served and
 trained: ``"wm"`` (default) the window-major trunk (``ops/earth_block_wm``,
-``ops/earth_block_bwd``), which needs even stage depths; ``"v2"`` the
-rolled-coordinate grid trunk (``ops/earth_block_fused``), whose stages roll
-back at their end and take any depth.  ``lat_group`` has no effect under
-``"v2"``, as in the JAX package.
+``ops/earth_block_bwd``); ``"v2"`` the rolled-coordinate grid trunk
+(``ops/earth_block_fused``), whose stages roll back at their end.  Both take
+any depth: under ``"wm"`` an odd stage depth leaves the all-window-major
+trunk (``models/pangu.py::wm_core_supported``) for the canonical stage
+chain, as in the JAX package.  ``lat_group`` has no effect under ``"v2"``,
+as in the JAX package.
 
 ``edge_kernels=True`` selects the edge kernels (``ops/embed_wm``,
 ``ops/recovery_wm``) on geometries that pass :func:`embed_supported` and
 :func:`recovery_supported`, and raises ``ValueError`` on any other and under
 ``block_layout="v2"`` (they read and write window-major storage, which the
-v2 trunk never holds; the JAX package silently skips them there).
+v2 trunk never holds; the JAX package silently skips them there).  They run
+only where the all-window-major trunk runs: odd depths, ``attn_impl="xla"``
+or unmerged LoRA leaves skip them, as in the JAX package.
 ``lat_group`` (default 2, as in the JAX package) is the number of latitude
 windows the grouped block kernel takes together (:func:`_pick_gh`); it must
 be at least 1.
@@ -99,6 +111,9 @@ class ModelConfig:
     train_fused: bool = True    # train through the whole-block kernels
     grid_bwd: str = "pallas"    # grid attention backward: "pallas" | "xla"
     lora_fused: bool = True     # merge LoRA into the kernels where exact
+    # "pallas": the kernels; "xla": the plain layers.  The JAX default is
+    # "xla" (its CLIs map --pallas to "pallas"); the port's is "pallas"
+    attn_impl: str = "pallas"
 
     def __post_init__(self):
         pz, ph, pw = self.patch
@@ -111,8 +126,9 @@ class ModelConfig:
         if self.block_layout not in ("wm", "v2"):
             raise ValueError(f"block_layout must be 'wm' or 'v2', not "
                              f"{self.block_layout!r}")
-        if self.block_layout == "wm" and any(d % 2 for d in self.depths):
-            raise ValueError("the window-major trunk needs even stage depths")
+        if self.attn_impl not in ("xla", "pallas"):
+            raise ValueError(f"attn_impl must be 'xla' or 'pallas', not "
+                             f"{self.attn_impl!r}")
         if self.edge_kernels and self.block_layout == "v2":
             raise ValueError("edge_kernels=True needs block_layout='wm': the "
                              "edge kernels read and write window-major storage")
@@ -260,7 +276,8 @@ def recovery_supported(cfg: ModelConfig) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Presets (same values as pangu_tpu.config)
+# Presets: the geometry of pangu_tpu.config's; edge_kernels (False here,
+# True there) and attn_impl ("pallas" here, "xla" there) differ
 # ---------------------------------------------------------------------------
 
 PANGU_24 = ModelConfig()

@@ -1,13 +1,19 @@
 // Every gradient of one whole Earth-specific block on window-major storage.
 //
 // Replaces the Pallas kernel pangu_tpu/ops/earth_block_bwd.py::_block_bwd_call
-// (kernel body _make_block_bwd_kernel) in its wm -> wm layout.  Inputs: the
+// (kernel body _make_block_bwd_kernel) in its wm -> wm layout and with its
+// canonical stage end-points (x_layout / g_layout = "canon").  Inputs: the
 // block's saved input x and the cotangent g of its output, both in stage
 // storage; x is read through the block's shift delta_x (latitude-pad rows
 // zero-synthesised), g through delta_g, the negated shift of the next block,
 // whose backward wrote its dx in its own window coordinates.  On the TPU both
 // reads are BlockSpec chunk stitches; here they are the forward's modular
-// gather.  The unit is a sequence of launches on the caller's stream:
+// gather.  A canonical x (a stage's first block) is the lat-padded
+// (B, Z, Hp, W, C) grid, read unshifted by the same gather, and dx goes to
+// the same grid rows (the DxEpi scatter); a canonical g (a stage's last
+// block) is that grid in the block's own window coordinates, what the
+// stage's roll back hands back.  The unit is a sequence of launches on the
+// caller's stream:
 //
 //   recompute  xg, gg (gathers); qkv = round_T(xg Wqkv + b); attention as the
 //              forward; a = round_T(attn Wp + bp); LN1 statistics and
@@ -98,14 +104,16 @@ struct Dx1Epi {  // dx1 = g + acc, float32
 };
 
 template <typename T>
-struct DxEpi {  // dx = round_T(dx1 + acc), pad rows zero
+struct DxEpi {  // dx = round_T(dx1 + acc), pad rows zero; row map_row(r)
   const float* dx1;
   T* dx;
   int N;
   PadRows pad;
+  RowMap map;  // canon: the token's row of the (B, Z, Hp, W) grid
   __device__ void operator()(int, long long r, int c, float acc) const {
-    dx[r * N + c] = is_pad_row(r, pad) ? from_f<T>(0.f)
-                                       : from_f<T>(dx1[r * N + c] + acc);
+    dx[map_row(r, map) * N + c] = is_pad_row(r, pad)
+                                      ? from_f<T>(0.f)
+                                      : from_f<T>(dx1[r * N + c] + acc);
   }
 };
 
@@ -280,7 +288,7 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
               const float* drop, float* dwqkv, float* dwp, float* dw1,
               float* dw2, float* dln, float* dtable, int B, WmShape s, int C,
               int heads, int hidden, BlockShift shx, BlockShift shg,
-              int gelu_tanh, cudaStream_t st) {
+              int gelu_tanh, int x_canon, int g_canon, cudaStream_t st) {
   const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
   const long long rps = M / B;
   // T workspace: xg gg (C) | qkv (3C) | attn a x1 y dy2 (C) | z hb (hidden) |
@@ -306,9 +314,11 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
   const PadRows pad = {1, s, s.nlat * s.wh, shx.h_real, shx.canon_add};
 
   // ---- recompute ----
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, shx, 0);
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, shx,
+                                                        x_canon);
   PANGU_CHECK_LAUNCH();
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(g, gg, M, C, s, shg, 0);
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(g, gg, M, C, s, shg,
+                                                        g_canon);
   PANGU_CHECK_LAUNCH();
   xgemm(xg, M, 3 * C, C, ARows<T>{xg, C}, BRows<T>{wqkv, 3 * C},
         BiasEpi<T>{bqkv, qkv, 3 * C}, st);
@@ -379,7 +389,7 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
            dwqkv, st);
   PANGU_CHECK_LAUNCH();
   xgemm(dqkv, M, C, 3 * C, ARows<T>{dqkv, 3 * C}, BCols<T>{wqkv, 3 * C},
-        DxEpi<T>{dx1, dx, C, pad}, st);
+        DxEpi<T>{dx1, dx, C, pad, RowMap{x_canon, s}}, st);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
@@ -395,7 +405,9 @@ extern "C" long long pangu_block_bwd_ws(long long rows, int C, int hidden,
   return bwd_ws_elems(rows, C, hidden, which);
 }
 
-// dtype codes: 0 = float32, 1 = bfloat16.  Outputs: dx (storage, the block's
+// dtype codes: 0 = float32, 1 = bfloat16.  x_canon / g_canon: x (and dx) /
+// g is the (B, Z, Hp, W, C) grid, read unshifted (its delta must be zero),
+// instead of wm storage.  Outputs: dx (storage or the grid, the block's
 // window coordinates), and float32 dwqkv (C+1, 3C), dwp (C+1, C),
 // dw1 (C+1, hidden), dw2 (hidden+1, C) -- the last row the bias gradient --
 // dln (4, C) = (norm1 scale, norm1 bias, norm2 scale, norm2 bias), dtable
@@ -410,12 +422,14 @@ extern "C" int pangu_block_bwd(
     void* dw1, void* dw2, void* dln, void* dtable, int B, int nz, int nlat,
     int nlon, int n, int C, int heads, int hidden, int wz, int wh, int ww,
     int dxz, int dxh, int dxw, int dgz, int dgh, int dgw, int canon_add,
-    int h_real, int gelu_tanh, void* stream) {
+    int h_real, int gelu_tanh, int x_canon, int g_canon, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   BlockShift shx = {dxz, dxh, dxw, canon_add, h_real};
   BlockShift shg = {dgz, dgh, dgw, 0, nlat * wh};  // g: no pad rows synthesised
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+  if (n > 32 * ATT_MAXJ || C % heads != 0 ||
+      (x_canon && (dxz || dxh || dxw)) || (g_canon && (dgz || dgh || dgw)))
+    return (int)cudaErrorInvalidValue;
 #define PANGU_BWD(T, TB)                                                       \
   return block_bwd<T, TB>(                                                     \
       (const T*)x, (const T*)g, (T*)dx, (T*)ws, (float*)wsf, (const T*)wqkv,   \
@@ -424,7 +438,7 @@ extern "C" int pangu_block_bwd(
       (const T*)w1, (const T*)b1, (const T*)w2, (const T*)b2,                  \
       (const float*)drop, (float*)dwqkv, (float*)dwp, (float*)dw1,             \
       (float*)dw2, (float*)dln, (float*)dtable, B, s, C, heads, hidden, shx,   \
-      shg, gelu_tanh, st)
+      shg, gelu_tanh, x_canon, g_canon, st)
   if (dtype == 0 && table_dtype == 0) PANGU_BWD(float, float);
   if (dtype == 0 && table_dtype == 1) PANGU_BWD(float, bf16);
   if (dtype == 1 && table_dtype == 0) PANGU_BWD(bf16, float);

@@ -38,12 +38,15 @@ block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
 // shared memory as float32 (rows padded to hd+1 against bank conflicts), one
 // warp per query row; lane j holds scores j, j+32, ...  ``btab``/``id``: the
 // window type's (N, N) bias slice for this head and its region ids (null for
-// an unshifted block), in global or shared memory.
+// an unshifted block), in global or shared memory.  kScaleQ: q is scaled
+// first, round_T(q * scale) with ``scale`` already rounded to T (the fused
+// attention's order, window_attn.cu), and the scores are q.k + bias;
+// otherwise the scores are q.k * scale + bias (the block kernels' order).
 constexpr int ATT_WARPS = 8;
 constexpr int GATT_WARPS = 16;
 constexpr int ATT_MAXJ = 8;  // N <= 256
 
-template <typename T, typename TB>
+template <typename T, typename TB, bool kScaleQ = false>
 __device__ __forceinline__ void window_attend(
     const T* __restrict__ qkv, T* __restrict__ out, long long base, int h,
     const TB* btab, const int* id, float* sm, int N, int C, int hd,
@@ -59,7 +62,7 @@ __device__ __forceinline__ void window_attend(
   for (int idx = threadIdx.x; idx < N * hd; idx += blockDim.x) {
     int t = idx / hd, d = idx % hd;
     const T* r = qkv + (base + t) * C3 + h * hd + d;
-    q[t * ld + d] = to_f(r[0]);
+    q[t * ld + d] = kScaleQ ? round_t<T>(to_f(r[0]) * scale) : to_f(r[0]);
     k[t * ld + d] = to_f(r[C]);
     v[t * ld + d] = to_f(r[2 * C]);
   }
@@ -79,7 +82,7 @@ __device__ __forceinline__ void window_attend(
         for (int d = 0; d < hd; ++d) acc = fmaf(q[i * ld + d], k[j * ld + d], acc);
         float b = to_f(btab[(long long)i * N + j]);
         if (id) b += (id[i] != id[j]) ? -100.f : 0.f;
-        s[jj] = acc * scale + b;
+        s[jj] = (kScaleQ ? acc : acc * scale) + b;
       }
       mx = fmaxf(mx, s[jj]);
     }

@@ -9,13 +9,14 @@ kernel); a stride-equals-kernel convolution is a reshape plus a matmul, which
 also keeps float32 off cuDNN's TF32 default.
 
 The per-block path (the JAX package's ``_run_stage`` fallback loop, taken for
-stages whose blocks carry LoRA leaves and for training with
-``train_fused=False``): ``linear`` (the JAX ``dense`` with LoRA leaves,
-unmerged, and their dropout), ``drop_path``, ``mlp``, ``earth_attention``,
-``earth_block`` (which dispatches to the no-roll block kernel, the grid
-attention and the block tail kernel where the JAX package runs its Pallas
-kernels) and ``down_sample`` / ``up_sample`` (for LoRA leaves at
-``reduce`` / ``expand`` / ``mix``).  They round where XLA rounds the JAX
+stages whose blocks carry LoRA leaves, for training with
+``train_fused=False`` and for every block under ``attn_impl="xla"``):
+``linear`` (the JAX ``dense`` with LoRA leaves, unmerged, and their
+dropout), ``drop_path``, ``mlp``, ``earth_attention``, ``earth_block`` (which
+dispatches to the no-roll block kernel, the grid attention and the block
+tail kernel where the JAX package runs its Pallas kernels) and
+``down_sample`` / ``up_sample`` (for LoRA leaves at ``reduce`` / ``expand``
+/ ``mix``, and under ``attn_impl="xla"``).  They round where XLA rounds the JAX
 layers: each product to the activation dtype before its bias is added in
 it, the LoRA term rounded and scaled in the dtype.  LoRA dropout masks come
 from an explicit ``torch.Generator``; a block's generators are made from
@@ -165,11 +166,14 @@ def earth_attention(p, x, heads: int, ids=None, gens=(None, None)):
 
 def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
                 deterministic: bool = True, gelu_tanh: bool = False,
-                kernels: bool = True, grid_bwd: str = "pallas"):
+                kernels: bool = True, grid_bwd: str = "pallas",
+                attn_impl: str = "pallas"):
     """One Earth-specific block on the canonical (B, Z, H, W, C) grid, the
-    JAX package's ``earth_block`` with ``attn_impl="pallas"`` on one device:
-    pad the latitude (and, with ``roll``, shift by half a window, region ids
-    masking the wrapped windows), then
+    JAX package's ``earth_block`` on one device: pad the latitude (and, with
+    ``roll``, shift by half a window, region ids masking the wrapped
+    windows), then, under ``attn_impl="xla"``, :func:`earth_attention` on
+    the partitioned windows and the plain tail (no kernel on any device);
+    under ``"pallas"``
 
       * an unshifted served block without LoRA leaves: the whole no-roll
         block kernel (``block_noroll_fused``), cropped;
@@ -199,12 +203,13 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
         xp = torch.roll(xp, shifts=tuple(-h for h in half), dims=(1, 2, 3))
         ids = torch.as_tensor(window_region_ids(Z, hp, geom.window),
                               device=x.device)
-    if not roll and deterministic and not has_lora(p):
+    pallas = attn_impl == "pallas"
+    if pallas and not roll and deterministic and not has_lora(p):
         block = block_noroll_fused if kernels else block_noroll_plain
         return block(p, xp, geom, gelu_tanh)[:, :, :H].contiguous()
     gens = _lora_gens(lora_seed, 4, x.device)   # qkv, proj, fc1, fc2
-    a = window_attention_grid(p["attn"], xp, geom, ids, bwd_impl=grid_bwd,
-                              kernels=kernels)
+    a = (window_attention_grid(p["attn"], xp, geom, ids, bwd_impl=grid_bwd,
+                               kernels=kernels) if pallas else None)
     if a is None:
         win = earth_attention(p["attn"], window_partition(xp, geom.window),
                               geom.heads, ids, gens[:2])
@@ -212,7 +217,7 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
     if roll:
         a = torch.roll(a, shifts=half, dims=(1, 2, 3))
     a = a[:, :, :H]
-    if (deterministic and "lora_a" not in p["mlp"]["fc1"]
+    if (pallas and deterministic and "lora_a" not in p["mlp"]["fc1"]
             and "lora_a" not in p["mlp"]["fc2"]):
         tail = fused_block_tail if kernels else fused_block_tail_plain
         return tail(p, a, x, gelu_tanh)

@@ -31,6 +31,15 @@ each stage is a chain of rolled-coordinate grid blocks
 (``ops/earth_block_fused``) with the canonical DownSample / UpSample kernels
 between them, stages 1 and 2 one chain where stage 1's depth is even.
 
+``cfg.attn_impl="xla"`` (the JAX package's default) runs that canonical
+path with the plain layers only: ``L.earth_block`` block by block and
+``L.down_sample`` / ``L.up_sample``, no kernel on any device.  Odd stage
+depths under ``block_layout="wm"`` take the canonical path too (a stage
+ends unshifted after an odd depth, so skip and decoder would not share an
+offset): served, each stage is ``run_stage_wm(io_layout="canon")``;
+trained, ``run_stage_train_wm(io_in="canon", io_out="canon")``, whose
+first and last blocks read and write the canonical grid.
+
 LoRA and the per-block path, as the JAX package routes them: under
 ``cfg.lora_fused`` ``forward`` first merges LoRA factors into the kernels
 where that is exact (served, or trained without element-mode dropout;
@@ -162,10 +171,12 @@ def param_count(params) -> int:
 # ---------------------------------------------------------------------------
 
 def wm_core_supported(params, cfg: ModelConfig) -> bool:
-    """True where the all-window-major trunk applies: ``block_layout="wm"``
-    and no LoRA leaves on any block, ``reduce``, ``expand`` or ``mix`` (the
-    JAX package's gate on one device)."""
-    return (cfg.block_layout == "wm"
+    """True where the all-window-major trunk applies: ``attn_impl="pallas"``,
+    ``block_layout="wm"``, even stage depths (so every stage ends at the
+    same half-window offset) and no LoRA leaves on any block, ``reduce``,
+    ``expand`` or ``mix`` (the JAX package's gate on one device)."""
+    return (cfg.attn_impl == "pallas" and cfg.block_layout == "wm"
+            and not any(d % 2 for d in cfg.depths)
             and all(stage_supports_fused(sp) for sp in params["stages"])
             and not any("lora_a" in p for p in (
                 params["downsample"]["reduce"], params["upsample"]["expand"],
@@ -174,9 +185,10 @@ def wm_core_supported(params, cfg: ModelConfig) -> bool:
 
 def _require_wm_core(params, cfg: ModelConfig) -> None:
     if not wm_core_supported(params, cfg):
-        raise ValueError("the window-major trunk takes block_layout='wm' "
-                         "and no LoRA leaves on the trunk; forward routes "
-                         "other trees through forward_core")
+        raise ValueError("the window-major trunk takes attn_impl='pallas', "
+                         "block_layout='wm', even depths and no LoRA leaves "
+                         "on the trunk; forward routes other trees through "
+                         "forward_core")
 
 
 def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
@@ -273,8 +285,8 @@ def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
     as the JAX package's ``_run_stage`` runs it for inference: by
     ``cfg.block_layout``, ``run_stage_wm(io_layout="canon")`` ("wm") or
     ``run_stage_fused`` ("v2"); block by block (:func:`run_stage_blocks`)
-    where a block carries LoRA leaves."""
-    if not stage_supports_fused(stage_params):
+    where a block carries LoRA leaves or under ``attn_impl="xla"``."""
+    if cfg.attn_impl != "pallas" or not stage_supports_fused(stage_params):
         return run_stage_blocks(stage_params, x, cfg, stage_idx,
                                 kernels=kernels)
     geom = cfg.stage(stage_idx)
@@ -300,8 +312,9 @@ def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
                      deterministic: bool = True, drops=None, gen=None,
                      kernels: bool = True):
     """One EarthSpecificLayer block by block on the canonical grid, the JAX
-    package's ``_run_stage`` fallback loop: ``L.earth_block`` per block,
-    unshifted and shifted in turn.  Training (``deterministic=False``):
+    package's ``_run_stage`` fallback loop: ``L.earth_block`` per block
+    (with ``cfg.attn_impl``), unshifted and shifted in turn.  Training
+    (``deterministic=False``):
     ``drops`` the blocks' (B, 2) branch scales; each block's LoRA dropout
     seed is drawn from ``gen`` before the block runs, so under
     ``cfg.remat`` the block, recomputed in the backward
@@ -315,7 +328,8 @@ def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
             drop=None if drops is None else drops[j].to(x.device),
             lora_seed=_lora_seed(bp, gen) if train else None,
             deterministic=deterministic, gelu_tanh=cfg.gelu_tanh,
-            kernels=kernels, grid_bwd=cfg.grid_bwd)
+            kernels=kernels, grid_bwd=cfg.grid_bwd,
+            attn_impl=cfg.attn_impl)
         if train and cfg.remat:
             x = torch.utils.checkpoint.checkpoint(
                 block, x, use_reentrant=False, preserve_rng_state=False)
@@ -335,13 +349,16 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
     1's depth is even and both run fused (the block parity then runs on),
     as the JAX package merges them.
 
-    Each stage runs fused where ``stage_supports_fused`` holds (served: by
-    layout, :func:`run_stage`; trained with ``cfg.train_fused``: one
-    autograd Function per block under ``v2`` (``run_stage_train``), the
-    window-major stage Function between relayouts under ``wm``), else block
-    by block (:func:`run_stage_blocks`).  DownSample and UpSample run their
-    kernels (trained: the kernel forward and the plain recompute backward)
-    unless their dense sites carry LoRA leaves.
+    Under ``cfg.attn_impl="pallas"`` each stage runs fused where
+    ``stage_supports_fused`` holds (served: by layout, :func:`run_stage`;
+    trained with ``cfg.train_fused``: one autograd Function per block under
+    ``v2`` (``run_stage_train``), the window-major stage Function with
+    canonical ends under ``wm`` (``run_stage_train_wm(io_in="canon",
+    io_out="canon")``)), else block by block (:func:`run_stage_blocks`).
+    DownSample and UpSample run their kernels (trained: the kernel forward
+    and the plain recompute backward) unless their dense sites carry LoRA
+    leaves.  Under ``"xla"`` every stage runs block by block and DownSample
+    / UpSample are ``L.down_sample`` / ``L.up_sample``: no kernel.
 
     ``deterministic=False``: the training trunk, differentiable in ``x`` and
     every trunk parameter.  ``drops``: four per-stage lists of (B, 2) branch
@@ -356,8 +373,11 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
         drops, gen = [None] * 4, None
     stages = params["stages"]
 
+    pallas = cfg.attn_impl == "pallas"
+
     def fused_ok(sp):
-        return stage_supports_fused(sp) and (not train or cfg.train_fused)
+        return (pallas and stage_supports_fused(sp)
+                and (not train or cfg.train_fused))
 
     def tap(name, val):
         if taps is not None:
@@ -374,23 +394,19 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
         if cfg.block_layout == "v2":
             return run_stage_train(sp, xx, geom, dr, gelu_tanh=cfg.gelu_tanh,
                                    kernels=kernels, grid_bwd=cfg.grid_bwd)
-        # the window-major training stage with canonical ends: relayouts
-        # around the wm stage Function
-        xs = to_window_major(torch.nn.functional.pad(
-            xx, (0, 0, 0, 0, 0, geom.h_padded - xx.shape[2])), geom.window)
-        ys, off = run_stage_train_wm(sp, xs, geom, dr,
-                                     gelu_tanh=cfg.gelu_tanh, kernels=kernels)
-        return wm_to_canonical(ys, off, geom).contiguous()
+        return run_stage_train_wm(sp, xx, geom, dr, gelu_tanh=cfg.gelu_tanh,
+                                  kernels=kernels, io_in="canon",
+                                  io_out="canon")
 
     def down(p, xx):
-        if "lora_a" in p["reduce"]:
+        if not pallas or "lora_a" in p["reduce"]:
             return L.down_sample(p, xx, gen)
         if train:
             return down_sample_train(p, xx, kernels=kernels)
         return (down_sample if kernels else down_sample_plain)(p, xx)
 
     def up(p, xx):
-        if "lora_a" in p["expand"] or "lora_a" in p["mix"]:
+        if not pallas or "lora_a" in p["expand"] or "lora_a" in p["mix"]:
             return L.up_sample(p, xx, cfg.h_tokens, gen)
         if train:
             return up_sample_train(p, xx, cfg.h_tokens, kernels=kernels)
@@ -457,13 +473,17 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     ``stage3`` (tensors on ``device``); the step then runs patch embed, the
     canonical-layout trunk (:func:`forward_core`) and patch recovery, as
     the JAX package does when it is given taps.  ``cfg.block_layout="v2"``,
-    unmerged LoRA leaves on the trunk and training with
-    ``cfg.train_fused=False`` run that path too.
+    odd stage depths, ``attn_impl="xla"``, unmerged LoRA leaves on the trunk
+    and training with ``cfg.train_fused=False`` run that path too.
 
-    LoRA: under ``cfg.lora_fused`` the factors are merged into the kernels
-    first (:func:`~pangu_tpu_torch.models.lora.merge_lora`, differentiable)
-    when serving, or when training without element-mode dropout (a
-    feature-mode mask drawn from ``gen``).
+    ``cfg.attn_impl="xla"`` runs the canonical path with the plain layers
+    only (the JAX package's XLA model): no kernel on any device.
+
+    LoRA: under ``cfg.lora_fused`` and ``attn_impl="pallas"`` the factors
+    are merged into the kernels first
+    (:func:`~pangu_tpu_torch.models.lora.merge_lora`, differentiable) when
+    serving, or when training without element-mode dropout (a feature-mode
+    mask drawn from ``gen``).
 
     ``deterministic=False``: the training forward, differentiable in the
     params, with stochastic-depth scales ``drops`` (four per-stage lists of
@@ -481,7 +501,7 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
         raise ValueError("taps are collected by the served forward only")
     if train and drops is None:
         drops = draw_drops(cfg, gen, upper.shape[0])
-    if (cfg.lora_fused and has_lora(params)
+    if (cfg.attn_impl == "pallas" and cfg.lora_fused and has_lora(params)
             and (not train or not has_lora_dropout(params))):
         feature = train and has_lora_dropout(params, "lora_drop_feat")
         params = merge_lora(params, gen if feature else None)

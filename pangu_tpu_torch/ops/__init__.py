@@ -8,7 +8,7 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 from pangu_tpu_torch.ops.block_tail import fused_block_tail
-from pangu_tpu_torch.ops.earth_block_bwd import block_bwd
+from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_canon
 from pangu_tpu_torch.ops.earth_block_fused import block_v2
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
                                                 block_wm_group)
@@ -19,7 +19,8 @@ from pangu_tpu_torch.ops.updown_wm import down_sample_wm, up_sample_wm
 from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
                                                   grid_attention,
                                                   grid_attention_bwd, sdpa,
-                                                  sdpa_bwd)
+                                                  sdpa_bwd,
+                                                  window_attention_pallas)
 
 
 def kernels() -> Dict[str, Callable]:
@@ -40,6 +41,7 @@ def kernels() -> Dict[str, Callable]:
             "down_sample": down_sample,
             "up_sample": up_sample,
             "block_bwd": block_bwd,
+            "block_bwd_canon": block_bwd_canon,
             "embed_dw_upper": embed_dw_upper,
             "recovery_bwd": recovery_bwd,
             "block_v2": block_v2,
@@ -48,7 +50,8 @@ def kernels() -> Dict[str, Callable]:
             "sdpa": sdpa,
             "sdpa_bwd": sdpa_bwd,
             "block_noroll_fused": block_noroll_fused,
-            "fused_block_tail": fused_block_tail}
+            "fused_block_tail": fused_block_tail,
+            "window_attention_pallas": window_attention_pallas}
 
 
 def reset_launches() -> None:

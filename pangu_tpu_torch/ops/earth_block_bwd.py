@@ -13,16 +13,27 @@ kernel body: the recomputed first branch stays float32 and ``x1`` is
 rounded once; every cotangent that feeds a product is rounded to the
 activation dtype; the bias-table gradient sums the unrounded float32 dS.
 
+The canonical layouts (``x_layout`` / ``g_layout="canon"``, the JAX
+kernel's stage end-points): x is the lat-padded (B, Z, Hp, W, C) grid, read
+unshifted (a stage's first block), and dx is written to that grid, pad rows
+zero; the cotangent g is that grid in the block's own window coordinates
+(a stage's last block, whose output the stage rolls back once).
+
 ``run_stage_train_wm`` is ONE ``torch.autograd.Function`` per stage call.
 Its forward runs the block kernels with their stochastic-depth scales and
 saves only each block's input (the remat of ``jax.checkpoint``); its
 backward walks the blocks in reverse through ``block_bwd``, one block at a
-time, so at most one block's recompute lives in memory.  ``kernels=False``
-runs the plain versions in both directions, on any device.
+time, so at most one block's recompute lives in memory.  Its ends are
+window-major storage or, with ``io_in`` / ``io_out="canon"``, the
+canonical grid, read by the first block (``block_wm_canon`` with
+``in_layout="canon"`` forward, ``block_bwd_canon`` with ``x_layout="canon"``
+backward) and written by the last (``out_layout`` / ``g_layout="canon"``).
+``kernels=False`` runs the plain versions in both directions, on any
+device.
 
-``block_bwd`` launches the CUDA kernel unit (``csrc/block_bwd.cu``) on a
-CUDA tensor, with a ``launches`` count, and runs ``block_bwd_plain`` on a CPU
-tensor.
+``block_bwd`` (wm -> wm) and ``block_bwd_canon`` (a canonical end) launch
+the CUDA kernel unit (``csrc/block_bwd.cu``) on a CUDA tensor, each with its
+own ``launches`` count, and run ``block_bwd_plain`` on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -36,11 +47,15 @@ from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.models.layers import dense, window_region_ids
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, block_wm,
+                                                block_wm_canon,
+                                                block_wm_canon_plain,
                                                 block_wm_plain, check_drop,
                                                 drop_scales, from_window_major,
                                                 pad_rows_zeroed, params_in,
                                                 require_device,
                                                 to_window_major)
+
+LAYOUTS = ("wm", "canon")
 
 # the leaves of one block's params, in the order the stage Function carries
 BLOCK_LEAVES = (("attn", "qkv", "kernel"), ("attn", "qkv", "bias"),
@@ -117,13 +132,34 @@ def _colsum(dy):
     return dy.reshape(-1, dy.shape[-1]).float().sum(0)
 
 
+def _check_layouts(x_layout: str, g_layout: str, delta_x: Offset,
+                   delta_g: Offset, what: str) -> None:
+    """A canonical end is read unshifted: its delta must be zero."""
+    if x_layout not in LAYOUTS or g_layout not in LAYOUTS:
+        raise ValueError(f"{what}: layouts {x_layout!r}, {g_layout!r}")
+    if x_layout == "canon" and any(delta_x):
+        raise ValueError(f"{what}: a canonical x is read unshifted, not "
+                         f"through {delta_x}")
+    if g_layout == "canon" and any(delta_g):
+        raise ValueError(f"{what}: a canonical cotangent is read unshifted, "
+                         f"not through {delta_g}")
+
+
 def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
                     delta_g: Offset, canon_add: int,
                     ids: Optional[torch.Tensor],
-                    drop: Optional[torch.Tensor], gelu_tanh: bool):
+                    drop: Optional[torch.Tensor], gelu_tanh: bool,
+                    x_layout: str = "wm", g_layout: str = "wm"):
     """Plain PyTorch version of the block backward (any device).  Returns
-    ``(dx, grads)``: dx like ``xs`` in the block's window coordinates,
-    grads a block param tree of float32 sums."""
+    ``(dx, grads)``: dx like ``xs`` (wm storage, or the grid with
+    ``x_layout="canon"``) in the block's window coordinates, grads a block
+    param tree of float32 sums."""
+    _check_layouts(x_layout, g_layout, delta_x, delta_g, "block_bwd_plain")
+    x_canon = x_layout == "canon"
+    if x_canon:
+        xs = to_window_major(xs, geom.window)
+    if g_layout == "canon":
+        g = to_window_major(g, geom.window)
     b, nz, nlat, nlon, n, c = xs.shape
     heads = geom.heads
     hd = c // heads
@@ -197,8 +233,9 @@ def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
     # ---- backward: qkv and the residual --------------------------------------
     dwqkv, dbqkv = _wgrad(xg, dqkv), _colsum(dqkv)
     dx = (dx1 + dqkv.float() @ f(q["attn"]["qkv"]["kernel"]).T).to(dt)
-    dx = to_window_major(pad_rows_zeroed(from_window_major(dx, geom.window),
-                                         geom, canon_add), geom.window)
+    dx = pad_rows_zeroed(from_window_major(dx, geom.window), geom, canon_add)
+    if not x_canon:
+        dx = to_window_major(dx, geom.window)
     grads = {"attn": {"qkv": {"kernel": dwqkv, "bias": dbqkv},
                       "proj": {"kernel": dwp, "bias": dbp},
                       "bias_table": dtable},
@@ -214,18 +251,26 @@ def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
 # ---------------------------------------------------------------------------
 
 def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
-            canon_add: int, ids, drop, gelu_tanh: bool):
+            canon_add: int, ids, drop, gelu_tanh: bool, x_layout: str,
+            g_layout: str):
     wz, wh, ww = geom.window
     n = wz * wh * ww
-    b, nz, nlat, nlon, n_in, c = xs.shape
-    if (n_in != n or (nz * wz, nlat * wh, nlon * ww) != (geom.z, geom.h_padded,
-                                                        geom.w)
+    nz, nlat, nlon = geom.z // wz, geom.h_padded // wh, geom.w // ww
+    c = xs.shape[-1]
+    b = xs.shape[0]
+    grid = (b, geom.z, geom.h_padded, geom.w, c)
+    wm = (b, nz, nlat, nlon, n, c)
+    want_x = grid if x_layout == "canon" else wm
+    want_g = grid if g_layout == "canon" else wm
+    if (tuple(xs.shape) != want_x or tuple(g.shape) != want_g
+            or (nz * wz, nlat * wh, nlon * ww) != (geom.z, geom.h_padded,
+                                                   geom.w)
             or xs.dtype not in DTYPE_CODE or c != geom.dim or c % geom.heads
-            or g.shape != xs.shape or g.dtype != xs.dtype
+            or g.dtype != xs.dtype
             or not xs.is_contiguous() or not g.is_contiguous()):
         raise ValueError(f"block_bwd: unsupported input {tuple(xs.shape)} "
-                         f"{xs.dtype}, cotangent {tuple(g.shape)} {g.dtype} "
-                         f"for {geom}")
+                         f"{xs.dtype} ({x_layout}), cotangent "
+                         f"{tuple(g.shape)} {g.dtype} ({g_layout}) for {geom}")
     q = params_in(p, xs.dtype)
     require_device(q, xs.device, "block_bwd")
     table = q["attn"]["bias_table"]
@@ -269,6 +314,7 @@ def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
         ptr(dwqkv), ptr(dwp), ptr(dw1), ptr(dw2), ptr(dln), ptr(dtable),
         b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
         *delta_x, *delta_g, canon_add, geom.h, int(gelu_tanh),
+        int(x_layout == "canon"), int(g_layout == "canon"),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(code, "block_bwd")
     grads = {"attn": {"qkv": {"kernel": dwqkv[:c], "bias": dwqkv[c]},
@@ -283,7 +329,8 @@ def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
 
 def block_bwd(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
               canon_add: int, ids: Optional[torch.Tensor],
-              drop: Optional[torch.Tensor], gelu_tanh: bool):
+              drop: Optional[torch.Tensor], gelu_tanh: bool, *,
+              x_layout: str = "wm", g_layout: str = "wm"):
     """Every gradient of one block on window-major storage: the CUDA kernel
     unit for a CUDA tensor, the plain version for a CPU tensor.
 
@@ -293,17 +340,50 @@ def block_bwd(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
     for a stage's last block); ``delta_x``, ``canon_add``, ``ids`` and
     ``drop`` as in ``block_wm``.  Returns ``(dx, grads)``: dx in the block's
     window coordinates, pad rows zero; grads float32 sums in a block param
-    tree."""
+    tree.  A canonical layout of either end is :func:`block_bwd_canon`'s
+    (and counted there)."""
+    _check_layouts(x_layout, g_layout, delta_x, delta_g, "block_bwd")
+    if "canon" in (x_layout, g_layout):
+        return block_bwd_canon(p, xs, g, geom, delta_x, delta_g, canon_add,
+                               ids, drop, gelu_tanh, x_layout=x_layout,
+                               g_layout=g_layout)
     if not xs.is_cuda:
         return block_bwd_plain(p, xs, g, geom, delta_x, delta_g, canon_add,
                                ids, drop, gelu_tanh)
     out = _launch(p, xs, g, geom, delta_x, delta_g, canon_add, ids, drop,
-                  gelu_tanh)
+                  gelu_tanh, x_layout, g_layout)
     block_bwd.launches += 1
     return out
 
 
 block_bwd.launches = 0
+
+
+def block_bwd_canon(p, x, g, geom: StageGeometry, delta_x: Offset,
+                    delta_g: Offset, canon_add: int,
+                    ids: Optional[torch.Tensor], drop: Optional[torch.Tensor],
+                    gelu_tanh: bool, *, x_layout: str = "wm",
+                    g_layout: str = "wm"):
+    """The backward of a stage end-point block: ``x_layout="canon"``, x is
+    the lat-padded (B, Z, Hp, W, C) grid in canonical coordinates, read
+    unshifted, and dx is written to that grid (pad rows zero);
+    ``g_layout="canon"``, the cotangent is that grid in the block's own
+    window coordinates.  At least one end is canonical; the other as in
+    :func:`block_bwd`.  The CUDA kernel unit for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if "canon" not in (x_layout, g_layout):
+        raise ValueError("block_bwd_canon: neither end is canonical")
+    _check_layouts(x_layout, g_layout, delta_x, delta_g, "block_bwd_canon")
+    if not x.is_cuda:
+        return block_bwd_plain(p, x, g, geom, delta_x, delta_g, canon_add,
+                               ids, drop, gelu_tanh, x_layout, g_layout)
+    out = _launch(p, x, g, geom, delta_x, delta_g, canon_add, ids, drop,
+                  gelu_tanh, x_layout, g_layout)
+    block_bwd_canon.launches += 1
+    return out
+
+
+block_bwd_canon.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -325,32 +405,45 @@ def _schedule(geom: StageGeometry, depth: int):
     return out, off
 
 
+def _ends(j: int, nb: int, io_in: str, io_out: str):
+    """Block j's input and output layouts in a stage of nb blocks."""
+    return ("canon" if io_in == "canon" and j == 0 else "wm",
+            "canon" if io_out == "canon" and j == nb - 1 else "wm")
+
+
 class _StageTrain(torch.autograd.Function):
     """One stage call: forward through the block kernels saving each block's
     input, backward through ``block_bwd`` block by block in reverse."""
 
     @staticmethod
     def forward(ctx, meta, x, *leaves):
-        geom, drops, gelu_tanh, kernels = meta
+        geom, drops, gelu_tanh, kernels, io_in, io_out = meta
         nb = len(leaves) // len(BLOCK_LEAVES)
         blocks = [_tree(leaves[j * len(BLOCK_LEAVES):(j + 1) * len(BLOCK_LEAVES)])
                   for j in range(nb)]
         sched, _ = _schedule(geom, nb)
         ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
                                                 geom.window), device=x.device)
-        fwd = block_wm if kernels else block_wm_plain
         inputs = []
         for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
             inputs.append(x)
-            x = fwd(bp, x, geom, delta, canon_add, ids if shifted else None,
-                    gelu_tanh, None if drops is None else drops[j])
+            args = (bp, x, geom, delta, canon_add, ids if shifted else None,
+                    gelu_tanh)
+            drop = None if drops is None else drops[j]
+            in_l, out_l = _ends(j, nb, io_in, io_out)
+            if "canon" in (in_l, out_l):
+                x = (block_wm_canon(*args, in_layout=in_l, out_layout=out_l,
+                                    drop=drop) if kernels
+                     else block_wm_canon_plain(*args, in_l, out_l, drop))
+            else:
+                x = (block_wm if kernels else block_wm_plain)(*args, drop)
         ctx.meta = meta
         ctx.save_for_backward(*inputs, *leaves)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        geom, drops, gelu_tanh, kernels = ctx.meta
+        geom, drops, gelu_tanh, kernels, io_in, io_out = ctx.meta
         saved = ctx.saved_tensors
         nl = len(BLOCK_LEAVES)
         nb = len(saved) // (nl + 1)
@@ -358,7 +451,6 @@ class _StageTrain(torch.autograd.Function):
         sched, _ = _schedule(geom, nb)
         ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
                                                 geom.window), device=g.device)
-        bwd = block_bwd if kernels else block_bwd_plain
         g = g.contiguous()
         dleaves: List[Optional[torch.Tensor]] = [None] * len(leaves)
         for j in reversed(range(nb)):
@@ -366,9 +458,14 @@ class _StageTrain(torch.autograd.Function):
             delta_g = (tuple(-d for d in sched[j + 1][0]) if j + 1 < nb
                        else (0, 0, 0))
             bl = leaves[j * nl:(j + 1) * nl]
-            g, grads = bwd(_tree(bl), inputs[j], g, geom, delta, delta_g,
-                           canon_add, ids if shifted else None,
-                           None if drops is None else drops[j], gelu_tanh)
+            in_l, out_l = _ends(j, nb, io_in, io_out)
+            args = (_tree(bl), inputs[j], g, geom, delta, delta_g, canon_add,
+                    ids if shifted else None,
+                    None if drops is None else drops[j], gelu_tanh)
+            if kernels:
+                g, grads = block_bwd(*args, x_layout=in_l, g_layout=out_l)
+            else:
+                g, grads = block_bwd_plain(*args, in_l, out_l)
             for i, (path, leaf) in enumerate(zip(BLOCK_LEAVES, bl)):
                 dleaves[j * nl + i] = _get(grads, path).to(leaf.dtype)
         return (None, g, *dleaves)
@@ -376,18 +473,36 @@ class _StageTrain(torch.autograd.Function):
 
 def run_stage_train_wm(stage_params, x, geom: StageGeometry,
                        drops: Optional[list], *, gelu_tanh: bool = False,
-                       kernels: bool = True):
-    """Training forward of one EarthSpecificLayer on window-major storage,
-    differentiable in ``x`` and every block parameter.  ``x``: wm entry
-    storage in canonical coordinates; returns the ROLLED storage and its
-    offset ``(xs, off)``, as ``run_stage_wm(io_layout="wm")`` does.
+                       kernels: bool = True, io_in: str = "wm",
+                       io_out: str = "wm"):
+    """Training forward of one EarthSpecificLayer through the window-major
+    block kernels, differentiable in ``x`` and every block parameter.
     ``drops``: one (B, 2) float32 tensor of branch scales per block, or None.
-    The backward hands back the input cotangent in the input's own storage
-    coordinates."""
+
+    ``io_in="wm"``: ``x`` is wm entry storage in canonical coordinates (the
+    backward hands the input cotangent back in those coordinates);
+    ``"canon"``: ``x`` is the canonical (B, Z, H, W, C) grid, padded here
+    to Hp and read by the first block.  ``io_out="wm"``: returns the ROLLED
+    storage and its offset ``(xs, off)``, as ``run_stage_wm(io_layout="wm")``
+    does; ``"canon"``: the last block writes the grid in its own window
+    coordinates, and one roll by ``off`` plus a crop to H returns the
+    canonical grid (an odd depth ends unshifted, ``off`` zero)."""
+    if io_in not in LAYOUTS or io_out not in LAYOUTS:
+        raise ValueError(f"run_stage_train_wm: io {io_in!r} -> {io_out!r}")
     blocks = stage_params["blocks"]
     leaves = [_get(bp, path) for bp in blocks for path in BLOCK_LEAVES]
     if drops is not None:
         drops = [d.to(x.device) for d in drops]
-    meta = (geom, drops, gelu_tanh, kernels)
+    h = x.shape[2]
+    if io_in == "canon":
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))
+    else:
+        h = geom.h
+    meta = (geom, drops, gelu_tanh, kernels, io_in, io_out)
     _, off = _schedule(geom, len(blocks))
-    return _StageTrain.apply(meta, x, *leaves), off
+    y = _StageTrain.apply(meta, x.contiguous(), *leaves)
+    if io_out == "wm":
+        return y, off
+    if any(off):
+        y = torch.roll(y, shifts=off, dims=(1, 2, 3))
+    return y[:, :, :h].contiguous()

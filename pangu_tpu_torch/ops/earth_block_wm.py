@@ -20,10 +20,13 @@ version on a CPU tensor:
 
   * ``block_wm``: wm -> wm, one latitude window per attention program;
   * ``block_wm_group``: wm -> wm, ``gh`` latitude windows per attention
-    program (the same function: on a CPU tensor it runs ``block_wm_plain``);
+    program (the same function: on a CPU tensor it runs ``block_wm_plain``),
+    with or without stochastic-depth scales (``drop``);
   * ``block_wm_canon``: a stage end-point block that reads the canonical
     (B, Z, Hp, W, C) grid (``in_layout="canon"``, unshifted) or writes it in
-    its own window coordinates (``out_layout="canon"``), or both.
+    its own window coordinates (``out_layout="canon"``), or both; with
+    ``drop`` it is the end-point block of the canonical training stage
+    (``ops/earth_block_bwd.py::run_stage_train_wm``).
 """
 
 from __future__ import annotations
@@ -252,14 +255,19 @@ block_wm.launches = 0
 
 
 def block_wm_group(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
-                   ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int):
+                   ids: Optional[torch.Tensor], gelu_tanh: bool, gh: int,
+                   drop: Optional[torch.Tensor] = None):
     """``block_wm`` with ``gh`` latitude windows per attention program (gh
     must divide the stage's latitude window count): the same function, so a
-    CPU tensor runs ``block_wm_plain``."""
+    CPU tensor runs ``block_wm_plain``.  ``drop``: (B, 2) float32 branch
+    scales or None, as in ``block_wm`` (the grouping touches only the
+    attention; the scales act in the two LayerNorm-residual launches)."""
     if not xs.is_cuda:
-        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+        return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
+                              drop)
     out = launch_block(p, xs, torch.empty_like(xs), geom, delta, canon_add,
-                       ids, gelu_tanh, gh, False, False, "block_wm_group")
+                       ids, gelu_tanh, gh, False, False, "block_wm_group",
+                       drop)
     block_wm_group.launches += 1
     return out
 
@@ -269,22 +277,25 @@ block_wm_group.launches = 0
 
 def block_wm_canon_plain(p, x, geom: StageGeometry, delta: Offset,
                          canon_add: int, ids: Optional[torch.Tensor],
-                         gelu_tanh: bool, in_layout: str, out_layout: str):
+                         gelu_tanh: bool, in_layout: str, out_layout: str,
+                         drop: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the end-point block: the relayouts composed
     with ``block_wm_plain`` (any device)."""
     xs = to_window_major(x, geom.window) if in_layout == "canon" else x
-    y = block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh)
+    y = block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh, drop)
     return from_window_major(y, geom.window) if out_layout == "canon" else y
 
 
 def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
                    ids: Optional[torch.Tensor], gelu_tanh: bool, *,
-                   in_layout: str = "wm", out_layout: str = "wm"):
+                   in_layout: str = "wm", out_layout: str = "wm",
+                   drop: Optional[torch.Tensor] = None):
     """A stage end-point block.  ``in_layout="canon"``: ``x`` is the
     (B, Z, Hp, W, C) grid in canonical coordinates, latitude-padded to Hp,
     and the block is unshifted; ``out_layout="canon"``: the output is that
     grid in the block's own window coordinates (the stage rolls back once).
-    At least one end is canonical.  The CUDA kernel for a CUDA tensor, the
+    At least one end is canonical.  ``drop``: (B, 2) float32 branch scales
+    or None, as in ``block_wm``.  The CUDA kernel for a CUDA tensor, the
     plain version for a CPU tensor."""
     in_canon, out_canon = in_layout == "canon", out_layout == "canon"
     if not (in_canon or out_canon) or {in_layout, out_layout} - {"wm", "canon"}:
@@ -294,7 +305,7 @@ def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
         raise ValueError("block_wm_canon: canonical entry blocks are unshifted")
     if not x.is_cuda:
         return block_wm_canon_plain(p, x, geom, delta, canon_add, ids,
-                                    gelu_tanh, in_layout, out_layout)
+                                    gelu_tanh, in_layout, out_layout, drop)
     wz, wh, ww = geom.window
     b, c = x.shape[0], x.shape[-1]
     shape = ((b, geom.z, geom.h_padded, geom.w, c) if out_canon else
@@ -302,7 +313,7 @@ def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
               wz * wh * ww, c))
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     launch_block(p, x, out, geom, delta, canon_add, ids, gelu_tanh, 1,
-                 in_canon, out_canon, "block_wm_canon")
+                 in_canon, out_canon, "block_wm_canon", drop)
     block_wm_canon.launches += 1
     return out
 

@@ -28,7 +28,15 @@ output projections included, on the same grid.
   * ``block_noroll_fused``: the whole unshifted block on the lat-padded grid,
     pad rows as data (the block kernel, ``csrc/block_wm.cu``);
   * ``window_attention_grid``: the per-block path's attention, None where
-    the qkv or proj site carries LoRA leaves.
+    the qkv or proj site carries LoRA leaves;
+  * ``window_attention_pallas``: the fused attention on partitioned
+    (B, nlon, ntype, N, C) windows, the public drop-in for
+    ``models/layers.py::earth_attention`` (the JAX package's
+    ``window_attention_pallas``): region ids folded into a float32 bias
+    outside the kernel, the kernel (CUDA ``csrc/window_attn.cu``) forward
+    and, through ``WindowAttention``, autograd of the reference composition
+    (qkv product, ``Sdpa``, proj product) backward, as ``_fused_core``;
+    ``earth_attention`` itself where qkv or proj carries LoRA leaves.
 
 Each wrapper launches its kernel for a CUDA tensor (counting the launch in
 ``launches``) and runs its plain version for a CPU tensor.  The plain
@@ -38,7 +46,12 @@ float32 for dS but rounded for dV, dS summed unrounded into dbias and
 rounded before dQ / dK, da, dqkv and dx rounded.  ``sdpa`` scales q in the
 input dtype (q times the scale rounded to it, the product rounded), and its
 backward takes dK from the unscaled q; the ``"xla"`` composition rounds each
-product before adding its bias in the dtype, as XLA's dot.
+product before adding its bias in the dtype, as XLA's dot.  The fused
+window attention rounds as ``_make_fused_kernel``: q, k, v after their bias,
+q times the scale in the dtype, float32 logits plus the bias, P rounded, o
+rounded, the proj product summed in float32 with its bias and rounded once;
+its backward's composition rounds as the ``"xla"`` one, so in bf16 the two
+directions round differently, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -49,8 +62,8 @@ import torch
 
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
-from pangu_tpu_torch.models.layers import (_dot, dense, window_partition,
-                                          window_reverse)
+from pangu_tpu_torch.models.layers import (_dot, dense, earth_attention,
+                                          window_partition, window_reverse)
 from pangu_tpu_torch.ops.block_tail import tail_math
 from pangu_tpu_torch.ops.earth_block_bwd import _colsum, _wgrad
 from pangu_tpu_torch.models.lora import has_lora
@@ -501,3 +514,131 @@ def block_noroll_fused(p, xg, geom: StageGeometry, gelu_tanh: bool):
 
 
 block_noroll_fused.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The fused window attention on partitioned windows
+# ---------------------------------------------------------------------------
+
+def window_attention_plain(x, wqkv, bqkv, wp, bp, bias):
+    """Plain PyTorch version of the fused window attention (any device):
+    ``x`` (..., ntype, N, C) windows, ``bias`` (ntype, heads, N, N)
+    float32; rounding as ``_make_fused_kernel``."""
+    dt = x.dtype
+    c, heads = x.shape[-1], bias.shape[1]
+    hd = c // heads
+    qkv = dense({"kernel": wqkv.to(dt), "bias": bqkv.to(dt)}, x)
+    q, k, v = (_heads(qkv[..., i * c:(i + 1) * c], heads) for i in range(3))
+    q = q * torch.tensor(hd ** -0.5, dtype=dt, device=x.device)
+    s = q.float() @ k.float().transpose(-1, -2) + bias.float()
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    pr = (e / e.sum(-1, keepdim=True)).to(dt)
+    del s, e
+    o = _merge((pr.float() @ v.float()).to(dt))
+    return dense({"kernel": wp.to(dt), "bias": bp.to(dt)}, o)
+
+
+def window_attention_fused(x, wqkv, bqkv, wp, bp, bias):
+    """The fused window attention forward on ``x`` (..., ntype, N, C),
+    contiguous, with the folded float32 ``bias`` (ntype, heads, N, N): the
+    CUDA kernel for a CUDA tensor (counted in
+    ``window_attention_pallas.launches``), the plain version for a CPU
+    tensor."""
+    if not x.is_cuda:
+        return window_attention_plain(x, wqkv, bqkv, wp, bp, bias)
+    *lead, ntype, n, c = x.shape
+    heads = bias.shape[1] if bias.dim() == 4 else 0
+    shapes = [(c, 3 * c), (3 * c,), (c, c), (c,)]
+    weights = [wqkv, bqkv, wp, bp]
+    if (x.dtype not in DTYPE_CODE or not x.is_contiguous() or not lead
+            or heads < 1 or c % heads
+            or [tuple(t.shape) for t in weights] != shapes
+            or bias.dtype != torch.float32 or not bias.is_contiguous()
+            or tuple(bias.shape) != (ntype, heads, n, n)):
+        raise ValueError(f"window_attention_pallas: unsupported input "
+                         f"{tuple(x.shape)} {x.dtype}, weights "
+                         f"{[tuple(t.shape) for t in weights]}, bias "
+                         f"{tuple(bias.shape)} {bias.dtype}")
+    weights = [t.to(x.dtype).contiguous() for t in weights]
+    for t in weights + [bias]:
+        if t.device != x.device:
+            raise ValueError(f"window_attention_pallas: parameter on "
+                             f"{t.device}, input on {x.device}")
+    lib = _build.library()
+    ws = torch.empty(lib.pangu_window_attn_ws(x.numel() // c, c),
+                     dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    code = lib.pangu_window_attn(
+        DTYPE_CODE[x.dtype], _ptr(x), _ptr(out), _ptr(ws),
+        *(_ptr(t) for t in weights), _ptr(bias), x.numel() // (ntype * n * c),
+        ntype, n, c, heads, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(code, "window_attention_pallas")
+    window_attention_pallas.launches += 1
+    return out
+
+
+def _window_ref(x, wqkv, bqkv, wp, bp, bias, kernels: bool):
+    """``_fused_core``'s reference composition on the windows ``x``
+    (..., ntype, N, C): qkv product, ``Sdpa`` on the folded bias, proj
+    product, each product rounded to x's dtype before its bias is added in
+    it.  Differentiable in every input."""
+    dt = x.dtype
+    *lead, ntype, n, c = x.shape
+    heads = bias.shape[1]
+    qkv = _dot(x, wqkv.to(dt)) + bqkv.to(dt)
+    qkv = qkv.reshape(-1, ntype, n, 3, heads, c // heads)
+    qkv = qkv.permute(0, 1, 3, 4, 5, 2).contiguous()
+    out = Sdpa.apply(kernels, qkv, bias)          # (nwin, ntype, heads, hd, N)
+    out = out.permute(0, 1, 4, 2, 3).reshape(*lead, ntype, n, c)
+    return _dot(out, wp.to(dt)) + bp.to(dt)
+
+
+class WindowAttention(torch.autograd.Function):
+    """``WindowAttention.apply(kernels, x, wqkv, bqkv, wp, bp, bias)``: the
+    fused window attention forward (``kernels=False``: its plain version on
+    any device); backward, autograd of :func:`_window_ref` recomputed from
+    the saved inputs (the ``sdpa`` kernels in it on the card), as
+    ``_fused_core``'s ``jax.vjp`` of its ``ref``.  The gradients come back
+    in the dtypes of the inputs."""
+
+    @staticmethod
+    def forward(ctx, kernels, x, wqkv, bqkv, wp, bp, bias):
+        ctx.kernels = kernels
+        ctx.dtypes = [t.dtype for t in (x, wqkv, bqkv, wp, bp, bias)]
+        ctx.save_for_backward(x, wqkv, bqkv, wp, bp, bias)
+        fwd = window_attention_fused if kernels else window_attention_plain
+        return fwd(x, wqkv, bqkv, wp, bp, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            y = _window_ref(*inputs, ctx.kernels)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (None, *(d.to(dt) for d, dt in zip(grads, ctx.dtypes)))
+
+
+def window_attention_pallas(p, x, heads: int,
+                            ids: Optional[torch.Tensor] = None, *,
+                            kernels: bool = True):
+    """Drop-in for :func:`~pangu_tpu_torch.models.layers.earth_attention`
+    on partitioned windows ``x`` (B, nlon, ntype, N, C): ``p`` the block's
+    ``attn`` params, ``ids`` the (ntype, N) region ids of a shifted block
+    (-100 between regions) or None.  The mask is folded into the float32
+    (ntype, heads, N, N) bias here, outside the kernel; differentiable
+    through :class:`WindowAttention`.  Where qkv or proj carries LoRA leaves
+    it is ``earth_attention`` itself, as in the JAX package.
+    ``kernels=False`` runs the plain versions on any device."""
+    if "lora_a" in p["qkv"] or "lora_a" in p["proj"]:
+        return earth_attention(p, x, heads, ids)
+    if p["bias_table"].shape[1] != heads:
+        raise ValueError(f"window_attention_pallas: {heads} heads, bias "
+                         f"table {tuple(p['bias_table'].shape)}")
+    bias = _full_bias(p["bias_table"], ids).contiguous()
+    return WindowAttention.apply(
+        kernels, x.contiguous(), p["qkv"]["kernel"], p["qkv"]["bias"],
+        p["proj"]["kernel"], p["proj"]["bias"], bias)
+
+
+window_attention_pallas.launches = 0

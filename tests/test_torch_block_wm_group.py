@@ -4,12 +4,15 @@ through ``block_wm_group``) against the JAX package's ``run_stage_wm``
 ``_block_wm_group_call``) run in Pallas interpret mode.  TINY, float32, erf
 GELU: stage 1 (nlat 2, one group of 2), stage 1 of TINY with lat 161 (nlat
 4, two groups, the shifted block's stitch crossing the group edge), each at
-depths 2 and 4, and stage 0 at depth 2 (nlat 3, so gh falls back to 1).  Tolerance:
-max abs error 5e-5, as for the ungrouped chain."""
+depths 2 and 4, and stage 0 at depth 2 (nlat 3, so gh falls back to 1).
+The grouped block with per-sample stochastic-depth scales (``drop``, batch 2)
+against ``_block_wm_group_call(drop=...)``, shifted and unshifted, on both
+geometries.  Tolerance: max abs error 5e-5, as for the ungrouped chain."""
 
 import dataclasses
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
@@ -107,3 +110,35 @@ def test_grouped_wrapper_runs_plain_version_on_cpu(params, monkeypatch):
     want = W.block_wm_plain(bp, xs, geom, (1, 3, 6), 3, ids, False)
     assert torch.equal(got, want)
     assert W.block_wm_group.launches == before
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("shifted", [True, False])
+def test_grouped_block_with_drop_matches_jax(params, case, shifted):
+    jcfg, cfg = CASES[case]
+    geom = cfg.stage(1)
+    jparams, params = params[case]
+    jbp = jparams["stages"][1]["blocks"][1]
+    bp = params["stages"][1]["blocks"][1]
+    wz, wh, ww = geom.window
+    xs = TP.normal((2, geom.z // wz, geom.h_padded // wh, geom.w // ww,
+                    wz * wh * ww, geom.dim), 46)
+    drop = np.asarray([[0.8, 1.25], [1.25, 0.0]], np.float32)
+    ids = (W.window_region_ids(geom.z, geom.h_padded, geom.window) if shifted
+           else None)
+    delta, canon_add = ((1, 3, 6), 3) if shifted else ((-1, -3, -6), 0)
+    with pltpu.force_tpu_interpret_mode():
+        want = JW._block_wm_group_call(
+            jbp, jnp.asarray(xs), jcfg.stage(1), delta, canon_add,
+            None if ids is None else jnp.asarray(ids), False, 2,
+            drop=jnp.asarray(drop))
+    got = W.block_wm_group(bp, torch.as_tensor(xs), geom, delta, canon_add,
+                           None if ids is None else torch.as_tensor(ids),
+                           False, 2, torch.as_tensor(drop))
+    assert got.shape == want.shape
+    assert TP.max_abs_err(got, want) <= TOL
+    # the scales reach the output: sample 1's MLP branch is cut
+    plain = W.block_wm_plain(bp, torch.as_tensor(xs), geom, delta, canon_add,
+                             None if ids is None else torch.as_tensor(ids),
+                             False)
+    assert not torch.equal(got, plain)

@@ -1,8 +1,8 @@
 """The port's model geometry equals the JAX package's on every preset, and
 values the port does not take raise instead of being ignored: an unknown
-``block_layout`` or ``grid_bwd``, odd stage depths under the window-major
-layout (the v2 stages take any depth), and the edge kernels under
-``block_layout="v2"`` (the JAX package silently skips them there).  The
+``block_layout``, ``grid_bwd`` or ``attn_impl``, and the edge kernels under
+``block_layout="v2"`` (the JAX package silently skips them there).  Odd
+stage depths are accepted under both layouts, as by the JAX package.  The
 training and LoRA fields (``remat``, ``train_fused``, ``grid_bwd``,
 ``lora_fused``; ``TrainConfig``'s ``lora_*``) equal the JAX package's on
 every preset."""
@@ -103,7 +103,7 @@ def test_edge_kernels_on_unsupported_geometry_raise(change):
 
 
 @pytest.mark.parametrize("change", [{"gelu": "relu"},
-                                    {"depths": (2, 6, 5, 2)}])
+                                    {"attn_impl": "cuda"}])
 def test_invalid_values_raise(change):
     with pytest.raises(ValueError):
         dataclasses.replace(PC.TINY, **change)
@@ -137,10 +137,54 @@ def test_unknown_block_layout_raises(layout):
 
 @pytest.mark.parametrize("depths", [(2, 3, 3, 2), (1, 1, 1, 1), (3, 6, 5, 2)])
 def test_odd_depths_only_under_v2(depths):
-    with pytest.raises(ValueError, match="even stage depths"):
-        dataclasses.replace(PC.TINY, depths=depths)
-    cfg = dataclasses.replace(PC.TINY, depths=depths, block_layout="v2")
-    assert cfg.depths == depths and cfg.total_blocks == sum(depths)
+    """Named for the refusal it once pinned; odd depths are accepted under
+    both layouts, as by the JAX package, and under ``"wm"`` they leave the
+    all-window-major trunk for the canonical stage chain."""
+    from pangu_tpu_torch.models import pangu
+    import torch
+    for layout in ("wm", "v2"):
+        cfg = dataclasses.replace(PC.TINY, depths=depths, block_layout=layout)
+        want = dataclasses.replace(JC.TINY, depths=depths,
+                                   block_layout=layout)
+        assert cfg.depths == want.depths == depths
+        assert cfg.total_blocks == sum(depths)
+    params = pangu.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+    wm = dataclasses.replace(cfg, block_layout="wm")
+    assert not pangu.wm_core_supported(params, wm)
+    even = pangu.init_params(torch.Generator().manual_seed(0), PC.TINY,
+                             device="cpu")
+    assert pangu.wm_core_supported(even, PC.TINY)
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_attn_impl_values_of_jax_are_accepted(attn_impl):
+    want = dataclasses.replace(JC.TINY, attn_impl=attn_impl)
+    assert dataclasses.replace(PC.TINY, attn_impl=attn_impl).attn_impl \
+        == want.attn_impl == attn_impl
+
+
+@pytest.mark.parametrize("attn_impl", ["cuda", "Pallas", ""])
+def test_unknown_attn_impl_raises(attn_impl):
+    with pytest.raises(ValueError, match="attn_impl"):
+        dataclasses.replace(PC.TINY, attn_impl=attn_impl)
+
+
+def test_attn_impl_defaults():
+    """The port's presets mean the kernel path ("pallas"); the JAX
+    package's default is "xla" (its command lines map --pallas)."""
+    assert all(getattr(PC, p).attn_impl == "pallas" for p in PRESETS)
+    assert JC.ModelConfig().attn_impl == "xla"
+
+
+@pytest.mark.parametrize("attn_impl", ["xla", "pallas"])
+def test_wm_core_needs_pallas(attn_impl):
+    from pangu_tpu_torch.models import pangu
+    import torch
+    params = pangu.init_params(torch.Generator().manual_seed(0), PC.TINY,
+                               device="cpu")
+    cfg = dataclasses.replace(PC.TINY, attn_impl=attn_impl)
+    assert pangu.wm_core_supported(params, cfg) == (attn_impl == "pallas")
 
 
 @pytest.mark.parametrize("preset", PRESETS)

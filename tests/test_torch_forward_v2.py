@@ -142,19 +142,21 @@ def test_v2_taps_match_jax(taps_both, name):
 
 
 def test_v2_forward_at_odd_depths_matches_jax(setup):
+    """Odd depths under v2, and (accepted there too, as by the JAX package)
+    under the window-major layout, whose stages then run the canonical
+    stage chain (``run_stage_wm(io_layout="canon")``)."""
     depths = (2, 3, 3, 2)
-    with pytest.raises(ValueError, match="even"):
-        dataclasses.replace(TINY, depths=depths)
     cfg = dataclasses.replace(V2, depths=depths)
     jparams, params = TP.port_and_jax_params(cfg, seed=5)
     jcfg = dataclasses.replace(JAX_CFG, depths=depths)
     want = jax.jit(lambda p, u, s: jax_pangu.forward(p, u, s, setup["jc"],
                                                      jcfg))(
         jparams, jnp.asarray(setup["upper"]), jnp.asarray(setup["surface"]))
-    got = pangu.forward(params, *_inputs(setup), setup["consts"], cfg,
-                        device="cpu")
-    for g, w in zip(got, want):
-        assert TP.max_abs_err(g, w) <= TOL
+    for c in (cfg, dataclasses.replace(TINY, depths=depths)):
+        got = pangu.forward(params, *_inputs(setup), setup["consts"], c,
+                            device="cpu")
+        for g, w in zip(got, want):
+            assert TP.max_abs_err(g, w) <= TOL
 
 
 def test_v2_and_wm_forwards_agree(setup):

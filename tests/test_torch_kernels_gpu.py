@@ -21,7 +21,11 @@ path: the no-roll block and the block tail, the windowed sdpa and its
 backward (with and without the folded mask), the served forward with
 adapters on each stage's first block (against plain versions and the
 merged forward) and the float32 per-block train step under both grid
-attention backwards (against plain versions and the fused step).  Needs a CUDA
+attention backwards (against plain versions and the fused step); the fused
+window attention forward and every gradient of its drop-in, the block
+backward with canonical ends, the grouped block with branch scales, the
+float32 train step through the canonical stage Function (adapters at
+Down/UpSample only) and ``attn_impl="xla"`` (no kernel launched).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -916,3 +920,188 @@ def test_per_block_train_step_matches_plain(cuda, grid_bwd):
                if float((a - b).abs().max())
                > 1e-3 * float(b.abs().max())]
         assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
+# The fused window attention, the canonical block backward, the grouped
+# block with branch scales, the canonical training route and attn_impl
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_window_attention_kernel_matches_plain(cuda, cfg_name, stage, dtype,
+                                               masked):
+    """The fused window attention forward on the stage's partitioned
+    windows (batch 2), and every gradient of ``window_attention_pallas``
+    (the reference composition through the sdpa kernels) against
+    ``kernels=False``."""
+    from pangu_tpu_torch.models.layers import window_partition
+    from pangu_tpu_torch.ops.window_attention import (window_attention_fused,
+                                                      window_attention_pallas,
+                                                      window_attention_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    attn = _params(cfg, cuda)["stages"][stage]["blocks"][0]["attn"]
+    attn = {k: ({kk: vv.to(dtype) for kk, vv in v.items()}
+                if isinstance(v, dict) else v) for k, v in attn.items()}
+    x = window_partition(_grid(geom, cuda, dtype, 16), geom.window)
+    ids = _ids(geom, cuda) if masked else None
+    bias = attn["bias_table"].float()
+    if masked:
+        bias = bias + torch.where(ids[:, None, :] != ids[:, :, None], -100.0,
+                                  0.0)[:, None]
+    args = (attn["qkv"]["kernel"], attn["qkv"]["bias"], attn["proj"]["kernel"],
+            attn["proj"]["bias"], bias.contiguous())
+    got = window_attention_fused(x, *args)
+    want = window_attention_plain(x, *args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    assert _rel_err(got, want) <= TOL[dtype]
+    dy = _grid(geom, cuda, dtype, 17)
+    dy = window_partition(dy, geom.window)
+    grads = []
+    for kernels in (True, False):
+        p = {k: ({kk: vv.detach().clone().requires_grad_(True)
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.detach().clone().requires_grad_(True))
+             for k, v in attn.items()}
+        xx = x.detach().clone().requires_grad_(True)
+        y = window_attention_pallas(p, xx, geom.heads, ids, kernels=kernels)
+        y.backward(dy)
+        grads.append([xx.grad, p["qkv"]["kernel"].grad, p["qkv"]["bias"].grad,
+                      p["proj"]["kernel"].grad, p["proj"]["bias"].grad,
+                      p["bias_table"].grad])
+    torch.cuda.synchronize()
+    errs = [_rel_err(a, b) for a, b in zip(*grads)]
+    assert all(e <= TOL[dtype] for e in errs), errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("x_layout,g_layout", [
+    ("canon", "wm"), ("wm", "canon"), ("canon", "canon")])
+def test_block_bwd_canon_kernel_matches_plain(cuda, cfg_name, stage, dtype,
+                                              x_layout, g_layout):
+    """The block backward with a canonical end (a stage's first block, its
+    last after an unshifted one, a one-block stage), with branch scales:
+    every gradient against the plain version, bit-identical in two runs."""
+    from pangu_tpu_torch.ops.earth_block_bwd import (block_bwd_canon,
+                                                     block_bwd_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][1]
+    xs = (_grid if x_layout == "canon" else _storage)(geom, cuda, dtype, 1)
+    g = (_grid if g_layout == "canon" else _storage)(geom, cuda, dtype, 2)
+    drop = _drop(xs.shape[0], cuda)
+    if x_layout == "wm":          # the last block, shifted
+        args = ((1, 3, 6), (0, 0, 0), 3, _ids(geom, cuda))
+    elif g_layout == "wm":        # the first block, a shifted one after it
+        args = ((0, 0, 0), (-1, -3, -6), 0, None)
+    else:
+        args = ((0, 0, 0), (0, 0, 0), 0, None)
+    got = block_bwd_canon(bp, xs, g, geom, *args, drop, True,
+                          x_layout=x_layout, g_layout=g_layout)
+    want = block_bwd_plain(bp, xs, g, geom, *args, drop, True, x_layout,
+                           g_layout)
+    torch.cuda.synchronize()
+    assert got[0].shape == xs.shape
+    errs = _tree_rel_errs({"dx": got[0], **got[1]}, {"dx": want[0], **want[1]})
+    assert all(e <= TOL[dtype] for _, e in errs), errs
+    again = block_bwd_canon(bp, xs, g, geom, *args, drop, True,
+                            x_layout=x_layout, g_layout=g_layout)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [got[0], *_leaves(got[1])], [again[0], *_leaves(again[1])]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+def test_block_wm_group_drop_kernel_matches_plain(cuda, dtype, shifted):
+    """The grouped block (MID stage 1: three groups of 2) with per-sample
+    branch scales against the plain block; scales of 1 bit-equal to the
+    served grouped block."""
+    geom = MID.stage(1)
+    bp = _params(MID, cuda)["stages"][1]["blocks"][1]
+    xs = _storage(geom, cuda, dtype)
+    args = ((1, 3, 6), 3, _ids(geom, cuda)) if shifted else ((0, 0, 0), 0,
+                                                             None)
+    drop = _drop(xs.shape[0], cuda)
+    got = block_wm_group(bp, xs, geom, *args, True, 2, drop)
+    want = block_wm_plain(bp, xs, geom, *args, True, drop)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= TOL[dtype]
+    ones = block_wm_group(bp, xs, geom, *args, True, 2,
+                          torch.ones(xs.shape[0], 2, device=cuda))
+    assert torch.equal(ones, block_wm_group(bp, xs, geom, *args, True, 2))
+
+
+def test_canon_train_step_matches_plain(cuda):
+    """The float32 train step with adapters only at Down/UpSample
+    (``lora_fused=False``): every stage trains through the canonical stage
+    Function; kernels against plain versions (loss 1e-4 relative, every leaf
+    1e-3 of its max) and its launch counts."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    from pangu_tpu_torch.models import lora
+    cfg = dataclasses.replace(TINY, lora_fused=False)
+    consts, upper, surface = _state(cfg, cuda, batch=1)
+    _, tu, ts = _state(cfg, cuda, seed=4, batch=1)
+    batch = {"upper": upper, "surface": surface, "target_upper": tu,
+             "target_surface": ts}
+    drops = pangu.draw_drops(cfg, torch.Generator(device=cuda).manual_seed(15),
+                             1)
+    out = []
+    for kernels in (True, False):
+        tree = lora.init_lora(torch.Generator(device=cuda).manual_seed(16),
+                              _params(cfg, cuda), rank=4, alpha=4.0)
+        tree["stages"] = lora.strip_lora({"s": tree["stages"]})["s"]
+        for t in _param_leaves(tree):
+            t.requires_grad_(True)
+        ops.reset_launches()
+        out.append(loss_and_grads(tree, batch, consts, cfg, TrainConfig(),
+                                  device=cuda, kernels=kernels, drops=drops))
+        if kernels:
+            counts = ops.launches()
+    nb = sum(cfg.depths)
+    canon = 2 * 3           # the first and last block of stages 0, 1+2, 3
+    assert counts == {**{k: 0 for k in counts}, "block_wm": nb - canon,
+                      "block_wm_canon": canon, "block_bwd": nb - canon,
+                      "block_bwd_canon": canon}, counts
+    (lk, _, gk), (lp, _, gp) = out
+    assert abs(float(lk) - float(lp)) <= 1e-4 * abs(float(lp))
+    bad = [(p, float((a - b).abs().max()), float(b.abs().max()))
+           for (p, a), (_, b) in zip(_flat_grads(gk), _flat_grads(gp))
+           if float((a - b).abs().max()) > 1e-3 * float(b.abs().max())]
+    assert not bad, bad
+
+
+def test_attn_impl_xla_launches_no_kernel(cuda):
+    """``attn_impl="xla"`` served and trained on the card: no kernel
+    counter moves; the served step agrees with "pallas" (float32, 1e-3)."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine.train import loss_and_grads
+    cfg = dataclasses.replace(TINY, attn_impl="xla")
+    consts, upper, surface = _state(cfg, cuda, batch=1)
+    params = _params(cfg, cuda)
+    ops.reset_launches()
+    with torch.no_grad():
+        got = pangu.forward(params, upper, surface, consts, cfg, device=cuda)
+        assert not any(ops.launches().values()), ops.launches()
+        want = pangu.forward(params, upper, surface, consts, TINY,
+                             device=cuda)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= 1e-3
+    for t in _param_leaves(params):
+        t.requires_grad_(True)
+    ops.reset_launches()
+    loss, _, _ = loss_and_grads(params, {"upper": upper, "surface": surface,
+                                         "target_upper": upper,
+                                         "target_surface": surface},
+                                consts, cfg, TrainConfig(), device=cuda,
+                                seed=5)
+    assert not any(ops.launches().values()), ops.launches()
+    assert torch.isfinite(loss)
