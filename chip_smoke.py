@@ -7,6 +7,9 @@ card, and check it.
 Phases, each with its wall seconds:
   1. environment: torch / CUDA / nvcc versions, the card's name and power limit;
   2. build: nvcc compiles ``pangu_tpu_torch/csrc/*.cu`` into one library;
+     the registers and spills ptxas reports for the bf16 sdpa kernels
+     (tensor cores) and their launch plan at full width (shared memory,
+     blocks per SM);
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -82,8 +85,10 @@ Phases, each with its wall seconds:
      a. its kernels against their plain versions, float32 and bf16: the
         no-roll block and the block tail at stages 0 and 1, the windowed
         sdpa and its backward at stages 0 and 1 with and without the folded
-        mask; the sdpa beside ``scaled_dot_product_attention`` (the library
-        column only, never on a path);
+        mask; two bf16 runs of each sdpa kernel, which must agree bit for
+        bit; the sdpa and its backward beside ``scaled_dot_product_attention``
+        and its backward at stages 0 and 1 (the library column only, never
+        on a path);
      b. the served per-block step: ``forward`` with ``lora_fused=False`` on
         adapters (rank 16, B non-zero) on the first block of each stage
         only: per step 4 no-roll blocks, 8 grid attentions, 8 block tails, 1
@@ -148,6 +153,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -227,6 +233,34 @@ def to_dtype(tree, dtype):
     return tree.to(dtype)
 
 
+def sdpa_report(ptxas, lib):
+    """Lines on the bf16 sdpa kernels: their registers and spills as ptxas
+    reported them, and the launch plan (dynamic shared memory, blocks per
+    SM, threads) at the full-width shape hd 32, N 144."""
+    lines, name = [], None
+    for line in ptxas.splitlines():
+        m = re.search(r"Function properties for _ZN5pangu\d+(sdpa_mma\w*?_kernel)"
+                      r"ILi(\d+)E", line)
+        if m:
+            name, spill = f"{m[1]}<{m[2]}>", "spills not reported"
+            continue
+        if name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            lines.append(f"ptxas {name}: {regs} registers; {spill}")
+            name = None
+    for bwd, what in ((0, "sdpa"), (1, "sdpa_bwd")):
+        smem, per_sm, threads, nbuf, shared = (
+            lib.pangu_sdpa_ws(bwd, 32, 144, k) for k in range(5))
+        held = "dbias partial" if bwd else "bias slice"
+        lines.append(f"{what} bf16 plan at hd 32, N 144: {smem} B dynamic "
+                     f"shared memory, {per_sm} block(s) per SM of {threads} "
+                     f"threads, {nbuf} tile buffer(s), {held} in shared "
+                     f"memory: {bool(shared)}")
+    return lines
+
+
 def bound(flops, nbytes_, dtype):
     t_bytes = nbytes_ / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOP_PER_S[dtype]
@@ -295,8 +329,10 @@ def main() -> int:
     # ---- 2. build ---------------------------------------------------------
     t0 = phase("build")
     lib_path = _build.build()
-    _build.library()
+    lib = _build.library()
     print(f"built {os.path.relpath(lib_path)}")
+    for line in sdpa_report(_build.ptxas_report(), lib):
+        print(line)
     done("build", t0)
 
     # ---- 3. kernels against their plain versions --------------------------
@@ -1729,34 +1765,51 @@ def per_block_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
         del cases
         torch.cuda.empty_cache()
 
-    # the library column: scaled_dot_product_attention on the same inputs in
-    # its own (batch, heads, N, hd) layout, the float bias as attn_mask
-    qkv, bias, gy = sdpa_inputs(g0, torch.bfloat16, True)
-    nwin, ntype, _, heads, hd, n = qkv.shape
-    q, k, v = (qkv[:, :, i].reshape(nwin * ntype, heads, hd, n)
-               .transpose(-1, -2).contiguous() for i in range(3))
-    mask = bias.to(torch.bfloat16)[None].expand(nwin, -1, -1, -1, -1) \
-        .reshape(nwin * ntype, heads, n, n)
-    sdpa_lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, attn_mask=mask), 3)
-    records["sdpa"]["library_ms"] = sdpa_lib_ms
-    go = gy.reshape(nwin * ntype, heads, hd, n).transpose(-1, -2).contiguous()
-    try:
-        leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        mask_g = mask.detach().clone().requires_grad_(True)
-        o = F.scaled_dot_product_attention(*leaves_, attn_mask=mask_g)
-        sdpa_bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
-            o, leaves_ + [mask_g], go, retain_graph=True), 2)
-        del o
-    except RuntimeError as e:           # no gradient of a float mask here
-        print(f"scaled_dot_product_attention backward with a float mask: {e}")
-        sdpa_bwd_lib_ms = None
-    records["sdpa_bwd"]["library_ms"] = sdpa_bwd_lib_ms
-    print(f"library: scaled_dot_product_attention (stage 0, bf16, folded "
-          f"mask) {sdpa_lib_ms:.3f} ms, its backward with the mask's "
-          f"gradient {sdpa_bwd_lib_ms} ms")
-    del q, k, v, mask, go, qkv, bias, gy
-    torch.cuda.empty_cache()
+    # two bf16 runs of each sdpa kernel on the same stage-0 input agree bit
+    # for bit; then the library column: scaled_dot_product_attention on the
+    # same inputs in its own (batch, heads, N, hd) layout, the float bias as
+    # attn_mask, beside the kernels' times again, stages 0 and 1
+    for label, geom in (("stage 0", g0), ("stage 1", g1)):
+        qkv, bias, gy = sdpa_inputs(geom, torch.bfloat16, True)
+        if geom is g0:
+            same = (torch.equal(sdpa(qkv, bias), sdpa(qkv, bias))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        sdpa_bwd(qkv, bias, gy), sdpa_bwd(qkv, bias, gy))))
+            print(f"sdpa and sdpa_bwd bit-identical in two runs (stage 0, "
+                  f"bf16, folded mask): {same}")
+            if not same:
+                raise AssertionError("sdpa / sdpa_bwd differ between runs")
+        nwin, ntype, _, heads, hd, n = qkv.shape
+        q, k, v = (qkv[:, :, i].reshape(nwin * ntype, heads, hd, n)
+                   .transpose(-1, -2).contiguous() for i in range(3))
+        mask = bias.to(torch.bfloat16)[None].expand(nwin, -1, -1, -1, -1) \
+            .reshape(nwin * ntype, heads, n, n)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), 3)
+        go = gy.reshape(nwin * ntype, heads, hd, n).transpose(-1, -2) \
+            .contiguous()
+        try:
+            leaves_ = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            mask_g = mask.detach().clone().requires_grad_(True)
+            o = F.scaled_dot_product_attention(*leaves_, attn_mask=mask_g)
+            bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+                o, leaves_ + [mask_g], go, retain_graph=True), 2)
+            del o
+        except RuntimeError as e:           # no gradient of a float mask here
+            print(f"scaled_dot_product_attention backward with a float "
+                  f"mask: {e}")
+            bwd_lib_ms = None
+        ms = time_ms(lambda: sdpa(qkv, bias), 3)
+        bwd_ms = time_ms(lambda: sdpa_bwd(qkv, bias, gy), 2)
+        if geom is g0:
+            records["sdpa"]["library_ms"] = lib_ms
+            records["sdpa_bwd"]["library_ms"] = bwd_lib_ms
+        print(f"library ({label}, bf16, folded mask): "
+              f"scaled_dot_product_attention {lib_ms:.3f} ms against sdpa "
+              f"{ms:.3f} ms; its backward with the mask's gradient "
+              f"{bwd_lib_ms} ms against sdpa_bwd {bwd_ms:.3f} ms")
+        del q, k, v, mask, go, qkv, bias, gy
+        torch.cuda.empty_cache()
 
     # ---- 8b. the served per-block step: adapters on each stage's first block
     tree = lora.init_lora(gen, params, rank=16, alpha=16.0)

@@ -1,18 +1,24 @@
 """Build and load the port's CUDA kernels.
 
 Every ``csrc/*.cu`` is compiled by plain ``nvcc`` (one process per source,
-all started together) for ``sm_90a`` and linked into ONE shared library with
+or per part of a source listed in ``PARTS``, all started together) for ``sm_90a`` and linked into ONE shared library with
 a plain C interface, loaded with ``ctypes``.  No PyTorch headers are involved,
 so a cold build takes seconds.  The library lands in ``_build/`` beside this
 file (ignored by git), named by a hash of the sources and flags, and is built
 at first use in a process, never at import.
 
 ``library()`` raises if ``nvcc`` is missing or a compile fails;
-``check(code)`` raises on a nonzero ``cudaError_t`` returned by an entry.
+``check(code)`` raises on a nonzero ``cudaError_t`` returned by an entry;
+``launch_stream(*tensors)`` is the one way a launch gets its stream: it
+makes the CUDA device of the launch's tensors current around the launch.
+The sources in ``VERBOSE_SOURCES`` are compiled with ``-Xptxas -v`` besides,
+and ``ptxas_report()`` returns what ptxas said of their kernels (registers,
+spills, shared memory).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -22,10 +28,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
+# compiled with -Xptxas -v too (it reports; the code is the same)
+VERBOSE_SOURCES = ("sdpa.cu",)
+# sources built as several objects in parallel, one per set of defines (the
+# source says what each part holds)
+PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"])}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,6 +71,7 @@ _SIZE_SIGNATURES = {
     "pangu_recovery_bwd_ws": [_I] * 7,
     "pangu_grid_attn_ws": [_LL, _I, _I],
     "pangu_window_attn_ws": [_LL, _I],
+    "pangu_sdpa_ws": [_I] * 4,
 }
 
 
@@ -75,17 +89,22 @@ def _sources():
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(repr((NVCC_FLAGS, VERBOSE_SOURCES, PARTS)).encode())
     for p in sorted(CSRC.iterdir()):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _report_path(digest: str) -> Path:
+    return BUILD_DIR / f"ptxas_{digest}.txt"
+
+
 def build() -> Path:
     """Compile the sources into ``_build/libpangu_kernels_<hash>.so`` unless
     that file exists already; return its path."""
-    lib = BUILD_DIR / f"libpangu_kernels_{_digest()}.so"
+    digest = _digest()
+    lib = BUILD_DIR / f"libpangu_kernels_{digest}.so"
     if lib.exists():
         return lib
     nvcc = nvcc_path()
@@ -93,17 +112,24 @@ def build() -> Path:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         for src in _sources():
-            obj = Path(tmp) / (src.stem + ".o")
-            procs.append((src, obj, subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        errors = []
+            verbose = ["-Xptxas", "-v"] if src.name in VERBOSE_SOURCES else []
+            for i, defines in enumerate(PARTS.get(src.name, ([],))):
+                obj = Path(tmp) / f"{src.stem}_{i}.o"
+                procs.append((src, obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, *verbose, *defines, "-c", str(src),
+                     "-o", str(obj)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
+        errors, report = [], []
         for src, _, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{out}")
+            elif src.name in VERBOSE_SOURCES:
+                report.append(out)
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        _report_path(digest).write_text("".join(report))
         tmp_lib = Path(tmp) / lib.name
         link = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
@@ -130,6 +156,28 @@ def library() -> ctypes.CDLL:
     lib.pangu_error_string.argtypes = [ctypes.c_int]
     lib.pangu_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_report() -> str:
+    """What ptxas printed for ``VERBOSE_SOURCES`` in the build of the
+    current sources (built first if need be)."""
+    build()
+    return _report_path(_digest()).read_text()
+
+
+@contextlib.contextmanager
+def launch_stream(*tensors):
+    """Around one kernel launch: check that every tensor of the launch
+    (``None`` entries skipped) lies on one CUDA device, make that device
+    the current one (the C entries launch on the runtime's current
+    device), and yield the handle of its current stream for the entry."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1 or next(iter(devices)).type != "cuda":
+        raise ValueError("a kernel launch needs all its tensors on one CUDA "
+                         f"device, got {sorted(map(str, devices))}")
+    (device,) = devices
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream(device).cuda_stream
 
 
 def check(code: int, what: str) -> None:

@@ -328,6 +328,11 @@ def train_loop(tcfg: TrainConfig, state: TrainState, train_step, eval_step,
 
     history["best_val_loss"] = best_loss
     if best_params is not None:
-        state = dataclasses.replace(state, params=best_params)
+        # into the live leaves, which the optimizer holds: the returned
+        # state trains on, as the JAX loop's best params with its opt_state
+        with torch.no_grad():
+            for live, best in zip(_leaves(state.params), _leaves(best_params)):
+                if isinstance(live, torch.Tensor):
+                    live.copy_(best)
     return state, history
 

@@ -78,11 +78,11 @@ def apply_transition_wm(tp, skip, dec, geom: StageGeometry, off: Offset, *,
             raise ValueError(f"apply_transition_wm: operator {t.dtype} on "
                              f"{t.device}, input {skip.dtype} on {skip.device}")
     out = torch.empty_like(skip)
-    code = _build.library().pangu_transition_wm(
-        DTYPE_CODE[skip.dtype], skip.data_ptr(), dec.data_ptr(),
-        bias.data_ptr(), *(m.data_ptr() for m in mats),
-        out.data_ptr(), b, nz, nlat, nlon, n, c, wz, wh, ww, geom.h, *off,
-        torch.cuda.current_stream(skip.device).cuda_stream)
+    tensors = (skip, dec, bias, *mats, out)
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_transition_wm(
+            DTYPE_CODE[skip.dtype], *(t.data_ptr() for t in tensors),
+            b, nz, nlat, nlon, n, c, wz, wh, ww, geom.h, *off, stream)
     _build.check(code, "transition_wm")
     apply_transition_wm.launches += 1
     return out

@@ -87,16 +87,14 @@ def fused_block_tail(p, a, s, gelu_tanh: bool):
     rows = a2.numel() // c
     out = torch.empty_like(a2)
     ws = torch.empty(rows * (2 * c + hidden), dtype=a.dtype, device=a.device)
-    code = _build.library().pangu_block_tail(
-        DTYPE_CODE[a.dtype], a2.data_ptr(), s2.data_ptr(), out.data_ptr(),
-        ws.data_ptr(),
-        *(t.data_ptr() for t in (
-            q["norm1"]["scale"], q["norm1"]["bias"], q["norm2"]["scale"],
-            q["norm2"]["bias"], q["mlp"]["fc1"]["kernel"],
-            q["mlp"]["fc1"]["bias"], q["mlp"]["fc2"]["kernel"],
-            q["mlp"]["fc2"]["bias"])),
-        rows, c, hidden, int(gelu_tanh),
-        torch.cuda.current_stream(a.device).cuda_stream)
+    tensors = (a2, s2, out, ws, q["norm1"]["scale"], q["norm1"]["bias"],
+               q["norm2"]["scale"], q["norm2"]["bias"],
+               q["mlp"]["fc1"]["kernel"], q["mlp"]["fc1"]["bias"],
+               q["mlp"]["fc2"]["kernel"], q["mlp"]["fc2"]["bias"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_block_tail(
+            DTYPE_CODE[a.dtype], *(t.data_ptr() for t in tensors),
+            rows, c, hidden, int(gelu_tanh), stream)
     _build.check(code, "fused_block_tail")
     fused_block_tail.launches += 1
     return out

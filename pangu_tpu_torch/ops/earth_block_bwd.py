@@ -299,23 +299,20 @@ def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
     dw2 = torch.empty((hidden + 1, c), **f32)
     dln = torch.empty((4, c), **f32)                  # dn1s, dn1b, dn2s, dn2b
     dtable = torch.empty((ntype, geom.heads, n, n), **f32)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-    code = lib.pangu_block_bwd(
-        DTYPE_CODE[xs.dtype], DTYPE_CODE[table.dtype], ptr(xs), ptr(g), ptr(dx),
-        ptr(ws_t), ptr(ws_f),
-        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
-        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
-        ptr(table), None if ids is None else ptr(ids),
-        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
-        ptr(q["norm2"]["scale"]),
-        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
-        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
-        None if drop is None else ptr(drop),
-        ptr(dwqkv), ptr(dwp), ptr(dw1), ptr(dw2), ptr(dln), ptr(dtable),
-        b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
-        *delta_x, *delta_g, canon_add, geom.h, int(gelu_tanh),
-        int(x_layout == "canon"), int(g_layout == "canon"),
-        torch.cuda.current_stream(dev).cuda_stream)
+    tensors = (xs, g, dx, ws_t, ws_f, q["attn"]["qkv"]["kernel"],
+               q["attn"]["qkv"]["bias"], q["attn"]["proj"]["kernel"],
+               q["attn"]["proj"]["bias"], table, ids, q["norm1"]["scale"],
+               q["norm1"]["bias"], q["norm2"]["scale"],
+               q["mlp"]["fc1"]["kernel"], q["mlp"]["fc1"]["bias"],
+               q["mlp"]["fc2"]["kernel"], q["mlp"]["fc2"]["bias"], drop,
+               dwqkv, dwp, dw1, dw2, dln, dtable)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_block_bwd(
+            DTYPE_CODE[xs.dtype], DTYPE_CODE[table.dtype],
+            *(None if t is None else t.data_ptr() for t in tensors),
+            b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh, ww,
+            *delta_x, *delta_g, canon_add, geom.h, int(gelu_tanh),
+            int(x_layout == "canon"), int(g_layout == "canon"), stream)
     _build.check(code, "block_bwd")
     grads = {"attn": {"qkv": {"kernel": dwqkv[:c], "bias": dwqkv[c]},
                       "proj": {"kernel": dwp[:c], "bias": dwp[c]},

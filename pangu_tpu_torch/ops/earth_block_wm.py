@@ -213,19 +213,18 @@ def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
         if ids.shape != (table.shape[0], dims[4]):
             raise ValueError(f"{what}: region ids {tuple(ids.shape)}")
     drop = check_drop(drop, dims[0], x.device, what)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-    code = _build.library().pangu_block_wm(
-        DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype], ptr(x), ptr(out), ptr(ws),
-        ptr(q["attn"]["qkv"]["kernel"]), ptr(q["attn"]["qkv"]["bias"]),
-        ptr(q["attn"]["proj"]["kernel"]), ptr(q["attn"]["proj"]["bias"]),
-        ptr(table), None if ids is None else ptr(ids),
-        ptr(q["norm1"]["scale"]), ptr(q["norm1"]["bias"]),
-        ptr(q["norm2"]["scale"]), ptr(q["norm2"]["bias"]),
-        ptr(q["mlp"]["fc1"]["kernel"]), ptr(q["mlp"]["fc1"]["bias"]),
-        ptr(q["mlp"]["fc2"]["kernel"]), ptr(q["mlp"]["fc2"]["bias"]),
-        None if drop is None else ptr(drop), *dims,
-        *delta, canon_add, geom.h, int(gelu_tanh), gh, int(in_canon),
-        int(out_canon), torch.cuda.current_stream(x.device).cuda_stream)
+    tensors = (x, out, ws, q["attn"]["qkv"]["kernel"], q["attn"]["qkv"]["bias"],
+               q["attn"]["proj"]["kernel"], q["attn"]["proj"]["bias"], table,
+               ids, q["norm1"]["scale"], q["norm1"]["bias"],
+               q["norm2"]["scale"], q["norm2"]["bias"],
+               q["mlp"]["fc1"]["kernel"], q["mlp"]["fc1"]["bias"],
+               q["mlp"]["fc2"]["kernel"], q["mlp"]["fc2"]["bias"], drop)
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_block_wm(
+            DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype],
+            *(None if t is None else t.data_ptr() for t in tensors), *dims,
+            *delta, canon_add, geom.h, int(gelu_tanh), gh, int(in_canon),
+            int(out_canon), stream)
     _build.check(code, what)
     return out
 

@@ -117,12 +117,12 @@ def embed_wm(p, upper, surface, constants, cfg: ModelConfig):
     c = w.shape[1]
     out = torch.empty((b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww,
                        c), dtype=dt, device=upper.device)
-    code = _build.library().pangu_embed_wm(
-        DTYPE_CODE[dt], un.data_ptr(), ch.data_ptr(), st.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        b, *out.shape[1:], wz, wh, ww, cfg.upper_vars, cfg.levels, cfg.lat,
-        cfg.lon, cfg.h_tokens,
-        torch.cuda.current_stream(upper.device).cuda_stream)
+    tensors = (un, ch, st, w, bias, out)
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_embed_wm(
+            DTYPE_CODE[dt], *(t.data_ptr() for t in tensors),
+            b, *out.shape[1:], wz, wh, ww, cfg.upper_vars, cfg.levels,
+            cfg.lat, cfg.lon, cfg.h_tokens, stream)
     _build.check(code, "embed_wm")
     embed_wm.launches += 1
     return out
@@ -179,10 +179,11 @@ def embed_dw_upper(dxs, upper, constants, cfg: ModelConfig):
                        device=dxs.device)
     k = cfg.upper_patch_features
     out = torch.empty((k + 1, c), dtype=torch.float32, device=dxs.device)
-    code = lib.pangu_embed_dw(
-        DTYPE_CODE[dt], dxs.data_ptr(), un.data_ptr(), ch.data_ptr(),
-        part.data_ptr(), out.data_ptr(), *dims, cfg.levels, cfg.lat, cfg.lon,
-        torch.cuda.current_stream(dxs.device).cuda_stream)
+    tensors = (dxs, un, ch, part, out)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_embed_dw(
+            DTYPE_CODE[dt], *(t.data_ptr() for t in tensors), *dims,
+            cfg.levels, cfg.lat, cfg.lon, stream)
     _build.check(code, "embed_dw_upper")
     embed_dw_upper.launches += 1
     return out[:k], out[k]

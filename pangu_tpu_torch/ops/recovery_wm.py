@@ -82,12 +82,12 @@ def _launch(surface: bool, p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
     if q["kernel"].shape != (2 * c, feat):
         raise ValueError(f"recovery_wm: kernel {tuple(q['kernel'].shape)}")
     out = torch.empty(shape, dtype=skip_wm.dtype, device=skip_wm.device)
-    code = _build.library().pangu_recovery_wm(
-        DTYPE_CODE[skip_wm.dtype], int(surface), skip_wm.data_ptr(),
-        dec_wm.data_ptr(), q["kernel"].data_ptr(), q["bias"].data_ptr(),
-        out.data_ptr(), b, nz, nlat, nlon, n, c, wz, wh, ww, cfg.h_tokens, v,
-        cfg.levels, cfg.lat, cfg.lon, *off,
-        torch.cuda.current_stream(skip_wm.device).cuda_stream)
+    tensors = (skip_wm, dec_wm, q["kernel"], q["bias"], out)
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_recovery_wm(
+            DTYPE_CODE[skip_wm.dtype], int(surface),
+            *(t.data_ptr() for t in tensors), b, nz, nlat, nlon, n, c, wz, wh,
+            ww, cfg.h_tokens, v, cfg.levels, cfg.lat, cfg.lon, *off, stream)
     _build.check(code, "recovery_wm")
     return out
 
@@ -214,14 +214,13 @@ def recovery_bwd(p, skip_wm, dec_wm, dU, dS, off: Offset, cfg: ModelConfig):
     dku = torch.empty((2 * c + 1, fu), **f32)
     dks = torch.empty((2 * c + 1, fs), **f32)
     d_skip, d_dec = torch.empty_like(skip_wm), torch.empty_like(dec_wm)
-    code = lib.pangu_recovery_bwd(
-        DTYPE_CODE[dt], du.data_ptr(), ds.data_ptr(), skip_wm.data_ptr(),
-        dec_wm.data_ptr(), q["upper"]["kernel"].data_ptr(),
-        q["surface"]["kernel"].data_ptr(), d_skip.data_ptr(),
-        d_dec.data_ptr(), part.data_ptr(), dku.data_ptr(), dks.data_ptr(),
-        b, nz, nlat, nlon, n, c, wz, wh, ww, cfg.h_tokens, cfg.upper_vars,
-        cfg.surface_vars, cfg.levels, cfg.lat, cfg.lon, *off,
-        torch.cuda.current_stream(skip_wm.device).cuda_stream)
+    tensors = (du, ds, skip_wm, dec_wm, q["upper"]["kernel"],
+               q["surface"]["kernel"], d_skip, d_dec, part, dku, dks)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_recovery_bwd(
+            DTYPE_CODE[dt], *(t.data_ptr() for t in tensors),
+            b, nz, nlat, nlon, n, c, wz, wh, ww, cfg.h_tokens, cfg.upper_vars,
+            cfg.surface_vars, cfg.levels, cfg.lat, cfg.lon, *off, stream)
     _build.check(code, "recovery_bwd")
     recovery_bwd.launches += 1
     grads = {"upper": {"kernel": dku[:2 * c], "bias": dku[2 * c]},

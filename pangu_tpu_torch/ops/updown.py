@@ -58,11 +58,12 @@ def down_sample(p, x):
     out = torch.empty((B, Z, -(-H // 2), W // 2, 2 * C), dtype=x.dtype,
                       device=x.device)
     ws = torch.empty(out.numel() * 2, dtype=x.dtype, device=x.device)  # 4C rows
-    code = _build.library().pangu_down_sample(
-        DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        q["norm"]["scale"].data_ptr(), q["norm"]["bias"].data_ptr(),
-        q["reduce"]["kernel"].data_ptr(), B * Z, H, W, C,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    tensors = (x, out, ws, q["norm"]["scale"], q["norm"]["bias"],
+               q["reduce"]["kernel"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_down_sample(
+            DTYPE_CODE[x.dtype], *(t.data_ptr() for t in tensors),
+            B * Z, H, W, C, stream)
     _build.check(code, "down_sample")
     down_sample.launches += 1
     return out
@@ -104,12 +105,12 @@ def up_sample(p, x, out_h: int):
     # workspace: e (rows x 4C') | y (out rows x C')
     ws = torch.empty(x.numel() // c_in * 4 * c_out + out.numel(),
                      dtype=x.dtype, device=x.device)
-    code = _build.library().pangu_up_sample(
-        DTYPE_CODE[x.dtype], x.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        q["expand"]["kernel"].data_ptr(), q["norm"]["scale"].data_ptr(),
-        q["norm"]["bias"].data_ptr(), q["mix"]["kernel"].data_ptr(),
-        B * Z, H, W, c_in, c_out, out_h,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    tensors = (x, out, ws, q["expand"]["kernel"], q["norm"]["scale"],
+               q["norm"]["bias"], q["mix"]["kernel"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_up_sample(
+            DTYPE_CODE[x.dtype], *(t.data_ptr() for t in tensors),
+            B * Z, H, W, c_in, c_out, out_h, stream)
     _build.check(code, "up_sample")
     up_sample.launches += 1
     return out

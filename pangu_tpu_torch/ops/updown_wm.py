@@ -73,12 +73,13 @@ def down_sample_wm(p, xs, geom0: StageGeometry, geom1: StageGeometry,
     out = torch.empty((b, nz, nlat1, nlon1, n, 2 * c), dtype=xs.dtype,
                       device=xs.device)
     ws = torch.empty(out.numel() * 2, dtype=xs.dtype, device=xs.device)  # 4C rows
-    code = _build.library().pangu_down_sample_wm(
-        DTYPE_CODE[xs.dtype], xs.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        q["norm"]["scale"].data_ptr(), q["norm"]["bias"].data_ptr(),
-        q["reduce"]["kernel"].data_ptr(),
-        b, nz, nlat0, nlon0, nlat1, nlon1, n, c, wz, wh, ww, *off,
-        geom0.h, geom1.h, torch.cuda.current_stream(xs.device).cuda_stream)
+    tensors = (xs, out, ws, q["norm"]["scale"], q["norm"]["bias"],
+               q["reduce"]["kernel"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_down_sample_wm(
+            DTYPE_CODE[xs.dtype], *(t.data_ptr() for t in tensors),
+            b, nz, nlat0, nlon0, nlat1, nlon1, n, c, wz, wh, ww, *off,
+            geom0.h, geom1.h, stream)
     _build.check(code, "down_sample_wm")
     down_sample_wm.launches += 1
     return out
@@ -122,12 +123,13 @@ def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
     # workspace: e (rows2 x 4C') | y (rows3 x C')
     ws = torch.empty(xs.numel() // c_in * 4 * c_out + out.numel(),
                      dtype=xs.dtype, device=xs.device)
-    code = _build.library().pangu_up_sample_wm(
-        DTYPE_CODE[xs.dtype], xs.data_ptr(), out.data_ptr(), ws.data_ptr(),
-        q["expand"]["kernel"].data_ptr(), q["norm"]["scale"].data_ptr(),
-        q["norm"]["bias"].data_ptr(), q["mix"]["kernel"].data_ptr(),
-        b, nz, nlat2, nlon2, nlat3, nlon3, n, c_in, c_out, wz, wh, ww, *off,
-        geom2.h, geom3.h, torch.cuda.current_stream(xs.device).cuda_stream)
+    tensors = (xs, out, ws, q["expand"]["kernel"], q["norm"]["scale"],
+               q["norm"]["bias"], q["mix"]["kernel"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_up_sample_wm(
+            DTYPE_CODE[xs.dtype], *(t.data_ptr() for t in tensors),
+            b, nz, nlat2, nlon2, nlat3, nlon3, n, c_in, c_out, wz, wh, ww,
+            *off, geom2.h, geom3.h, stream)
     _build.check(code, "up_sample_wm")
     up_sample_wm.launches += 1
     return out

@@ -213,11 +213,11 @@ def grid_attention(x, wqkv, bqkv, wp, bp, table, window: Window,
     ws = torch.empty(lib.pangu_grid_attn_ws(x.numel() // c, c, 0),
                      dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    code = lib.pangu_grid_attn(
-        DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype], _ptr(x), _ptr(out),
-        _ptr(ws), _ptr(wqkv), _ptr(bqkv), _ptr(wp), _ptr(bp), _ptr(table),
-        _ptr(ids), *dims, *window,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    tensors = (x, out, ws, wqkv, bqkv, wp, bp, table, ids)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_grid_attn(
+            DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype],
+            *(_ptr(t) for t in tensors), *dims, *window, stream)
     _build.check(code, "grid_attention")
     grid_attention.launches += 1
     return out
@@ -253,11 +253,12 @@ def grid_attention_bwd(x, g, wqkv, bqkv, wp, table, window: Window,
     dwqkv = torch.empty((c + 1, 3 * c), dtype=torch.float32, device=dev)
     dwp = torch.empty((c + 1, c), dtype=torch.float32, device=dev)
     dbias = torch.empty(table.shape, dtype=torch.float32, device=dev)
-    code = lib.pangu_grid_attn_bwd(
-        DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype], _ptr(x), _ptr(g),
-        _ptr(dx), _ptr(ws), _ptr(part), _ptr(wqkv), _ptr(bqkv), _ptr(wp),
-        _ptr(table), _ptr(ids), _ptr(dwqkv), _ptr(dwp), _ptr(dbias), *dims,
-        *window, torch.cuda.current_stream(dev).cuda_stream)
+    tensors = (x, g, dx, ws, part, wqkv, bqkv, wp, table, ids, dwqkv, dwp,
+               dbias)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_grid_attn_bwd(
+            DTYPE_CODE[x.dtype], DTYPE_CODE[table.dtype],
+            *(_ptr(t) for t in tensors), *dims, *window, stream)
     _build.check(code, "grid_attention_bwd")
     grid_attention_bwd.launches += 1
     # the last row of each weight gradient is its bias gradient
@@ -387,14 +388,26 @@ def sdpa_bwd_plain(qkv, bias, g):
 
 
 def _sdpa_checked(qkv, bias, what: str):
+    """The C entry's dims; raises ValueError on what the kernels do not
+    take: besides layout, dtype and device, in bf16 (the tensor-core
+    kernels) N above 256 or a head dim whose tiles do not fit the device's
+    shared memory (above 144 at N = 144)."""
     nwin, ntype, three, heads, hd, n = qkv.shape
     if (three != 3 or qkv.dtype not in DTYPE_CODE or not qkv.is_contiguous()
             or bias.dtype != torch.float32 or not bias.is_contiguous()
             or bias.shape != (ntype, heads, n, n)
-            or bias.device != qkv.device):
+            or bias.device != qkv.device or nwin < 1):
         raise ValueError(f"{what}: unsupported qkv {tuple(qkv.shape)} "
                          f"{qkv.dtype}, bias {tuple(bias.shape)} "
                          f"{bias.dtype} on {bias.device}")
+    if qkv.dtype == torch.bfloat16:
+        with torch.cuda.device(qkv.device):
+            smem = _build.library().pangu_sdpa_ws(int(what == "sdpa_bwd"),
+                                                  hd, n, 0)
+        if smem <= 0:
+            raise ValueError(f"{what}: the bf16 kernel takes N up to 256 "
+                             f"and head dims whose tiles fit the device's "
+                             f"shared memory, got hd {hd}, N {n}")
     return nwin, ntype, heads, hd, n
 
 
@@ -409,9 +422,10 @@ def sdpa(qkv, bias):
     dims = _sdpa_checked(qkv, bias, "sdpa")
     out = torch.empty(qkv.shape[:2] + qkv.shape[3:], dtype=qkv.dtype,
                       device=qkv.device)
-    code = _build.library().pangu_sdpa(
-        DTYPE_CODE[qkv.dtype], qkv.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), *dims, torch.cuda.current_stream(qkv.device).cuda_stream)
+    with _build.launch_stream(qkv, bias, out) as stream:
+        code = _build.library().pangu_sdpa(
+            DTYPE_CODE[qkv.dtype], qkv.data_ptr(), bias.data_ptr(),
+            out.data_ptr(), *dims, stream)
     _build.check(code, "sdpa")
     sdpa.launches += 1
     return out
@@ -435,10 +449,11 @@ def sdpa_bwd(qkv, bias, g):
     g = g.to(qkv.dtype).contiguous()
     dqkv = torch.empty_like(qkv)
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=qkv.device)
-    code = _build.library().pangu_sdpa_bwd(
-        DTYPE_CODE[qkv.dtype], qkv.data_ptr(), bias.data_ptr(), g.data_ptr(),
-        dqkv.data_ptr(), dbias.data_ptr(), *dims,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+    tensors = (qkv, bias, g, dqkv, dbias)
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_sdpa_bwd(
+            DTYPE_CODE[qkv.dtype], *(t.data_ptr() for t in tensors), *dims,
+            stream)
     _build.check(code, "sdpa_bwd")
     sdpa_bwd.launches += 1
     return dqkv, dbias
@@ -496,18 +511,16 @@ def block_noroll_fused(p, xg, geom: StageGeometry, gelu_tanh: bool):
     q, table, dims, ws = block_operands(p, xg, geom, 1, True,
                                         "block_noroll_fused")
     out = torch.empty_like(xg)
-    code = _build.library().pangu_block_noroll(
-        DTYPE_CODE[xg.dtype], DTYPE_CODE[table.dtype], xg.data_ptr(),
-        out.data_ptr(), ws.data_ptr(),
-        *(t.data_ptr() for t in (
-            q["attn"]["qkv"]["kernel"], q["attn"]["qkv"]["bias"],
-            q["attn"]["proj"]["kernel"], q["attn"]["proj"]["bias"], table,
-            q["norm1"]["scale"], q["norm1"]["bias"], q["norm2"]["scale"],
-            q["norm2"]["bias"], q["mlp"]["fc1"]["kernel"],
-            q["mlp"]["fc1"]["bias"], q["mlp"]["fc2"]["kernel"],
-            q["mlp"]["fc2"]["bias"])),
-        *dims, int(gelu_tanh),
-        torch.cuda.current_stream(xg.device).cuda_stream)
+    tensors = (xg, out, ws, q["attn"]["qkv"]["kernel"],
+               q["attn"]["qkv"]["bias"], q["attn"]["proj"]["kernel"],
+               q["attn"]["proj"]["bias"], table, q["norm1"]["scale"],
+               q["norm1"]["bias"], q["norm2"]["scale"], q["norm2"]["bias"],
+               q["mlp"]["fc1"]["kernel"], q["mlp"]["fc1"]["bias"],
+               q["mlp"]["fc2"]["kernel"], q["mlp"]["fc2"]["bias"])
+    with _build.launch_stream(*tensors) as stream:
+        code = _build.library().pangu_block_noroll(
+            DTYPE_CODE[xg.dtype], DTYPE_CODE[table.dtype],
+            *(t.data_ptr() for t in tensors), *dims, int(gelu_tanh), stream)
     _build.check(code, "block_noroll_fused")
     block_noroll_fused.launches += 1
     return out
@@ -568,10 +581,11 @@ def window_attention_fused(x, wqkv, bqkv, wp, bp, bias):
     ws = torch.empty(lib.pangu_window_attn_ws(x.numel() // c, c),
                      dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    code = lib.pangu_window_attn(
-        DTYPE_CODE[x.dtype], _ptr(x), _ptr(out), _ptr(ws),
-        *(_ptr(t) for t in weights), _ptr(bias), x.numel() // (ntype * n * c),
-        ntype, n, c, heads, torch.cuda.current_stream(x.device).cuda_stream)
+    tensors = (x, out, ws, *weights, bias)
+    with _build.launch_stream(*tensors) as stream:
+        code = lib.pangu_window_attn(
+            DTYPE_CODE[x.dtype], *(_ptr(t) for t in tensors),
+            x.numel() // (ntype * n * c), ntype, n, c, heads, stream)
     _build.check(code, "window_attention_pallas")
     window_attention_pallas.launches += 1
     return out

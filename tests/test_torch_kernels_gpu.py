@@ -18,7 +18,10 @@ backward (every gradient, bit-identical in two runs), the v2 forward (1e-3,
 against plain versions and the wm forward), the v2 rollouts' launch counts
 and the float32 v2 train step against the plain path; and the per-block
 path: the no-roll block and the block tail, the windowed sdpa and its
-backward (with and without the folded mask), the served forward with
+backward (with and without the folded mask, each bit-identical in two runs;
+and on random inputs at N = 37, 100, 120, 144, 200 and 256 with head dims
+8 to 72, and the bf16 refusal of N above 256 and of tiles beyond shared
+memory), the served forward with
 adapters on each stage's first block (against plain versions and the
 merged forward) and the float32 per-block train step under both grid
 attention backwards (against plain versions and the fused step); the fused
@@ -786,12 +789,9 @@ def test_block_noroll_and_tail_kernels_match_plain(cuda, cfg_name, stage,
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
 @pytest.mark.parametrize("masked", [False, True])
 def test_sdpa_kernels_match_plain(cuda, cfg_name, stage, dtype, masked):
-    """The sdpa forward and every output of its backward (also bit-identical
+    """The sdpa forward and every output of its backward (each bit-identical
     in two runs), on the stage's bias table with and without the folded
     mask, two longitude windows."""
-    from pangu_tpu_torch.ops.window_attention import (sdpa, sdpa_bwd,
-                                                      sdpa_bwd_plain,
-                                                      sdpa_plain)
     cfg = CFGS[cfg_name]
     geom = cfg.stage(stage)
     table = _params(cfg, cuda)["stages"][stage]["blocks"][0]["attn"][
@@ -808,9 +808,19 @@ def test_sdpa_kernels_match_plain(cuda, cfg_name, stage, dtype, masked):
                       device=cuda).to(dtype)
     dy = torch.randn((2, ntype, heads, hd, n), generator=g,
                      device=cuda).to(dtype)
+    _check_sdpa(qkv, bias, dy, dtype)
+
+
+def _check_sdpa(qkv, bias, dy, dtype):
+    """sdpa and sdpa_bwd against their plain versions, each bit-identical in
+    a second run."""
+    from pangu_tpu_torch.ops.window_attention import (sdpa, sdpa_bwd,
+                                                      sdpa_bwd_plain,
+                                                      sdpa_plain)
     got, want = sdpa(qkv, bias), sdpa_plain(qkv, bias)
     torch.cuda.synchronize()
     assert got.shape == want.shape and _rel_err(got, want) <= TOL[dtype]
+    assert torch.equal(got, sdpa(qkv, bias))
     got, want = sdpa_bwd(qkv, bias, dy), sdpa_bwd_plain(qkv, bias, dy)
     torch.cuda.synchronize()
     errs = [_rel_err(a, b) for a, b in zip(got, want)]
@@ -818,6 +828,38 @@ def test_sdpa_kernels_match_plain(cuda, cfg_name, stage, dtype, masked):
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     again = sdpa_bwd(qkv, bias, dy)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype,hd,n", [
+    (torch.float32, 12, 120), (torch.bfloat16, 12, 120),
+    (torch.bfloat16, 64, 100), (torch.bfloat16, 72, 144),
+    (torch.bfloat16, 32, 256), (torch.bfloat16, 8, 200),
+    (torch.bfloat16, 20, 37)])
+def test_sdpa_kernels_other_shapes(cuda, dtype, hd, n):
+    """The sdpa kernels on random qkv (2, 3, 3, 2, hd, N) and a random
+    float32 bias (3, 2, N, N): N not a multiple of 16 (padded, the pads
+    masked) nor of 8 (element-wise tile loads), N past 144 (the bias of the
+    forward and the dbias partial of the backward in device memory, eight
+    warps striding over the query rows) and head dims 8 to 72 (past 32 the
+    kernels walk hd 32 columns at a time)."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    qkv = torch.randn((2, 3, 3, 2, hd, n), generator=g, device=cuda).to(dtype)
+    bias = torch.randn((3, 2, n, n), generator=g, device=cuda)
+    dy = torch.randn((2, 3, 2, hd, n), generator=g, device=cuda).to(dtype)
+    _check_sdpa(qkv, bias, dy, dtype)
+
+
+@pytest.mark.parametrize("hd,n", [(8, 272), (1024, 144)])
+def test_sdpa_refuses_what_the_bf16_kernels_cannot_take(cuda, hd, n):
+    """N above 256, or tiles beyond the device's shared memory."""
+    from pangu_tpu_torch.ops.window_attention import sdpa, sdpa_bwd
+    bf = dict(device=cuda, dtype=torch.bfloat16)
+    qkv = torch.zeros((1, 1, 3, 1, hd, n), **bf)
+    bias = torch.zeros((1, 1, n, n), device=cuda)
+    with pytest.raises(ValueError, match="N up to 256"):
+        sdpa(qkv, bias)
+    with pytest.raises(ValueError, match="N up to 256"):
+        sdpa_bwd(qkv, bias, torch.zeros((1, 1, 1, hd, n), **bf))
 
 
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])

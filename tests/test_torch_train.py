@@ -12,7 +12,8 @@ float32, erf GELU:
 * ``weighted_l1_loss``, ``lr_schedule`` and three optimizer updates against
   the JAX package's (optax) on the same gradients;
 * ``train_loop``'s early stopping, with fake steps as tests/test_train.py
-  runs it;
+  runs it, and the state it returns training on from the best epoch's
+  params;
 * ``drop_path_rates`` equal to JAX's, and ``_stage_drops`` giving {0,
   1/keep}, and ones at rate 0."""
 
@@ -192,6 +193,40 @@ def test_train_loop_early_stopping():
                                rtol=1e-6)
     assert float(final.params["w"]) == 2.0          # the params of epoch 2
     assert seeds == [7, 8, 9, 10, 11]
+
+
+def test_train_loop_returns_a_state_that_trains_on(setup):
+    """A 2-epoch ``train_loop`` whose first epoch validates best returns
+    that epoch's params in the live leaves the optimizer holds: a further
+    ``make_train_step`` step runs on the returned state and starts from
+    them (its loss equals the second epoch's, taken from the same params)."""
+    params, consts, batch, _, _ = setup
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    tcfg = PC.TrainConfig(epochs=2)
+    opt = T.make_optimizer(tcfg)
+    state = T.create_train_state(T._map(params, lambda t: t.detach().clone()),
+                                 opt)
+    step = T.make_train_step(CFG, tcfg, consts, opt, device="cpu")
+    snaps, losses = [], []
+
+    def train_step(st, b, seed):
+        st, metrics = step(st, b, seed)
+        snaps.append({k: t.detach().clone() for k, t in _flat(st.params)})
+        losses.append(float(metrics["loss"]))
+        return st, metrics
+
+    val_losses = iter([0.5, 0.9])
+    final, hist = T.train_loop(
+        tcfg, state, train_step,
+        lambda p, b: {"loss": torch.tensor(next(val_losses))},
+        train_batches=lambda e: [batch], val_batches=lambda: [{}], seed=3)
+    assert hist["best_val_loss"] == 0.5 and len(snaps) == 2
+    for k, t in _flat(final.params):
+        assert t.requires_grad and torch.equal(t.detach(), snaps[0][k]), k
+    final, metrics = step(final, batch, 11)
+    assert final.step == 3 and float(metrics["loss"]) == losses[1]
+    assert any(not torch.equal(t.detach(), snaps[0][k])
+               for k, t in _flat(final.params))
 
 
 @pytest.mark.parametrize("preset", ["PANGU_24", "TINY", "MID"])
