@@ -9,7 +9,8 @@ Phases, each with its wall seconds:
   2. build: nvcc compiles ``pangu_tpu_torch/csrc/*.cu`` into one library;
      the registers and spills ptxas reports for the bf16 sdpa kernels
      (tensor cores) and their launch plan at full width (shared memory,
-     blocks per SM);
+     blocks per SM), and for the backward units' tensor-core products and
+     attention (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``);
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -50,8 +51,10 @@ Phases, each with its wall seconds:
      a. the training kernels against their plain versions, float32 and
         bf16: the block with per-sample branch scales (``drop``) and the
         block backward at stages 0 and 1, shifted, scales from {0, 0.8,
-        1.25}; the recovery backward at offset (1, 3, 6); the upper embed
-        weight gradient;
+        1.25} and without scales; the recovery backward at offset (1, 3,
+        6); the upper embed weight gradient; the redesigned rows' earlier
+        bf16 times beside the new ones, and one stage-0 bf16 block
+        backward's device time by class (``torch.profiler``);
      b. the float32 train step (loss and every gradient) with the kernels
         against ``kernels=False``, the same scales, both paths
         back-propagating the same loss cotangent;
@@ -115,8 +118,8 @@ Phases, each with its wall seconds:
         drop-in at stage 0; the block backward with a canonical end
         (``block_bwd_canon``: the first block reading the grid, the shifted
         last block reading its cotangent as the grid) at stages 0 and 1
-        with branch scales; the grouped block with branch scales at stage 1,
-        gh 2;
+        with branch scales, and the first block without; the grouped block
+        with branch scales at stage 1, gh 2;
      b. the drop-in on the stage-0 windows of the embedded state, forward
         and every gradient: 1 fused attention, 1 sdpa, 1 sdpa backward;
      c. the canonical training route: adapters (rank 16) only at
@@ -133,6 +136,9 @@ Phases, each with its wall seconds:
 Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
 max; the bf16 steps' losses and gradient norms finite.
+
+The bf16 block backward (both layouts) and grid attention backward must
+also agree bit for bit over two runs (``BIT_IDENTICAL``).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -261,6 +267,114 @@ def sdpa_report(ptxas, lib):
     return lines
 
 
+def _short_kernel(mangled):
+    """A readable name of a mangled tensor-core kernel of the backward
+    units: mma_gemm_kernel<A transposed, B transposed, epilogue> or
+    wattn_mma_{fwd,bwd}_kernel<table dtype>."""
+    m = re.search(r"\d+(mma_gemm_kernel|wattn_mma_\w+?_kernel)I(.*)", mangled)
+    if not m:
+        return mangled
+    base, rest = m[1], m[2]
+    if base == "mma_gemm_kernel":
+        flags = re.match(r"Lb(\d)ELb(\d)ENS_(\d+)", rest)
+        epi = rest[flags.end():flags.end() + int(flags[3])]
+        return f"{base}<{flags[1]},{flags[2]},{epi}>"
+    return f"{base}<{'bf16' if rest.startswith('13__nv_bfloat16') else 'float'}>"
+
+
+def tc_report(ptxas):
+    """Lines on the tensor-core kernels of the backward units (the
+    products of csrc/mma_gemm.cuh, the attention of csrc/wattn_mma.cuh):
+    registers and spills of each instantiation as ptxas reported them."""
+    lines, seen, name = [], set(), None
+    for line in ptxas.splitlines():
+        m = re.search(r"Function properties for (_ZN5pangu\w+)", line)
+        if m:
+            name = (_short_kernel(m[1]) if re.search(
+                r"mma_gemm_kernel|wattn_mma_", m[1]) else None)
+            spill = "spills not reported"
+            continue
+        if name and "spill" in line:
+            spill = line.strip()
+        elif name and "registers" in line:
+            if name not in seen:
+                seen.add(name)
+                regs = re.search(r"Used (\d+) registers", line)[1]
+                lines.append(f"ptxas {name}: {regs} registers; {spill}")
+            name = None
+    return lines
+
+
+# bf16 ms per launch of the redesigned rows before this version (PERF.md
+# section 6, NVIDIA H100 80GB HBM3 at 700 W: rows 11, 11c and 17 from PRs 7,
+# 10 and 8, row 16 from PR 8), printed beside the new times
+PREVIOUS_BF16_MS = {
+    "block_bwd": {"stage 0": 100.52, "stage 1": 74.64},
+    "block_bwd_canon": {"stage 0 canon x": 99.74, "stage 0 canon g": 100.49,
+                        "stage 1 canon x": 73.94, "stage 1 canon g": 74.54},
+    "grid_attention_bwd": {"stage 0": 62.14, "stage 1": 38.05},
+    "grid_attention": {"stage 0": 14.84, "stage 1": 9.49},
+}
+
+
+def previous_ms(name, label):
+    for prefix, ms in PREVIOUS_BF16_MS.get(name, {}).items():
+        if label.startswith(prefix):
+            return ms
+    return None
+
+
+def bwd_breakdown(fn, rows, c, hidden, n):
+    """Device time of one block backward launch by class (torch.profiler):
+    the recomputed products, the data-gradient and weight-gradient
+    products, the attention backward, the recomputed attention and the row
+    kernels (gathers, LayerNorm passes, split sums of the LayerNorm
+    gradients), each with its rate from the FLOP and bytes it needs."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = {k: 0.0 for k in ("recompute products", "data-gradient products",
+                           "weight-gradient products", "attention backward",
+                           "recompute attention", "row kernels")}
+    for e in prof.key_averages():
+        t = e.device_time_total / 1e3
+        if t == 0.0:
+            continue
+        m = re.search(r"mma_gemm_kernel<(true|false), (true|false)", e.key)
+        if m:
+            ms[{("false", "false"): "recompute products",
+                ("false", "true"): "data-gradient products",
+                ("true", "false"): "weight-gradient products"}[m.groups()]] += t
+        elif "wattn_mma_bwd" in e.key:
+            ms["attention backward"] += t
+        elif "wattn_mma_fwd" in e.key:
+            ms["recompute attention"] += t
+        else:
+            ms["row kernels"] += t
+    m_, h = rows, hidden
+    work = {   # (FLOP, bytes): inputs read once, outputs written once
+        "recompute products": (2 * m_ * c * (4 * c + 2 * h),
+                               2 * m_ * (8 * c + 3 * h)),
+        "data-gradient products": (2 * m_ * c * (4 * c + 2 * h),
+                                   2 * m_ * (10 * c + 3 * h)),
+        "weight-gradient products": (2 * m_ * c * (4 * c + 2 * h),
+                                     2 * m_ * (8 * c + 2 * h)),
+        "attention backward": (10 * m_ * n * c, 2 * m_ * 7 * c),
+        "recompute attention": (4 * m_ * n * c, 2 * m_ * 4 * c),
+        "row kernels": (0, 2 * m_ * 19 * c),
+    }
+    parts = []
+    for k, t in ms.items():
+        flops, byts = work[k]
+        rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
+                f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
+        parts.append(f"{k} {t:.3f} ms ({rate})")
+    return (f"{sum(ms.values()):.3f} ms of device time: " + "; ".join(parts))
+
+
 def bound(flops, nbytes_, dtype):
     t_bytes = nbytes_ / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOP_PER_S[dtype]
@@ -331,7 +445,8 @@ def main() -> int:
     lib_path = _build.build()
     lib = _build.library()
     print(f"built {os.path.relpath(lib_path)}")
-    for line in sdpa_report(_build.ptxas_report(), lib):
+    ptxas = _build.ptxas_report()
+    for line in sdpa_report(ptxas, lib) + tc_report(ptxas):
         print(line)
     done("build", t0)
 
@@ -1112,19 +1227,42 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
     torch.cuda.empty_cache()
 
 
+# the bf16 backward units held to two runs agreeing bit for bit
+BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd")
+
+
+def flat(tree):
+    """The tensors of a nested dict / list / tuple tree, in order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in flat(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in flat(v)]
+    return [tree]
+
+
 def check_kernels(cases, dtype, records):
     """Each case ``(name, label, flops, bytes, kernel, plain, (reps,
     plain_reps))``: the kernel's result (a tensor or a tree of them) against
     its plain version (the worst leaf, relative to its max), the kernel's and
     the plain version's ms over that many launches and the bound; a case out
-    of tolerance raises.  A kernel's first bf16 case at stage 0, an offset
-    or full width is its record."""
+    of tolerance raises.  The bf16 backward units (``BIT_IDENTICAL``) run
+    twice more and must agree bit for bit.  A kernel's first bf16 case at
+    stage 0, an offset or full width is its record."""
     from pangu_tpu_torch import ops
     for name, label, flops, byts, kern, plain, (reps, plain_reps) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
         errs = tree_errs(got, want)
-        del got, want
+        del want
+        same = ""
+        if dtype == torch.bfloat16 and name in BIT_IDENTICAL:
+            again = kern()
+            if not all(torch.equal(a, b) for a, b in zip(flat(got),
+                                                         flat(again))):
+                raise AssertionError(f"{name} {label}: two bf16 runs differ")
+            same = "  bit-identical in two runs"
+            del again
+        del got
         err = max(e[1] for e in errs)
         rel = max(e[2] for e in errs)
         worst = max(errs, key=lambda e: e[2])[0]
@@ -1132,11 +1270,13 @@ def check_kernels(cases, dtype, records):
         plain_ms = time_ms(plain, plain_reps)
         bound_ms, bound_by = bound(flops, byts, dtype)
         ok = rel <= TOL[dtype]
+        was = previous_ms(name, label) if dtype == torch.bfloat16 else None
         print(f"{name:18s} {label:36s} {str(dtype):15s} max_abs_err "
               f"{err:.3e} rel {rel:.3e} (worst {worst or 'out'}, tol "
               f"{TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  kernel "
-              f"{ms:.3f} ms  plain {plain_ms:.3f} ms  bound "
-              f"{bound_ms:.3f} ms ({bound_by})", flush=True)
+              f"{ms:.3f} ms{f' (was {was} ms)' if was else ''}  plain "
+              f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})"
+              f"{same}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
         if (dtype == torch.bfloat16 and name in ops.kernels()
@@ -1303,17 +1443,20 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                     ("stage 0 shifted, scales (0.8, 1.25)", g0, pdt["s0"],
                      [[0.8, 1.25]]),
                     ("stage 1 shifted, scales (1.25, 0)", g1, pdt["s1"],
-                     [[1.25, 0.0]])):
-                drop = torch.tensor(drop, device=dev)
+                     [[1.25, 0.0]]),
+                    ("stage 0 shifted, no scales", g0, pdt["s0"], None),
+                    ("stage 1 shifted, no scales", g1, pdt["s1"], None)):
+                drop = None if drop is None else torch.tensor(drop, device=dev)
                 xs, gx, ids = storage(geom, dtype), storage(geom, dtype), ids_of(geom)
                 flops, byts = block_cost(bp, xs, ids)
-                cases.append((
-                    "block_wm drop", label, flops, byts,
-                    lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
-                        block_wm(bp, xs, geom, half, 3, i, t, d),
-                    lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
-                        block_wm_plain(bp, xs, geom, half, 3, i, t, d),
-                    (2, 1)))
+                if drop is not None:
+                    cases.append((
+                        "block_wm drop", label, flops, byts,
+                        lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
+                            block_wm(bp, xs, geom, half, 3, i, t, d),
+                        lambda bp=bp, xs=xs, geom=geom, i=ids, d=drop, t=tanh:
+                            block_wm_plain(bp, xs, geom, half, 3, i, t, d),
+                        (2, 1)))
                 # three times the forward's operations (recompute, data and
                 # weight gradients); x, g read and dx written, the table read
                 # and its float32 gradient written, the weights and their
@@ -1356,6 +1499,13 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                 lambda d=dxs, cf=ecfg: embed_dw_upper_plain(d, u0, consts_dev, cf),
                 (2, 1)))
             check_kernels(cases, dtype, records)
+            if dtype == torch.bfloat16:   # one stage-0 launch by class
+                kern = next(c[4] for c in cases if c[0] == "block_bwd")
+                hidden = params["stages"][0]["blocks"][1]["mlp"]["fc1"][
+                    "kernel"].shape[-1]
+                print("block_bwd stage 0 bf16 by class (torch.profiler): "
+                      + bwd_breakdown(kern, g0.z * g0.h_padded * g0.w, c0,
+                                      hidden, g0.window_tokens), flush=True)
             del cases, skip, dec, dxs, du, ds
             torch.cuda.empty_cache()
 
@@ -2087,19 +2237,23 @@ def canon_phase(params, perf, consts_dev, state, storage, ids_of, block_cost,
             bbytes = (3 * nbytes(xs) + nbytes(bp["attn"]["bias_table"])
                       + bp["attn"]["bias_table"].numel() * 4 + nbytes(ids)
                       + weight_bytes(bp, dtype) + 4 * nw)
-            for label, xa, ga, args, xl, gl in (
+            for label, xa, ga, args, xl, gl, dr in (
                     (f"{st} canon x, first block", xg, gs,
-                     ((0, 0, 0), (-1, -3, -6), 0, None), "canon", "wm"),
+                     ((0, 0, 0), (-1, -3, -6), 0, None), "canon", "wm", drop),
                     (f"{st} canon g, last block shifted", xs, gg,
-                     (half, (0, 0, 0), 3, ids), "wm", "canon")):
+                     (half, (0, 0, 0), 3, ids), "wm", "canon", drop),
+                    (f"{st} canon x, first block", xg, gs,
+                     ((0, 0, 0), (-1, -3, -6), 0, None), "canon", "wm",
+                     None)):
+                scales = "scales (0.8, 1.25)" if dr is not None else "no scales"
                 cases.append((
-                    "block_bwd_canon", f"{label}, scales (0.8, 1.25)",
+                    "block_bwd_canon", f"{label}, {scales}",
                     3 * flops, bbytes,
-                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=drop,
+                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=dr,
                     t=tanh, xl=xl, gl=gl:
                         block_bwd_canon(bp, x, g, geom, *a, d, t,
                                         x_layout=xl, g_layout=gl),
-                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=drop,
+                    lambda bp=bp, x=xa, g=ga, geom=geom, a=args, d=dr,
                     t=tanh, xl=xl, gl=gl:
                         block_bwd_plain(bp, x, g, geom, *a, d, t, xl, gl),
                     (2, 1)))

@@ -35,10 +35,11 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
 # compiled with -Xptxas -v too (it reports; the code is the same)
-VERBOSE_SOURCES = ("sdpa.cu",)
+VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu")
 # sources built as several objects in parallel, one per set of defines (the
 # source says what each part holds)
-PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"])}
+PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"]),
+         "block_bwd.cu": (["-DBLOCK_BWD_PART=0"], ["-DBLOCK_BWD_PART=1"])}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

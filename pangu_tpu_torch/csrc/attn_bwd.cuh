@@ -1,7 +1,9 @@
 // Device code the block backward (block_bwd.cu) and the grid attention
 // backward (grid_attn.cu) share: the GEMM epilogues that round a product to
-// the activation dtype, and the windowed attention backward with its bias
-// table gradient.
+// the activation dtype (one value at a time for grad_gemm.cuh's float32
+// tiles, 8 columns at a time for mma_gemm.cuh's bf16 tensor-core tiles),
+// and the float32 windowed attention backward with its bias table gradient
+// (bf16 runs wattn_mma.cuh's).
 #pragma once
 
 #include "block_common.cuh"
@@ -19,6 +21,12 @@ struct BiasEpi {  // out = round_T(acc + bias)
   __device__ void operator()(int, long long r, int c, float acc) const {
     out[r * N + c] = from_f<T>(acc + to_f(bias[c]));
   }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = v[e] + to_f(bias[c + e]);
+    st8(out + r * N + c, o);
+  }
 };
 
 template <typename T>
@@ -27,6 +35,9 @@ struct RoundEpi {
   int N;
   __device__ void operator()(int, long long r, int c, float acc) const {
     out[r * N + c] = from_f<T>(acc);
+  }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    st8(out + r * N + c, v);
   }
 };
 
@@ -39,6 +50,12 @@ struct GridEpi {  // out row map_row(r) = round_T(acc (+ bias)): wm row -> grid
   __device__ void operator()(int, long long r, int c, float acc) const {
     out[map_row(r, map) * N + c] =
         from_f<T>(bias ? acc + to_f(bias[c]) : acc);
+  }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = bias ? v[e] + to_f(bias[c + e]) : v[e];
+    st8(out + map_row(r, map) * N + c, o);
   }
 };
 

@@ -33,21 +33,27 @@
 //
 // Weight gradients are transposed-A products over every row of the batch:
 // each split of WG_SPLIT_ROWS rows writes its own float32 partial and a
-// second pass adds them in order (grad_gemm.cuh), so the sums are the same
-// bit for bit in every run.  The bias gradient rides each weight gradient as
-// a row of ones.  The table gradient takes one thread block per (window
-// type, head), which loops over the type's B x nlon windows: each table
-// entry has one owner, so no atomics.  (The attention backward lives in
-// attn_bwd.cuh, shared with the grid attention backward, grid_attn.cu.)
+// second pass adds them in order, so the sums are the same bit for bit in
+// every run.  The bias gradient rides each weight gradient as a row of
+// ones.  The table gradient takes one thread block per (window type, head),
+// which loops over the type's B x nlon windows: each table entry has one
+// owner, so no atomics.
 //
-// What bounds it on an H100: arithmetic.  Four recomputed, four
-// data-gradient and four weight-gradient products, about three times the
-// forward block's operations (~1.6e12 FLOP at stage 0).  This first version
-// keeps every intermediate in device memory (about 15 C + 2 hidden values a
-// row, 4.7 GB at stage 0 in bf16) and runs every product through
-// grad_gemm.cuh's xgemm (the untuned tiles of common.cuh's gemm), so it runs
-// well below that bound.
-#include "attn_bwd.cuh"
+// What bounds it on an H100: bytes.  Twelve products (four recomputed, four
+// data-gradient, four weight-gradient; ~1.4e12 FLOP at stage 0) against
+// about 15 C + 2 hidden intermediate values a row written and read again
+// (4.7 GB at stage 0 in bf16), most products at ~140 FLOP per byte, under
+// the card's ~295.  bf16 (the perf config): every product on the tensor
+// cores through mma_gemm.cuh (128 x 96 tiles, cp.async rings, 8-column
+// epilogues of 16-byte accesses), the attention forward and backward
+// through wattn_mma.cuh (one block per (type, head), P kept in registers,
+// the table gradient summed in shared memory); the gathers and the
+// LayerNorm passes stay one warp per row.  float32 (the parity config):
+// the first version's kernels, grad_gemm.cuh's FMA tiles and the CUDA-core
+// attention (block_common.cuh, attn_bwd.cuh), kept because TF32 products
+// would miss float32's 1e-4 gate.
+#include "mma_gemm.cuh"
+#include "wattn_mma.cuh"
 
 namespace pangu {
 
@@ -81,6 +87,16 @@ struct ZhEpi {  // z = round_T(acc + b1), h = round_T(GELU(z))
     z[r * N + c] = from_f<T>(v);
     h[r * N + c] = from_f<T>(gelu_f(v, tanh_form));
   }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float zv[8], hv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      zv[e] = round_t<T>(v[e] + to_f(b1[c + e]));
+      hv[e] = gelu_f(zv[e], tanh_form);
+    }
+    st8(z + r * N + c, zv);
+    st8(h + r * N + c, hv);
+  }
 };
 
 template <typename T>
@@ -91,6 +107,13 @@ struct DzEpi {  // dz = round_T(acc * GELU'(z)); may overwrite h
   __device__ void operator()(int, long long r, int c, float acc) const {
     dz[r * N + c] = from_f<T>(acc * gelu_grad(to_f(z[r * N + c]), tanh_form));
   }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float zv[8];
+    ld8(z + r * N + c, zv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) zv[e] = v[e] * gelu_grad(zv[e], tanh_form);
+    st8(dz + r * N + c, zv);
+  }
 };
 
 template <typename T>
@@ -100,6 +123,13 @@ struct Dx1Epi {  // dx1 = g + acc, float32
   int N;
   __device__ void operator()(int, long long r, int c, float acc) const {
     dx1[r * N + c] = to_f(gg[r * N + c]) + acc;
+  }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float gv[8];
+    ld8(gg + r * N + c, gv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) gv[e] += v[e];
+    st8(dx1 + r * N + c, gv);
   }
 };
 
@@ -114,6 +144,14 @@ struct DxEpi {  // dx = round_T(dx1 + acc), pad rows zero; row map_row(r)
     dx[map_row(r, map) * N + c] = is_pad_row(r, pad)
                                       ? from_f<T>(0.f)
                                       : from_f<T>(dx1[r * N + c] + acc);
+  }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float o[8];
+    ld8(dx1 + r * N + c, o);
+    const bool zero = is_pad_row(r, pad);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = zero ? 0.f : o[e] + v[e];
+    st8(dx + map_row(r, map) * N + c, o);
   }
 };
 
@@ -320,43 +358,35 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
   block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(g, gg, M, C, s, shg,
                                                         g_canon);
   PANGU_CHECK_LAUNCH();
-  xgemm(xg, M, 3 * C, C, ARows<T>{xg, C}, BRows<T>{wqkv, 3 * C},
-        BiasEpi<T>{bqkv, qkv, 3 * C}, st);
-  PANGU_CHECK_LAUNCH();
-  {
-    const int e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C,
-                                          heads, st);
-    if (e) return e;
-  }
-  xgemm(attn, M, C, C, ARows<T>{attn, C}, BRows<T>{wp, C},
-        BiasEpi<T>{bp, a, C}, st);
-  PANGU_CHECK_LAUNCH();
+  int e = unit_gemm<false>(xg, wqkv, M, 3 * C, C,
+                           BiasEpi<T>{bqkv, qkv, 3 * C}, st);
+  if (e) return e;
+  e = unit_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
+  if (e) return e;
+  e = unit_gemm<false>(attn, wp, M, C, C, BiasEpi<T>{bp, a, C}, st);
+  if (e) return e;
   ln1_fwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(a, xg, n1s, n1b, drop, x1,
                                                    stats_a, M, C, rps);
   PANGU_CHECK_LAUNCH();
-  xgemm(x1, M, hidden, C, ARows<T>{x1, C}, BRows<T>{w1, hidden},
-        ZhEpi<T>{b1, z, hb, hidden, gelu_tanh}, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(hb, M, C, hidden, ARows<T>{hb, hidden}, BRows<T>{w2, C},
-        BiasEpi<T>{b2, y, C}, st);
-  PANGU_CHECK_LAUNCH();
+  e = unit_gemm<false>(x1, w1, M, hidden, C,
+                       ZhEpi<T>{b1, z, hb, hidden, gelu_tanh}, st);
+  if (e) return e;
+  e = unit_gemm<false>(hb, w2, M, C, hidden, BiasEpi<T>{b2, y, C}, st);
+  if (e) return e;
 
   // ---- the tail ----
   ln2_bwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(y, gg, n2s, drop, dy2,
                                                    stats_y, M, C, rps);
   PANGU_CHECK_LAUNCH();
-  wgrad<T>(M, hidden + 1, C, ACols<T>{hb, hidden, 1}, BRows<T>{dy2, C}, part,
-           dw2, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(dy2, M, hidden, C, ARows<T>{dy2, C}, BCols<T>{w2, C},
-        DzEpi<T>{z, hb, hidden, gelu_tanh}, st);
-  PANGU_CHECK_LAUNCH();
-  wgrad<T>(M, C + 1, hidden, ACols<T>{x1, C, 1}, BRows<T>{hb, hidden}, part,
-           dw1, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(hb, M, C, hidden, ARows<T>{hb, hidden}, BCols<T>{w1, hidden},
-        Dx1Epi<T>{gg, dx1, C}, st);
-  PANGU_CHECK_LAUNCH();
+  e = unit_wgrad(hb, hidden, dy2, C, M, part, dw2, st);
+  if (e) return e;
+  e = unit_gemm<true>(dy2, w2, M, hidden, C,
+                      DzEpi<T>{z, hb, hidden, gelu_tanh}, st);
+  if (e) return e;
+  e = unit_wgrad(x1, C, hb, hidden, M, part, dw1, st);
+  if (e) return e;
+  e = unit_gemm<true>(hb, w1, M, C, hidden, Dx1Epi<T>{gg, dx1, C}, st);
+  if (e) return e;
   ln1_bwd_kernel<T><<<row_blocks(M), 256, 0, st>>>(a, dx1, n1s, drop, stats_a,
                                                    da, M, C, rps);
   PANGU_CHECK_LAUNCH();
@@ -371,32 +401,51 @@ int block_bwd(const T* x, const T* g, T* dx, T* ws, float* wsf, const T* wqkv,
   }
 
   // ---- proj ----
-  wgrad<T>(M, C + 1, C, ACols<T>{attn, C, 1}, BRows<T>{da, C}, part, dwp, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(da, M, C, C, ARows<T>{da, C}, BCols<T>{wp, C}, RoundEpi<T>{datt, C},
-        st);
-  PANGU_CHECK_LAUNCH();
+  e = unit_wgrad(attn, C, da, C, M, part, dwp, st);
+  if (e) return e;
+  e = unit_gemm<true>(da, wp, M, C, C, RoundEpi<T>{datt, C}, st);
+  if (e) return e;
 
   // ---- attention ----
-  {
-    const int e = attention_bwd<T, TB>(qkv, datt, dqkv, table, ids, dtable, B,
-                                       s, C, heads, st);
-    if (e) return e;
-  }
+  e = unit_attention_bwd<T, TB>(qkv, datt, dqkv, table, ids, dtable, B, s, C,
+                                heads, st);
+  if (e) return e;
 
   // ---- qkv and the residual ----
-  wgrad<T>(M, C + 1, 3 * C, ACols<T>{xg, C, 1}, BRows<T>{dqkv, 3 * C}, part,
-           dwqkv, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(dqkv, M, C, 3 * C, ARows<T>{dqkv, 3 * C}, BCols<T>{wqkv, 3 * C},
-        DxEpi<T>{dx1, dx, C, pad, RowMap{x_canon, s}}, st);
-  PANGU_CHECK_LAUNCH();
+  e = unit_wgrad(xg, C, dqkv, 3 * C, M, part, dwqkv, st);
+  if (e) return e;
+  e = unit_gemm<true>(dqkv, wqkv, M, C, 3 * C,
+                      DxEpi<T>{dx1, dx, C, pad, RowMap{x_canon, s}}, st);
+  if (e) return e;
   return 0;
 }
+
+// The file builds as two objects compiled in parallel (_build.PARTS): with
+// BLOCK_BWD_PART 1 only the bf16 instantiations of block_bwd (the
+// tensor-core route, most of the file's compile time), with BLOCK_BWD_PART
+// 0 everything else, the entries calling the bf16 ones across the objects.
+// Without BLOCK_BWD_PART it builds whole.
+#define PANGU_BWD_INSTANCE(T, TB)                                              \
+  int block_bwd<T, TB>(                                                        \
+      const T*, const T*, T*, T*, float*, const T*, const T*, const T*,        \
+      const T*, const TB*, const int*, const T*, const T*, const T*,           \
+      const T*, const T*, const T*, const T*, const float*, float*, float*,    \
+      float*, float*, float*, float*, int, WmShape, int, int, int, BlockShift, \
+      BlockShift, int, int, int, cudaStream_t)
+#if defined(BLOCK_BWD_PART) && BLOCK_BWD_PART == 0
+extern template PANGU_BWD_INSTANCE(bf16, float);
+extern template PANGU_BWD_INSTANCE(bf16, bf16);
+#elif defined(BLOCK_BWD_PART) && BLOCK_BWD_PART == 1
+template PANGU_BWD_INSTANCE(bf16, float);
+template PANGU_BWD_INSTANCE(bf16, bf16);
+#endif
+#undef PANGU_BWD_INSTANCE
 
 }  // namespace pangu
 
 using namespace pangu;
+
+#if !defined(BLOCK_BWD_PART) || BLOCK_BWD_PART == 0
 
 // Workspace the entry below needs for ``rows`` storage rows: elements of the
 // activation dtype (which = 0) or float32 elements (which = 1).
@@ -430,6 +479,12 @@ extern "C" int pangu_block_bwd(
   if (n > 32 * ATT_MAXJ || C % heads != 0 ||
       (x_canon && (dxz || dxh || dxw)) || (g_canon && (dgz || dgh || dgw)))
     return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles take 8-column groups, 16-byte aligned
+  // operands and windows of at most 144 tokens
+  if (dtype == 1 &&
+      (C % 8 || hidden % 8 || pad16(n) > 16 * WA_KT ||
+       !aligned16_all({wqkv, wp, w1, w2})))
+    return (int)cudaErrorInvalidValue;
 #define PANGU_BWD(T, TB)                                                       \
   return block_bwd<T, TB>(                                                     \
       (const T*)x, (const T*)g, (T*)dx, (T*)ws, (float*)wsf, (const T*)wqkv,   \
@@ -446,3 +501,4 @@ extern "C" int pangu_block_bwd(
 #undef PANGU_BWD
   return (int)cudaErrorInvalidValue;
 }
+#endif  // BLOCK_BWD_PART 0

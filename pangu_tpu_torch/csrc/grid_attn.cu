@@ -29,19 +29,23 @@
 //              dtable[type, h]; dQ, dK = round_T(round_T(dS) K, Q hd^-1/2)
 //   qkv        dWqkv, dbqkv = sums of xg^T dqkv, dqkv (float32);
 //              dx = round_T(dqkv Wqkv^T), to the grid
-// The weight and bias gradients are grad_gemm.cuh's deterministic split-K
-// sums over every window of the batch (the bias as a row of ones); each table
-// entry has one owner thread block; no atomics, so the gradients are the
-// same bit for bit in every run.  Every product is a hand-written GEMM
-// (common.cuh's gemm, grad_gemm.cuh's xgemm).
+// The weight and bias gradients are deterministic split-K sums over every
+// window of the batch (the bias as a row of ones); each table entry has one
+// owner thread block; no atomics, so the gradients are the same bit for bit
+// in every run.
 //
-// What bounds it on an H100: arithmetic, about 2 M C (4C + 2N) FLOP forward
-// (M rows, N = 144 tokens a window) and three times that backward, against
-// reading and writing the grid a few times.  This first version keeps every
-// intermediate in device memory (5 C values a row forward, 10 C backward)
-// and runs the untuned GEMM tiles and the one-warp-per-query attention of
-// the block kernel, so it runs well below that bound.
-#include "attn_bwd.cuh"
+// What bounds it on an H100: bytes, about 2 M C (4C + 2N) FLOP forward (M
+// rows, N = 144 tokens a window) and three times that backward, against
+// reading and writing the grid and the intermediates (5 C values a row
+// forward, 10 C backward) at ~140 FLOP per byte.  bf16 (the perf config):
+// every product on the tensor cores (mma_gemm.cuh); the backward's
+// attention, forward recompute and backward, too (wattn_mma.cuh); the
+// forward keeps the block kernels' CUDA-core attention (block_common.cuh)
+// until the forward kernels' redesign.  float32 (the parity config): the
+// first version's kernels (common.cuh's gemm, grad_gemm.cuh's FMA tiles,
+// the CUDA-core attention of block_common.cuh and attn_bwd.cuh).
+#include "mma_gemm.cuh"
+#include "wattn_mma.cuh"
 
 namespace pangu {
 
@@ -58,6 +62,23 @@ inline long long grid_ws_elems(long long M, int C, int which) {
   return wg_splits(M) * (long long)(C + 1) * 3 * C;
 }
 
+// qkv = round_T(xg Wqkv + bqkv), xg the grid's rows in window-major order
+template <typename T>
+int grid_qkv(const T* x, T* xg, T* qkv, const T* wqkv, const T* bqkv,
+             long long M, const WmShape& s, int C, cudaStream_t st) {
+  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s,
+                                                        no_shift(s), 1);
+  PANGU_CHECK_LAUNCH();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return (int)mma_gemm<false>(xg, wqkv, M, 3 * C, C,
+                                BiasEpi<T>{bqkv, qkv, 3 * C}, st);
+  } else {
+    const PadRows none = {0};
+    gemm(xg, wqkv, bqkv, qkv, (int)M, 3 * C, C, ACT_NONE, none, st);
+    return (int)cudaGetLastError();
+  }
+}
+
 template <typename T, typename TB>
 int grid_attn(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
               const T* wp, const T* bp, const TB* table, const int* ids, int B,
@@ -67,20 +88,13 @@ int grid_attn(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
   T* xg = ws;
   T* qkv = xg + M * C;
   T* attn = qkv + M * 3 * C;
-  const PadRows none = {0};
 
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s,
-                                                        no_shift(s), 1);
-  PANGU_CHECK_LAUNCH();
-  gemm(xg, wqkv, bqkv, qkv, (int)M, 3 * C, C, ACT_NONE, none, st);
-  PANGU_CHECK_LAUNCH();
-  const int e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads,
-                                        st);
+  int e = grid_qkv(x, xg, qkv, wqkv, bqkv, M, s, C, st);
   if (e) return e;
-  xgemm(attn, M, C, C, ARows<T>{attn, C}, BRows<T>{wp, C},
-        GridEpi<T>{bp, out, C, RowMap{1, s}}, st);
-  PANGU_CHECK_LAUNCH();
-  return 0;
+  e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
+  if (e) return e;
+  return unit_gemm<false>(attn, wp, M, C, C,
+                          GridEpi<T>{bp, out, C, RowMap{1, s}}, st);
 }
 
 template <typename T, typename TB>
@@ -96,39 +110,32 @@ int grid_attn_bwd(const T* x, const T* g, T* dx, T* ws, float* part,
   T* attn = qkv + M * 3 * C;
   T* da = attn + M * C;
   T* dqkv = da + M * C;
-  const PadRows none = {0};
 
   // ---- recompute ----
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s,
-                                                        no_shift(s), 1);
-  PANGU_CHECK_LAUNCH();
+  int e = grid_qkv(x, xg, qkv, wqkv, bqkv, M, s, C, st);
+  if (e) return e;
   block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(g, gg, M, C, s,
                                                         no_shift(s), 1);
   PANGU_CHECK_LAUNCH();
-  gemm(xg, wqkv, bqkv, qkv, (int)M, 3 * C, C, ACT_NONE, none, st);
-  PANGU_CHECK_LAUNCH();
-  int e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
+  e = unit_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
   if (e) return e;
 
   // ---- proj ----
-  wgrad<T>(M, C + 1, C, ACols<T>{attn, C, 1}, BRows<T>{gg, C}, part, dwp, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(gg, M, C, C, ARows<T>{gg, C}, BCols<T>{wp, C}, RoundEpi<T>{da, C}, st);
-  PANGU_CHECK_LAUNCH();
+  e = unit_wgrad(attn, C, gg, C, M, part, dwp, st);
+  if (e) return e;
+  e = unit_gemm<true>(gg, wp, M, C, C, RoundEpi<T>{da, C}, st);
+  if (e) return e;
 
   // ---- attention ----
-  e = attention_bwd<T, TB>(qkv, da, dqkv, table, ids, dtable, B, s, C, heads,
-                           st);
+  e = unit_attention_bwd<T, TB>(qkv, da, dqkv, table, ids, dtable, B, s, C,
+                                heads, st);
   if (e) return e;
 
   // ---- qkv ----
-  wgrad<T>(M, C + 1, 3 * C, ACols<T>{xg, C, 1}, BRows<T>{dqkv, 3 * C}, part,
-           dwqkv, st);
-  PANGU_CHECK_LAUNCH();
-  xgemm(dqkv, M, C, 3 * C, ARows<T>{dqkv, 3 * C}, BCols<T>{wqkv, 3 * C},
-        GridEpi<T>{nullptr, dx, C, RowMap{1, s}}, st);
-  PANGU_CHECK_LAUNCH();
-  return 0;
+  e = unit_wgrad(xg, C, dqkv, 3 * C, M, part, dwqkv, st);
+  if (e) return e;
+  return unit_gemm<true>(dqkv, wqkv, M, C, 3 * C,
+                         GridEpi<T>{nullptr, dx, C, RowMap{1, s}}, st);
 }
 
 }  // namespace pangu
@@ -154,7 +161,9 @@ extern "C" int pangu_grid_attn(int dtype, int table_dtype, const void* x,
                                int wh, int ww, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+  if (n > 32 * ATT_MAXJ || C % heads != 0 ||
+      (dtype == 1 && (C % 8 || !aligned16_all({wqkv, wp}))))
+    return (int)cudaErrorInvalidValue;
 #define PANGU_GRID(T, TB)                                                      \
   return grid_attn<T, TB>((const T*)x, (T*)out, (T*)ws, (const T*)wqkv,       \
                           (const T*)bqkv, (const T*)wp, (const T*)bp,         \
@@ -179,7 +188,12 @@ extern "C" int pangu_grid_attn_bwd(
     int ww, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   cudaStream_t st = (cudaStream_t)stream;
-  if (n > 32 * ATT_MAXJ || C % heads != 0) return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles take 8-column groups, 16-byte aligned
+  // operands and windows of at most 144 tokens
+  if (n > 32 * ATT_MAXJ || C % heads != 0 ||
+      (dtype == 1 && (C % 8 || pad16(n) > 16 * WA_KT ||
+                      !aligned16_all({wqkv, wp}))))
+    return (int)cudaErrorInvalidValue;
 #define PANGU_GRID_BWD(T, TB)                                                  \
   return grid_attn_bwd<T, TB>(                                                 \
       (const T*)x, (const T*)g, (T*)dx, (T*)ws, (float*)wsf, (const T*)wqkv,   \

@@ -65,7 +65,8 @@ from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.models.layers import (_dot, dense, earth_attention,
                                           window_partition, window_reverse)
 from pangu_tpu_torch.ops.block_tail import tail_math
-from pangu_tpu_torch.ops.earth_block_bwd import _colsum, _wgrad
+from pangu_tpu_torch.ops.earth_block_bwd import (_colsum, _wgrad, aligned16,
+                                                 check_tensor_core_shape)
 from pangu_tpu_torch.models.lora import has_lora
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, block_operands,
                                                 params_in)
@@ -181,6 +182,9 @@ def _checked(x, weights, table, window: Window, ids, what: str):
         raise ValueError(f"{what}: bias table {tuple(table.shape)} "
                          f"{table.dtype}")
     weights = [t.to(x.dtype).contiguous() for t in weights]
+    if x.dtype == torch.bfloat16:   # the products' tensor-core tiles
+        check_tensor_core_shape((c,), None, what)
+        weights = [aligned16(t) for t in weights]
     for t in weights + [table]:
         if t.device != x.device:
             raise ValueError(f"{what}: parameter on {t.device}, input on "
@@ -237,6 +241,8 @@ def grid_attention_bwd(x, g, wqkv, bqkv, wp, table, window: Window,
                                         ids)
     (wqkv, bqkv, wp), ids, dims = _checked(
         x, [wqkv, bqkv, wp], table, window, ids, "grid_attention_bwd")
+    if x.dtype == torch.bfloat16:   # the tensor-core attention backward
+        check_tensor_core_shape((), dims[4], "grid_attention_bwd")
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"grid_attention_bwd: cotangent {tuple(g.shape)} on "
                          f"{g.device}, input {tuple(x.shape)} on {x.device}")

@@ -28,7 +28,10 @@ attention backwards (against plain versions and the fused step); the fused
 window attention forward and every gradient of its drop-in, the block
 backward with canonical ends, the grouped block with branch scales, the
 float32 train step through the canonical stage Function (adapters at
-Down/UpSample only) and ``attn_impl="xla"`` (no kernel launched).  Needs a CUDA
+Down/UpSample only) and ``attn_impl="xla"`` (no kernel launched); and the
+bf16 tensor-core route of the block backward (both layouts) and the grid
+attention at a row count that is not a multiple of the product tile and at
+C = 384, with float32 and bf16 bias tables.  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -1147,3 +1150,124 @@ def test_attn_impl_xla_launches_no_kernel(cuda):
                                 seed=5)
     assert not any(ops.launches().values()), ops.launches()
     assert torch.isfinite(loss)
+
+
+# The bf16 route of the backward units (tensor-core products and attention):
+# TINY with three longitude windows, 18 windows a sample (2,592 rows at
+# batch 1, not a multiple of the 64-row product tile), and TINY's grid at
+# C = 384 (12 heads of 32, the model's stage-1 width), batch 2.
+TC_CASES = {
+    "ragged": (dataclasses.replace(TINY, lon=144), 1),
+    "c384": (dataclasses.replace(TINY, dims=(384, 768, 768, 384),
+                                 heads=(12, 24, 24, 12)), 2),
+}
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "c384"])
+def test_block_bwd_tensor_core_cases(cuda, case, shifted, table_dtype):
+    """The bf16 block backward at a ragged row count and at C = 384, region
+    ids present (shifted) and absent, the bias table in float32 and bf16,
+    with and without branch scales: every gradient against the plain
+    version, bit-identical in two runs."""
+    from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
+    cfg, batch = TC_CASES[case]
+    geom = cfg.stage(0)
+    bp = _params(cfg, cuda)["stages"][0]["blocks"][1]
+    bp["attn"]["bias_table"] = bp["attn"]["bias_table"].to(table_dtype)
+    xs = _storage(geom, cuda, torch.bfloat16, 1, batch)
+    g = _storage(geom, cuda, torch.bfloat16, 2, batch)
+    if case == "ragged":
+        assert (xs.numel() // geom.dim) % 64
+    if shifted:
+        args = ((1, 3, 6), (1, 3, 6), 3, _ids(geom, cuda))
+    else:
+        args = ((-1, -3, -6), (0, 0, 0), 0, None)
+    for drop in (None, _drop(batch, cuda)):
+        got = block_bwd(bp, xs, g, geom, *args, drop, True)
+        want = block_bwd_plain(bp, xs, g, geom, *args, drop, True)
+        torch.cuda.synchronize()
+        errs = _tree_rel_errs({"dx": got[0], **got[1]},
+                              {"dx": want[0], **want[1]})
+        assert all(e <= TOL[torch.bfloat16] for _, e in errs), errs
+        again = block_bwd(bp, xs, g, geom, *args, drop, True)
+        assert all(torch.equal(a, b) for a, b in zip(
+            [got[0], *_leaves(got[1])], [again[0], *_leaves(again[1])]))
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_layout,g_layout", [
+    ("canon", "wm"), ("wm", "canon"), ("canon", "canon")])
+@pytest.mark.parametrize("case", ["ragged", "c384"])
+def test_block_bwd_canon_tensor_core_cases(cuda, case, x_layout, g_layout,
+                                           table_dtype):
+    """The bf16 block backward with canonical ends at a ragged row count
+    and at C = 384, the bias table in float32 and bf16, with branch scales:
+    every gradient against the plain version, bit-identical in two runs."""
+    from pangu_tpu_torch.ops.earth_block_bwd import (block_bwd_canon,
+                                                     block_bwd_plain)
+    cfg, batch = TC_CASES[case]
+    geom = cfg.stage(0)
+    bp = _params(cfg, cuda)["stages"][0]["blocks"][1]
+    bp["attn"]["bias_table"] = bp["attn"]["bias_table"].to(table_dtype)
+    bf = torch.bfloat16
+    xs = (_grid if x_layout == "canon" else _storage)(geom, cuda, bf, 1, batch)
+    g = (_grid if g_layout == "canon" else _storage)(geom, cuda, bf, 2, batch)
+    drop = _drop(batch, cuda)
+    if x_layout == "wm":
+        args = ((1, 3, 6), (0, 0, 0), 3, _ids(geom, cuda))
+    elif g_layout == "wm":
+        args = ((0, 0, 0), (-1, -3, -6), 0, None)
+    else:
+        args = ((0, 0, 0), (0, 0, 0), 0, None)
+    got = block_bwd_canon(bp, xs, g, geom, *args, drop, True,
+                          x_layout=x_layout, g_layout=g_layout)
+    want = block_bwd_plain(bp, xs, g, geom, *args, drop, True, x_layout,
+                           g_layout)
+    torch.cuda.synchronize()
+    errs = _tree_rel_errs({"dx": got[0], **got[1]}, {"dx": want[0], **want[1]})
+    assert all(e <= TOL[bf] for _, e in errs), errs
+    again = block_bwd_canon(bp, xs, g, geom, *args, drop, True,
+                            x_layout=x_layout, g_layout=g_layout)
+    assert all(torch.equal(a, b) for a, b in zip(
+        [got[0], *_leaves(got[1])], [again[0], *_leaves(again[1])]))
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "c384"])
+def test_grid_attention_tensor_core_cases(cuda, case, masked, table_dtype):
+    """The bf16 grid attention (its products on the tensor cores) and its
+    backward (products and attention) at a ragged row count and at C = 384,
+    region ids present and absent, the bias table in float32 and bf16:
+    against the plain versions, the backward bit-identical in two runs."""
+    from pangu_tpu_torch.ops.window_attention import (
+        grid_attention, grid_attention_bwd, grid_attention_bwd_plain,
+        grid_attention_plain)
+    cfg, batch = TC_CASES[case]
+    geom = cfg.stage(0)
+    bf = torch.bfloat16
+    wqkv, _, wp, _, table = _attn_args(
+        _params(cfg, cuda)["stages"][0]["blocks"][0])
+    table = table.to(table_dtype)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    bqkv = 0.02 * torch.randn(3 * geom.dim, generator=g, device=cuda)
+    bp = 0.02 * torch.randn(geom.dim, generator=g, device=cuda)
+    x = _grid(geom, cuda, bf, 1, batch)
+    dy = _grid(geom, cuda, bf, 2, batch)
+    ids = _ids(geom, cuda) if masked else None
+    args = (wqkv.to(bf), bqkv.to(bf), wp.to(bf))
+    got = grid_attention(x, *args, bp.to(bf), table, geom.window, ids)
+    want = grid_attention_plain(x, *args, bp.to(bf), table, geom.window, ids)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= TOL[bf]
+    got = grid_attention_bwd(x, dy, *args, table, geom.window, ids)
+    want = grid_attention_bwd_plain(x, dy, *args, table, geom.window, ids)
+    torch.cuda.synchronize()
+    names = ("dx", "dwqkv", "dbqkv", "dwp", "dbp", "dbias")
+    errs = [(n, _rel_err(a, b)) for n, a, b in zip(names, got, want)]
+    assert all(e <= TOL[bf] for _, e in errs), errs
+    again = grid_attention_bwd(x, dy, *args, table, geom.window, ids)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
