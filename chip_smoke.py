@@ -9,8 +9,10 @@ Phases, each with its wall seconds:
   2. build: nvcc compiles ``pangu_tpu_torch/csrc/*.cu`` into one library;
      the registers and spills ptxas reports for the bf16 sdpa kernels
      (tensor cores) and their launch plan at full width (shared memory,
-     blocks per SM), and for the backward units' tensor-core products and
-     attention (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``);
+     blocks per SM), and for the tensor-core products and attention
+     (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``), those of the bf16
+     forward (the block kernel's and the grid attention's objects, with
+     their 16-byte row kernels) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -22,7 +24,15 @@ Phases, each with its wall seconds:
      8 through the stage-0 block and UpSample (more than 65,535 GEMM row
      tiles), sample 7 against a batch-1 launch; then full-width float32
      forwards, without and with the edge kernels, kernels against plain
-     versions;
+     versions.  Every bf16 block entry twice, bit for bit, and the grouped
+     block equal to the ungrouped one on the same input; beside each bf16
+     time of a row the tensor-core forward redesigned, the CUDA-core
+     forward's (``PREVIOUS_BF16_MS``); the float32 error lines of the block
+     entries and the grid attention (here and in phases 6a, 7a, 8a, 9a)
+     equal to the CUDA-core forward's (``F32_BEFORE``, the float32 route
+     being unchanged); one stage-0 bf16 block and grid
+     attention forward by class of kernel (``torch.profiler``: products,
+     attention, row passes, each with its rate);
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
      tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
      batch 1, random weights and synthetic constants from a seed, each driven
@@ -137,8 +147,9 @@ Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
 max; the bf16 steps' losses and gradient norms finite.
 
-The bf16 block backward (both layouts) and grid attention backward must
-also agree bit for bit over two runs (``BIT_IDENTICAL``).
+The bf16 block backward (both layouts), the grid attention and its
+backward, and every bf16 block entry must also agree bit for bit over two
+runs (``BIT_IDENTICAL``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -268,9 +279,12 @@ def sdpa_report(ptxas, lib):
 
 
 def _short_kernel(mangled):
-    """A readable name of a mangled tensor-core kernel of the backward
-    units: mma_gemm_kernel<A transposed, B transposed, epilogue> or
-    wattn_mma_{fwd,bwd}_kernel<table dtype>."""
+    """A readable name of a mangled tensor-core kernel:
+    mma_gemm_kernel<A transposed, B transposed, epilogue>,
+    wattn_mma_{fwd,bwd}_kernel<table dtype>, or a row kernel's name."""
+    m = re.search(r"(block_gather16_kernel|ln_rows16_kernel)", mangled)
+    if m:
+        return m[1]
     m = re.search(r"\d+(mma_gemm_kernel|wattn_mma_\w+?_kernel)I(.*)", mangled)
     if not m:
         return mangled
@@ -282,16 +296,28 @@ def _short_kernel(mangled):
     return f"{base}<{'bf16' if rest.startswith('13__nv_bfloat16') else 'float'}>"
 
 
-def tc_report(ptxas):
-    """Lines on the tensor-core kernels of the backward units (the
-    products of csrc/mma_gemm.cuh, the attention of csrc/wattn_mma.cuh):
-    registers and spills of each instantiation as ptxas reported them."""
+def ptxas_parts(ptxas, stems):
+    """What ptxas printed for the objects ``stems`` (``<source>_<part>``,
+    the report's ``== `` headings) only."""
+    out, keep = [], False
+    for line in ptxas.splitlines():
+        if line.startswith("== "):
+            keep = line[3:].strip() in stems
+        elif keep:
+            out.append(line)
+    return "\n".join(out)
+
+
+def tc_report(ptxas, kinds=r"mma_gemm_kernel|wattn_mma_", what=""):
+    """Lines on the tensor-core kernels (the products of
+    csrc/mma_gemm.cuh, the attention of csrc/wattn_mma.cuh; ``kinds``
+    widens the set): registers and spills of each instantiation as ptxas
+    reported them."""
     lines, seen, name = [], set(), None
     for line in ptxas.splitlines():
         m = re.search(r"Function properties for (_ZN5pangu\w+)", line)
         if m:
-            name = (_short_kernel(m[1]) if re.search(
-                r"mma_gemm_kernel|wattn_mma_", m[1]) else None)
+            name = (_short_kernel(m[1]) if re.search(kinds, m[1]) else None)
             spill = "spills not reported"
             continue
         if name and "spill" in line:
@@ -300,28 +326,130 @@ def tc_report(ptxas):
             if name not in seen:
                 seen.add(name)
                 regs = re.search(r"Used (\d+) registers", line)[1]
-                lines.append(f"ptxas {name}: {regs} registers; {spill}")
+                lines.append(f"ptxas {what}{name}: {regs} registers; {spill}")
             name = None
     return lines
 
 
-# bf16 ms per launch of the redesigned rows before this version (PERF.md
-# section 6, NVIDIA H100 80GB HBM3 at 700 W: rows 11, 11c and 17 from PRs 7,
-# 10 and 8, row 16 from PR 8), printed beside the new times
+def fwd_report(ptxas):
+    """The same lines for the bf16 forward: the block kernel's and the grid
+    attention forward's objects (``BLOCK_WM_PART`` / ``GRID_ATTN_PART`` 1),
+    products, attention and 16-byte row kernels."""
+    return tc_report(ptxas_parts(ptxas, {"block_wm_1", "grid_attn_1"}),
+                     r"mma_gemm_kernelILb0ELb0|wattn_mma_fwd|gather16|ln_rows16",
+                     "forward ")
+
+
+# bf16 ms per launch of the rows the tensor-core forward redesigned, as the
+# CUDA-core forward (commit e1271cc) ran them: its chip_smoke.py on an NVIDIA
+# H100 80GB HBM3 at 700 W, printed beside the new times: name -> label -> ms
 PREVIOUS_BF16_MS = {
-    "block_bwd": {"stage 0": 100.52, "stage 1": 74.64},
-    "block_bwd_canon": {"stage 0 canon x": 99.74, "stage 0 canon g": 100.49,
-                        "stage 1 canon x": 73.94, "stage 1 canon g": 74.54},
-    "grid_attention_bwd": {"stage 0": 62.14, "stage 1": 38.05},
-    "grid_attention": {"stage 0": 14.84, "stage 1": 9.49},
+    'block_wm': {
+        'stage 0 unshifted': 22.126,
+        'stage 0 shifted': 22.26,
+        'stage 1 shifted': 16.477,
+    },
+    'block_wm_group': {
+        'stage 1 unshifted, gh 2': 16.386,
+        'stage 1 shifted, gh 2': 16.833,
+        'stage 1 shifted, gh 2, scales (1.25, 0)': 16.89,
+    },
+    'block_wm_canon': {
+        'stage 0 canon in': 21.968,
+        'stage 0 canon out, shifted': 22.428,
+        'stage 1 canon in': 16.326,
+        'stage 1 canon out, shifted': 16.425,
+    },
+    'block_wm drop': {
+        'stage 0 shifted, scales (0.8, 1.25)': 22.308,
+        'stage 1 shifted, scales (1.25, 0)': 16.582,
+    },
+    'block_v2': {
+        'stage 0 shifted': 22.364,
+        'stage 0 -half, scales (0.8, 1.25)': 22.473,
+        'stage 1 shifted, scales (1.25, 0)': 16.532,
+        'stage 1 -half': 16.358,
+    },
+    'grid_attention': {
+        'stage 0, region ids': 10.43,
+        'stage 1, no ids': 5.669,
+    },
+    'block_noroll_fused': {
+        'stage 0, padded grid': 22.263,
+        'stage 1, padded grid': 16.309,
+    },
 }
 
 
 def previous_ms(name, label):
-    for prefix, ms in PREVIOUS_BF16_MS.get(name, {}).items():
-        if label.startswith(prefix):
-            return ms
-    return None
+    return PREVIOUS_BF16_MS.get(name, {}).get(label)
+
+
+# The float32 route of the block kernel and the grid attention forward did
+# not change with the bf16 redesign, so their float32 error lines must read
+# as the CUDA-core forward's (commit e1271cc) did in the same run of this
+# script ("max_abs_err rel", as printed), where torch and the card are the
+# ones of that run (inputs drawn elsewhere are not comparable)
+F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
+            "lines": {
+                'block_wm | stage 0 unshifted':
+                    '4.053e-06 4.117e-07',
+                'block_wm | stage 0 shifted':
+                    '5.245e-06 5.695e-07',
+                'block_wm | stage 1 shifted':
+                    '6.199e-06 6.655e-07',
+                'block_wm_group | stage 1 unshifted, gh 2':
+                    '5.364e-06 5.660e-07',
+                'block_wm_group | stage 1 shifted, gh 2':
+                    '6.199e-06 6.655e-07',
+                'block_wm_canon | stage 0 canon in':
+                    '4.292e-06 4.686e-07',
+                'block_wm_canon | stage 0 canon out, shifted':
+                    '4.292e-06 4.363e-07',
+                'block_wm_canon | stage 1 canon in':
+                    '5.722e-06 5.787e-07',
+                'block_wm_canon | stage 1 canon out, shifted':
+                    '5.364e-06 5.596e-07',
+                'block_wm drop | stage 0 shifted, scales (0.8, 1.25)':
+                    '5.245e-06 5.057e-07',
+                'block_wm drop | stage 1 shifted, scales (1.25, 0)':
+                    '2.861e-06 3.195e-07',
+                'block_v2 | stage 0 shifted':
+                    '4.292e-06 4.715e-07',
+                'block_v2 | stage 0 -half, scales (0.8, 1.25)':
+                    '4.768e-06 4.637e-07',
+                'block_v2 | stage 1 shifted, scales (1.25, 0)':
+                    '2.861e-06 3.146e-07',
+                'block_v2 | stage 1 -half':
+                    '5.960e-06 6.211e-07',
+                'grid_attention | stage 0, region ids':
+                    '1.770e-08 4.020e-07',
+                'grid_attention | stage 1, no ids':
+                    '2.235e-08 4.291e-07',
+                'block_noroll_fused | stage 0, padded grid':
+                    '5.007e-06 5.413e-07',
+                'block_noroll_fused | stage 1, padded grid':
+                    '5.484e-06 5.365e-07',
+                'block_wm_group | stage 1 shifted, gh 2, scales (1.25, 0)':
+                    '2.861e-06 3.155e-07',
+            }}
+
+
+def f32_as_before(name, label, err, rel):
+    """' float32 as before' where the error line equals the CUDA-core
+    forward's; raises where it differs; says so where the run is not
+    comparable or has no record."""
+    want = F32_BEFORE["lines"].get(f"{name} | {label}")
+    if want is None:
+        return ""
+    if (torch.__version__ != F32_BEFORE["torch"]
+            or torch.cuda.get_device_name(0) != F32_BEFORE["card"]):
+        return "  (the earlier float32 line is not comparable here)"
+    got = f"{err:.3e} {rel:.3e}"
+    if got != want:
+        raise AssertionError(f"{name} {label} float32: {got}, before "
+                             f"{want} (the float32 route changed)")
+    return "  float32 as before"
 
 
 def bwd_breakdown(fn, rows, c, hidden, n):
@@ -373,6 +501,53 @@ def bwd_breakdown(fn, rows, c, hidden, n):
                 f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
         parts.append(f"{k} {t:.3f} ms ({rate})")
     return (f"{sum(ms.values()):.3f} ms of device time: " + "; ".join(parts))
+
+
+def block_fwd_work(rows, c, hidden, n):
+    """(FLOP, bytes) of a bf16 forward block launch by class, each input
+    read once and each output written once: the four products (qkv, proj,
+    fc1, fc2), the attention (q.k and P.V; qkv in, attn out) and the row
+    passes (the gather, the two LayerNorm-residual passes)."""
+    return {"products": (2 * rows * c * (4 * c + 2 * hidden),
+                         2 * rows * (8 * c + 2 * hidden)),
+            "attention": (4 * rows * n * c, 2 * rows * 4 * c),
+            "row passes": (0, 2 * rows * 8 * c)}
+
+
+def grid_fwd_work(rows, c, n):
+    """The same for a bf16 grid attention forward: the qkv and proj
+    products, the attention and the gather."""
+    return {"products": (2 * rows * c * 4 * c, 2 * rows * 6 * c),
+            "attention": (4 * rows * n * c, 2 * rows * 4 * c),
+            "row passes": (0, 2 * rows * 2 * c)}
+
+
+def fwd_breakdown(fn, work):
+    """Device time of one forward launch by class (torch.profiler): the
+    products (``*gemm*`` kernels), the attention (``*attn*``) and the row
+    passes (the rest), each with its rate from ``work`` (class -> FLOP,
+    bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = {k: 0.0 for k in work}
+    for e in prof.key_averages():
+        t = e.device_time_total / 1e3
+        if t == 0.0:
+            continue
+        key = ("products" if "gemm" in e.key else
+               "attention" if "attn" in e.key else "row passes")
+        ms[key] += t
+    parts = []
+    for k, t in ms.items():
+        flops, byts = work[k]
+        rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
+                f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
+        parts.append(f"{k} {t:.3f} ms ({rate})")
+    return f"{sum(ms.values()):.3f} ms of device time: " + "; ".join(parts)
 
 
 def bound(flops, nbytes_, dtype):
@@ -446,7 +621,7 @@ def main() -> int:
     lib = _build.library()
     print(f"built {os.path.relpath(lib_path)}")
     ptxas = _build.ptxas_report()
-    for line in sdpa_report(ptxas, lib) + tc_report(ptxas):
+    for line in sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas):
         print(line)
     done("build", t0)
 
@@ -655,27 +830,67 @@ def main() -> int:
                 lambda out: out, off == half))
 
     records = {}
+    ungrouped = {}     # bf16 block_wm outputs, held against block_wm_group
     for name, label, dtype, flops, byts, kern, plain, view, record in cases:
         got, want = view(kern()), view(plain())
         torch.cuda.synchronize()
         err, rel = rel_err(got, want)
-        del got, want
+        del want
+        note = ""
+        if dtype == torch.bfloat16 and name.startswith("block_wm"):
+            if not torch.equal(got, view(kern())):
+                raise AssertionError(f"{name} {label}: two bf16 runs differ")
+            note = "  bit-identical in two runs"
+            key = label.split(", gh")[0]
+            if name == "block_wm" and label.startswith("stage 1"):
+                ungrouped[key] = got
+            elif name == "block_wm_group" and key in ungrouped:
+                if not torch.equal(got, ungrouped.pop(key)):
+                    raise AssertionError(f"{label}: bf16 block_wm_group "
+                                         "differs from block_wm")
+                note += ", equal to block_wm"
+        if dtype == torch.float32:
+            note += f32_as_before(name, label, err, rel)
+        del got
         ms = time_ms(kern, 3)
         plain_ms = time_ms(plain, 2)
         bound_ms, bound_by = bound(flops, byts, dtype)
         ok = rel <= TOL[dtype]
+        was = previous_ms(name, label) if dtype == torch.bfloat16 else None
         print(f"{name:19s} {label:38s} {str(dtype):15s} max_abs_err {err:.3e} "
               f"rel {rel:.3e} (tol {TOL[dtype]:.1e}) {'ok' if ok else 'FAIL'}  "
-              f"kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  "
-              f"bound {bound_ms:.3f} ms ({bound_by})", flush=True)
+              f"kernel {ms:.3f} ms{f' (was {was} ms)' if was else ''}  plain "
+              f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms ({bound_by})"
+              f"{note}", flush=True)
         if not ok:
             raise AssertionError(f"{name} {label} {dtype}: rel err {rel:.3e}")
         if dtype == torch.bfloat16 and record:
             records[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                              "bound_ms": bound_ms, "bound_by": bound_by,
                              "at": f"{label}, bf16"}
-    del cases, tp, skip, dec, xs, x, grid
+    del cases, tp, skip, dec, xs, x, grid, ungrouped
     torch.cuda.empty_cache()
+
+    # one stage-0 bf16 forward block and grid attention by class of kernel
+    from pangu_tpu_torch.ops.window_attention import grid_attention
+    gsplit = torch.Generator(device=dev).manual_seed(SEED + 7)
+    wz, wh, ww = g0.window
+    bp0, ids0 = params["stages"][0]["blocks"][1], ids_of(g0)
+    xs = torch.randn((1, g0.z // wz, g0.h_padded // wh, g0.w // ww,
+                      g0.window_tokens, c0), generator=gsplit,
+                     device=dev).to(torch.bfloat16)
+    m0 = xs.numel() // c0
+    print("block_wm stage 0 shifted bf16 by class (torch.profiler): "
+          + fwd_breakdown(lambda: block_wm(bp0, xs, g0, half, 3, ids0, True),
+                          block_fwd_work(m0, c0, 4 * c0, g0.window_tokens)))
+    x = xs.reshape(1, g0.z, g0.h_padded, g0.w, c0)
+    at = bp0["attn"]
+    w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+         at["proj"]["bias"], at["bias_table"])
+    print("grid_attention stage 0, region ids bf16 by class (torch.profiler): "
+          + fwd_breakdown(lambda: grid_attention(x, *w, g0.window, ids0),
+                          grid_fwd_work(m0, c0, g0.window_tokens)))
+    del xs, x
 
     # a batch of 8 at stage 0: 8 x 535,680 rows / 64 = 66,960 GEMM row tiles,
     # more than a grid's y dimension holds; sample 7 against batch 1
@@ -1227,8 +1442,11 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
     torch.cuda.empty_cache()
 
 
-# the bf16 backward units held to two runs agreeing bit for bit
-BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd")
+# the bf16 units held to two runs agreeing bit for bit (phase 3 holds the
+# block_wm entries there)
+BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd",
+                 "block_wm drop", "block_v2", "grid_attention",
+                 "block_noroll_fused", "block_wm_group")
 
 
 def flat(tree):
@@ -1266,6 +1484,8 @@ def check_kernels(cases, dtype, records):
         err = max(e[1] for e in errs)
         rel = max(e[2] for e in errs)
         worst = max(errs, key=lambda e: e[2])[0]
+        if dtype == torch.float32:
+            same += f32_as_before(name, label, err, rel)
         ms = time_ms(kern, reps)
         plain_ms = time_ms(plain, plain_reps)
         bound_ms, bound_by = bound(flops, byts, dtype)

@@ -13,7 +13,7 @@ at first use in a process, never at import.
 makes the CUDA device of the launch's tensors current around the launch.
 The sources in ``VERBOSE_SOURCES`` are compiled with ``-Xptxas -v`` besides,
 and ``ptxas_report()`` returns what ptxas said of their kernels (registers,
-spills, shared memory).
+spills, shared memory), each object's part headed ``== <stem>_<part>``.
 """
 
 from __future__ import annotations
@@ -35,11 +35,14 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
 # compiled with -Xptxas -v too (it reports; the code is the same)
-VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu")
+VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu", "block_wm.cu")
 # sources built as several objects in parallel, one per set of defines (the
 # source says what each part holds)
 PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"]),
-         "block_bwd.cu": (["-DBLOCK_BWD_PART=0"], ["-DBLOCK_BWD_PART=1"])}
+         "block_bwd.cu": (["-DBLOCK_BWD_PART=0"], ["-DBLOCK_BWD_PART=1"]),
+         "block_wm.cu": (["-DBLOCK_WM_PART=0"], ["-DBLOCK_WM_PART=1"]),
+         "grid_attn.cu": (["-DGRID_ATTN_PART=0"], ["-DGRID_ATTN_PART=1"],
+                          ["-DGRID_ATTN_PART=2"])}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -122,12 +125,12 @@ def build() -> Path:
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                     text=True)))
         errors, report = [], []
-        for src, _, proc in procs:
+        for src, obj, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode != 0:
                 errors.append(f"{src.name}:\n{out}")
             elif src.name in VERBOSE_SOURCES:
-                report.append(out)
+                report.append(f"== {obj.stem}\n{out}")
         if errors:
             raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
         _report_path(digest).write_text("".join(report))

@@ -1,7 +1,8 @@
 // Device code the block backward (block_bwd.cu) and the grid attention
 // backward (grid_attn.cu) share: the GEMM epilogues that round a product to
 // the activation dtype (one value at a time for grad_gemm.cuh's float32
-// tiles, 8 columns at a time for mma_gemm.cuh's bf16 tensor-core tiles),
+// tiles, 8 columns at a time for mma_gemm.cuh's bf16 tensor-core tiles;
+// BiasEpi and ZhEpi are the bf16 block forward's too, through fwd_gemm),
 // and the float32 windowed attention backward with its bias table gradient
 // (bf16 runs wattn_mma.cuh's).
 #pragma once
@@ -26,6 +27,37 @@ struct BiasEpi {  // out = round_T(acc + bias)
 #pragma unroll
     for (int e = 0; e < 8; ++e) o[e] = v[e] + to_f(bias[c + e]);
     st8(out + r * N + c, o);
+  }
+};
+
+// GELU of the block's MLP, erf or tanh form, on a value already rounded to
+// the activation dtype (the JAX block tail's order)
+__device__ __forceinline__ float gelu_f(float v, int tanh_form) {
+  if (tanh_form)
+    return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
+  return v * 0.5f * (1.f + erff(v * 0.7071067811865476f));
+}
+
+template <typename T>
+struct ZhEpi {  // z = round_T(acc + b1), h = round_T(GELU(z)); z null: h only
+  const T* b1;
+  T* z;  // null in the forward block, which keeps no z
+  T* h;
+  int N, tanh_form;
+  __device__ void operator()(int, long long r, int c, float acc) const {
+    const float v = round_t<T>(acc + to_f(b1[c]));
+    if (z) z[r * N + c] = from_f<T>(v);
+    h[r * N + c] = from_f<T>(gelu_f(v, tanh_form));
+  }
+  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
+    float zv[8], hv[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      zv[e] = round_t<T>(v[e] + to_f(b1[c + e]));
+      hv[e] = gelu_f(zv[e], tanh_form);
+    }
+    if (z) st8(z + r * N + c, zv);
+    st8(h + r * N + c, hv);
   }
 };
 

@@ -57,12 +57,6 @@
 
 namespace pangu {
 
-__device__ __forceinline__ float gelu_f(float v, int tanh_form) {
-  if (tanh_form)
-    return 0.5f * v * (1.f + tanhf(0.7978845608028654f * (v + 0.044715f * v * v * v)));
-  return v * 0.5f * (1.f + erff(v * 0.7071067811865476f));
-}
-
 __device__ __forceinline__ float gelu_grad(float v, int tanh_form) {
   if (tanh_form) {
     const float k = 0.7978845608028654f;
@@ -75,29 +69,6 @@ __device__ __forceinline__ float gelu_grad(float v, int tanh_form) {
 }
 
 // ---- GEMM epilogues ---------------------------------------------------------
-
-template <typename T>
-struct ZhEpi {  // z = round_T(acc + b1), h = round_T(GELU(z))
-  const T* b1;
-  T* z;
-  T* h;
-  int N, tanh_form;
-  __device__ void operator()(int, long long r, int c, float acc) const {
-    const float v = round_t<T>(acc + to_f(b1[c]));
-    z[r * N + c] = from_f<T>(v);
-    h[r * N + c] = from_f<T>(gelu_f(v, tanh_form));
-  }
-  __device__ void operator()(int, long long r, int c, const float (&v)[8]) const {
-    float zv[8], hv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      zv[e] = round_t<T>(v[e] + to_f(b1[c + e]));
-      hv[e] = gelu_f(zv[e], tanh_form);
-    }
-    st8(z + r * N + c, zv);
-    st8(h + r * N + c, hv);
-  }
-};
 
 template <typename T>
 struct DzEpi {  // dz = round_T(acc * GELU'(z)); may overwrite h

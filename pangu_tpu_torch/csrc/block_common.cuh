@@ -3,6 +3,8 @@
 // block's input and the windowed attention of one (window, head).
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace pangu {
@@ -11,7 +13,23 @@ struct BlockShift {
   int dz, dh, dw, canon_add, h_real;
 };
 
-// 1. gather: one warp per window-coordinate row
+// 1. gather: the input row window-coordinate row m reads (storage, or
+// with in_canon the (B, Z, Hp, W) grid), or -1 for a latitude-pad row,
+// which is zero-synthesised
+__device__ __forceinline__ long long gather_src_row(long long m,
+                                                    const WmShape& s,
+                                                    const BlockShift& sh,
+                                                    int in_canon) {
+  const WmPos p = wm_split(m, s);
+  const int Z = s.nz * s.wz, hp = s.nlat * s.wh, W = s.nlon * s.ww;
+  if (pmod(s.wh * p.hh + p.rh + sh.canon_add, hp) >= sh.h_real) return -1;
+  const int z = pmod(s.wz * p.zz + p.rz + sh.dz, Z);
+  const int lat = pmod(s.wh * p.hh + p.rh + sh.dh, hp);
+  const int lon = pmod(s.ww * p.l + p.rw + sh.dw, W);
+  return in_canon ? grid_row(p.b, z, lat, lon, s) : wm_row(p.b, z, lat, lon, s);
+}
+
+// one warp per window-coordinate row, an element a lane at a time
 template <typename T>
 __global__ void __launch_bounds__(256)
 block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
@@ -19,19 +37,116 @@ block_gather_kernel(const T* __restrict__ x, T* __restrict__ xg, long long M,
   const int lane = threadIdx.x % 32;
   const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
   if (m >= M) return;
-  const WmPos p = wm_split(m, s);
-  const int Z = s.nz * s.wz, hp = s.nlat * s.wh, W = s.nlon * s.ww;
+  const long long src = gather_src_row(m, s, sh, in_canon);
   T* dst = xg + m * C;
-  if (pmod(s.wh * p.hh + p.rh + sh.canon_add, hp) >= sh.h_real) {
+  if (src < 0) {
     for (int c = lane; c < C; c += 32) dst[c] = from_f<T>(0.f);
     return;
   }
-  const int z = pmod(s.wz * p.zz + p.rz + sh.dz, Z);
-  const int lat = pmod(s.wh * p.hh + p.rh + sh.dh, hp);
-  const int lon = pmod(s.ww * p.l + p.rw + sh.dw, W);
-  const T* src = x + (in_canon ? grid_row(p.b, z, lat, lon, s)
-                               : wm_row(p.b, z, lat, lon, s)) * C;
-  for (int c = lane; c < C; c += 32) dst[c] = src[c];
+  for (int c = lane; c < C; c += 32) dst[c] = x[src * C + c];
+}
+
+// ---- the bf16 block's row passes, 16 bytes a lane ------------------------------
+// (C % 8 == 0 and 16-byte aligned rows; the C entries check both.)  One
+// warp per row as above, lane j moving channels [8j, 8j + 8), [8j + 256,
+// ...): a C = 192 row is one 16-byte access for 24 lanes instead of six
+// 2-byte accesses for every lane.
+
+// the gather: the same rows, copied 16 bytes at a time
+static __global__ void __launch_bounds__(256)
+block_gather16_kernel(const bf16* __restrict__ x, bf16* __restrict__ xg,
+                      long long M, int C, WmShape s, BlockShift sh,
+                      int in_canon) {
+  const int lane = threadIdx.x % 32, cpr = C / 8;
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M) return;
+  const long long src = gather_src_row(m, s, sh, in_canon);
+  uint4* dst = reinterpret_cast<uint4*>(xg + m * C);
+  const uint4* from = reinterpret_cast<const uint4*>(x + (src < 0 ? 0 : src) * C);
+  for (int k = lane; k < cpr; k += 32)
+    dst[k] = src < 0 ? make_uint4(0u, 0u, 0u, 0u) : from[k];
+}
+
+// the LayerNorm-residual pass of common.cuh's ln_rows_kernel (the same
+// float32 statistics, branch scales, rounding points and row map); the
+// sums run 8 channels a lane first, so a mean or variance may differ from
+// ln_rows's in its last float32 bit
+static __global__ void __launch_bounds__(256)
+ln_rows16_kernel(const bf16* y, const bf16* res, bf16* out,
+                 const bf16* __restrict__ scale,
+                 const bf16* __restrict__ shift, long long M, int C,
+                 RowMap out_map, const float* __restrict__ drop, int which,
+                 long long rows_per_sample) {
+  const int lane = threadIdx.x % 32, cpr = C / 8;
+  const long long row = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (row >= M) return;
+  const bf16* yr = y + row * C;
+  float s = 0.f;
+  for (int k = lane; k < cpr; k += 32) {
+    float v[8];
+    ld8(yr + 8 * k, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += v[e];
+  }
+  const float mu = warp_sum(s) / C;
+  float q = 0.f;
+  for (int k = lane; k < cpr; k += 32) {
+    float v[8];
+    ld8(yr + 8 * k, v);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float d = v[e] - mu;
+      q += d * d;
+    }
+  }
+  const float rs = rsqrtf(warp_sum(q) / C + 1e-5f);
+  bf16* o = out + map_row(row, out_map) * C;
+  const float ds = drop ? round_t<bf16>(drop[2 * (row / rows_per_sample) + which])
+                        : 1.f;
+  for (int k = lane; k < cpr; k += 32) {
+    float v[8], r[8];
+    ld8(yr + 8 * k, v);
+    if (res) ld8(res + row * C + 8 * k, r);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int c = 8 * k + e;
+      float ln = round_t<bf16>((v[e] - mu) * rs * to_f(scale[c]) + to_f(shift[c]));
+      if (drop) ln = round_t<bf16>(ln * ds);
+      if (res) ln += r[e];
+      v[e] = ln;
+    }
+    st8(o + 8 * k, v);
+  }
+}
+
+// the gather of a block's input by dtype: bf16 16 bytes a lane, float32 an
+// element a lane
+template <typename T>
+inline void block_gather(const T* x, T* xg, long long M, int C,
+                         const WmShape& s, const BlockShift& sh, int in_canon,
+                         cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value)
+    block_gather16_kernel<<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh,
+                                                         in_canon);
+  else
+    block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh,
+                                                          in_canon);
+}
+
+// a block's LayerNorm-residual pass by dtype: bf16 16 bytes a lane,
+// float32 common.cuh's ln_rows
+template <typename T>
+inline void block_ln(const T* y, const T* res, T* out, const T* scale,
+                     const T* shift, long long M, int C, cudaStream_t st,
+                     RowMap out_map, const float* drop, int which,
+                     long long rows_per_sample) {
+  if constexpr (std::is_same<T, bf16>::value)
+    ln_rows16_kernel<<<row_blocks(M), 256, 0, st>>>(
+        y, res, out, scale, shift, M, C, out_map, drop, which,
+        rows_per_sample);
+  else
+    ln_rows<T>(y, res, out, scale, shift, M, C, st, out_map, drop, which,
+               rows_per_sample);
 }
 
 // 3. windowed attention of one (window, head): q, k, v of the window in

@@ -34,22 +34,45 @@
 //               goes to its token's place in the (B, Z, Hp, W) grid, in the
 //               block's own window coordinates (the stage rolls back once)
 //
-// The grouped block differs only in step 3.  On the TPU, gh latitude windows
-// per program amortise the weight and bias-table streams into VMEM; here the
-// GEMMs already run over all rows, so grouping matters only in the attention:
-// one thread block per (sample, z window, group of gh lat windows, head)
-// stages each window type's (N, N) bias slice (and region ids) in shared
-// memory once and loops over the group's gh * nlon windows, instead of
-// re-reading the slice once per longitude window.
+// The grouped block differs only in step 3, and only in float32.  On the
+// TPU, gh latitude windows per program amortise the weight and bias-table
+// streams into VMEM; here the GEMMs already run over all rows, so grouping
+// matters only in the attention.  float32: one thread block per (sample, z
+// window, group of gh lat windows, head) stages each window type's (N, N)
+// bias slice (and region ids) in shared memory once and loops over the
+// group's gh * nlon windows.  bf16: the tensor-core attention already
+// stages each (type, head) slice once for all B x nlon windows of the type,
+// which is what gh was for, so gh no longer changes the launch; the C entry
+// still checks nlat % gh, and block_wm_group still counts its launches.
 //
 // What bounds it on an H100: arithmetic.  A stage-0 block at full width does
 // ~5.3e11 FLOP against ~0.45 GB of traffic (x in, out, the bias table), far
-// above the card's ~295 FLOP/byte balance point in bf16.  This first version
-// keeps every intermediate in device memory (about 10*C values per token) and
-// uses untuned WMMA (bf16) / FMA (float32) GEMMs and a one-warp-per-query
-// attention loop, so it runs well below that bound; fusing the steps and
-// moving the GEMMs to wgmma is later work.
-#include "block_common.cuh"
+// above the card's ~295 FLOP/byte balance point in bf16; but the unit
+// keeps every intermediate in device memory (about 10 C + 2 hidden values a
+// row written and read again), and each launch is bound by its own bytes.
+// bf16 (the perf config): the four products on the tensor cores through
+// mma_gemm.cuh's fwd_gemm (128 x 96 tiles, a 3-stage cp.async ring,
+// ldmatrix and mma.sync, 8-column epilogues of 16-byte accesses: BiasEpi,
+// and ZhEpi writing h only for fc1); the attention through wattn_mma.cuh's
+// wa_attention (one block of nine warps of 16 query rows per (type, head),
+// the table slice and a region-id bit mask staged once per block, P kept
+// in registers and rounded to bf16 as the A operand of P.V; one tile
+// buffer: against two, measured at full width on the H100, its attention
+// ran 1.555-1.571 ms against 1.581-1.593 at stage 0); the gather
+// and the two LayerNorm passes 16 bytes a lane (block_common.cuh).  So the
+// bf16 route takes C and hidden multiples of 8, 16-byte aligned operands
+// and windows of at most 144 tokens (the wrappers check before a launch).
+// float32 (the parity config): the first version's kernels, common.cuh's
+// FMA gemm and the one-warp-per-query CUDA-core attention, kept because
+// TF32 products would miss float32's 1e-4 gate; its outputs are the same
+// bit for bit as before the bf16 redesign.
+//
+// The file builds as two objects compiled in parallel (_build.PARTS): with
+// BLOCK_WM_PART 1 only the bf16 instantiations of block_wm (the tensor-core
+// route), with BLOCK_WM_PART 0 everything else, the entries calling the bf16
+// ones across the objects.  Without BLOCK_WM_PART it builds whole.
+#include "mma_gemm.cuh"
+#include "wattn_mma.cuh"
 
 namespace pangu {
 
@@ -88,39 +111,19 @@ group_attn_kernel(const T* __restrict__ qkv, T* __restrict__ out,
   }
 }
 
+// step 3: bf16 on the tensor cores (whatever gh), float32 on the CUDA cores
+// (grouped where gh > 1)
 template <typename T, typename TB>
-int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
-             const void* bqkv_, const void* wp_, const void* bp_,
-             const void* table_, const int* ids, const void* n1s_,
-             const void* n1b_, const void* n2s_, const void* n2b_,
-             const void* w1_, const void* b1_, const void* w2_, const void* b2_,
-             const float* drop, int B, WmShape s, int C, int heads, int hidden,
-             BlockShift sh,
-             int gelu_tanh, int gh, int in_canon, int out_canon,
-             cudaStream_t st) {
-  const T* x = (const T*)x_;
-  T* out = (T*)out_;
-  const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
-  // workspace: xg (M*C) | qkv (M*3C) | attn, later x1 (M*C) |
-  //            a, later y (M*C) | h (M*hidden)
-  T* xg = (T*)ws_;
-  T* qkv = xg + M * C;
-  T* attn = qkv + M * 3 * C;
-  T* a = attn + M * C;
-  T* hb = a + M * C;
-  T* x1 = attn;
-  T* y = a;
-  const PadRows none = {0};
-  const int hd = C / heads;
-
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s, sh,
-                                                        in_canon);
-  PANGU_CHECK_LAUNCH();
-  gemm(xg, (const T*)wqkv_, (const T*)bqkv_, qkv, (int)M, 3 * C, C, ACT_NONE,
-       none, st);
-  PANGU_CHECK_LAUNCH();
-
-  if (gh > 1) {
+int block_attention(const T* qkv, T* attn, const TB* table, const int* ids,
+                    int B, const WmShape& s, int C, int heads, int gh,
+                    cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    return wa_attention<TB>(qkv, attn, table, ids, B, s, C, heads, st);
+  } else {
+    if (gh == 1)
+      return window_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads,
+                                     st);
+    const int hd = C / heads;
     const size_t smem = attend_smem(s.n, hd, GATT_WARPS) + s.n * sizeof(int) +
                         (size_t)s.n * s.n * sizeof(TB);
     cudaError_t e = cudaFuncSetAttribute(group_attn_kernel<T, TB>,
@@ -129,36 +132,74 @@ int block_wm(const void* x_, void* out_, void* ws_, const void* wqkv_,
     if (e != cudaSuccess) return (int)e;
     dim3 agrid((unsigned)((long long)B * s.nz * (s.nlat / gh)), heads);
     group_attn_kernel<T, TB><<<agrid, 32 * GATT_WARPS, smem, st>>>(
-        qkv, attn, (const TB*)table_, ids, s.n, C, heads, hd, s.nz, s.nlat,
-        s.nlon, gh, attn_scale(hd));
-    PANGU_CHECK_LAUNCH();
-  } else {
-    const int e = window_attention<T, TB>(qkv, attn, (const TB*)table_, ids,
-                                          B, s, C, heads, st);
-    if (e) return e;
+        qkv, attn, table, ids, s.n, C, heads, hd, s.nz, s.nlat, s.nlon, gh,
+        attn_scale(hd));
+    return (int)cudaGetLastError();
   }
+}
 
-  gemm(attn, (const T*)wp_, (const T*)bp_, a, (int)M, C, C, ACT_NONE, none, st);
-  PANGU_CHECK_LAUNCH();
+template <typename T, typename TB>
+int block_wm(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
+             const T* wp, const T* bp, const TB* table, const int* ids,
+             const T* n1s, const T* n1b, const T* n2s, const T* n2b,
+             const T* w1, const T* b1, const T* w2, const T* b2,
+             const float* drop, int B, WmShape s, int C, int heads,
+             int hidden, BlockShift sh, int gelu_tanh, int gh, int in_canon,
+             int out_canon, cudaStream_t st) {
+  const long long M = (long long)B * s.nz * s.nlat * s.nlon * s.n;
+  // workspace: xg (M*C) | qkv (M*3C) | attn, later x1 (M*C) |
+  //            a, later y (M*C) | h (M*hidden)
+  T* xg = ws;
+  T* qkv = xg + M * C;
+  T* attn = qkv + M * 3 * C;
+  T* a = attn + M * C;
+  T* hb = a + M * C;
+  T* x1 = attn;
+  T* y = a;
   const long long rows_per_sample = M / B;
-  ln_rows<T>(a, xg, x1, (const T*)n1s_, (const T*)n1b_, M, C, st, RowMap{},
-             drop, 0, rows_per_sample);
+
+  block_gather<T>(x, xg, M, C, s, sh, in_canon, st);
   PANGU_CHECK_LAUNCH();
-  gemm(x1, (const T*)w1_, (const T*)b1_, hb, (int)M, hidden, C,
-       gelu_tanh ? ACT_GELU_TANH : ACT_GELU_ERF, none, st);
+  int e = fwd_gemm(xg, wqkv, bqkv, qkv, M, 3 * C, C, ACT_NONE, st);
+  if (e) return e;
+  e = block_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, gh, st);
+  if (e) return e;
+  e = fwd_gemm(attn, wp, bp, a, M, C, C, ACT_NONE, st);
+  if (e) return e;
+  block_ln<T>(a, xg, x1, n1s, n1b, M, C, st, RowMap{}, drop, 0,
+              rows_per_sample);
   PANGU_CHECK_LAUNCH();
-  gemm(hb, (const T*)w2_, (const T*)b2_, y, (int)M, C, hidden, ACT_NONE, none, st);
-  PANGU_CHECK_LAUNCH();
-  const RowMap out_map = {out_canon, s};
-  ln_rows<T>(y, x1, out, (const T*)n2s_, (const T*)n2b_, M, C, st, out_map,
-             drop, 1, rows_per_sample);
+  e = fwd_gemm(x1, w1, b1, hb, M, hidden, C,
+               gelu_tanh ? ACT_GELU_TANH : ACT_GELU_ERF, st);
+  if (e) return e;
+  e = fwd_gemm(hb, w2, b2, y, M, C, hidden, ACT_NONE, st);
+  if (e) return e;
+  block_ln<T>(y, x1, out, n2s, n2b, M, C, st, RowMap{out_canon, s}, drop, 1,
+              rows_per_sample);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
 
+#define PANGU_BLOCK_INSTANCE(T, TB)                                            \
+  int block_wm<T, TB>(const T*, T*, T*, const T*, const T*, const T*,          \
+                      const T*, const TB*, const int*, const T*, const T*,     \
+                      const T*, const T*, const T*, const T*, const T*,        \
+                      const T*, const float*, int, WmShape, int, int, int,     \
+                      BlockShift, int, int, int, int, cudaStream_t)
+#if defined(BLOCK_WM_PART) && BLOCK_WM_PART == 0
+extern template PANGU_BLOCK_INSTANCE(bf16, float);
+extern template PANGU_BLOCK_INSTANCE(bf16, bf16);
+#elif defined(BLOCK_WM_PART) && BLOCK_WM_PART == 1
+template PANGU_BLOCK_INSTANCE(bf16, float);
+template PANGU_BLOCK_INSTANCE(bf16, bf16);
+#endif
+#undef PANGU_BLOCK_INSTANCE
+
 }  // namespace pangu
 
 using namespace pangu;
+
+#if !defined(BLOCK_WM_PART) || BLOCK_WM_PART == 0
 
 // dtype codes: 0 = float32, 1 = bfloat16.  drop: (B, 2) float32 branch
 // scales or null.  gh: lat windows per attention
@@ -180,11 +221,19 @@ extern "C" int pangu_block_wm(
   const int* id = (const int*)ids;
   if (n > 32 * ATT_MAXJ || C % heads != 0 || gh < 1 || nlat % gh != 0)
     return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles and the 16-byte row passes take 8-column
+  // groups, 16-byte aligned operands and windows of at most 144 tokens
+  if (dtype == 1 &&
+      (C % 8 || hidden % 8 || pad16(n) > 16 * WA_KT ||
+       !aligned16_all({x, out, workspace, wqkv, wp, w1, w2})))
+    return (int)cudaErrorInvalidValue;
 #define PANGU_BLOCK(T, TB)                                                     \
-  return block_wm<T, TB>(x, out, workspace, wqkv, bqkv, wp, bp, table, id, \
-                         n1s, n1b, n2s, n2b, w1, b1, w2, b2,                \
-                         (const float*)drop, B, s, C, heads,                  \
-                         hidden, sh, gelu_tanh, gh, in_canon, out_canon, st)
+  return block_wm<T, TB>(                                                      \
+      (const T*)x, (T*)out, (T*)workspace, (const T*)wqkv, (const T*)bqkv,     \
+      (const T*)wp, (const T*)bp, (const TB*)table, id, (const T*)n1s,         \
+      (const T*)n1b, (const T*)n2s, (const T*)n2b, (const T*)w1,               \
+      (const T*)b1, (const T*)w2, (const T*)b2, (const float*)drop, B, s, C,   \
+      heads, hidden, sh, gelu_tanh, gh, in_canon, out_canon, st)
   if (dtype == 0 && table_dtype == 0) PANGU_BLOCK(float, float);
   if (dtype == 0 && table_dtype == 1) PANGU_BLOCK(float, bf16);
   if (dtype == 1 && table_dtype == 0) PANGU_BLOCK(bf16, float);
@@ -217,3 +266,4 @@ extern "C" int pangu_block_noroll(
 extern "C" const char* pangu_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+#endif  // BLOCK_WM_PART 0

@@ -77,42 +77,6 @@ struct BCols {
   }
 };
 
-// eight consecutive values at p (16-byte aligned) as float, and stored
-// from float (rounded to nearest even for bf16): the tensor-core products'
-// epilogues (mma_gemm.cuh) hand an epilogue 8 columns at a time
-__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
-  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    v[2 * i] = f.x, v[2 * i + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void st8(float* p, const float (&v)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-__device__ __forceinline__ void st8(bf16* p, const float (&v)[8]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    w[i] = *reinterpret_cast<const uint32_t*>(&h);
-  }
-  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-}
-
 // a weight gradient's split epilogue: part[split][r][c]
 struct SplitStore {
   float* part;

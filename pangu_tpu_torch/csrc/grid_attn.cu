@@ -38,12 +38,14 @@
 // rows, N = 144 tokens a window) and three times that backward, against
 // reading and writing the grid and the intermediates (5 C values a row
 // forward, 10 C backward) at ~140 FLOP per byte.  bf16 (the perf config):
-// every product on the tensor cores (mma_gemm.cuh); the backward's
-// attention, forward recompute and backward, too (wattn_mma.cuh); the
-// forward keeps the block kernels' CUDA-core attention (block_common.cuh)
-// until the forward kernels' redesign.  float32 (the parity config): the
-// first version's kernels (common.cuh's gemm, grad_gemm.cuh's FMA tiles,
-// the CUDA-core attention of block_common.cuh and attn_bwd.cuh).
+// every product on the tensor cores (mma_gemm.cuh; the forward's qkv
+// product through fwd_gemm, as the block kernel's), the attention forward,
+// recomputed forward and backward too (wattn_mma.cuh, one block of nine
+// warps per (type, head)), the gathers of x 16 bytes a lane
+// (block_common.cuh).  float32 (the parity config): the first version's
+// kernels (common.cuh's gemm, grad_gemm.cuh's FMA tiles, the CUDA-core
+// attention of block_common.cuh and attn_bwd.cuh), so its outputs stay
+// the same bit for bit.
 #include "mma_gemm.cuh"
 #include "wattn_mma.cuh"
 
@@ -66,17 +68,9 @@ inline long long grid_ws_elems(long long M, int C, int which) {
 template <typename T>
 int grid_qkv(const T* x, T* xg, T* qkv, const T* wqkv, const T* bqkv,
              long long M, const WmShape& s, int C, cudaStream_t st) {
-  block_gather_kernel<T><<<row_blocks(M), 256, 0, st>>>(x, xg, M, C, s,
-                                                        no_shift(s), 1);
+  block_gather<T>(x, xg, M, C, s, no_shift(s), 1, st);
   PANGU_CHECK_LAUNCH();
-  if constexpr (std::is_same<T, bf16>::value) {
-    return (int)mma_gemm<false>(xg, wqkv, M, 3 * C, C,
-                                BiasEpi<T>{bqkv, qkv, 3 * C}, st);
-  } else {
-    const PadRows none = {0};
-    gemm(xg, wqkv, bqkv, qkv, (int)M, 3 * C, C, ACT_NONE, none, st);
-    return (int)cudaGetLastError();
-  }
+  return fwd_gemm(xg, wqkv, bqkv, qkv, M, 3 * C, C, ACT_NONE, st);
 }
 
 template <typename T, typename TB>
@@ -91,7 +85,7 @@ int grid_attn(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
 
   int e = grid_qkv(x, xg, qkv, wqkv, bqkv, M, s, C, st);
   if (e) return e;
-  e = window_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
+  e = unit_attention<T, TB>(qkv, attn, table, ids, B, s, C, heads, st);
   if (e) return e;
   return unit_gemm<false>(attn, wp, M, C, C,
                           GridEpi<T>{bp, out, C, RowMap{1, s}}, st);
@@ -138,9 +132,41 @@ int grid_attn_bwd(const T* x, const T* g, T* dx, T* ws, float* part,
                          GridEpi<T>{nullptr, dx, C, RowMap{1, s}}, st);
 }
 
+// The file builds as three objects compiled in parallel (_build.PARTS):
+// with GRID_ATTN_PART 1 only the bf16 instantiations of the forward, with
+// GRID_ATTN_PART 2 those of the backward (the tensor-core route, most of
+// the file's compile time), with GRID_ATTN_PART 0 everything else, the
+// entries calling the bf16 ones across the objects.  Without
+// GRID_ATTN_PART it builds whole.
+#define PANGU_GRID_FWD_INSTANCE(T, TB)                                         \
+  int grid_attn<T, TB>(const T*, T*, T*, const T*, const T*, const T*,         \
+                       const T*, const TB*, const int*, int, WmShape, int,     \
+                       int, cudaStream_t)
+#define PANGU_GRID_BWD_INSTANCE(T, TB)                                         \
+  int grid_attn_bwd<T, TB>(const T*, const T*, T*, T*, float*, const T*,       \
+                           const T*, const T*, const TB*, const int*, float*,  \
+                           float*, float*, int, WmShape, int, int,             \
+                           cudaStream_t)
+#if defined(GRID_ATTN_PART) && GRID_ATTN_PART == 0
+extern template PANGU_GRID_FWD_INSTANCE(bf16, float);
+extern template PANGU_GRID_FWD_INSTANCE(bf16, bf16);
+extern template PANGU_GRID_BWD_INSTANCE(bf16, float);
+extern template PANGU_GRID_BWD_INSTANCE(bf16, bf16);
+#elif defined(GRID_ATTN_PART) && GRID_ATTN_PART == 1
+template PANGU_GRID_FWD_INSTANCE(bf16, float);
+template PANGU_GRID_FWD_INSTANCE(bf16, bf16);
+#elif defined(GRID_ATTN_PART) && GRID_ATTN_PART == 2
+template PANGU_GRID_BWD_INSTANCE(bf16, float);
+template PANGU_GRID_BWD_INSTANCE(bf16, bf16);
+#endif
+#undef PANGU_GRID_FWD_INSTANCE
+#undef PANGU_GRID_BWD_INSTANCE
+
 }  // namespace pangu
 
 using namespace pangu;
+
+#if !defined(GRID_ATTN_PART) || GRID_ATTN_PART == 0
 
 // Workspace the entries below need for ``rows`` grid rows: T elements of the
 // forward (which = 0), of the backward (1), float32 elements of the
@@ -161,8 +187,11 @@ extern "C" int pangu_grid_attn(int dtype, int table_dtype, const void* x,
                                int wh, int ww, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   cudaStream_t st = (cudaStream_t)stream;
+  // bf16: the tensor-core tiles and the 16-byte gather take 8-column
+  // groups, 16-byte aligned operands and windows of at most 144 tokens
   if (n > 32 * ATT_MAXJ || C % heads != 0 ||
-      (dtype == 1 && (C % 8 || !aligned16_all({wqkv, wp}))))
+      (dtype == 1 && (C % 8 || pad16(n) > 16 * WA_KT ||
+                      !aligned16_all({x, out, ws, wqkv, wp}))))
     return (int)cudaErrorInvalidValue;
 #define PANGU_GRID(T, TB)                                                      \
   return grid_attn<T, TB>((const T*)x, (T*)out, (T*)ws, (const T*)wqkv,       \
@@ -188,11 +217,11 @@ extern "C" int pangu_grid_attn_bwd(
     int ww, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   cudaStream_t st = (cudaStream_t)stream;
-  // bf16: the tensor-core tiles take 8-column groups, 16-byte aligned
-  // operands and windows of at most 144 tokens
+  // bf16: the tensor-core tiles and the 16-byte gather take 8-column
+  // groups, 16-byte aligned operands and windows of at most 144 tokens
   if (n > 32 * ATT_MAXJ || C % heads != 0 ||
       (dtype == 1 && (C % 8 || pad16(n) > 16 * WA_KT ||
-                      !aligned16_all({wqkv, wp}))))
+                      !aligned16_all({x, dx, ws, wqkv, wp}))))
     return (int)cudaErrorInvalidValue;
 #define PANGU_GRID_BWD(T, TB)                                                  \
   return grid_attn_bwd<T, TB>(                                                 \
@@ -206,3 +235,4 @@ extern "C" int pangu_grid_attn_bwd(
 #undef PANGU_GRID_BWD
   return (int)cudaErrorInvalidValue;
 }
+#endif  // GRID_ATTN_PART 0

@@ -1,5 +1,9 @@
-// The products of the backward units (block_bwd.cu, grid_attn.cu) in bf16 on
-// the tensor cores, and the dispatch that keeps float32 on grad_gemm.cuh.
+// The bf16 products of the block kernel (block_wm.cu), its backward
+// (block_bwd.cu) and the grid attention (grid_attn.cu, forward and
+// backward) on the tensor cores, and the dispatches that keep float32 on
+// the first version's kernels: unit_gemm / unit_wgrad (the backward units;
+// float32 on grad_gemm.cuh) and fwd_gemm (the forward's four products;
+// float32 on common.cuh's gemm, so its float32 outputs stay bit for bit).
 //
 //   mma_gemm<kBT>(a, b, M, N, K, epi): out (M x N) = a (M x K, row-major)
 //     times b, where b is (K x N) row-major or, kBT, the transpose of a
@@ -39,6 +43,7 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include "attn_bwd.cuh"
 #include "attn_mma.cuh"
 #include "grad_gemm.cuh"
 
@@ -288,6 +293,27 @@ inline bool aligned16_all(std::initializer_list<const void*> ps) {
   for (const void* p : ps)
     if ((uintptr_t)p & 15) return false;
   return true;
+}
+
+// ---- the forward's products, by dtype -------------------------------------------
+
+// out = round_T(a w + bias), through GELU (common.cuh's Act: erf or tanh,
+// rounded before and after, ZhEpi writing h only) where act says: bf16 on
+// the tensor cores, float32 on common.cuh's FMA tiles
+template <typename T>
+inline int fwd_gemm(const T* a, const T* w, const T* bias, T* out,
+                    long long M, int N, int K, int act, cudaStream_t st) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (act == ACT_NONE)
+      return (int)mma_gemm<false>(a, w, M, N, K, BiasEpi<T>{bias, out, N}, st);
+    return (int)mma_gemm<false>(
+        a, w, M, N, K,
+        ZhEpi<T>{bias, nullptr, out, N, act == ACT_GELU_TANH ? 1 : 0}, st);
+  } else {
+    const PadRows none = {0};
+    gemm(a, w, bias, out, (int)M, N, K, act, none, st);
+    return (int)cudaGetLastError();
+  }
 }
 
 // ---- the backward units' products, by dtype ------------------------------------

@@ -1,9 +1,11 @@
-// The windowed attention of the backward units (block_bwd.cu, grid_attn.cu)
-// in bf16 on the tensor cores: the forward they recompute and the backward
-// with the bias-table gradient.  In bf16 they take the place of
-// block_common.cuh::window_attention (inside the backward units only; the
-// forward kernels keep it) and attn_bwd.cuh::attn_bwd_kernel; float32 keeps
-// those CUDA-core kernels (TF32 products would miss float32's 1e-4 gate).
+// The windowed attention in bf16 on the tensor cores: the forward of the
+// block kernel (block_wm.cu, ungrouped and grouped alike) and of the grid
+// attention (grid_attn.cu), the forward the backward units (block_bwd.cu,
+// grid_attn.cu) recompute, and the backward with the bias-table gradient.
+// In bf16 they take the place of block_common.cuh::window_attention,
+// block_wm.cu's group_attn_kernel and attn_bwd.cuh::attn_bwd_kernel;
+// float32 keeps those CUDA-core kernels (TF32 products would miss float32's
+// 1e-4 gate).
 //
 // Layout: qkv (M, 3C) and the cotangent dO (M, C) in window-major rows; a
 // head's q, k, v, dO of one window are (N, hd) row-major tiles.  Logits as
@@ -22,7 +24,8 @@
 // head slices of a row are read and written at about the same time),
 // walking the type's B x nlon windows in order, one warp per 16 query rows
 // (N padded to 16, at most 144: nine warps), q, k, v (and dO) by cp.async
-// into (np, hd + pad) tiles, double-buffered where shared memory allows.
+// into (np, hd + pad) tiles: the backward's double-buffered where shared
+// memory allows, the forward's single (see wa_plan).
 // The (type, head) bias is the same for every window of a block, so it is
 // staged in shared memory once per block: the table slice in its own dtype
 // beside a bit mask of the ids (a folded float32 slice would leave the
@@ -260,12 +263,13 @@ __device__ __forceinline__ const int* wa_ids(int* sid, const int* ids,
   return ids ? sid : nullptr;
 }
 
-// forward: one block per (window type, head) over the type's windows
+// forward: one block per (window type, head) over the type's windows, one
+// tile buffer (wa_plan)
 template <typename TB>
 __global__ void __launch_bounds__(32 * WA_KT)
 wattn_mma_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      const TB* __restrict__ table, const int* __restrict__ ids,
-                     WaGeo w, float scale, int nbuf, int vec) {
+                     WaGeo w, float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int N = w.N, np = pad16(N), nkt = np / 16, ldx = np + 8;
   const int mw = wa_mask_words(np);
@@ -282,7 +286,7 @@ wattn_mma_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   p += (size_t)np * sizeof(int);
   bf16* tiles = reinterpret_cast<bf16*>(p);
   const int tile = np * ldh;
-  zero_smem(tiles, (size_t)nbuf * 3 * tile * sizeof(bf16));
+  zero_smem(tiles, (size_t)3 * tile * sizeof(bf16));
   const int* sidp = wa_ids(sid, ids, type, N, np);
   __syncthreads();  // the ids
   const int nwin = w.B * w.nlon;
@@ -290,20 +294,12 @@ wattn_mma_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
   wa_stage_table(tb, ldx, msk, table + ((long long)type * w.heads + h) * N * N,
                  sidp, N, np);
   __syncthreads();  // the table tile, the mask and zeros
+  const bf16 *qt = tiles, *kt = qt + tile, *vt = kt + tile;
   for (int win = 0; win < nwin; ++win) {
-    const int buf = nbuf == 2 ? win & 1 : 0;
     float s[2 * WA_KT][4];
     wa_bias_table<2 * WA_KT>(s, tb, ldx, msk, mw, i0, 2 * nkt);
-    if (nbuf == 2 && win + 1 < nwin) {
-      wa_load(tiles + (buf ^ 1) * 3 * tile, tile, qkv, nullptr, w, zz, hh, h,
-              win + 1, ldh, vec);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    cp_async_wait<0>();
     __syncthreads();  // window win's tiles are in
-    const bf16* qt = tiles + buf * 3 * tile;
-    const bf16 *kt = qt + tile, *vt = kt + tile;
     if (warp < nkt) {
       wa_probs<WA_KT>(s, qt, kt, ldh, i0, N, nkt, dkr, scale);
       uint32_t pa[WA_KT][4];  // P rounded to bf16, the A operand of P V
@@ -328,8 +324,8 @@ wattn_mma_fwd_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
         wa_store(o, dst, w.C, i0, N, d0, w.hd, 1.f);
       }
     }
-    __syncthreads();  // every warp is done with this buffer
-    if (nbuf == 1 && win + 1 < nwin)
+    __syncthreads();  // every warp is done with the tiles
+    if (win + 1 < nwin)
       wa_load(tiles, tile, qkv, nullptr, w, zz, hh, h, win + 1, ldh, vec);
   }
 }
@@ -534,8 +530,12 @@ inline WaPlan wa_plan(bool bwd, int N, int hd, size_t tb_bytes,
   // float32 partial)
   const size_t base = np * sizeof(int) + np * wa_mask_words((int)np) * 4 +
                       tile * (tb_bytes + (bwd ? sizeof(bf16) : 0));
+  // the forward keeps one buffer: measured against two at full width on
+  // the H100 (bf16 table, stage 0), its attention ran ~1.5% faster (one
+  // CTA of nine warps fills a SM either way at ~163 registers a thread,
+  // and the smaller plan leaves more of the SM to L1)
   for (int shared = bwd ? 1 : 0; shared >= 0; --shared)
-    for (int nbuf = 2; nbuf >= 1; --nbuf) {
+    for (int nbuf = bwd ? 2 : 1; nbuf >= 1; --nbuf) {
       const size_t bytes = base + shared * tile * sizeof(float) + nbuf * set;
       if (bytes <= max_smem) return WaPlan{nbuf, shared, bytes};
     }
@@ -568,8 +568,7 @@ inline int wa_attention(const bf16* qkv, bf16* out, const TB* table,
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(s.nz * s.nlat * heads);
   wattn_mma_fwd_kernel<TB><<<grid, 2 * pad16(s.n), p.smem, st>>>(
-      qkv, out, table, ids, w, attn_scale(w.hd), p.nbuf,
-      wa_vec(w, qkv, qkv));
+      qkv, out, table, ids, w, attn_scale(w.hd), wa_vec(w, qkv, qkv));
   return (int)cudaGetLastError();
 }
 
@@ -593,10 +592,10 @@ inline int wa_attention_bwd(const bf16* qkv, const bf16* dout, bf16* dqkv,
   return (int)cudaGetLastError();
 }
 
-// ---- the backward units' attention, by dtype ---------------------------------
+// ---- the attention, by dtype ---------------------------------------------------
 
-// the recomputed forward: bf16 here, float32 on block_common.cuh's
-// window_attention
+// the forward (the grid attention's, and the backward units' recompute):
+// bf16 here, float32 on block_common.cuh's window_attention
 template <typename T, typename TB>
 inline int unit_attention(const T* qkv, T* out, const TB* table,
                           const int* ids, int B, const WmShape& s, int C,

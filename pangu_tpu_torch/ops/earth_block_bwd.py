@@ -53,6 +53,7 @@ from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, block_wm,
                                                 drop_scales, from_window_major,
                                                 pad_rows_zeroed, params_in,
                                                 require_device,
+                                                tensor_core_operands,
                                                 to_window_major)
 
 LAYOUTS = ("wm", "canon")
@@ -250,24 +251,6 @@ def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
 # The CUDA kernel unit
 # ---------------------------------------------------------------------------
 
-def aligned16(t):
-    """``t`` itself where its data starts at a 16-byte boundary, else a
-    copy: the bf16 tensor-core tiles copy their operands 16 bytes at a
-    time."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def check_tensor_core_shape(channels, n, what: str) -> None:
-    """Raise ValueError on what the bf16 tensor-core kernels of the
-    backward units (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``) do not
-    take: a channel count (C, the MLP width) that is not a multiple of 8,
-    or a window of more than 144 tokens (``n`` None: no attention)."""
-    if any(c % 8 for c in channels) or (n is not None and n > 144):
-        raise ValueError(f"{what}: the bf16 kernels take channel counts that "
-                         f"are multiples of 8 and windows of at most 144 "
-                         f"tokens, got {tuple(channels)} and {n}")
-
-
 def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
             canon_add: int, ids, drop, gelu_tanh: bool, x_layout: str,
             g_layout: str):
@@ -302,10 +285,7 @@ def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
     drop = check_drop(drop, b, xs.device, "block_bwd")
     hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
     if xs.dtype == torch.bfloat16:
-        check_tensor_core_shape((c, hidden), n, "block_bwd")
-        for sub, leaf in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
-                          ("mlp", "fc2")):
-            q[sub][leaf]["kernel"] = aligned16(q[sub][leaf]["kernel"])
+        tensor_core_operands(q, c, hidden, n, "block_bwd")
     rows = xs.numel() // c
     dev = xs.device
     lib = _build.library()

@@ -156,6 +156,35 @@ def block_wm_plain(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     return tail_math(a, xg, p, gelu_tanh, *drop_scales(drop, a.dim()))
 
 
+def aligned16(t):
+    """``t`` itself where its data starts at a 16-byte boundary, else a
+    copy: the bf16 tensor-core tiles copy their operands 16 bytes at a
+    time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check_tensor_core_shape(channels, n, what: str) -> None:
+    """Raise ValueError on what the bf16 tensor-core kernels of the block,
+    its backward and the grid attention (``csrc/mma_gemm.cuh``,
+    ``csrc/wattn_mma.cuh``) do not take: a channel count (C, the MLP
+    width) that is not a multiple of 8, or a window of more than 144
+    tokens (``n`` None: no attention)."""
+    if any(c % 8 for c in channels) or (n is not None and n > 144):
+        raise ValueError(f"{what}: the bf16 kernels take channel counts that "
+                         f"are multiples of 8 and windows of at most 144 "
+                         f"tokens, got {tuple(channels)} and {n}")
+
+
+def tensor_core_operands(q, c: int, hidden: int, n: int, what: str) -> None:
+    """Raise where the bf16 tensor-core kernels of a block unit do not take
+    its shapes (``check_tensor_core_shape``); make the four dense weights
+    of the param tree ``q`` (in the activation dtype) 16-byte aligned."""
+    check_tensor_core_shape((c, hidden), n, what)
+    for sub, leaf in (("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"),
+                      ("mlp", "fc2")):
+        q[sub][leaf]["kernel"] = aligned16(q[sub][leaf]["kernel"])
+
+
 def check_drop(drop, b: int, device, what: str):
     """A (B, 2) float32 contiguous drop tensor on ``device``, or None."""
     if drop is None:
@@ -169,9 +198,11 @@ def check_drop(drop, b: int, device, what: str):
 
 def block_operands(p, x, geom: StageGeometry, gh: int, in_canon: bool,
                    what: str):
-    """Check what a block kernel takes and raise on the rest; return the
-    params in x's dtype, the bias table, the launch dimensions ``(b, nz,
-    nlat, nlon, n, c, heads, hidden, wz, wh, ww)`` and the workspace."""
+    """Check what a block kernel takes and raise on the rest (in bf16, the
+    tensor-core shapes, before anything is launched); return x (16-byte
+    aligned in bf16), the params in x's dtype, the bias table, the launch
+    dimensions ``(b, nz, nlat, nlon, n, c, heads, hidden, wz, wh, ww)`` and
+    the workspace."""
     wz, wh, ww = geom.window
     n = wz * wh * ww
     if in_canon:
@@ -194,10 +225,13 @@ def block_operands(p, x, geom: StageGeometry, gh: int, in_canon: bool,
     if table.dtype not in DTYPE_CODE or table.shape != (nz * nlat, geom.heads, n, n):
         raise ValueError(f"{what}: bias table {tuple(table.shape)} {table.dtype}")
     hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    if x.dtype == torch.bfloat16:   # the tensor-core tiles, 16-byte rows
+        tensor_core_operands(q, c, hidden, n, what)
+        x = aligned16(x)
     ws = torch.empty(x.numel() // c * (6 * c + hidden), dtype=x.dtype,
                      device=x.device)
-    return q, table, (b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh,
-                      ww), ws
+    return x, q, table, (b, nz, nlat, nlon, n, c, geom.heads, hidden, wz, wh,
+                         ww), ws
 
 
 def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
@@ -207,7 +241,7 @@ def launch_block(p, x, out, geom: StageGeometry, delta: Offset,
     """Launch the block kernel on ``x`` (wm storage, or with ``in_canon``
     the (B, Z, Hp, W, C) grid) into ``out``; raise on what it does not take.
     ``drop``: (B, 2) float32 branch scales or None (the served kernel)."""
-    q, table, dims, ws = block_operands(p, x, geom, gh, in_canon, what)
+    x, q, table, dims, ws = block_operands(p, x, geom, gh, in_canon, what)
     if ids is not None:
         ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
         if ids.shape != (table.shape[0], dims[4]):

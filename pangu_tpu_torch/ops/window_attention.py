@@ -65,10 +65,11 @@ from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.models.layers import (_dot, dense, earth_attention,
                                           window_partition, window_reverse)
 from pangu_tpu_torch.ops.block_tail import tail_math
-from pangu_tpu_torch.ops.earth_block_bwd import (_colsum, _wgrad, aligned16,
-                                                 check_tensor_core_shape)
+from pangu_tpu_torch.ops.earth_block_bwd import _colsum, _wgrad
 from pangu_tpu_torch.models.lora import has_lora
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, block_operands,
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, aligned16,
+                                                block_operands,
+                                                check_tensor_core_shape,
                                                 params_in)
 
 Window = Tuple[int, int, int]
@@ -162,9 +163,10 @@ def grid_attention_bwd_plain(x, g, wqkv, bqkv, wp, table, window: Window,
 # ---------------------------------------------------------------------------
 
 def _checked(x, weights, table, window: Window, ids, what: str):
-    """Raise on what the kernels do not take; return the weights in x's
-    dtype, the ids as int32 on x's device, and the window grid
-    ``(b, nz, nlat, nlon, n, c, heads)``."""
+    """Raise on what the kernels do not take (in bf16, the tensor-core
+    shapes); return x (16-byte aligned in bf16), the weights in x's dtype,
+    the ids as int32 on x's device, and the window grid ``(b, nz, nlat,
+    nlon, n, c, heads)``."""
     b, z, hp, w, c = x.shape
     wz, wh, ww = window
     nz, nlat, nlon, n = z // wz, hp // wh, w // ww, wz * wh * ww
@@ -182,8 +184,9 @@ def _checked(x, weights, table, window: Window, ids, what: str):
         raise ValueError(f"{what}: bias table {tuple(table.shape)} "
                          f"{table.dtype}")
     weights = [t.to(x.dtype).contiguous() for t in weights]
-    if x.dtype == torch.bfloat16:   # the products' tensor-core tiles
-        check_tensor_core_shape((c,), None, what)
+    if x.dtype == torch.bfloat16:   # the tensor-core tiles, 16-byte rows
+        check_tensor_core_shape((c,), n, what)
+        x = aligned16(x)
         weights = [aligned16(t) for t in weights]
     for t in weights + [table]:
         if t.device != x.device:
@@ -193,7 +196,7 @@ def _checked(x, weights, table, window: Window, ids, what: str):
         ids = ids.to(device=x.device, dtype=torch.int32).contiguous()
         if ids.shape != (nz * nlat, n):
             raise ValueError(f"{what}: region ids {tuple(ids.shape)}")
-    return weights, ids, (b, nz, nlat, nlon, n, c, heads)
+    return x, weights, ids, (b, nz, nlat, nlon, n, c, heads)
 
 
 def _ptr(t):
@@ -209,7 +212,7 @@ def grid_attention(x, wqkv, bqkv, wp, bp, table, window: Window,
     kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if not x.is_cuda:
         return grid_attention_plain(x, wqkv, bqkv, wp, bp, table, window, ids)
-    (wqkv, bqkv, wp, bp), ids, dims = _checked(
+    x, (wqkv, bqkv, wp, bp), ids, dims = _checked(
         x, [wqkv, bqkv, wp, bp], table, window, ids, "grid_attention")
     table = table.contiguous()
     lib = _build.library()
@@ -239,10 +242,8 @@ def grid_attention_bwd(x, g, wqkv, bqkv, wp, table, window: Window,
     if not x.is_cuda:
         return grid_attention_bwd_plain(x, g, wqkv, bqkv, wp, table, window,
                                         ids)
-    (wqkv, bqkv, wp), ids, dims = _checked(
+    x, (wqkv, bqkv, wp), ids, dims = _checked(
         x, [wqkv, bqkv, wp], table, window, ids, "grid_attention_bwd")
-    if x.dtype == torch.bfloat16:   # the tensor-core attention backward
-        check_tensor_core_shape((), dims[4], "grid_attention_bwd")
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"grid_attention_bwd: cotangent {tuple(g.shape)} on "
                          f"{g.device}, input {tuple(x.shape)} on {x.device}")
@@ -514,8 +515,8 @@ def block_noroll_fused(p, xg, geom: StageGeometry, gelu_tanh: bool):
         return None
     if not xg.is_cuda:
         return block_noroll_plain(p, xg, geom, gelu_tanh)
-    q, table, dims, ws = block_operands(p, xg, geom, 1, True,
-                                        "block_noroll_fused")
+    xg, q, table, dims, ws = block_operands(p, xg, geom, 1, True,
+                                            "block_noroll_fused")
     out = torch.empty_like(xg)
     tensors = (xg, out, ws, q["attn"]["qkv"]["kernel"],
                q["attn"]["qkv"]["bias"], q["attn"]["proj"]["kernel"],

@@ -29,9 +29,11 @@ window attention forward and every gradient of its drop-in, the block
 backward with canonical ends, the grouped block with branch scales, the
 float32 train step through the canonical stage Function (adapters at
 Down/UpSample only) and ``attn_impl="xla"`` (no kernel launched); and the
-bf16 tensor-core route of the block backward (both layouts) and the grid
-attention at a row count that is not a multiple of the product tile and at
-C = 384, with float32 and bf16 bias tables.  Needs a CUDA
+bf16 tensor-core route of the block forward, the block backward (both
+layouts) and the grid attention forward and backward at a row count that
+is not a multiple of the 128-row product tile and at C = 384, with float32
+and bf16 bias tables, bit-identical in two runs (the grouped block equal
+to the ungrouped one, one launch plan in bf16).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -1271,3 +1273,63 @@ def test_grid_attention_tensor_core_cases(cuda, case, masked, table_dtype):
     again = grid_attention_bwd(x, dy, *args, table, geom.window, ids)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shifted", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "c384"])
+def test_block_forward_tensor_core_cases(cuda, case, shifted, table_dtype):
+    """The bf16 block forward (products and attention on the tensor cores)
+    at a row count that is not a multiple of the 128-row product tile and
+    at C = 384, region ids present (shifted) and absent, the bias table in
+    float32 and bf16, with and without branch scales: against the plain
+    version, bit-identical in two runs; the grouped block (every latitude
+    window in one group) bit-identical to the ungrouped one, since in bf16
+    both run one launch plan."""
+    cfg, batch = TC_CASES[case]
+    geom = cfg.stage(0)
+    bp = _params(cfg, cuda)["stages"][0]["blocks"][1]
+    bp["attn"]["bias_table"] = bp["attn"]["bias_table"].to(table_dtype)
+    xs = _storage(geom, cuda, torch.bfloat16, 1, batch)
+    if case == "ragged":
+        assert (xs.numel() // geom.dim) % 128
+    args = (((1, 3, 6), 3, _ids(geom, cuda)) if shifted
+            else ((0, 0, 0), 0, None))
+    gh = xs.shape[2]
+    for drop in (None, _drop(batch, cuda)):
+        got = block_wm(bp, xs, geom, *args, True, drop)
+        want = block_wm_plain(bp, xs, geom, *args, True, drop)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= TOL[torch.bfloat16]
+        assert torch.equal(got, block_wm(bp, xs, geom, *args, True, drop))
+        assert torch.equal(got, block_wm_group(bp, xs, geom, *args, True, gh,
+                                               drop))
+
+
+@pytest.mark.parametrize("table_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["ragged", "c384"])
+def test_grid_attention_forward_tensor_core_bit_identical(cuda, case, masked,
+                                                          table_dtype):
+    """The bf16 grid attention forward (B14: products and attention on the
+    tensor cores) at a ragged row count and at C = 384, region ids present
+    and absent, the bias table in float32 and bf16: against the plain
+    version and bit-identical in two runs."""
+    from pangu_tpu_torch.ops.window_attention import (grid_attention,
+                                                      grid_attention_plain)
+    cfg, batch = TC_CASES[case]
+    geom = cfg.stage(0)
+    bf = torch.bfloat16
+    wqkv, bqkv, wp, bp, table = _attn_args(
+        _params(cfg, cuda)["stages"][0]["blocks"][0])
+    args = (wqkv.to(bf), bqkv.to(bf), wp.to(bf), bp.to(bf),
+            table.to(table_dtype), geom.window,
+            _ids(geom, cuda) if masked else None)
+    x = _grid(geom, cuda, bf, 1, batch)
+    if case == "ragged":
+        assert (x.numel() // geom.dim) % 128
+    got = grid_attention(x, *args)
+    want = grid_attention_plain(x, *args)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= TOL[bf]
+    assert torch.equal(got, grid_attention(x, *args))

@@ -1,21 +1,25 @@
-"""The bf16 route of the backward units (the block backward and the grid
-attention backward) on Hopper's tensor cores, checked on the CPU: what the
-wrappers refuse before a launch, the 16-byte alignment of the operands
-their tiles copy, and, scanned from the sources, that ``csrc/block_bwd.cu``
-and ``csrc/grid_attn.cu`` reach their products and attention only through
-the dtype dispatch of ``csrc/mma_gemm.cuh`` and ``csrc/wattn_mma.cuh``,
-whose bf16 branches run the tensor-core kernels (``mma.sync``) and whose
-float32 branches the first CUDA-core kernels.  The kernels themselves run
-only on the card (``tests/test_torch_kernels_gpu.py``)."""
+"""The bf16 route of the block kernel, its backward and the grid attention
+(forward and backward) on Hopper's tensor cores, checked on the CPU: what
+the wrappers refuse before a launch, the 16-byte alignment of the operands
+their tiles copy, and, scanned from the sources, that ``csrc/block_wm.cu``,
+``csrc/block_bwd.cu`` and ``csrc/grid_attn.cu`` reach their products and
+attention only through the dtype dispatches of ``csrc/mma_gemm.cuh`` and
+``csrc/wattn_mma.cuh`` (or, in the block kernel, its own attention
+dispatch), whose bf16 branches run the tensor-core kernels (``mma.sync``)
+and whose float32 branches the first CUDA-core kernels.  The kernels
+themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
+import dataclasses
 import re
 from pathlib import Path
 
 import pytest
 import torch
 
-from pangu_tpu_torch.ops.earth_block_bwd import (aligned16,
-                                                 check_tensor_core_shape)
+from pangu_tpu_torch.config import TINY
+from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
+                                                check_tensor_core_shape)
+from pangu_tpu_torch.ops.window_attention import _checked
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
 
@@ -54,8 +58,8 @@ def test_backward_units_reach_products_and_attention_through_the_dispatch(
         source):
     """No direct call of grad_gemm.cuh's xgemm / wgrad or of attn_bwd.cuh's
     attention backward: every product of the backward units is a
-    unit_gemm / unit_wgrad (or, in grid_attn.cu's bf16 qkv product, an
-    mma_gemm), every attention of a backward a unit_attention(_bwd)."""
+    unit_gemm / unit_wgrad (or, in the recomputed qkv product, a fwd_gemm),
+    every attention of a backward a unit_attention(_bwd)."""
     code = _code(source)
     assert not re.search(r"\bxgemm\s*\(", code)
     assert not re.search(r"\bwgrad\s*<", code)
@@ -88,3 +92,165 @@ def test_dispatch_sends_bf16_to_the_tensor_cores():
             assert bf16.index(tc) < bf16.index(first)
     assert "mma_bf16(" in gemm and "mma_bf16(" in attn
     assert "mma.sync.aligned.m16n8k16" in _code("attn_mma.cuh")
+
+
+def _body(code, head):
+    """The body of the function whose definition starts with ``head``."""
+    body = code[code.index(head):]
+    return body[:body.index("\n}\n")]
+
+
+def test_block_forward_reaches_products_through_fwd_gemm():
+    """The block kernel's four products and the grid attention's qkv
+    product go through fwd_gemm only, whose bf16 branch is mma_gemm (the
+    tensor cores) and whose float32 branch common.cuh's gemm."""
+    block, grid = _code("block_wm.cu"), _code("grid_attn.cu")
+    for code in (block, grid):
+        assert not re.search(r"(?<![\w.])gemm\s*\(", code)
+        assert not re.search(r"\bmma_gemm\s*<", code)
+    assert len(re.findall(r"\bfwd_gemm\s*\(", _body(block, "int block_wm("))) == 4
+    assert re.search(r"\bfwd_gemm\s*\(", _body(grid, "int grid_qkv("))
+    body = _body(_code("mma_gemm.cuh"), "inline int fwd_gemm(")
+    bf16, f32 = body.split("} else {")
+    assert "std::is_same<T, bf16>" in bf16
+    assert "mma_gemm<false>(" in bf16 and "BiasEpi<T>" in bf16
+    assert "ZhEpi<T>{bias, nullptr, out" in bf16
+    assert "gemm(a, w, bias, out" in f32 and "mma_gemm" not in f32
+
+
+def test_block_forward_attention_dispatch():
+    """bf16: wa_attention (tensor cores) whatever gh; float32: the CUDA-core
+    window_attention, or group_attn_kernel where gh > 1.  No bf16 branch
+    names the CUDA-core attention, and the grid attention's forward goes
+    through unit_attention."""
+    block = _code("block_wm.cu")
+    body = _body(block, "int block_attention(")
+    bf16, f32 = body.split("} else {", 1)
+    assert "std::is_same<T, bf16>" in bf16 and "wa_attention<TB>(" in bf16
+    for first in ("window_attention", "group_attn_kernel", "window_attn_kernel"):
+        assert first not in bf16
+    assert "window_attention<T, TB>(" in f32
+    assert "group_attn_kernel<T, TB>" in f32
+    assert "gemm_bf16_kernel" not in block and "window_attn_kernel" not in block
+    assert re.search(r"\bblock_attention\s*<", _body(block, "int block_wm("))
+    fwd = _body(_code("grid_attn.cu"), "int grid_attn(")
+    assert re.search(r"\bunit_attention\s*<", fwd)
+    assert not re.search(r"\bwindow_attention\s*<", fwd)
+
+
+def test_block_forward_row_passes_by_dtype():
+    """The block kernel's gather and LayerNorm passes go through the dtype
+    dispatches of block_common.cuh: bf16 the 16-byte kernels, float32 the
+    first version's (the float32 outputs stay the same bit for bit)."""
+    common = _code("block_common.cuh")
+    for head, vec, first in (("inline void block_gather(",
+                              "block_gather16_kernel<<<",
+                              "block_gather_kernel<T><<<"),
+                             ("inline void block_ln(", "ln_rows16_kernel<<<",
+                              "ln_rows<T>(")):
+        body = _body(common, head)
+        assert body.index("std::is_same<T, bf16>") < body.index(vec)
+        assert body.index(vec) < body.index("else") < body.index(first)
+    block = _body(_code("block_wm.cu"), "int block_wm(")
+    assert "block_gather<T>(" in block and block.count("block_ln<T>(") == 2
+    assert not re.search(r"\bln_rows\s*<|block_gather_kernel", block)
+
+
+def _block_params(c, hidden, heads, ntype, n, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape):
+        return (0.02 * torch.randn(shape, generator=g)).to(dtype)
+
+    return {"attn": {"qkv": {"kernel": r(c, 3 * c), "bias": r(3 * c)},
+                     "proj": {"kernel": r(c, c), "bias": r(c)},
+                     "bias_table": r(ntype, heads, n, n)},
+            "norm1": {"scale": r(c), "bias": r(c)},
+            "norm2": {"scale": r(c), "bias": r(c)},
+            "mlp": {"fc1": {"kernel": r(c, hidden), "bias": r(hidden)},
+                    "fc2": {"kernel": r(hidden, c), "bias": r(c)}}}
+
+
+# (C, hidden, heads, window): TINY's stage 0 is C 16, hidden 64, 2 heads,
+# window (2, 6, 12); the rest break one bound of the bf16 route each
+BF16_SHAPES = {"taken": (16, 64, 2, (2, 6, 12)),
+               "c20": (20, 80, 2, (2, 6, 12)),
+               "hidden60": (16, 60, 2, (2, 6, 12)),
+               "n192": (16, 64, 2, (2, 6, 16))}
+
+
+def _stage(c, heads, window):
+    return dataclasses.replace(TINY.stage(0), dim=c, heads=heads,
+                               window=window)
+
+
+@pytest.mark.parametrize("case", sorted(BF16_SHAPES))
+def test_bf16_block_checks_shapes_before_a_launch(case):
+    """``block_operands``, which every block wrapper (wm, grouped, canon
+    ends, drop, v2, no-roll) runs before a launch, raises ValueError on a
+    bf16 block whose C or hidden is not a multiple of 8 or whose window
+    holds more than 144 tokens, and takes the rest; float32 keeps the
+    CUDA-core kernels' shapes.  CPU tensors: nothing is launched."""
+    c, hidden, heads, window = BF16_SHAPES[case]
+    geom = _stage(c, heads, window)
+    wz, wh, ww = window
+    n = wz * wh * ww
+    nz, nlat, nlon = geom.z // wz, geom.h_padded // wh, geom.w // ww
+    for dtype in (torch.bfloat16, torch.float32):
+        p = _block_params(c, hidden, heads, nz * nlat, n, dtype)
+        x = torch.zeros((1, nz, nlat, nlon, n, c), dtype=dtype)
+        if case == "taken" or dtype == torch.float32:
+            block_operands(p, x, geom, 1, False, "block_wm")
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                block_operands(p, x, geom, 1, False, "block_wm")
+
+
+@pytest.mark.parametrize("case", ["taken", "c20", "n192"])
+def test_bf16_grid_attention_checks_shapes_before_a_launch(case):
+    """The grid attention's check (forward and backward) raises ValueError
+    on a bf16 C that is not a multiple of 8 or a window of more than 144
+    tokens, and takes the rest."""
+    c, _, heads, window = BF16_SHAPES[case]
+    geom = _stage(c, heads, window)
+    wz, wh, ww = window
+    n = wz * wh * ww
+    ntype = (geom.z // wz) * (geom.h_padded // wh)
+    bf = torch.bfloat16
+    x = torch.zeros((1, geom.z, geom.h_padded, geom.w, c), dtype=bf)
+    weights = [torch.zeros(s, dtype=bf) for s in ((c, 3 * c), (3 * c,),
+                                                  (c, c), (c,))]
+    table = torch.zeros((ntype, heads, n, n))
+    if case == "taken":
+        _checked(x, weights, table, window, None, "grid_attention")
+    else:
+        with pytest.raises(ValueError, match="multiples of 8"):
+            _checked(x, weights, table, window, None, "grid_attention")
+
+
+def test_bf16_forward_operands_are_16_byte_aligned():
+    """A bf16 block input or grid that starts off a 16-byte boundary is
+    handed to the kernel as an aligned copy (the 16-byte row passes read
+    it), and so are the four weights."""
+    c, hidden, heads, window = BF16_SHAPES["taken"]
+    geom = _stage(c, heads, window)
+    wz, wh, ww = window
+    n = wz * wh * ww
+    nz, nlat, nlon = geom.z // wz, geom.h_padded // wh, geom.w // ww
+    p = _block_params(c, hidden, heads, nz * nlat, n)
+    p["attn"]["qkv"]["kernel"] = torch.zeros(
+        c * 3 * c + 1, dtype=torch.bfloat16)[1:].view(c, 3 * c)
+    shape = (1, nz, nlat, nlon, n, c)
+    numel = torch.Size(shape).numel()
+    x = torch.randn(numel + 1).to(torch.bfloat16)[1:].view(shape)
+    assert x.data_ptr() % 16
+    got, q, _, _, _ = block_operands(p, x, geom, 1, False, "block_wm")
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+    assert all(q[s][l]["kernel"].data_ptr() % 16 == 0 for s, l in (
+        ("attn", "qkv"), ("attn", "proj"), ("mlp", "fc1"), ("mlp", "fc2")))
+    grid = torch.randn(x.numel() + 1).to(torch.bfloat16)[1:].view(
+        1, geom.z, geom.h_padded, geom.w, c)
+    weights = [torch.zeros(s) for s in ((c, 3 * c), (3 * c,), (c, c), (c,))]
+    got, _, _, _ = _checked(grid, weights, torch.zeros(nz * nlat, heads, n, n),
+                            window, None, "grid_attention")
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, grid)
