@@ -12,7 +12,9 @@ Phases, each with its wall seconds:
      blocks per SM), and for the tensor-core products and attention
      (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``), those of the bf16
      forward (the block kernel's and the grid attention's objects, with
-     their 16-byte row kernels) on lines of their own;
+     their 16-byte row kernels) and of the bf16 block tail and recovery
+     backward (their objects' products, row passes, relayout and split
+     sum) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -62,9 +64,12 @@ Phases, each with its wall seconds:
         bf16: the block with per-sample branch scales (``drop``) and the
         block backward at stages 0 and 1, shifted, scales from {0, 0.8,
         1.25} and without scales; the recovery backward at offset (1, 3,
-        6); the upper embed weight gradient; the redesigned rows' earlier
-        bf16 times beside the new ones, and one stage-0 bf16 block
-        backward's device time by class (``torch.profiler``);
+        6) and (0, 0, 0); the upper embed weight gradient; the redesigned
+        rows' earlier bf16 times beside the new ones (``PREVIOUS_BF16_MS``),
+        the recovery backward's float32 line equal to its first version's
+        (``F32_BEFORE``), and one stage-0 bf16 block backward's and one bf16
+        recovery backward's device time by class (``torch.profiler``:
+        relayout, token-cotangent product, weight gradient, split sum);
      b. the float32 train step (loss and every gradient) with the kernels
         against ``kernels=False``, the same scales, both paths
         back-propagating the same loss cotangent;
@@ -96,7 +101,10 @@ Phases, each with its wall seconds:
   8. the per-block path (``L.earth_block``) and LoRA, at full width and
      depth:
      a. its kernels against their plain versions, float32 and bf16: the
-        no-roll block and the block tail at stages 0 and 1, the windowed
+        no-roll block and the block tail at stages 0 and 1 (bf16 with the
+        tanh and the erf GELU; its float32 lines equal to its first
+        version's, its bf16 time beside the first version's, one stage-0
+        bf16 tail by class: products, row passes), the windowed
         sdpa and its backward at stages 0 and 1 with and without the folded
         mask; two bf16 runs of each sdpa kernel, which must agree bit for
         bit; the sdpa and its backward beside ``scaled_dot_product_attention``
@@ -148,8 +156,8 @@ Training gates (phases 6, 7 and 8): the float32 train step's loss within
 max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
-backward, and every bf16 block entry must also agree bit for bit over two
-runs (``BIT_IDENTICAL``, phase 3).
+backward, every bf16 block entry, the block tail and the recovery backward
+must also agree bit for bit over two runs (``BIT_IDENTICAL``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -282,7 +290,9 @@ def _short_kernel(mangled):
     """A readable name of a mangled tensor-core kernel:
     mma_gemm_kernel<A transposed, B transposed, epilogue>,
     wattn_mma_{fwd,bwd}_kernel<table dtype>, or a row kernel's name."""
-    m = re.search(r"(block_gather16_kernel|ln_rows16_kernel)", mangled)
+    m = re.search(r"(block_gather16_kernel|ln_rows16_kernel|"
+                  r"field_cot_wm_kernel|concat_heads_kernel|head_sum_kernel)",
+                  mangled)
     if m:
         return m[1]
     m = re.search(r"\d+(mma_gemm_kernel|wattn_mma_\w+?_kernel)I(.*)", mangled)
@@ -340,10 +350,27 @@ def fwd_report(ptxas):
                      "forward ")
 
 
-# bf16 ms per launch of the rows the tensor-core forward redesigned, as the
-# CUDA-core forward (commit e1271cc) ran them: its chip_smoke.py on an NVIDIA
-# H100 80GB HBM3 at 700 W, printed beside the new times: name -> label -> ms
+def tail_recovery_report(ptxas):
+    """The same lines for the bf16 block tail and recovery backward: their
+    objects' products, LayerNorm passes, relayout and split sum."""
+    return tc_report(ptxas_parts(ptxas, {"block_tail_0", "recovery_bwd_0"}),
+                     r"mma_gemm_kernel|ln_rows16|field_cot_wm|concat_heads|"
+                     r"head_sum", "tail / recovery ")
+
+
+# bf16 ms per launch of the redesigned rows as their earlier kernels ran
+# them in this script on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
+# the new times: name -> label -> ms.  The block entries and the grid
+# attention: the CUDA-core forward (commit e1271cc); the block tail and the
+# recovery backward: their first versions (commit 37b26cf).
 PREVIOUS_BF16_MS = {
+    'fused_block_tail': {
+        'stage 0, cropped grid': 8.693,
+        'stage 1, cropped grid': 7.523,
+    },
+    'recovery_bwd': {
+        'off (1, 3, 6)': 24.743,
+    },
     'block_wm': {
         'stage 0 unshifted': 22.126,
         'stage 0 shifted': 22.26,
@@ -385,11 +412,12 @@ def previous_ms(name, label):
     return PREVIOUS_BF16_MS.get(name, {}).get(label)
 
 
-# The float32 route of the block kernel and the grid attention forward did
-# not change with the bf16 redesign, so their float32 error lines must read
-# as the CUDA-core forward's (commit e1271cc) did in the same run of this
-# script ("max_abs_err rel", as printed), where torch and the card are the
-# ones of that run (inputs drawn elsewhere are not comparable)
+# The float32 route of the block kernel, the grid attention forward, the
+# block tail and the recovery backward did not change with their bf16
+# redesigns, so their float32 error lines must read as the earlier kernels'
+# (commits e1271cc and 37b26cf, as PREVIOUS_BF16_MS) did in the same run of
+# this script ("max_abs_err rel", as printed), where torch and the card are
+# the ones of that run (inputs drawn elsewhere are not comparable)
 F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
             "lines": {
                 'block_wm | stage 0 unshifted':
@@ -432,6 +460,12 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
                     '5.484e-06 5.365e-07',
                 'block_wm_group | stage 1 shifted, gh 2, scales (1.25, 0)':
                     '2.861e-06 3.155e-07',
+                'fused_block_tail | stage 0, cropped grid':
+                    '3.934e-06 3.897e-07',
+                'fused_block_tail | stage 1, cropped grid':
+                    '4.292e-06 4.415e-07',
+                'recovery_bwd | off (1, 3, 6)':
+                    '2.812e-01 2.680e-06',
             }}
 
 
@@ -452,55 +486,36 @@ def f32_as_before(name, label, err, rel):
     return "  float32 as before"
 
 
-def bwd_breakdown(fn, rows, c, hidden, n):
-    """Device time of one block backward launch by class (torch.profiler):
-    the recomputed products, the data-gradient and weight-gradient
-    products, the attention backward, the recomputed attention and the row
-    kernels (gathers, LayerNorm passes, split sums of the LayerNorm
-    gradients), each with its rate from the FLOP and bytes it needs."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    ms = {k: 0.0 for k in ("recompute products", "data-gradient products",
-                           "weight-gradient products", "attention backward",
-                           "recompute attention", "row kernels")}
-    for e in prof.key_averages():
-        t = e.device_time_total / 1e3
-        if t == 0.0:
-            continue
-        m = re.search(r"mma_gemm_kernel<(true|false), (true|false)", e.key)
-        if m:
-            ms[{("false", "false"): "recompute products",
-                ("false", "true"): "data-gradient products",
-                ("true", "false"): "weight-gradient products"}[m.groups()]] += t
-        elif "wattn_mma_bwd" in e.key:
-            ms["attention backward"] += t
-        elif "wattn_mma_fwd" in e.key:
-            ms["recompute attention"] += t
-        else:
-            ms["row kernels"] += t
+def bwd_work(rows, c, hidden, n):
+    """(FLOP, bytes) of a bf16 block backward launch by class, each input
+    read once and each output written once: the recomputed products, the
+    data-gradient and weight-gradient products, the attention backward, the
+    recomputed attention and the row kernels (gathers, LayerNorm passes,
+    split sums of the LayerNorm gradients)."""
     m_, h = rows, hidden
-    work = {   # (FLOP, bytes): inputs read once, outputs written once
-        "recompute products": (2 * m_ * c * (4 * c + 2 * h),
-                               2 * m_ * (8 * c + 3 * h)),
-        "data-gradient products": (2 * m_ * c * (4 * c + 2 * h),
-                                   2 * m_ * (10 * c + 3 * h)),
-        "weight-gradient products": (2 * m_ * c * (4 * c + 2 * h),
-                                     2 * m_ * (8 * c + 2 * h)),
-        "attention backward": (10 * m_ * n * c, 2 * m_ * 7 * c),
-        "recompute attention": (4 * m_ * n * c, 2 * m_ * 4 * c),
-        "row kernels": (0, 2 * m_ * 19 * c),
-    }
-    parts = []
-    for k, t in ms.items():
-        flops, byts = work[k]
-        rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
-                f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
-        parts.append(f"{k} {t:.3f} ms ({rate})")
-    return (f"{sum(ms.values()):.3f} ms of device time: " + "; ".join(parts))
+    return {"recompute products": (2 * m_ * c * (4 * c + 2 * h),
+                                   2 * m_ * (8 * c + 3 * h)),
+            "data-gradient products": (2 * m_ * c * (4 * c + 2 * h),
+                                       2 * m_ * (10 * c + 3 * h)),
+            "weight-gradient products": (2 * m_ * c * (4 * c + 2 * h),
+                                         2 * m_ * (8 * c + 2 * h)),
+            "attention backward": (10 * m_ * n * c, 2 * m_ * 7 * c),
+            "recompute attention": (4 * m_ * n * c, 2 * m_ * 4 * c),
+            "row kernels": (0, 2 * m_ * 19 * c)}
+
+
+def bwd_class(key):
+    """A bf16 block backward kernel's class by its name."""
+    m = re.search(r"mma_gemm_kernel<(true|false), (true|false)", key)
+    if m:
+        return {("false", "false"): "recompute products",
+                ("false", "true"): "data-gradient products",
+                ("true", "false"): "weight-gradient products"}[m.groups()]
+    if "wattn_mma_bwd" in key:
+        return "attention backward"
+    if "wattn_mma_fwd" in key:
+        return "recompute attention"
+    return "row kernels"
 
 
 def block_fwd_work(rows, c, hidden, n):
@@ -522,32 +537,84 @@ def grid_fwd_work(rows, c, n):
             "row passes": (0, 2 * rows * 2 * c)}
 
 
-def fwd_breakdown(fn, work):
-    """Device time of one forward launch by class (torch.profiler): the
-    products (``*gemm*`` kernels), the attention (``*attn*``) and the row
-    passes (the rest), each with its rate from ``work`` (class -> FLOP,
-    bytes)."""
-    from torch.profiler import ProfilerActivity, profile
+def fwd_class(key):
+    """A forward kernel's class by its name: the products (``*gemm*``),
+    the attention (``*attn*``) or the row passes (the rest)."""
+    return ("products" if "gemm" in key else
+            "attention" if "attn" in key else "row passes")
+
+
+def class_breakdown(fn, work, classify=fwd_class, reps=3):
+    """Device time of one launch by class: torch.profiler (CPU and CUDA
+    activity) over ``reps`` launches after one warm-up launch in the
+    profiler's warm-up step (a profile without one was seen to miss
+    kernels late in this script), each kernel's class from ``classify``
+    (its name -> a key of ``work``), each class with its rate from
+    ``work`` (class -> FLOP, bytes); beside the total, the launch's time by
+    CUDA events, so that a profile that missed kernels shows."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(1 + reps):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     ms = {k: 0.0 for k in work}
     for e in prof.key_averages():
-        t = e.device_time_total / 1e3
-        if t == 0.0:
+        t = e.self_device_time_total / 1e3 / reps
+        # a step's annotation spans its kernels on the device timeline
+        if (e.device_type != torch.autograd.DeviceType.CUDA or t == 0.0
+                or getattr(e, "is_user_annotation", False)
+                or e.key.startswith("ProfilerStep")):
             continue
-        key = ("products" if "gemm" in e.key else
-               "attention" if "attn" in e.key else "row passes")
-        ms[key] += t
+        ms[classify(e.key)] += t
     parts = []
     for k, t in ms.items():
         flops, byts = work[k]
         rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
                 f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
         parts.append(f"{k} {t:.3f} ms ({rate})")
-    return f"{sum(ms.values()):.3f} ms of device time: " + "; ".join(parts)
+    return (f"{sum(ms.values()):.3f} ms of device time ({time_ms(fn, reps):.3f}"
+            f" ms a launch by CUDA events): " + "; ".join(parts))
+
+
+def tail_work(rows, c, hidden):
+    """(FLOP, bytes) of a bf16 block tail launch by class, each input read
+    once and each output written once: the two products (x1 in, h; h in,
+    y) and the two LayerNorm-residual passes (a, s in, x1; y, x1 in,
+    out)."""
+    return {"products": (4 * rows * c * hidden, 2 * rows * (2 * c + 2 * hidden)),
+            "row passes": (0, 2 * rows * 6 * c)}
+
+
+def recovery_work(rows, c, fu, fs, field_elems):
+    """The same for a bf16 recovery backward launch over ``rows`` storage
+    rows (the products run over every storage row of the pair): the
+    relayout (the fields in, dF_wm and [Ku | Ks] out), the token-cotangent
+    product (dF_wm in, d_skip and d_dec out), the weight gradients (skip,
+    dec and dF_wm in, the float32 split partials out) and the split sum."""
+    f = fu + fs
+    part = -(-rows // 4096) * (2 * c + 1) * f * 4
+    return {"relayout": (0, 2 * field_elems + 2 * rows * f + 4 * 2 * c * f),
+            "token-cotangent product": (2 * rows * f * 2 * c,
+                                        2 * rows * f + 2 * 2 * rows * c),
+            "weight gradient": (2 * rows * (2 * c + 1) * f,
+                                2 * 2 * rows * c + 2 * rows * f + part),
+            "split sum": (0, part + 4 * (2 * c + 1) * f)}
+
+
+def recovery_class(key):
+    """A bf16 recovery backward kernel's class by its name."""
+    if "mma_gemm_kernel<false, true" in key:
+        return "token-cotangent product"
+    if "mma_gemm_kernel<true, false" in key:
+        return "weight gradient"
+    if "head_sum" in key:
+        return "split sum"
+    return "relayout"
 
 
 def bound(flops, nbytes_, dtype):
@@ -621,7 +688,8 @@ def main() -> int:
     lib = _build.library()
     print(f"built {os.path.relpath(lib_path)}")
     ptxas = _build.ptxas_report()
-    for line in sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas):
+    for line in (sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas)
+                 + tail_recovery_report(ptxas)):
         print(line)
     done("build", t0)
 
@@ -881,15 +949,15 @@ def main() -> int:
                      device=dev).to(torch.bfloat16)
     m0 = xs.numel() // c0
     print("block_wm stage 0 shifted bf16 by class (torch.profiler): "
-          + fwd_breakdown(lambda: block_wm(bp0, xs, g0, half, 3, ids0, True),
-                          block_fwd_work(m0, c0, 4 * c0, g0.window_tokens)))
+          + class_breakdown(lambda: block_wm(bp0, xs, g0, half, 3, ids0, True),
+                            block_fwd_work(m0, c0, 4 * c0, g0.window_tokens)))
     x = xs.reshape(1, g0.z, g0.h_padded, g0.w, c0)
     at = bp0["attn"]
     w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
          at["proj"]["bias"], at["bias_table"])
     print("grid_attention stage 0, region ids bf16 by class (torch.profiler): "
-          + fwd_breakdown(lambda: grid_attention(x, *w, g0.window, ids0),
-                          grid_fwd_work(m0, c0, g0.window_tokens)))
+          + class_breakdown(lambda: grid_attention(x, *w, g0.window, ids0),
+                            grid_fwd_work(m0, c0, g0.window_tokens)))
     del xs, x
 
     # a batch of 8 at stage 0: 8 x 535,680 rows / 64 = 66,960 GEMM row tiles,
@@ -1446,7 +1514,8 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
 # block_wm entries there)
 BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd",
                  "block_wm drop", "block_v2", "grid_attention",
-                 "block_noroll_fused", "block_wm_group")
+                 "block_noroll_fused", "block_wm_group", "fused_block_tail",
+                 "recovery_bwd")
 
 
 def flat(tree):
@@ -1698,16 +1767,17 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
             rows_all = g0.z * g0.h_padded * g0.w
             rows_real = g0.z * g0.h * g0.w
             kf = 5 * 32 * (g0.z - 1) * g0.h * g0.w + 4 * 16 * g0.h * g0.w
-            cases.append((     # token cotangents of every row, head gradients
-                "recovery_bwd", "off (1, 3, 6)",
-                2 * rows_all * 160 * 2 * c0 + 2 * kf * 2 * c0,
-                (field_u + field_s) * isz + 2 * nbytes(skip)
-                + weight_bytes(pdt["pr"], dtype) + 2 * rows_all * c0 * isz
-                + 4 * (2 * c0 + 1) * (160 + 64),
-                lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
-                    recovery_bwd(p, a, b, u, v, half, cf),
-                lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg:
-                    recovery_bwd_plain(p, a, b, u, v, half, cf), (2, 1)))
+            for off in (half, (0, 0, 0)):  # the record first: (1, 3, 6)
+                cases.append((  # token cotangents of every row, head gradients
+                    "recovery_bwd", f"off {off}",
+                    2 * rows_all * 160 * 2 * c0 + 2 * kf * 2 * c0,
+                    (field_u + field_s) * isz + 2 * nbytes(skip)
+                    + weight_bytes(pdt["pr"], dtype) + 2 * rows_all * c0 * isz
+                    + 4 * (2 * c0 + 1) * (160 + 64),
+                    lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg,
+                    o=off: recovery_bwd(p, a, b, u, v, o, cf),
+                    lambda a=skip, b=dec, u=du, v=ds, p=pdt["pr"], cf=ecfg,
+                    o=off: recovery_bwd_plain(p, a, b, u, v, o, cf), (2, 1)))
             dxs = storage(g0, dtype)
             upper_rows = (g0.z - 1) * g0.h * g0.w
             cases.append((     # the upper rows of the cotangent, the field
@@ -1724,8 +1794,15 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                 hidden = params["stages"][0]["blocks"][1]["mlp"]["fc1"][
                     "kernel"].shape[-1]
                 print("block_bwd stage 0 bf16 by class (torch.profiler): "
-                      + bwd_breakdown(kern, g0.z * g0.h_padded * g0.w, c0,
-                                      hidden, g0.window_tokens), flush=True)
+                      + class_breakdown(kern, bwd_work(
+                          g0.z * g0.h_padded * g0.w, c0, hidden,
+                          g0.window_tokens), bwd_class), flush=True)
+                kern = next(c[4] for c in cases if c[0] == "recovery_bwd")
+                print("recovery_bwd off (1, 3, 6) bf16 by class "
+                      "(torch.profiler): " + class_breakdown(
+                          kern, recovery_work(rows_all, c0, 160, 64,
+                                              field_u + field_s),
+                          recovery_class), flush=True)
             del cases, skip, dec, dxs, du, ds
             torch.cuda.empty_cache()
 
@@ -2107,12 +2184,16 @@ def per_block_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
             sc = torch.randn(a.shape, generator=gen, device=dev).to(dtype)
             tail = {k: bp[k] for k in ("norm1", "norm2", "mlp")}
             rows = a.numel() // c
-            cases.append((
-                "fused_block_tail", f"{label}, cropped grid",
-                4 * rows * c * hidden, 3 * nbytes(a) + weight_bytes(tail, dtype),
-                lambda p=tail, a=a, s=sc, t=tanh: fused_block_tail(p, a, s, t),
-                lambda p=tail, a=a, s=sc, t=tanh:
-                    fused_block_tail_plain(p, a, s, t), (3, 2)))
+            # bf16: the perf config's tanh GELU (the record), then erf
+            forms = [(tanh, "")] + ([(False, ", erf GELU")] if tanh else [])
+            for t, form in forms:
+                cases.append((
+                    "fused_block_tail", f"{label}, cropped grid{form}",
+                    4 * rows * c * hidden,
+                    3 * nbytes(a) + weight_bytes(tail, dtype),
+                    lambda p=tail, a=a, s=sc, t=t: fused_block_tail(p, a, s, t),
+                    lambda p=tail, a=a, s=sc, t=t:
+                        fused_block_tail_plain(p, a, s, t), (3, 2)))
             for masked in (True, False):
                 qkv, bias, gy = sdpa_inputs(geom, dtype, masked)
                 nwh = qkv.shape[0] * qkv.shape[1] * qkv.shape[3]
@@ -2132,6 +2213,11 @@ def per_block_phase(params, perf, consts_dev, state, ids_of, weight_bytes,
                     lambda q=qkv, b=bias, g=gy: sdpa_bwd_plain(q, b, g),
                     (2, 1)))
         check_kernels(cases, dtype, records)
+        if dtype == torch.bfloat16:       # one stage-0 tail by class
+            kern = next(c[4] for c in cases if c[0] == "fused_block_tail")
+            print("fused_block_tail stage 0 bf16 by class (torch.profiler): "
+                  + class_breakdown(kern, tail_work(
+                      g0.z * g0.h * g0.w, g0.dim, 4 * g0.dim)), flush=True)
         del cases
         torch.cuda.empty_cache()
 

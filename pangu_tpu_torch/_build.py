@@ -35,7 +35,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
 # compiled with -Xptxas -v too (it reports; the code is the same)
-VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu", "block_wm.cu")
+VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu", "block_wm.cu",
+                   "block_tail.cu", "recovery_bwd.cu")
 # sources built as several objects in parallel, one per set of defines (the
 # source says what each part holds)
 PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"]),
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 22 + [_P],
     "pangu_embed_dw": [_I] + [_P] * 5 + [_I] * 14 + [_P],
     "pangu_recovery_bwd": [_I] + [_P] * 11 + [_I] * 18 + [_P],
+    "pangu_recovery_cot_wm": [_P] * 3 + [_I] * 17 + [_P],
     "pangu_grid_attn": [_I, _I] + [_P] * 9 + [_I] * 10 + [_P],
     "pangu_grid_attn_bwd": [_I, _I] + [_P] * 13 + [_I] * 10 + [_P],
     "pangu_block_noroll": [_I, _I] + [_P] * 16 + [_I] * 12 + [_P],
@@ -72,7 +74,7 @@ _LL = ctypes.c_longlong
 _SIZE_SIGNATURES = {
     "pangu_block_bwd_ws": [_LL, _I, _I, _I],
     "pangu_embed_dw_ws": [_I] * 11,
-    "pangu_recovery_bwd_ws": [_I] * 7,
+    "pangu_recovery_bwd_ws": [_I] * 13,
     "pangu_grid_attn_ws": [_LL, _I, _I],
     "pangu_window_attn_ws": [_LL, _I],
     "pangu_sdpa_ws": [_I] * 4,

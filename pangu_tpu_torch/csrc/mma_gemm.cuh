@@ -1,9 +1,15 @@
-// The bf16 products of the block kernel (block_wm.cu), its backward
-// (block_bwd.cu) and the grid attention (grid_attn.cu, forward and
-// backward) on the tensor cores, and the dispatches that keep float32 on
-// the first version's kernels: unit_gemm / unit_wgrad (the backward units;
-// float32 on grad_gemm.cuh) and fwd_gemm (the forward's four products;
-// float32 on common.cuh's gemm, so its float32 outputs stay bit for bit).
+// The bf16 products on the tensor cores of
+//   block_wm.cu    the block kernel's four (fwd_gemm),
+//   block_tail.cu  the block tail's two (fwd_gemm),
+//   block_bwd.cu   the block backward's (unit_gemm, unit_wgrad),
+//   grid_attn.cu   the grid attention's (its qkv product through
+//                  fwd_gemm, the rest unit_gemm, unit_wgrad),
+//   recovery_bwd.cu  the recovery backward's token cotangents (mma_gemm)
+//                  and weight gradients (mma_gemm_launch, transposed A;
+//                  bf16 only: its float32 route is its own),
+// and the dispatches that keep float32 on the first version's kernels:
+// unit_gemm / unit_wgrad (float32 on grad_gemm.cuh) and fwd_gemm (float32
+// on common.cuh's gemm, so the float32 outputs stay bit for bit).
 //
 //   mma_gemm<kBT>(a, b, M, N, K, epi): out (M x N) = a (M x K, row-major)
 //     times b, where b is (K x N) row-major or, kBT, the transpose of a

@@ -5,7 +5,9 @@ The counterpart of ``pangu_tpu/ops/block_tail.py``: ``tail_math`` (with
 which the per-block path (``models/layers.py::earth_block``) runs after the
 attention of a served block: ``fused_block_tail`` launches the CUDA kernel
 (``csrc/block_tail.cu``) on a CUDA tensor, with a ``launches`` count, and
-runs ``fused_block_tail_plain`` on a CPU tensor.  ``x1 = s + LN1(a)``;
+runs ``fused_block_tail_plain`` on a CPU tensor (``tail_operands``: what
+the kernel takes; bf16 runs on the tensor cores and takes C and the MLP
+width multiples of 8).  ``x1 = s + LN1(a)``;
 ``out = x1 + LN2(MLP(x1))``, LayerNorm statistics in float32, erf GELU for
 parity and tanh GELU for the perf config.  Every product accumulates in
 float32 and is rounded to the activation dtype where the JAX kernel rounds it,
@@ -62,6 +64,36 @@ def fused_block_tail_plain(p, a, s, gelu_tanh: bool):
     return tail_math(a, s, q, gelu_tanh)
 
 
+def tail_operands(p, a, s, what: str = "fused_block_tail"):
+    """What the kernel takes, checked before a launch: ``(a, s, q,
+    hidden)``, a and s contiguous, q the tail's params in a's dtype.
+    Raises ValueError on an unsupported input or, in bf16 (the
+    tensor-core route), on a C or hidden that is not a multiple of 8; the
+    bf16 a, s and dense weights are 16-byte aligned (copies where they are
+    not)."""
+    from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, aligned16,
+                                                    check_tensor_core_shape,
+                                                    params_in)
+    c = a.shape[-1]
+    q = params_in({k: p[k] for k in ("norm1", "norm2", "mlp")}, a.dtype)
+    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
+    if (a.dtype not in DTYPE_CODE or s.shape != a.shape or s.dtype != a.dtype
+            or s.device != a.device or "lora_a" in p["mlp"]["fc1"]
+            or "lora_a" in p["mlp"]["fc2"]
+            or q["mlp"]["fc1"]["kernel"].shape != (c, hidden)
+            or q["mlp"]["fc2"]["kernel"].shape != (hidden, c)):
+        raise ValueError(f"{what}: unsupported a {tuple(a.shape)} "
+                         f"{a.dtype}, s {tuple(s.shape)} {s.dtype}, hidden "
+                         f"{hidden}")
+    a, s = a.contiguous(), s.contiguous()
+    if a.dtype == torch.bfloat16:
+        check_tensor_core_shape((c, hidden), None, what)
+        a, s = aligned16(a), aligned16(s)
+        for leaf in ("fc1", "fc2"):
+            q["mlp"][leaf]["kernel"] = aligned16(q["mlp"][leaf]["kernel"])
+    return a, s, q, hidden
+
+
 def fused_block_tail(p, a, s, gelu_tanh: bool):
     """The tail of one block: ``a`` the attention branch and ``s`` the
     block's input, (B, Z, H, W, C) each (any shape ending in C; token-local),
@@ -69,21 +101,10 @@ def fused_block_tail(p, a, s, gelu_tanh: bool):
     CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
     if not a.is_cuda:
         return fused_block_tail_plain(p, a, s, gelu_tanh)
-    from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, params_in,
-                                                    require_device)
-    c = a.shape[-1]
-    q = params_in({k: p[k] for k in ("norm1", "norm2", "mlp")}, a.dtype)
+    from pangu_tpu_torch.ops.earth_block_wm import DTYPE_CODE, require_device
+    a2, s2, q, hidden = tail_operands(p, a, s)
     require_device(q, a.device, "fused_block_tail")
-    hidden = q["mlp"]["fc1"]["kernel"].shape[-1]
-    if (a.dtype not in DTYPE_CODE or s.shape != a.shape or s.dtype != a.dtype
-            or s.device != a.device or "lora_a" in p["mlp"]["fc1"]
-            or "lora_a" in p["mlp"]["fc2"]
-            or q["mlp"]["fc1"]["kernel"].shape != (c, hidden)
-            or q["mlp"]["fc2"]["kernel"].shape != (hidden, c)):
-        raise ValueError(f"fused_block_tail: unsupported a {tuple(a.shape)} "
-                         f"{a.dtype}, s {tuple(s.shape)} {s.dtype}, hidden "
-                         f"{hidden}")
-    a2, s2 = a.contiguous(), s.contiguous()
+    c = a.shape[-1]
     rows = a2.numel() // c
     out = torch.empty_like(a2)
     ws = torch.empty(rows * (2 * c + hidden), dtype=a.dtype, device=a.device)

@@ -17,7 +17,10 @@ Function whose backward is ``recovery_bwd`` alone (the kernel
 ``csrc/recovery_bwd.cu``, counterpart of ``pangu_tpu/ops/recovery_wm.py::
 recovery_bwd_pallas``, with its own ``launches`` count): the field
 cotangents -> the pair's cotangents in its rolled storage and the heads'
-float32 gradients.
+float32 gradients.  Its bf16 route first lays the field cotangents out in
+the pair's storage order (``field_cotangent_wm``; the pass alone:
+``field_cotangent_wm_kernel``), then runs both products on the tensor
+cores.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import ModelConfig, recovery_supported
 from pangu_tpu_torch.models.layers import recover_surface, recover_upper
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, params_in,
-                                                to_window_major,
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, aligned16,
+                                                check_tensor_core_shape,
+                                                params_in, to_window_major,
                                                 wm_to_canonical)
 
 
@@ -57,16 +61,10 @@ def recovery_wm_plain(p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
 
 
 def _launch(surface: bool, p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
+    _check_pair(skip_wm, dec_wm, cfg, "recovery_wm")
     g = cfg.stage(3)
     wz, wh, ww = g.window
     b, nz, nlat, nlon, n, c = skip_wm.shape
-    want = (b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww, g.dim)
-    if (not recovery_supported(cfg) or skip_wm.dtype not in DTYPE_CODE
-            or skip_wm.shape != want or dec_wm.shape != want
-            or dec_wm.dtype != skip_wm.dtype or not skip_wm.is_contiguous()
-            or not dec_wm.is_contiguous()):
-        raise ValueError(f"recovery_wm: unsupported input {tuple(skip_wm.shape)}"
-                         f" {tuple(dec_wm.shape)} {skip_wm.dtype} for {cfg}")
     q = params_in(p["surface" if surface else "upper"], skip_wm.dtype)
     for t in q.values():
         if t.device != skip_wm.device:
@@ -143,6 +141,66 @@ def _feat_cotangents(dU, dS, cfg: ModelConfig):
     return du, ds
 
 
+def field_cotangent_wm(dU, dS, off: Offset, cfg: ModelConfig):
+    """The feature cotangents in the pair's rolled storage order (plain, any
+    device): (B, nz, nlat, nlon, N, V*pz*ph*pw + S*ph*pw), the upper head's
+    columns then the surface head's.  A row holds the cotangent of the
+    canonical token its storage position holds (position p, token p + off),
+    zero in the head the token's plane does not belong to and on the
+    latitude-pad rows: the matrix the bf16 recovery backward multiplies."""
+    g = cfg.stage(3)
+    dF_u, dF_s = _feat_cotangents(dU, dS, cfg)
+    fu, fs = dF_u.shape[-1], dF_s.shape[-1]
+    pad = torch.nn.functional.pad
+    t = torch.cat([pad(dF_s, (fu, 0))[:, None], pad(dF_u, (0, fs))], dim=1)
+    t = pad(t, (0, 0, 0, 0, 0, g.h_padded - cfg.h_tokens))
+    t = torch.roll(t, shifts=tuple(-o for o in off), dims=(1, 2, 3))
+    return to_window_major(t, g.window)
+
+
+def _check_pair(skip_wm, dec_wm, cfg: ModelConfig, what: str):
+    """The stage-3 storage shape the recovery kernels take, or ValueError."""
+    g = cfg.stage(3)
+    wz, wh, ww = g.window
+    b = skip_wm.shape[0]
+    want = (b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww, g.dim)
+    if (not recovery_supported(cfg) or skip_wm.dtype not in DTYPE_CODE
+            or skip_wm.shape != want or dec_wm.shape != want
+            or dec_wm.dtype != skip_wm.dtype or not skip_wm.is_contiguous()
+            or not dec_wm.is_contiguous()):
+        raise ValueError(f"{what}: unsupported input {tuple(skip_wm.shape)} "
+                         f"{tuple(dec_wm.shape)} {skip_wm.dtype} for {cfg}")
+
+
+def field_cotangent_wm_kernel(dU, dS, off: Offset, cfg: ModelConfig):
+    """The bf16 recovery backward's relayout pass alone (the step of
+    ``csrc/recovery_bwd.cu`` that writes :func:`field_cotangent_wm`): on a
+    bf16 CUDA tensor the pass, on a CPU tensor the plain version."""
+    if not dU.is_cuda:
+        return field_cotangent_wm(dU, dS, off, cfg)
+    g = cfg.stage(3)
+    wz, wh, ww = g.window
+    b = dU.shape[0]
+    if (not recovery_supported(cfg) or dU.dtype != torch.bfloat16
+            or dS.dtype != dU.dtype
+            or dU.shape != (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
+            or dS.shape != (b, cfg.surface_vars, cfg.lat, cfg.lon)):
+        raise ValueError(f"field_cotangent_wm_kernel: unsupported cotangents "
+                         f"{tuple(dU.shape)} {tuple(dS.shape)} {dU.dtype}")
+    du, ds = aligned16(dU.contiguous()), aligned16(dS.contiguous())
+    pz, ph, pw = cfg.patch
+    feat = (cfg.upper_vars * pz + cfg.surface_vars) * ph * pw
+    shape = (b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww)
+    out = torch.empty(shape + (feat,), dtype=du.dtype, device=du.device)
+    with _build.launch_stream(du, ds, out) as stream:
+        code = _build.library().pangu_recovery_cot_wm(
+            du.data_ptr(), ds.data_ptr(), out.data_ptr(), b, *shape[1:], wz,
+            wh, ww, cfg.h_tokens, cfg.upper_vars, cfg.surface_vars,
+            cfg.levels, cfg.lat, cfg.lon, *off, stream)
+    _build.check(code, "field_cotangent_wm_kernel")
+    return out
+
+
 def recovery_bwd_plain(p, skip_wm, dec_wm, dU, dS, off: Offset,
                        cfg: ModelConfig):
     """Plain PyTorch version of the recovery backward kernel (any device):
@@ -181,23 +239,21 @@ def recovery_bwd(p, skip_wm, dec_wm, dU, dS, off: Offset, cfg: ModelConfig):
     and dS (B, 4, lat, lon) plus the saved rolled pair -> ``(grads,
     d_skip_wm, d_dec_wm)``, the pair's cotangents rolled by ``off`` like
     the pair, grads a float32 {"upper", "surface"} {"kernel", "bias"} tree.
-    The CUDA kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU tensor.
+    In bf16 the weight gradients sum over every storage row, where the rows
+    outside a head add 0 x the pair: the pair must be finite on its
+    latitude-pad rows (the trunk's are)."""
     if not skip_wm.is_cuda:
         return recovery_bwd_plain(p, skip_wm, dec_wm, dU, dS, off, cfg)
+    _check_pair(skip_wm, dec_wm, cfg, "recovery_bwd")
     g = cfg.stage(3)
     wz, wh, ww = g.window
     b, nz, nlat, nlon, n, c = skip_wm.shape
     dt = skip_wm.dtype
-    want = (b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww, g.dim)
-    if (not recovery_supported(cfg) or dt not in DTYPE_CODE
-            or skip_wm.shape != want or dec_wm.shape != want
-            or dec_wm.dtype != dt or not skip_wm.is_contiguous()
-            or not dec_wm.is_contiguous()
-            or dU.shape != (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
+    if (dU.shape != (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
             or dS.shape != (b, cfg.surface_vars, cfg.lat, cfg.lon)):
-        raise ValueError(f"recovery_bwd: unsupported input {tuple(skip_wm.shape)}"
-                         f" {dt}, cotangents {tuple(dU.shape)} {tuple(dS.shape)}"
-                         f" for {cfg}")
+        raise ValueError(f"recovery_bwd: cotangents {tuple(dU.shape)} "
+                         f"{tuple(dS.shape)} for {cfg}")
     q = {k: params_in(p[k], dt) for k in ("upper", "surface")}
     for t in (q["upper"]["kernel"], q["surface"]["kernel"], dU, dS):
         if t.device != skip_wm.device:
@@ -205,9 +261,14 @@ def recovery_bwd(p, skip_wm, dec_wm, dU, dS, off: Offset, cfg: ModelConfig):
                              f"{skip_wm.device}")
     du = dU.to(dt).contiguous()
     ds = dS.to(dt).contiguous()
+    if dt == torch.bfloat16:            # the tensor-core route
+        check_tensor_core_shape((c,), None, "recovery_bwd")
+        du, ds, skip_wm, dec_wm = (aligned16(t) for t in (du, ds, skip_wm,
+                                                           dec_wm))
     lib = _build.library()
-    part = torch.empty(lib.pangu_recovery_bwd_ws(
-        b, nz, wz, cfg.h_tokens, cfg.w_tokens, c, cfg.upper_vars),
+    ws = torch.empty(lib.pangu_recovery_bwd_ws(
+        DTYPE_CODE[dt], b, nz, nlat, nlon, n, wz, wh, ww, cfg.h_tokens, c,
+        cfg.upper_vars, cfg.surface_vars),
         dtype=torch.float32, device=skip_wm.device)
     f32 = dict(dtype=torch.float32, device=skip_wm.device)
     fu, fs = q["upper"]["kernel"].shape[1], q["surface"]["kernel"].shape[1]
@@ -215,7 +276,7 @@ def recovery_bwd(p, skip_wm, dec_wm, dU, dS, off: Offset, cfg: ModelConfig):
     dks = torch.empty((2 * c + 1, fs), **f32)
     d_skip, d_dec = torch.empty_like(skip_wm), torch.empty_like(dec_wm)
     tensors = (du, ds, skip_wm, dec_wm, q["upper"]["kernel"],
-               q["surface"]["kernel"], d_skip, d_dec, part, dku, dks)
+               q["surface"]["kernel"], d_skip, d_dec, ws, dku, dks)
     with _build.launch_stream(*tensors) as stream:
         code = lib.pangu_recovery_bwd(
             DTYPE_CODE[dt], *(t.data_ptr() for t in tensors),

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time the port's bf16 forward block kernel (every entry of
-``csrc/block_wm.cu``) and grid attention forward (``csrc/grid_attn.cu``) at
-the full-width Pangu-24 shapes on one CUDA card, for the copy of the port
-in a given directory, so that two versions compare in one call.
+"""Time the port's redesigned bf16 kernels at the full-width Pangu-24
+shapes on one CUDA card, for the copy of the port in a given directory, so
+that two versions compare in one call: the forward block kernel (every
+entry of ``csrc/block_wm.cu``), the grid attention forward
+(``csrc/grid_attn.cu``), the block tail (``csrc/block_tail.cu``, tanh and
+erf GELU) and the recovery backward (``csrc/recovery_bwd.cu``, pair
+offsets (1, 3, 6) and (0, 0, 0)).
 
-    python3 scripts/torch_fwd_kernels.py [--repo DIR] [--reps N] [--split]
+    python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
 
 ``--repo`` (default: this checkout) is the directory whose
 ``pangu_tpu_torch`` is imported.  Per case: the error against the plain
-version (max |kernel - plain| / max |plain|, gate 2^-6), whether two runs
-agree bit for bit, ms per launch (CUDA events over ``--reps`` launches
-after one warm-up) and the bound of chip_smoke.py.  ``--split``: one
-stage-0 block and one stage-0 grid attention by class of kernel
-(``torch.profiler``: products, attention, row passes).  The last line is
-one JSON object of the times.
+version (max |kernel - plain| / max |plain| over every output, gate 2^-6),
+whether two runs agree bit for bit, ms per launch (CUDA events over
+``--reps`` launches after one warm-up) and the bound of chip_smoke.py.
+``--split``: one stage-0 block, grid attention and tail and one recovery
+backward by class of kernel (``torch.profiler``, chip_smoke.py's classes).
+The last line is one JSON object of the times.
 """
 
 from __future__ import annotations
@@ -48,7 +51,7 @@ def main() -> int:
     ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        print("torch_fwd_kernels: no CUDA device", file=sys.stderr)
+        print("torch_kernels_ab: no CUDA device", file=sys.stderr)
         return 1
     repo = Path(args.repo).resolve()
     sys.path.insert(0, str(repo))
@@ -60,11 +63,15 @@ def main() -> int:
     from pangu_tpu_torch.config import PANGU_24, _pick_gh
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.models.layers import window_region_ids
+    from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
+                                                fused_block_tail_plain)
     from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
     from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
                                                     block_wm_canon_plain,
                                                     block_wm_group,
                                                     block_wm_plain)
+    from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
+                                                 recovery_bwd_plain)
     from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
                                                       block_noroll_plain,
                                                       grid_attention,
@@ -163,13 +170,53 @@ def main() -> int:
                       (2 * rows * c * (4 * c + 2 * n),
                        2 * cs.nbytes(x) + cs.nbytes(*w))))
 
+    tails = {}
+    for i, bp in ((0, s0), (1, s1)):
+        geom = PANGU_24.stage(i)
+        tail = {k: bp[k] for k in ("norm1", "norm2", "mlp")}
+        c, hidden = geom.dim, bp["mlp"]["fc1"]["kernel"].shape[-1]
+        a, s = (torch.randn((1, geom.z, geom.h, geom.w, c), generator=gen,
+                            device=dev).to(bf) for _ in range(2))
+        rows = a.numel() // c
+        tails[i] = (tail, a, s, rows, c, hidden)
+        w = sum(t.numel() for t in cs.leaves(tail)) * 2
+        for tanh, form in ((True, "tanh"), (False, "erf")):
+            cases.append(("fused_block_tail",
+                          f"stage {i}, cropped grid, {form}",
+                          lambda p=tail, a=a, s=s, t=tanh:
+                              fused_block_tail(p, a, s, t),
+                          lambda p=tail, a=a, s=s, t=tanh:
+                              fused_block_tail_plain(p, a, s, t),
+                          (4 * rows * c * hidden, 3 * cs.nbytes(a) + w)))
+    g3 = PANGU_24.stage(3)
+    skip, dec = storage(g3), storage(g3)
+    du = torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                     generator=gen, device=dev).to(bf)
+    ds = torch.randn((1, 4, PANGU_24.lat, PANGU_24.lon), generator=gen,
+                     device=dev).to(bf)
+    pr = params["patch_recovery"]
+    c3, rows_all = g3.dim, g3.z * g3.h_padded * g3.w
+    kf = 5 * 32 * (g3.z - 1) * g3.h * g3.w + 4 * 16 * g3.h * g3.w
+    rec_cost = (2 * rows_all * 160 * 2 * c3 + 2 * kf * 2 * c3,  # chip_smoke's
+                cs.nbytes(du, ds) + 2 * cs.nbytes(skip)
+                + sum(t.numel() for t in cs.leaves(pr)) * 2
+                + 2 * rows_all * c3 * 2 + 4 * (2 * c3 + 1) * (160 + 64))
+    for off in (half, (0, 0, 0)):
+        cases.append(("recovery_bwd", f"off {off}",
+                      lambda o=off: recovery_bwd(pr, skip, dec, du, ds, o,
+                                                 PANGU_24),
+                      lambda o=off: recovery_bwd_plain(pr, skip, dec, du, ds,
+                                                       o, PANGU_24),
+                      rec_cost))
+
     times, ok = {}, True
     for name, label, kern, plain, (flops, byts) in cases:
         got, want = kern(), plain()
         again = kern()
         torch.cuda.synchronize()
-        err, rel = cs.rel_err(got, want)
-        same = bool(torch.equal(got, again))
+        rel = max(e[2] for e in cs.tree_errs(got, want))
+        same = all(torch.equal(x, y) for x, y in zip(cs.flat(got),
+                                                     cs.flat(again)))
         del got, want, again
         ms = cs.time_ms(kern, args.reps)
         bound_ms, by = cs.bound(flops, byts, bf)
@@ -181,7 +228,7 @@ def main() -> int:
               f"{bound_ms:.3f} ms ({by})", flush=True)
     if args.split:
         x = storage(g0)
-        print("block_wm stage 0 shifted bf16 by class:", cs.fwd_breakdown(
+        print("block_wm stage 0 shifted bf16 by class:", cs.class_breakdown(
             lambda: block_wm(s0, x, g0, half, 3, ids_of(g0), True),
             cs.block_fwd_work(x.numel() // g0.dim, g0.dim,
                               4 * g0.dim, g0.window_tokens)))
@@ -189,9 +236,17 @@ def main() -> int:
         at = s0["attn"]
         w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
              at["proj"]["bias"], at["bias_table"])
-        print("grid_attention stage 0 bf16 by class:", cs.fwd_breakdown(
+        print("grid_attention stage 0 bf16 by class:", cs.class_breakdown(
             lambda: grid_attention(x, *w, g0.window, ids_of(g0)),
             cs.grid_fwd_work(x.numel() // g0.dim, g0.dim, g0.window_tokens)))
+        tail, a, s, rows, c, hidden = tails[0]
+        print("fused_block_tail stage 0 bf16 by class:", cs.class_breakdown(
+            lambda: fused_block_tail(tail, a, s, True),
+            cs.tail_work(rows, c, hidden)))
+        print("recovery_bwd off (1, 3, 6) bf16 by class:", cs.class_breakdown(
+            lambda: recovery_bwd(pr, skip, dec, du, ds, half, PANGU_24),
+            cs.recovery_work(rows_all, c3, 160, 64, du.numel() + ds.numel()),
+            cs.recovery_class))
     print(json.dumps({"repo": str(repo), "card": smi, "ms": times}))
     return 0 if ok else 1
 

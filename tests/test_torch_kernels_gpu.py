@@ -33,7 +33,12 @@ bf16 tensor-core route of the block forward, the block backward (both
 layouts) and the grid attention forward and backward at a row count that
 is not a multiple of the 128-row product tile and at C = 384, with float32
 and bf16 bias tables, bit-identical in two runs (the grouped block equal
-to the ungrouped one, one launch plan in bf16).  Needs a CUDA
+to the ungrouped one, one launch plan in bf16); and the bf16 tensor-core
+route of the block tail (both GELU forms, a row count off the 128-row
+tile, bit-identical in two runs, ValueError for C or hidden not a
+multiple of 8) and of the recovery backward (its relayout pass equal to
+``field_cotangent_wm``, bit-identical in two runs and with finite junk on
+the pair's pad rows).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -548,6 +553,48 @@ def test_recovery_bwd_kernel_matches_plain(cuda, cfg_name, dtype, off):
     assert all(e <= TOL[dtype] for _, e in errs), errs
 
 
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("off", [(0, 0, 0), (1, 3, 6)])
+def test_recovery_bwd_bf16_tensor_core_route(cuda, cfg_name, off):
+    """The bf16 route of the recovery backward at batch 2: its relayout pass
+    equal to ``field_cotangent_wm``, two runs bit for bit, and every output
+    the same bit for bit when the pair's latitude-pad rows hold finite junk
+    instead of zeros (their cotangent rows are zero)."""
+    from pangu_tpu_torch.ops.earth_block_wm import (from_window_major,
+                                                    to_window_major)
+    from pangu_tpu_torch.ops.recovery_wm import (field_cotangent_wm,
+                                                 field_cotangent_wm_kernel,
+                                                 recovery_bwd)
+    cfg = CFGS[cfg_name]
+    bf = torch.bfloat16
+    p = _params(cfg, cuda)["patch_recovery"]
+    g3 = cfg.stage(3)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    du = torch.randn((2, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                     device=cuda).to(bf)
+    ds = torch.randn((2, 4, cfg.lat, cfg.lon), generator=g,
+                     device=cuda).to(bf)
+    got = field_cotangent_wm_kernel(du, ds, off, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(got, field_cotangent_wm(du, ds, off, cfg))
+    pad = ((torch.arange(g3.h_padded, device=cuda) + off[1])
+           % g3.h_padded) >= g3.h
+
+    def pair(seed, junk):
+        grid = from_window_major(_storage(g3, cuda, bf, seed), g3.window)
+        grid[:, :, pad] = (50 * grid[:, :, pad] + 7) if junk else 0
+        return to_window_major(grid, g3.window).contiguous()
+
+    runs = [recovery_bwd(p, pair(6, junk), pair(7, junk), du, ds, off, cfg)
+            for junk in (False, True, True)]
+    torch.cuda.synchronize()
+    flat = [[t for t in (r[0]["upper"]["kernel"], r[0]["upper"]["bias"],
+                         r[0]["surface"]["kernel"], r[0]["surface"]["bias"],
+                         r[1], r[2])] for r in runs]
+    assert all(torch.equal(a, b) for a, b in zip(flat[1], flat[2]))
+    assert all(torch.equal(a, b) for a, b in zip(flat[0], flat[1]))
+
+
 @pytest.mark.parametrize("edge", [False, True])
 def test_train_step_kernels_match_plain(cuda, edge):
     """The float32 train step's loss and every gradient, kernels against
@@ -787,6 +834,51 @@ def test_block_noroll_and_tail_kernels_match_plain(cuda, cfg_name, stage,
     want = fused_block_tail_plain(bp, a, s, tanh)
     torch.cuda.synchronize()
     assert got.shape == a.shape and _rel_err(got, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_block_tail_bf16_tensor_core_route(cuda, cfg_name, stage):
+    """The bf16 tail on a row count that is not a multiple of the 128-row
+    product tile, both GELU forms: within 2^-6 of the plain version and
+    bit-identical in two runs."""
+    from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
+                                                fused_block_tail_plain)
+    cfg = CFGS[cfg_name]
+    geom = cfg.stage(stage)
+    bp = _params(cfg, cuda)["stages"][stage]["blocks"][0]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    rows = 5 * 128 + 37
+    a, s = (torch.randn((rows, geom.dim), generator=g, device=cuda)
+            .to(torch.bfloat16) for _ in range(2))
+    for tanh in (False, True):
+        got = fused_block_tail(bp, a, s, tanh)
+        again = fused_block_tail(bp, a, s, tanh)
+        want = fused_block_tail_plain(bp, a, s, tanh)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        assert _rel_err(got, want) <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("c,hidden", [(20, 80), (16, 60)])
+def test_block_tail_bf16_refuses_shapes_outside_the_tiles(cuda, c, hidden):
+    """A bf16 tail whose C or hidden is not a multiple of 8 raises
+    ValueError before a launch (no fallback)."""
+    from pangu_tpu_torch.ops.block_tail import fused_block_tail
+    g = torch.Generator(device=cuda).manual_seed(12)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(torch.bfloat16)
+
+    p = {"norm1": {"scale": r(c), "bias": r(c)},
+         "norm2": {"scale": r(c), "bias": r(c)},
+         "mlp": {"fc1": {"kernel": r(c, hidden), "bias": r(hidden)},
+                 "fc2": {"kernel": r(hidden, c), "bias": r(c)}}}
+    a = r(300, c)
+    before = fused_block_tail.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_block_tail(p, a, a, True)
+    assert fused_block_tail.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

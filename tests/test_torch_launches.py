@@ -71,8 +71,9 @@ def test_every_launch_is_inside_launch_stream():
                     for n in _enclosing(node, parent))
                 if not guarded:
                     outside.append(f"{path.name}:{node.lineno}")
-    # 18 wrappers launch, each through one call of its entry
-    assert launches == 18 and not outside, (launches, outside)
+    # 19 wrappers launch, each through one call of its entry (18 kernels
+    # and the bf16 recovery backward's relayout pass alone)
+    assert launches == 19 and not outside, (launches, outside)
 
 
 @pytest.mark.parametrize("tensors", [

@@ -1,12 +1,14 @@
-"""The bf16 route of the block kernel, its backward and the grid attention
-(forward and backward) on Hopper's tensor cores, checked on the CPU: what
-the wrappers refuse before a launch, the 16-byte alignment of the operands
-their tiles copy, and, scanned from the sources, that ``csrc/block_wm.cu``,
-``csrc/block_bwd.cu`` and ``csrc/grid_attn.cu`` reach their products and
+"""The bf16 route of the block kernel, its backward, the grid attention
+(forward and backward), the block tail and the recovery backward on
+Hopper's tensor cores, checked on the CPU: what the wrappers refuse before
+a launch, the 16-byte alignment of the operands their tiles copy, and,
+scanned from the sources, that ``csrc/block_wm.cu``, ``csrc/block_bwd.cu``,
+``csrc/grid_attn.cu`` and ``csrc/block_tail.cu`` reach their products and
 attention only through the dtype dispatches of ``csrc/mma_gemm.cuh`` and
 ``csrc/wattn_mma.cuh`` (or, in the block kernel, its own attention
 dispatch), whose bf16 branches run the tensor-core kernels (``mma.sync``)
-and whose float32 branches the first CUDA-core kernels.  The kernels
+and whose float32 branches the first CUDA-core kernels, and that the bf16
+route of ``csrc/recovery_bwd.cu`` runs its products on ``mma_gemm.cuh``.  The kernels
 themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from pangu_tpu_torch.config import TINY
+from pangu_tpu_torch.ops.block_tail import tail_operands
 from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
                                                 check_tensor_core_shape)
 from pangu_tpu_torch.ops.window_attention import _checked
@@ -254,3 +257,73 @@ def test_bf16_forward_operands_are_16_byte_aligned():
     got, _, _, _ = _checked(grid, weights, torch.zeros(nz * nlat, heads, n, n),
                             window, None, "grid_attention")
     assert got.data_ptr() % 16 == 0 and torch.equal(got, grid)
+
+
+def test_block_tail_reaches_products_and_row_passes_through_the_dispatch():
+    """The tail's two products go through fwd_gemm and its two LayerNorm
+    passes through block_ln, as the block kernel's steps 5-8 do: bf16 on
+    the tensor cores and the 16-byte row kernels, float32 on the first
+    version's kernels."""
+    body = _body(_code("block_tail.cu"), "int block_tail(")
+    assert len(re.findall(r"\bfwd_gemm\s*\(", body)) == 2
+    assert body.count("block_ln<T>(") == 2
+    assert not re.search(r"(?<![\w.])gemm\s*\(|\bln_rows\s*<|\bmma_gemm\s*<",
+                         body)
+
+
+def test_recovery_bwd_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 entry runs recovery_bwd_bf16, whose token-cotangent and
+    weight-gradient products are mma_gemm.cuh's (no grad_gemm.cuh product
+    and no gathering functor); float32 keeps the first version's xgemm /
+    wgrad."""
+    code = _code("recovery_bwd.cu")
+    bf16 = _body(code, "static int recovery_bwd_bf16(")
+    assert re.search(r"\bmma_gemm\s*<true>\s*\(", bf16)
+    assert len(re.findall(r"\bmma_gemm_launch\s*<true,\s*false>", bf16)) == 2
+    assert "field_cot_wm(" in bf16 and "head_sum_kernel<<<" in bf16
+    for first in ("xgemm(", "wgrad<", "FieldCot", "PairCols", "PairStore"):
+        assert first not in bf16
+    f32 = _body(code, "int recovery_bwd(")
+    assert "xgemm(" in f32 and "wgrad<T>(" in f32
+    entry = _body(code, 'extern "C" int pangu_recovery_bwd(')
+    assert entry.index("recovery_bwd<float>(") < entry.index(
+        "recovery_bwd_bf16(")
+    assert "recovery_bwd<bf16>" not in code
+
+
+def _tail_params(c, hidden, dtype=torch.bfloat16):
+    p = _block_params(c, hidden, 1, 1, 1, dtype)
+    return {k: p[k] for k in ("norm1", "norm2", "mlp")}
+
+
+@pytest.mark.parametrize("c,hidden", [(16, 64), (20, 80), (16, 60)])
+def test_bf16_block_tail_checks_shapes_before_a_launch(c, hidden):
+    """``tail_operands``, which the tail wrapper runs before a launch,
+    raises ValueError on a bf16 C or hidden that is not a multiple of 8 and
+    takes the rest; float32 keeps the CUDA-core kernels' shapes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        a = torch.zeros((37, c), dtype=dtype)
+        p = _tail_params(c, hidden, dtype)
+        if (c, hidden) == (16, 64) or dtype == torch.float32:
+            tail_operands(p, a, a)
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                tail_operands(p, a, a)
+
+
+def test_bf16_block_tail_operands_are_16_byte_aligned():
+    """A bf16 attention branch, shortcut or dense weight that starts off a
+    16-byte boundary is handed to the kernel as an aligned copy."""
+    c, hidden = 16, 64
+    p = _tail_params(c, hidden)
+    p["mlp"]["fc2"]["kernel"] = torch.ones(
+        hidden * c + 1, dtype=torch.bfloat16)[1:].view(hidden, c)
+    a = torch.randn(37 * c + 1).to(torch.bfloat16)[1:].view(37, c)
+    s = torch.randn(37 * c + 1).to(torch.bfloat16)[1:].view(37, c)
+    assert a.data_ptr() % 16 and s.data_ptr() % 16
+    a2, s2, q, got_hidden = tail_operands(p, a, s)
+    assert got_hidden == hidden
+    for got, want in ((a2, a), (s2, s)):
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, want)
+    assert all(q["mlp"][leaf]["kernel"].data_ptr() % 16 == 0
+               for leaf in ("fc1", "fc2"))
