@@ -12,9 +12,10 @@ Phases, each with its wall seconds:
      blocks per SM), and for the tensor-core products and attention
      (``csrc/mma_gemm.cuh``, ``csrc/wattn_mma.cuh``), those of the bf16
      forward (the block kernel's and the grid attention's objects, with
-     their 16-byte row kernels) and of the bf16 block tail and recovery
+     their 16-byte row kernels), of the bf16 block tail and recovery
      backward (their objects' products, row passes, relayout and split
-     sum) on lines of their own;
+     sum) and of the bf16 DownSample and UpSample (their products and
+     gather + LayerNorm passes) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -23,18 +24,23 @@ Phases, each with its wall seconds:
      and 1; DownSample / UpSample, window-major and canonical; the edge
      kernels: embed, transition and recovery upper / surface, the last three
      at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
-     8 through the stage-0 block and UpSample (more than 65,535 GEMM row
-     tiles), sample 7 against a batch-1 launch; then full-width float32
+     8 through the stage-0 block, DownSample and UpSample and of 16 through
+     UpSample (its mix product then has more than 65,535 row tiles), the
+     last sample against a batch-1 launch (DownSample's and UpSample's bit
+     for bit); then full-width float32
      forwards, without and with the edge kernels, kernels against plain
-     versions.  Every bf16 block entry twice, bit for bit, and the grouped
+     versions.  Every bf16 block entry, DownSample and UpSample twice, bit
+     for bit, and the grouped
      block equal to the ungrouped one on the same input; beside each bf16
-     time of a row the tensor-core forward redesigned, the CUDA-core
-     forward's (``PREVIOUS_BF16_MS``); the float32 error lines of the block
-     entries and the grid attention (here and in phases 6a, 7a, 8a, 9a)
-     equal to the CUDA-core forward's (``F32_BEFORE``, the float32 route
-     being unchanged); one stage-0 bf16 block and grid
-     attention forward by class of kernel (``torch.profiler``: products,
-     attention, row passes, each with its rate);
+     time of a redesigned row its earlier kernel's (``PREVIOUS_BF16_MS``);
+     the float32 error lines of the block entries, the grid attention,
+     DownSample and UpSample (here and in phases 6a, 7a, 8a, 9a) equal to
+     their earlier kernels' (``F32_BEFORE``, the float32 route being
+     unchanged); one stage-0 bf16 block and grid attention forward,
+     DownSample and UpSample by class of kernel (``torch.profiler``:
+     products, attention, row passes, each with its rate); junk on the
+     latitude-pad rows of the bf16 DownSample's and UpSample's input
+     leaves their output bit-equal, whose pad rows are zeros;
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
      tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
      batch 1, random weights and synthetic constants from a seed, each driven
@@ -156,8 +162,9 @@ Training gates (phases 6, 7 and 8): the float32 train step's loss within
 max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
-backward, every bf16 block entry, the block tail and the recovery backward
-must also agree bit for bit over two runs (``BIT_IDENTICAL``, phase 3).
+backward, every bf16 block entry, the block tail, the recovery backward,
+DownSample and UpSample must also agree bit for bit over two runs
+(``BIT_IDENTICAL``, ``BIT_IDENTICAL_FWD``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
 the kernels' JSON record, the card's name and power limit, and
@@ -295,6 +302,9 @@ def _short_kernel(mangled):
                   mangled)
     if m:
         return m[1]
+    m = re.search(r"((?:down|up)_gather_ln_kernel)ILi(\d+)E", mangled)
+    if m:
+        return f"{m[1]}<{m[2]}>"
     m = re.search(r"\d+(mma_gemm_kernel|wattn_mma_\w+?_kernel)I(.*)", mangled)
     if not m:
         return mangled
@@ -350,6 +360,14 @@ def fwd_report(ptxas):
                      "forward ")
 
 
+def updown_report(ptxas):
+    """The same lines for the bf16 DownSample and UpSample: their
+    products and their gather + LayerNorm row passes (one line for each
+    chunk count a lane)."""
+    return tc_report(ptxas_parts(ptxas, {"updown_wm_0"}),
+                     r"PadEpi|gather_ln_kernel", "updown ")
+
+
 def tail_recovery_report(ptxas):
     """The same lines for the bf16 block tail and recovery backward: their
     objects' products, LayerNorm passes, relayout and split sum."""
@@ -362,8 +380,15 @@ def tail_recovery_report(ptxas):
 # them in this script on an NVIDIA H100 80GB HBM3 at 700 W, printed beside
 # the new times: name -> label -> ms.  The block entries and the grid
 # attention: the CUDA-core forward (commit e1271cc); the block tail and the
-# recovery backward: their first versions (commit 37b26cf).
+# recovery backward: their first versions (commit 37b26cf); DownSample and
+# UpSample: their first versions (commit a7e41b5).
 PREVIOUS_BF16_MS = {
+    'down_sample_wm': {
+        'stage 0 -> 1, off (1, 3, 6)': 2.562,
+    },
+    'up_sample_wm': {
+        'stage 2 -> 3, off (1, 3, 6), valid rows': 4.168,
+    },
     'fused_block_tail': {
         'stage 0, cropped grid': 8.693,
         'stage 1, cropped grid': 7.523,
@@ -413,11 +438,12 @@ def previous_ms(name, label):
 
 
 # The float32 route of the block kernel, the grid attention forward, the
-# block tail and the recovery backward did not change with their bf16
-# redesigns, so their float32 error lines must read as the earlier kernels'
-# (commits e1271cc and 37b26cf, as PREVIOUS_BF16_MS) did in the same run of
-# this script ("max_abs_err rel", as printed), where torch and the card are
-# the ones of that run (inputs drawn elsewhere are not comparable)
+# block tail, the recovery backward, DownSample and UpSample did not change
+# with their bf16 redesigns, so their float32 error lines must read as the
+# earlier kernels' (commits e1271cc, 37b26cf and a7e41b5, as
+# PREVIOUS_BF16_MS) did in the same run of this script ("max_abs_err rel",
+# as printed), where torch and the card are the ones of that run (inputs
+# drawn elsewhere are not comparable)
 F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
             "lines": {
                 'block_wm | stage 0 unshifted':
@@ -466,7 +492,16 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
                     '4.292e-06 4.415e-07',
                 'recovery_bwd | off (1, 3, 6)':
                     '2.812e-01 2.680e-06',
+                'down_sample_wm | stage 0 -> 1, off (1, 3, 6)':
+                    '1.431e-06 5.053e-07',
+                'up_sample_wm | stage 2 -> 3, off (1, 3, 6), valid rows':
+                    '4.768e-07 3.566e-07',
             }}
+
+
+# bf16 forward kernels of phase 3 (besides the block entries) whose two
+# runs must agree bit for bit
+BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm")
 
 
 def f32_as_before(name, label, err, rel):
@@ -581,6 +616,27 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3):
             f" ms a launch by CUDA events): " + "; ".join(parts))
 
 
+def down_work(rows0, rows1, c):
+    """(FLOP, bytes) of a bf16 DownSample launch by class, over every
+    storage row (the kernel's work, pad rows included): the product (cat
+    and the weight in, out) and the gather + LayerNorm pass (x in, cat
+    out)."""
+    return {"products": (2 * rows1 * 4 * c * 2 * c,
+                         2 * (rows1 * 4 * c + 8 * c * c + rows1 * 2 * c)),
+            "row passes": (0, 2 * (rows0 * c + rows1 * 4 * c))}
+
+
+def up_work(rows2, rows3, c_in, c_out):
+    """The same for a bf16 UpSample launch: the expand product (x in, e
+    out) and the mix product (y in, out), the gather + LayerNorm pass (a
+    C' slice of e in, y out)."""
+    return {"products": (2 * rows2 * c_in * 4 * c_out
+                         + 2 * rows3 * c_out * c_out,
+                         2 * (rows2 * (c_in + 4 * c_out) + 2 * rows3 * c_out
+                              + 4 * c_in * c_out + c_out * c_out)),
+            "row passes": (0, 2 * 2 * rows3 * c_out)}
+
+
 def tail_work(rows, c, hidden):
     """(FLOP, bytes) of a bf16 block tail launch by class, each input read
     once and each output written once: the two products (x1 in, h; h in,
@@ -644,6 +700,7 @@ def main() -> int:
                                                     block_wm_group,
                                                     block_wm_plain,
                                                     from_window_major,
+                                                    pad_rows_zeroed,
                                                     to_window_major,
                                                     wm_to_canonical)
     from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
@@ -689,7 +746,7 @@ def main() -> int:
     print(f"built {os.path.relpath(lib_path)}")
     ptxas = _build.ptxas_report()
     for line in (sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas)
-                 + tail_recovery_report(ptxas)):
+                 + tail_recovery_report(ptxas) + updown_report(ptxas)):
         print(line)
     done("build", t0)
 
@@ -717,11 +774,11 @@ def main() -> int:
 
     u0, s0 = state(SEED + 2)
 
-    def storage(geom, dtype, batch=1):
+    def storage(geom, dtype, batch=1, g=None):
         wz, wh, ww = geom.window
         shape = (batch, geom.z // wz, geom.h_padded // wh, geom.w // ww,
                  wz * wh * ww, geom.dim)
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return torch.randn(shape, generator=g or gen, device=dev).to(dtype)
 
     def ids_of(geom):
         return torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
@@ -905,7 +962,8 @@ def main() -> int:
         err, rel = rel_err(got, want)
         del want
         note = ""
-        if dtype == torch.bfloat16 and name.startswith("block_wm"):
+        if dtype == torch.bfloat16 and (name.startswith("block_wm")
+                                        or name in BIT_IDENTICAL_FWD):
             if not torch.equal(got, view(kern())):
                 raise AssertionError(f"{name} {label}: two bf16 runs differ")
             note = "  bit-identical in two runs"
@@ -960,29 +1018,81 @@ def main() -> int:
                             grid_fwd_work(m0, c0, g0.window_tokens)))
     del xs, x
 
-    # a batch of 8 at stage 0: 8 x 535,680 rows / 64 = 66,960 GEMM row tiles,
-    # more than a grid's y dimension holds; sample 7 against batch 1
+    # bf16 DownSample and UpSample: by class of kernel; junk on the input's
+    # latitude-pad rows (storage latitude s holds canonical (s + 1) % hp at
+    # off (1, 3, 6)) must leave the output bit-equal, whose pad rows are
+    # zeros.  Inputs from a generator of their own (here and in the batch-8
+    # DownSample), so that the later phases' inputs, which F32_BEFORE's
+    # lines depend on, stay as they were drawn
+    gud = torch.Generator(device=dev).manual_seed(SEED + 9)
+    pb = to_dtype({"down": params["downsample"], "up": params["upsample"]},
+                  torch.bfloat16)
+    for name, fn, p, gin, gout, work in (
+            ("down_sample_wm", down_sample_wm, pb["down"], g0, g1,
+             down_work(rows(g0), rows(g1), g0.dim)),
+            ("up_sample_wm", up_sample_wm, pb["up"], g2, g3,
+             up_work(rows(g2), rows(g3), g2.dim, g3.dim))):
+        xs = storage(gin, torch.bfloat16, g=gud)
+        print(f"{name} bf16 by class (torch.profiler): " + class_breakdown(
+            lambda fn=fn, p=p, xs=xs, gin=gin, gout=gout:
+                fn(p, xs, gin, gout, half), work))
+        grid = from_window_major(xs, gin.window)
+        kept = pad_rows_zeroed(grid, gin, half[1])
+        junk = to_window_major(kept + 50 * (grid - kept),
+                               gin.window).contiguous()
+        got, with_junk = fn(p, xs, gin, gout, half), fn(p, junk, gin, gout, half)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, with_junk))
+        zeros = not from_window_major(got, gout.window)[:, :, gout.h:].any()
+        print(f"{name} bf16, junk (50x) on the input's latitude-pad rows: "
+              f"output bit-equal {same}; output pad rows zero {zeros}")
+        if not (same and zeros):
+            raise AssertionError(f"{name}: pad rows reach the output")
+    del xs, grid, kept, junk, got, with_junk, pb
+
+    # a batch of 8, the last sample against a batch-1 launch: at stage 0
+    # 8 x 535,680 rows, 33,480 row tiles of the 128-row tensor-core
+    # products (66,960 of the first version's 64-row tiles), and a batch
+    # of 16 through UpSample, whose mix product then has 66,960 row tiles,
+    # more than a grid's y dimension holds
     s0b, ids0 = params["stages"][0]["blocks"][1], ids_of(g0)
     x8 = storage(g0, torch.bfloat16, batch=8)
     got = block_wm(s0b, x8, g0, half, 3, ids0, True)[7]
     want = block_wm(s0b, x8[7:].contiguous(), g0, half, 3, ids0, True)[0]
     torch.cuda.synchronize()
-    b8 = [("block_wm stage 0 shifted", got, want)]
+    b8 = [("block_wm stage 0 shifted", 8, got, want)]
+    del x8
+    x8 = storage(g0, torch.bfloat16, batch=8, g=gud)
+    got = down_sample_wm(params["downsample"], x8, g0, g1, half)[7]
+    want = down_sample_wm(params["downsample"], x8[7:].contiguous(), g0, g1,
+                          half)[0]
+    torch.cuda.synchronize()
+    b8.append(("down_sample_wm", 8, got, want))
     del x8
     x8 = storage(g2, torch.bfloat16, batch=8)
     got = up_sample_wm(params["upsample"], x8, g2, g3, half)[7]
     want = up_sample_wm(params["upsample"], x8[7:].contiguous(), g2, g3,
                         half)[0]
     torch.cuda.synchronize()
-    b8.append(("up_sample_wm", got, want))
-    for label, got, want in b8:
+    b8.append(("up_sample_wm", 8, got, want))
+    del x8
+    x8 = storage(g2, torch.bfloat16, batch=16, g=gud)
+    got = up_sample_wm(params["upsample"], x8, g2, g3, half)[15]
+    want = up_sample_wm(params["upsample"], x8[15:].contiguous(), g2, g3,
+                        half)[0]
+    torch.cuda.synchronize()
+    b8.append(("up_sample_wm", 16, got, want))
+    for label, batch, got, want in b8:
         err, rel = rel_err(got, want)
         same = bool(torch.equal(got, want))
-        print(f"batch 8, sample 7 vs batch 1: {label} bf16 max_abs_err "
-              f"{err:.3e} rel {rel:.3e} bit-equal {same} (tol "
+        print(f"batch {batch}, sample {batch - 1} vs batch 1: {label} bf16 "
+              f"max_abs_err {err:.3e} rel {rel:.3e} bit-equal {same} (tol "
               f"{TOL[torch.bfloat16]:.1e})")
         if rel > TOL[torch.bfloat16]:
-            raise AssertionError(f"batch 8 {label}: rel err {rel:.3e}")
+            raise AssertionError(f"batch {batch} {label}: rel err {rel:.3e}")
+        if label in BIT_IDENTICAL_FWD and not same:
+            raise AssertionError(f"batch {batch} {label}: the last sample "
+                                 "differs from a batch-1 launch")
     del x8, got, want, b8
     torch.cuda.empty_cache()
 

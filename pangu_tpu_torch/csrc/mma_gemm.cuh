@@ -7,6 +7,8 @@
 //   recovery_bwd.cu  the recovery backward's token cotangents (mma_gemm)
 //                  and weight gradients (mma_gemm_launch, transposed A;
 //                  bf16 only: its float32 route is its own),
+//   updown_wm.cu   DownSample's and UpSample's products (mma_gemm with
+//                  PadEpi; bf16 only: their float32 route is their own),
 // and the dispatches that keep float32 on the first version's kernels:
 // unit_gemm / unit_wgrad (float32 on grad_gemm.cuh) and fwd_gemm (float32
 // on common.cuh's gemm, so the float32 outputs stay bit for bit).
@@ -293,6 +295,59 @@ inline cudaError_t mma_wgrad(const bf16* a, int Ka, const bf16* b, int N,
   split_sum(part, out, (long long)(Ka + 1) * N, splits, st);
   return cudaGetLastError();
 }
+
+// n / d and n % d for 0 <= n < 2^31 by a multiply-high, an add and a
+// shift, d (> 0, < 2^31) fixed per launch: the magic number and the shift
+// are worked out on the host (Granlund and Montgomery; PyTorch's
+// IntDivider does the same)
+struct FastDiv {
+  unsigned d = 1, magic = 1, shift = 0;
+  FastDiv() = default;
+  explicit FastDiv(unsigned d_) : d(d_ ? d_ : 1) {
+    while ((1u << shift) < d) ++shift;
+    magic = (unsigned)(((1ull << 32) * ((1ull << shift) - d)) / d + 1);
+  }
+  __device__ __forceinline__ unsigned div(unsigned n) const {
+    return (__umulhi(n, magic) + n) >> shift;
+  }
+  __device__ __forceinline__ unsigned mod(unsigned n) const {
+    return n - div(n) * d;
+  }
+};
+
+// out = round_T(acc), the rows ``pad`` flags (common.cuh's PadRows: the
+// latitude padding of window-major storage, canon_add >= -hp) written as
+// zeros; pad.enabled 0 keeps every row.  Below row 2^31 the test runs on
+// FastDivs: is_pad_row's 64-bit divisions, once per 8 columns, took a
+// third of UpSample's C' x C' product (0.121 of 0.355 ms at full width on
+// an H100 80GB HBM3).
+template <typename T>
+struct PadEpi {
+  T* out;
+  int N;
+  PadRows pad;
+  FastDiv lat_rows, nlat, tokens, ww, wh, hp;  // lat_rows = tokens x nlon
+  PadEpi(T* out_, int N_, const PadRows& p)
+      : out(out_), N(N_), pad(p), lat_rows(p.s.n * p.s.nlon), nlat(p.s.nlat),
+        tokens(p.s.n), ww(p.s.ww), wh(p.s.wh), hp(p.hp) {}
+  __device__ bool pad_row(long long r) const {
+    if (!pad.enabled) return false;
+    if (r >> 31) return is_pad_row(r, pad);
+    const unsigned m = (unsigned)r;
+    const unsigned lat =
+        wh.d * nlat.mod(lat_rows.div(m)) + wh.mod(ww.div(tokens.mod(m)));
+    return (int)hp.mod(lat + pad.canon_add + pad.hp) >= pad.h_real;
+  }
+  __device__ void operator()(int, long long r, int c,
+                             const float (&v)[8]) const {
+    if (pad_row(r)) {
+      const float zero[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      st8(out + r * N + c, zero);
+    } else {
+      st8(out + r * N + c, v);
+    }
+  }
+};
 
 // every pointer 16-byte aligned (the tiles' cp.async copies need it)
 inline bool aligned16_all(std::initializer_list<const void*> ps) {

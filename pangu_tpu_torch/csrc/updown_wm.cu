@@ -21,19 +21,41 @@
 //   3. LN      y = round_T(LN(y))                over C'
 //   4. GEMM    out = round_T(y @ Wmix), rows with lat3 >= h3 zeroed
 // (The TPU kernel leaves junk in UpSample's latitude-pad rows, which the next
-// block zero-synthesises on read; here they are zeros.)
+// block zero-synthesises on read; here they are zeros.)  LayerNorm is not
+// folded into the weights: its output rounds to T before the product, as in
+// the JAX kernels.
 //
-// What bounds them on an H100: memory traffic.  At full width DownSample does
-// ~8e10 FLOP on ~0.2 GB in and ~0.1 GB out (bf16), UpSample ~8e10 FLOP on
-// similar bytes: both sit near the bf16 balance point, and this first version
-// adds a round trip of the 4C-wide intermediate through device memory.
-#include "common.cuh"
+// What bounds them on an H100: at full width DownSample does ~8.2e10 FLOP
+// on ~0.2 GB in and ~0.1 GB out (bf16), UpSample ~8e10 FLOP on similar
+// bytes: both sit near the bf16 balance point, so each pass should move its
+// bytes once and the products should run on the tensor cores.
+//
+// float32 (the parity config) runs the first version's kernels: an element
+// a lane gather, common.cuh's ln_rows in place, common.cuh's FMA gemm (the
+// outputs stay the same bit for bit).  bf16 (the perf config) runs
+//   DownSample  one fused gather + LayerNorm pass (down_gather_ln_kernel:
+//               a warp a stage-1 row, its 4C values in registers, read 16
+//               bytes a lane from the four source rows, whose offsets and
+//               moduli are computed once a row and shuffled to the lanes),
+//               then one mma_gemm.cuh product (128 x 96 mma.sync tiles)
+//               whose epilogue (PadEpi) zeroes the latitude-pad rows;
+//   UpSample    the expand product on mma_gemm (PadEpi, every row kept),
+//               one fused gather + LayerNorm pass (up_gather_ln_kernel:
+//               four stage-3 rows a warp, each reading its C' slice of e
+//               16 bytes a lane), the mix product on mma_gemm with
+//               PadEpi.
+// So the bf16 route takes channel counts that are multiples of 8, 16-byte
+// aligned operands and LayerNorm rows of at most 256 * LN_MAX_NJ values
+// (the C entries refuse the rest; the wrappers check first).
+#include "mma_gemm.cuh"
 
 namespace pangu {
 
 struct Roll {
   int z, lat, lon;  // off: storage p holds canonical token p + off
 };
+
+// ---- the float32 route (the first version) -----------------------------------------
 
 // one warp per stage-1 row
 template <typename T>
@@ -129,6 +151,210 @@ int up_sample_wm(const void* x, void* out, void* ws, const void* we,
   return 0;
 }
 
+// ---- the bf16 route ---------------------------------------------------------------
+
+// A row pass holds a LayerNorm row in registers: lane j the 8-value chunks
+// j, j + 32, ..., NJ of them (chunk k = columns [8k, 8k + 8)).
+constexpr int LN_MAX_NJ = 8;
+
+// v (the lane's chunks of a row of `width` values, `chunks` = width / 8
+// in all) -> out = round_bf16(LN(v)), float32 statistics (the sums run 8
+// values a lane first, as block_common.cuh's ln_rows16_kernel)
+template <int NJ>
+__device__ __forceinline__ void ln_store_row(float (&v)[NJ][8], int chunks,
+                                             int width,
+                                             const bf16* __restrict__ scale,
+                                             const bf16* __restrict__ shift,
+                                             bf16* out, int lane) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (lane + 32 * j < chunks)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += v[j][e];
+  const float mu = warp_sum(s) / width;
+  float q = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+    if (lane + 32 * j < chunks)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float d = v[j][e] - mu;
+        q += d * d;
+      }
+  const float rs = rsqrtf(warp_sum(q) / width + 1e-5f);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int k = lane + 32 * j;
+    if (k >= chunks) continue;
+    float g[8], b[8];
+    ld8(scale + 8 * k, g);
+    ld8(shift + 8 * k, b);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[j][e] = (v[j][e] - mu) * rs * g[e] + b[e];
+    st8(out + 8 * k, v[j]);
+  }
+}
+
+__device__ __forceinline__ void zero_row16(bf16* out, int chunks, int lane) {
+  for (int k = lane; k < chunks; k += 32)
+    *reinterpret_cast<uint4*>(out + 8 * k) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// DownSample's gather + LayerNorm: one warp per stage-1 row m, cat[m] =
+// round_bf16(LN([x0 rows of parts 0..3])); an output latitude-pad row
+// (lat1 >= h1, zeroed by the product) is written as zeros
+template <int NJ>
+__global__ void __launch_bounds__(256)
+down_gather_ln_kernel(const bf16* __restrict__ x, bf16* __restrict__ cat,
+                      long long M1, int C, WmShape s0, WmShape s1, Roll off,
+                      int h0, int h1, const bf16* __restrict__ scale,
+                      const bf16* __restrict__ shift) {
+  const int lane = threadIdx.x % 32, cpr = C / 8, chunks = 4 * cpr;
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M1) return;
+  const WmPos p = wm_split(m, s1);
+  const int lat1 = s1.wh * p.hh + p.rh;
+  bf16* dst = cat + m * 4 * C;
+  if (lat1 >= h1) {
+    zero_row16(dst, chunks, lane);
+    return;
+  }
+  // lane j computes the source row of part j % 4 (h_off = part / 2, w_off =
+  // part % 2; -1 past h0: zeros), each lane then takes its chunks' rows
+  const int Z = s0.nz * s0.wz, hp0 = s0.nlat * s0.wh, W0 = s0.nlon * s0.ww;
+  long long row = -1;
+  {
+    const int part = lane % 4, lat0 = 2 * lat1 + part / 2;
+    const int w0 = 2 * (s1.ww * p.l + p.rw) + part % 2;
+    if (lat0 < h0)
+      row = wm_row(p.b, pmod(s1.wz * p.zz + p.rz - off.z, Z),
+                   pmod(lat0 - off.lat, hp0), pmod(w0 - off.lon, W0), s0);
+  }
+  float v[NJ][8];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int k = lane + 32 * j, part = min(k / cpr, 3);
+    const long long src = __shfl_sync(0xffffffffu, row, part);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[j][e] = 0.f;
+    if (k < chunks && src >= 0) ld8(x + src * C + 8 * (k - part * cpr), v[j]);
+  }
+  ln_store_row<NJ>(v, chunks, 4 * C, scale, shift, dst, lane);
+}
+
+// UpSample's gather + LayerNorm: one warp per up_rows<NJ>() consecutive
+// stage-3 rows, y[m] = round_bf16(LN(the C' slice of e that m takes)); a
+// latitude-pad row (lat3 >= h3) is written as zeros, and no pad row of e is
+// read.  A C' = 192 row is 384 bytes, so a warp takes four: lane j works out
+// where row j % 4 reads (the index arithmetic of four rows in one pass) and
+// the four rows' loads are all in flight before the first reduction.
+template <int NJ>
+__host__ __device__ constexpr int up_rows() { return NJ < 4 ? 4 / NJ : 1; }
+
+template <int NJ>
+__global__ void __launch_bounds__(256)
+up_gather_ln_kernel(const bf16* __restrict__ e, bf16* __restrict__ y,
+                    long long M3, int C, WmShape s2, WmShape s3, Roll off,
+                    int h2, int h3, const bf16* __restrict__ scale,
+                    const bf16* __restrict__ shift) {
+  constexpr int R = up_rows<NJ>();
+  const int lane = threadIdx.x % 32, chunks = C / 8;
+  const long long m0 = ((long long)blockIdx.x * 8 + threadIdx.x / 32) * R;
+  if (m0 >= M3) return;
+  // where row m0 + lane % R reads in e (an element offset); -1: a pad row
+  // (zeros), -2: past M3
+  long long mine = -2;
+  {
+    const long long m = m0 + lane % R;
+    if (m < M3) {
+      const WmPos p = wm_split(m, s3);
+      const int lat3 = s3.wh * p.hh + p.rh, w3 = s3.ww * p.l + p.rw;
+      const int Z = s2.nz * s2.wz, hp2 = s2.nlat * s2.wh, W2 = s2.nlon * s2.ww;
+      mine = -1;
+      if (lat3 < h3 && lat3 / 2 < h2)
+        mine = wm_row(p.b, pmod(s3.wz * p.zz + p.rz - off.z, Z),
+                      pmod(lat3 / 2 - off.lat, hp2), pmod(w3 / 2 - off.lon, W2),
+                      s2) * 4 * C + (2 * (lat3 % 2) + w3 % 2) * C;
+    }
+  }
+  long long src[R];
+  float v[R][NJ][8];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    src[r] = __shfl_sync(0xffffffffu, mine, r);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (lane + 32 * j < chunks && src[r] >= 0)
+        ld8(e + src[r] + 8 * (lane + 32 * j), v[r][j]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    bf16* dst = y + (m0 + r) * C;
+    if (src[r] == -1)
+      zero_row16(dst, chunks, lane);
+    else if (src[r] >= 0)
+      ln_store_row<NJ>(v[r], chunks, C, scale, shift, dst, lane);
+  }
+}
+
+// launch(std::integral_constant<int, nj>) for 1 <= nj <= LN_MAX_NJ, the
+// row kernels' instantiation that holds nj chunks a lane
+template <int NJ = 1, typename Launch>
+inline int with_nj(int nj, Launch launch) {
+  if constexpr (NJ > LN_MAX_NJ) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    if (nj == NJ) return launch(std::integral_constant<int, NJ>{});
+    return with_nj<NJ + 1>(nj, launch);
+  }
+}
+
+inline int row_nj(int chunks) { return (chunks + 31) / 32; }
+
+static int down_sample_wm_bf16(const bf16* x, bf16* out, bf16* cat,
+                               const bf16* ns, const bf16* nb,
+                               const bf16* wr, int B, WmShape s0, WmShape s1,
+                               int C, Roll off, int h0, int h1,
+                               cudaStream_t st) {
+  const long long M1 = (long long)B * s1.nz * s1.nlat * s1.nlon * s1.n;
+  int e = with_nj(row_nj(C / 2), [&](auto nj) {
+    down_gather_ln_kernel<decltype(nj)::value><<<row_blocks(M1), 256, 0, st>>>(
+        x, cat, M1, C, s0, s1, off, h0, h1, ns, nb);
+    return (int)cudaGetLastError();
+  });
+  if (e) return e;
+  const PadRows pad = {1, s1, s1.nlat * s1.wh, h1, 0};
+  return (int)mma_gemm<false>(cat, wr, M1, 2 * C, 4 * C,
+                              PadEpi<bf16>{out, 2 * C, pad}, st);
+}
+
+static int up_sample_wm_bf16(const bf16* x, bf16* out, bf16* ws,
+                             const bf16* we, const bf16* ns, const bf16* nb,
+                             const bf16* wm, int B, WmShape s2, WmShape s3,
+                             int c_in, int c_out, Roll off, int h2, int h3,
+                             cudaStream_t st) {
+  const long long M2 = (long long)B * s2.nz * s2.nlat * s2.nlon * s2.n;
+  const long long M3 = (long long)B * s3.nz * s3.nlat * s3.nlon * s3.n;
+  bf16* e = ws;                   // M2 * 4C'
+  bf16* y = e + M2 * 4 * c_out;   // M3 * C'
+  const PadRows none = {0};
+  int err = (int)mma_gemm<false>(x, we, M2, 4 * c_out, c_in,
+                                 PadEpi<bf16>{e, 4 * c_out, none}, st);
+  if (err) return err;
+  err = with_nj(row_nj(c_out / 8), [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    const long long warps = (M3 + up_rows<NJ>() - 1) / up_rows<NJ>();
+    up_gather_ln_kernel<NJ><<<row_blocks(warps), 256, 0, st>>>(
+        e, y, M3, c_out, s2, s3, off, h2, h3, ns, nb);
+    return (int)cudaGetLastError();
+  });
+  if (err) return err;
+  const PadRows pad = {1, s3, s3.nlat * s3.wh, h3, 0};
+  return (int)mma_gemm<false>(y, wm, M3, c_out, c_out,
+                              PadEpi<bf16>{out, c_out, pad}, st);
+}
+
 }  // namespace pangu
 
 using namespace pangu;
@@ -148,10 +374,13 @@ extern "C" int pangu_down_sample_wm(int dtype, const void* x, void* out,
   if (dtype == 0)
     return down_sample_wm<float>(x, out, workspace, ns, nb, wr, B, s0, s1, C, off,
                                  h0, h1, st);
-  if (dtype == 1)
-    return down_sample_wm<bf16>(x, out, workspace, ns, nb, wr, B, s0, s1, C, off,
-                                h0, h1, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles and the 16-byte row pass
+  if (dtype != 1 || C % 8 || row_nj(C / 2) > LN_MAX_NJ ||
+      !aligned16_all({x, out, workspace, ns, nb, wr}))
+    return (int)cudaErrorInvalidValue;
+  return down_sample_wm_bf16((const bf16*)x, (bf16*)out, (bf16*)workspace,
+                             (const bf16*)ns, (const bf16*)nb, (const bf16*)wr,
+                             B, s0, s1, C, off, h0, h1, st);
 }
 
 extern "C" int pangu_up_sample_wm(int dtype, const void* x, void* out,
@@ -168,8 +397,12 @@ extern "C" int pangu_up_sample_wm(int dtype, const void* x, void* out,
   if (dtype == 0)
     return up_sample_wm<float>(x, out, workspace, we, ns, nb, wm, B, s2, s3, c_in,
                                c_out, off, h2, h3, st);
-  if (dtype == 1)
-    return up_sample_wm<bf16>(x, out, workspace, we, ns, nb, wm, B, s2, s3, c_in,
-                              c_out, off, h2, h3, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles and the 16-byte row pass
+  if (dtype != 1 || c_in % 8 || c_out % 8 || row_nj(c_out / 8) > LN_MAX_NJ ||
+      !aligned16_all({x, out, workspace, we, ns, nb, wm}))
+    return (int)cudaErrorInvalidValue;
+  return up_sample_wm_bf16((const bf16*)x, (bf16*)out, (bf16*)workspace,
+                           (const bf16*)we, (const bf16*)ns, (const bf16*)nb,
+                           (const bf16*)wm, B, s2, s3, c_in, c_out, off, h2, h3,
+                           st);
 }

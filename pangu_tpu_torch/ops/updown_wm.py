@@ -16,6 +16,14 @@ versions here canonicalise with ``wm_to_canonical`` and run the canonical
 pair's plain versions (``ops/updown``).  The JAX UpSample kernel leaves junk in its latitude-pad rows;
 both versions here write zeros there.
 
+bf16 runs on the tensor cores (a fused gather + LayerNorm row pass, then
+``csrc/mma_gemm.cuh`` products), so it takes channel counts that are
+multiples of 8, LayerNorm rows of at most ``LN_ROW_MAX`` values and 16-byte
+aligned operands: ``down_operands`` / ``up_operands`` check the input
+before a launch and raise ValueError on the rest (aligned copies of a
+misaligned input or weight); float32 runs the first CUDA-core kernels and
+takes any width.
+
 Training: ``down_sample_wm_train`` / ``up_sample_wm_train`` run the kernel
 forward and, backward, PyTorch autograd through a recompute of the plain
 version, as the JAX package's ``*_train`` take an XLA ``jax.vjp`` of their
@@ -29,6 +37,8 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
+                                                aligned16,
+                                                check_tensor_core_shape,
                                                 params_in, require_device,
                                                 to_window_major,
                                                 wm_to_canonical)
@@ -36,9 +46,41 @@ from pangu_tpu_torch.ops.updown import (down_sample_plain, recompute_train,
                                         up_sample_plain)
 
 
+# the bf16 row passes hold a LayerNorm row in registers: at most 8 chunks of
+# 8 values a lane (csrc/updown_wm.cu, LN_MAX_NJ)
+LN_ROW_MAX = 32 * 8 * 8
+
+
 def _pad_lat(x, hp: int):
     """Zero-pad the latitude axis of (B, Z, H, W, C) to hp rows."""
     return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, hp - x.shape[2]))
+
+
+def check_updown_shape(channels, ln_width: int, what: str) -> None:
+    """Raise ValueError on what the bf16 route of ``csrc/updown_wm.cu``
+    does not take: a channel count (input, output, LayerNorm) that is not a
+    multiple of 8, or a LayerNorm row wider than ``LN_ROW_MAX``."""
+    check_tensor_core_shape(channels, None, what)
+    if ln_width > LN_ROW_MAX:
+        raise ValueError(f"{what}: the bf16 row pass takes LayerNorm rows of "
+                         f"at most {LN_ROW_MAX} values, got {ln_width}")
+
+
+def _operands(p, xs, channels, ln_width: int, what: str):
+    """xs (16-byte aligned in bf16) and the params in its dtype, on its
+    device; in bf16 the shapes checked (``check_updown_shape``) and every
+    leaf 16-byte aligned."""
+    q = params_in(p, xs.dtype)
+    require_device(q, xs.device, what)
+    if xs.dtype == torch.bfloat16:
+        check_updown_shape(channels, ln_width, what)
+        xs, q = aligned16(xs), _aligned(q)
+    return xs, q
+
+
+def _aligned(tree):
+    return {k: _aligned(v) if isinstance(v, dict) else aligned16(v)
+            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -53,6 +95,20 @@ def down_sample_wm_plain(p, xs, geom0: StageGeometry, geom1: StageGeometry,
     return to_window_major(_pad_lat(y, geom1.h_padded), geom1.window)
 
 
+def down_operands(p, xs, geom0: StageGeometry, geom1: StageGeometry):
+    """What the DownSample kernel takes, checked before a launch: ``(xs,
+    q, out_shape)``, q the params in xs's dtype.  Raises ValueError on an
+    unsupported input or, in bf16, on a C that is not a multiple of 8."""
+    b, nz, nlat0, nlon0, n, c = xs.shape
+    wh = geom0.window[1]
+    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
+            or c != geom0.dim or nlat0 * wh != geom0.h_padded):
+        raise ValueError(f"down_sample_wm: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype}")
+    xs, q = _operands(p, xs, (c, 2 * c), 4 * c, "down_sample_wm")
+    return xs, q, (b, nz, geom1.h_padded // wh, nlon0 // 2, n, 2 * c)
+
+
 def down_sample_wm(p, xs, geom0: StageGeometry, geom1: StageGeometry,
                    off: Offset):
     """xs: (B, nz, nlat0, nlon0, N, C) rolled wm storage with offset ``off``.
@@ -61,17 +117,11 @@ def down_sample_wm(p, xs, geom0: StageGeometry, geom1: StageGeometry,
     version for a CPU tensor."""
     if not xs.is_cuda:
         return down_sample_wm_plain(p, xs, geom0, geom1, off)
+    xs, q, shape = down_operands(p, xs, geom0, geom1)
     b, nz, nlat0, nlon0, n, c = xs.shape
     wz, wh, ww = geom0.window
-    nlat1, nlon1 = geom1.h_padded // wh, nlon0 // 2
-    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
-            or c != geom0.dim or nlat0 * wh != geom0.h_padded):
-        raise ValueError(f"down_sample_wm: unsupported input {tuple(xs.shape)} "
-                         f"{xs.dtype}")
-    q = params_in(p, xs.dtype)
-    require_device(q, xs.device, "down_sample_wm")
-    out = torch.empty((b, nz, nlat1, nlon1, n, 2 * c), dtype=xs.dtype,
-                      device=xs.device)
+    nlat1, nlon1 = shape[2], shape[3]
+    out = torch.empty(shape, dtype=xs.dtype, device=xs.device)
     ws = torch.empty(out.numel() * 2, dtype=xs.dtype, device=xs.device)  # 4C rows
     tensors = (xs, out, ws, q["norm"]["scale"], q["norm"]["bias"],
                q["reduce"]["kernel"])
@@ -100,6 +150,21 @@ def up_sample_wm_plain(p, xs, geom2: StageGeometry, geom3: StageGeometry,
     return to_window_major(_pad_lat(y, geom3.h_padded), geom3.window)
 
 
+def up_operands(p, xs, geom2: StageGeometry, geom3: StageGeometry):
+    """What the UpSample kernel takes, checked before a launch: ``(xs, q,
+    out_shape)``, as :func:`down_operands`; in bf16 C2 and C3 multiples of
+    8."""
+    b, nz, nlat2, nlon2, n, c_in = xs.shape
+    wh = geom2.window[1]
+    c_out = p["expand"]["kernel"].shape[-1] // 4
+    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
+            or c_in != geom2.dim or nlat2 * wh != geom2.h_padded):
+        raise ValueError(f"up_sample_wm: unsupported input {tuple(xs.shape)} "
+                         f"{xs.dtype}")
+    xs, q = _operands(p, xs, (c_in, c_out), c_out, "up_sample_wm")
+    return xs, q, (b, nz, geom3.h_padded // wh, nlon2 * 2, n, c_out)
+
+
 def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
                  off: Offset):
     """xs: (B, nz, nlat2, nlon2, N, C2) rolled wm storage with offset
@@ -108,18 +173,11 @@ def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
     version for a CPU tensor."""
     if not xs.is_cuda:
         return up_sample_wm_plain(p, xs, geom2, geom3, off)
+    xs, q, shape = up_operands(p, xs, geom2, geom3)
     b, nz, nlat2, nlon2, n, c_in = xs.shape
     wz, wh, ww = geom2.window
-    c_out = p["expand"]["kernel"].shape[-1] // 4
-    nlat3, nlon3 = geom3.h_padded // wh, nlon2 * 2
-    if (xs.dtype not in DTYPE_CODE or not xs.is_contiguous()
-            or c_in != geom2.dim or nlat2 * wh != geom2.h_padded):
-        raise ValueError(f"up_sample_wm: unsupported input {tuple(xs.shape)} "
-                         f"{xs.dtype}")
-    q = params_in(p, xs.dtype)
-    require_device(q, xs.device, "up_sample_wm")
-    out = torch.empty((b, nz, nlat3, nlon3, n, c_out), dtype=xs.dtype,
-                      device=xs.device)
+    nlat3, nlon3, c_out = shape[2], shape[3], shape[5]
+    out = torch.empty(shape, dtype=xs.dtype, device=xs.device)
     # workspace: e (rows2 x 4C') | y (rows3 x C')
     ws = torch.empty(xs.numel() // c_in * 4 * c_out + out.numel(),
                      dtype=xs.dtype, device=xs.device)

@@ -4,18 +4,22 @@ shapes on one CUDA card, for the copy of the port in a given directory, so
 that two versions compare in one call: the forward block kernel (every
 entry of ``csrc/block_wm.cu``), the grid attention forward
 (``csrc/grid_attn.cu``), the block tail (``csrc/block_tail.cu``, tanh and
-erf GELU) and the recovery backward (``csrc/recovery_bwd.cu``, pair
-offsets (1, 3, 6) and (0, 0, 0)).
+erf GELU), the recovery backward (``csrc/recovery_bwd.cu``, pair
+offsets (1, 3, 6) and (0, 0, 0)) and the window-major DownSample and
+UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)).
 
     python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
+                                        [--only REGEX]
 
 ``--repo`` (default: this checkout) is the directory whose
 ``pangu_tpu_torch`` is imported.  Per case: the error against the plain
 version (max |kernel - plain| / max |plain| over every output, gate 2^-6),
 whether two runs agree bit for bit, ms per launch (CUDA events over
 ``--reps`` launches after one warm-up) and the bound of chip_smoke.py.
-``--split``: one stage-0 block, grid attention and tail and one recovery
-backward by class of kernel (``torch.profiler``, chip_smoke.py's classes).
+``--split``: one stage-0 block, grid attention and tail, one recovery
+backward, DownSample and UpSample by class of kernel (``torch.profiler``,
+chip_smoke.py's classes).  ``--only``: the cases (and splits) whose
+``name label`` the regular expression finds, e.g. ``--only sample_wm``.
 The last line is one JSON object of the times.
 """
 
@@ -25,6 +29,7 @@ import argparse
 import dataclasses
 import importlib.util
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +54,7 @@ def main() -> int:
     ap.add_argument("--repo", default=str(HERE))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--only", default="")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kernels_ab: no CUDA device", file=sys.stderr)
@@ -72,6 +78,9 @@ def main() -> int:
                                                     block_wm_plain)
     from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
                                                  recovery_bwd_plain)
+    from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
+                                               down_sample_wm_plain,
+                                               up_sample_wm, up_sample_wm_plain)
     from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
                                                       block_noroll_plain,
                                                       grid_attention,
@@ -208,9 +217,33 @@ def main() -> int:
                       lambda o=off: recovery_bwd_plain(pr, skip, dec, du, ds,
                                                        o, PANGU_24),
                       rec_cost))
+    g2 = PANGU_24.stage(2)
+    pd, pu = params["downsample"], params["upsample"]
+    xd, xu = storage(g0), storage(g2)
+    wd, wu = (sum(t.numel() for t in cs.leaves(p)) * 2 for p in (pd, pu))
+    c, c_in, c_out = g0.dim, g2.dim, g3.dim
+    down_cost = (2 * g1.z * g1.h * g1.w * 4 * c * 2 * c,   # chip_smoke's
+                 cs.nbytes(xd) + g1.z * g1.h_padded * g1.w * 2 * c * 2 + wd)
+    up_cost = (2 * g2.z * -(-g3.h // 2) * g2.w * c_in * 4 * c_out
+               + 2 * g3.z * g3.h * g3.w * c_out * c_out,
+               cs.nbytes(xu) + g3.z * g3.h_padded * g3.w * c_out * 2 + wu)
+    for off in (half, (0, 0, 0)):
+        cases += [("down_sample_wm", f"stage 0 -> 1, off {off}",
+                   lambda o=off: down_sample_wm(pd, xd, g0, g1, o),
+                   lambda o=off: down_sample_wm_plain(pd, xd, g0, g1, o),
+                   down_cost),
+                  ("up_sample_wm", f"stage 2 -> 3, off {off}",
+                   lambda o=off: up_sample_wm(pu, xu, g2, g3, o),
+                   lambda o=off: up_sample_wm_plain(pu, xu, g2, g3, o),
+                   up_cost)]
+
+    def wanted(what):
+        return re.search(args.only, what) is not None
 
     times, ok = {}, True
     for name, label, kern, plain, (flops, byts) in cases:
+        if not wanted(f"{name} {label}"):
+            continue
         got, want = kern(), plain()
         again = kern()
         torch.cuda.synchronize()
@@ -227,26 +260,38 @@ def main() -> int:
               f"{'ok' if good else 'FAIL'}  kernel {ms:.3f} ms  bound "
               f"{bound_ms:.3f} ms ({by})", flush=True)
     if args.split:
-        x = storage(g0)
-        print("block_wm stage 0 shifted bf16 by class:", cs.class_breakdown(
-            lambda: block_wm(s0, x, g0, half, 3, ids_of(g0), True),
-            cs.block_fwd_work(x.numel() // g0.dim, g0.dim,
-                              4 * g0.dim, g0.window_tokens)))
-        x = grid(g0)
+        xb, xg = storage(g0), grid(g0)
         at = s0["attn"]
         w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
              at["proj"]["bias"], at["bias_table"])
-        print("grid_attention stage 0 bf16 by class:", cs.class_breakdown(
-            lambda: grid_attention(x, *w, g0.window, ids_of(g0)),
-            cs.grid_fwd_work(x.numel() // g0.dim, g0.dim, g0.window_tokens)))
         tail, a, s, rows, c, hidden = tails[0]
-        print("fused_block_tail stage 0 bf16 by class:", cs.class_breakdown(
-            lambda: fused_block_tail(tail, a, s, True),
-            cs.tail_work(rows, c, hidden)))
-        print("recovery_bwd off (1, 3, 6) bf16 by class:", cs.class_breakdown(
-            lambda: recovery_bwd(pr, skip, dec, du, ds, half, PANGU_24),
-            cs.recovery_work(rows_all, c3, 160, 64, du.numel() + ds.numel()),
-            cs.recovery_class))
+        r0, r1, r2, r3 = (g.z * g.h_padded * g.w for g in (g0, g1, g2, g3))
+        splits = [   # (what, launch, work by class, classify)
+            ("block_wm stage 0 shifted",
+             lambda: block_wm(s0, xb, g0, half, 3, ids_of(g0), True),
+             cs.block_fwd_work(xb.numel() // g0.dim, g0.dim, 4 * g0.dim,
+                               g0.window_tokens), cs.fwd_class),
+            ("grid_attention stage 0",
+             lambda: grid_attention(xg, *w, g0.window, ids_of(g0)),
+             cs.grid_fwd_work(xg.numel() // g0.dim, g0.dim, g0.window_tokens),
+             cs.fwd_class),
+            ("fused_block_tail stage 0",
+             lambda: fused_block_tail(tail, a, s, True),
+             cs.tail_work(rows, c, hidden), cs.fwd_class),
+            ("recovery_bwd off (1, 3, 6)",
+             lambda: recovery_bwd(pr, skip, dec, du, ds, half, PANGU_24),
+             cs.recovery_work(rows_all, c3, 160, 64, du.numel() + ds.numel()),
+             cs.recovery_class),
+            ("down_sample_wm off (1, 3, 6)",
+             lambda: down_sample_wm(pd, xd, g0, g1, half),
+             cs.down_work(r0, r1, g0.dim), cs.fwd_class),
+            ("up_sample_wm off (1, 3, 6)",
+             lambda: up_sample_wm(pu, xu, g2, g3, half),
+             cs.up_work(r2, r3, c_in, c_out), cs.fwd_class)]
+        for what, fn, work, classify in splits:
+            if wanted(what):
+                print(f"{what} bf16 by class:",
+                      cs.class_breakdown(fn, work, classify))
     print(json.dumps({"repo": str(repo), "card": smi, "ms": times}))
     return 0 if ok else 1
 

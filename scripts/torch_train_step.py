@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Time the port's bf16 window-major train step (Pangu-24 at full width and
-depth, batch 1, the perf config with the edge kernels, Adam included) and
-its served per-block step on one CUDA card, for the copy of the port in a
-given directory, so that two versions compare in one call.
+depth, batch 1, the perf config with the edge kernels, Adam included), its
+served 24 h steps (full-step and token-space rollouts) and its served
+per-block step on one CUDA card, for the copy of the port in a given
+directory, so that two versions compare in one call.
 
     python3 scripts/torch_train_step.py [--repo DIR] [--steps N]
 
@@ -11,8 +12,11 @@ given directory, so that two versions compare in one call.
 train steps and served per-block steps (``forward`` with
 ``lora_fused=False`` on rank-16 adapters on each stage's first block, as
 chip_smoke.py phase 8b) is timed alone on the host clock, ending in
-``torch.cuda.synchronize()``; printed: every time, the median, and the peak
-memory of the train steps.  The last line is one JSON object.
+``torch.cuda.synchronize()``; so is each of ``--steps`` 3-step rollouts,
+full-step and token-space with the edge kernels (chip_smoke.py phases
+4a-b), each time divided by 3: ms a chained step.  Printed: every time,
+the median, and the peak memory of the train steps.  The last line is one
+JSON object.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ def main() -> int:
     from pangu_tpu_torch import _build
     from pangu_tpu_torch.config import PANGU_24, TrainConfig
     from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.engine.rollout import make_rollout
     from pangu_tpu_torch.engine.train import (create_train_state,
                                               make_optimizer, make_train_step)
     from pangu_tpu_torch.models import lora, pangu
@@ -102,6 +107,23 @@ def main() -> int:
     del holder, step, opt
     torch.cuda.empty_cache()
 
+    served_steps = {}
+    for label, rcfg, token in (("full-step", perf, False),
+                               ("token-space", cfg, True)):
+        rollout = make_rollout(rcfg, consts, 3, token_space=token, device=dev)
+
+        def run():
+            rollout(params, batch["upper"], batch["surface"])
+
+        timed(run, 1)
+        served_steps[label] = [t / 3 for t in timed(run, args.steps)]
+        ms = served_steps[label]
+        print(f"served {label} ms a step (3-step rollouts): "
+              f"{[round(t, 2) for t in ms]}; median "
+              f"{statistics.median(ms):.2f}")
+    del rollout
+    torch.cuda.empty_cache()
+
     tree = lora.init_lora(g, pangu.init_params(
         torch.Generator().manual_seed(0), perf, device=dev), rank=16,
         alpha=16.0)
@@ -129,6 +151,7 @@ def main() -> int:
           f"median {statistics.median(served_ms):.1f}")
     print(json.dumps({"repo": str(repo), "card": smi,
                       "train_ms": train_ms, "train_peak_bytes": peak,
+                      "served_step_ms": served_steps,
                       "served_per_block_ms": served_ms}))
     return 0
 

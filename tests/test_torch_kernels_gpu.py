@@ -38,7 +38,11 @@ route of the block tail (both GELU forms, a row count off the 128-row
 tile, bit-identical in two runs, ValueError for C or hidden not a
 multiple of 8) and of the recovery backward (its relayout pass equal to
 ``field_cotangent_wm``, bit-identical in two runs and with finite junk on
-the pair's pad rows).  Needs a CUDA
+the pair's pad rows); and the window-major DownSample and UpSample (junk
+on their input's latitude-pad rows leaves the output unchanged, the
+output's pad rows zeros, a batch-2 sample equal to it run alone, bf16
+bit-identical in two runs, ValueError for bf16 channels not a multiple of
+8).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -64,7 +68,9 @@ from pangu_tpu_torch.models.layers import window_region_ids
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_canon,
                                                 block_wm_canon_plain,
                                                 block_wm_group, block_wm_plain,
-                                                run_stage_wm)
+                                                from_window_major,
+                                                pad_rows_zeroed, run_stage_wm,
+                                                to_window_major)
 from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface,
                                              recovery_wm_surface_plain,
@@ -130,25 +136,62 @@ def test_block_wm_kernel_matches_plain(cuda, cfg_name, stage, dtype, delta,
         assert _rel_err(got, want) <= TOL[dtype]
 
 
+def _pad_junk(xs, geom, off):
+    """Rolled storage xs with 50x its values on its latitude-pad rows
+    (storage latitude s holds canonical (s + off_lat) % hp), the rest
+    unchanged bit for bit."""
+    grid = from_window_major(xs, geom.window)
+    kept = pad_rows_zeroed(grid, geom, off[1])
+    return to_window_major(kept + 50 * (grid - kept),
+                           geom.window).contiguous()
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
 @pytest.mark.parametrize("off", [(0, 0, 0), (1, 3, 6)])
 def test_updown_wm_kernels_match_plain(cuda, cfg_name, dtype, off):
+    """DownSample and UpSample against their plain versions; junk on the
+    input's latitude-pad rows leaves the output unchanged, the output's
+    pad rows are zeros, sample 1 of the batch equals it run alone, and a
+    bf16 output is bit-identical in two runs."""
     cfg = CFGS[cfg_name]
     params = _params(cfg, cuda)
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
-    xs = _storage(g0, cuda, dtype)
-    got = down_sample_wm(params["downsample"], xs, g0, g1, off)
-    want = down_sample_wm_plain(params["downsample"], xs, g0, g1, off)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL[dtype]
-    xs = _storage(g2, cuda, dtype)
-    got = up_sample_wm(params["upsample"], xs, g2, g3, off)
-    want = up_sample_wm_plain(params["upsample"], xs, g2, g3, off)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape
-    assert _rel_err(got, want) <= TOL[dtype]
+    for fn, plain, p, gin, gout in (
+            (down_sample_wm, down_sample_wm_plain, params["downsample"], g0,
+             g1),
+            (up_sample_wm, up_sample_wm_plain, params["upsample"], g2, g3)):
+        xs = _storage(gin, cuda, dtype)
+        got = fn(p, xs, gin, gout, off)
+        want = plain(p, xs, gin, gout, off)
+        junk = fn(p, _pad_junk(xs, gin, off), gin, gout, off)
+        alone = fn(p, xs[1:].contiguous(), gin, gout, off)
+        again = fn(p, xs, gin, gout, off)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[dtype]
+        assert torch.equal(junk, got)
+        assert not from_window_major(got, gout.window)[:, :, gout.h:].any()
+        assert torch.equal(alone[0], got[1])
+        if dtype == torch.bfloat16:
+            assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("which", ["down", "up"])
+def test_updown_wm_bf16_refuses_shapes_outside_the_tiles(cuda, which):
+    """A bf16 DownSample or UpSample whose channels are not multiples of
+    8 raises ValueError before a launch (no fallback)."""
+    cfg = dataclasses.replace(TINY, dims=(20, 40, 40, 20))
+    params = pangu.init_params(torch.Generator(device=cuda).manual_seed(0),
+                               cfg, device=cuda)
+    fn, gin, gout = ((down_sample_wm, cfg.stage(0), cfg.stage(1))
+                     if which == "down" else
+                     (up_sample_wm, cfg.stage(2), cfg.stage(3)))
+    xs = _storage(gin, cuda, torch.bfloat16)
+    before = fn.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fn(params[f"{which}sample"], xs, gin, gout, (0, 0, 0))
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])

@@ -8,8 +8,12 @@ attention only through the dtype dispatches of ``csrc/mma_gemm.cuh`` and
 ``csrc/wattn_mma.cuh`` (or, in the block kernel, its own attention
 dispatch), whose bf16 branches run the tensor-core kernels (``mma.sync``)
 and whose float32 branches the first CUDA-core kernels, and that the bf16
-route of ``csrc/recovery_bwd.cu`` runs its products on ``mma_gemm.cuh``.  The kernels
-themselves run only on the card (``tests/test_torch_kernels_gpu.py``)."""
+route of ``csrc/recovery_bwd.cu`` runs its products on ``mma_gemm.cuh``;
+and that the bf16 route of ``csrc/updown_wm.cu`` (DownSample, UpSample)
+runs its products on ``mma_gemm.cuh`` with the pad-row epilogue and its
+gather and LayerNorm in one pass, what its wrappers refuse before a launch
+and the alignment of their operands.  The kernels themselves run only on
+the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
 import re
@@ -18,10 +22,12 @@ from pathlib import Path
 import pytest
 import torch
 
-from pangu_tpu_torch.config import TINY
+from pangu_tpu_torch.config import PANGU_24, TINY
 from pangu_tpu_torch.ops.block_tail import tail_operands
 from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
                                                 check_tensor_core_shape)
+from pangu_tpu_torch.ops.updown_wm import (LN_ROW_MAX, check_updown_shape,
+                                           down_operands, up_operands)
 from pangu_tpu_torch.ops.window_attention import _checked
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
@@ -327,3 +333,123 @@ def test_bf16_block_tail_operands_are_16_byte_aligned():
         assert got.data_ptr() % 16 == 0 and torch.equal(got, want)
     assert all(q["mlp"][leaf]["kernel"].data_ptr() % 16 == 0
                for leaf in ("fc1", "fc2"))
+
+
+def test_updown_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 entries of csrc/updown_wm.cu run down_sample_wm_bf16 /
+    up_sample_wm_bf16: one fused gather + LayerNorm pass each and their
+    products on mma_gemm.cuh (one for DownSample, two for UpSample) with
+    the pad-row epilogue, no common.cuh gemm, ln_rows or element-a-lane
+    gather; float32 keeps the first version's gather, ln_rows and gemm."""
+    code = _code("updown_wm.cu")
+    for fn, products, gather in (("down_sample_wm_bf16(", 1,
+                                  "down_gather_ln_kernel<"),
+                                 ("up_sample_wm_bf16(", 2,
+                                  "up_gather_ln_kernel<")):
+        body = _body(code, f"static int {fn}")
+        assert len(re.findall(r"\bmma_gemm\s*<false>\s*\(", body)) == products
+        assert body.count("PadEpi<bf16>") == products
+        assert gather in body
+        assert not re.search(r"(?<![\w.])gemm\s*\(|\bln_rows\s*<|"
+                             r"\b(down|up)_gather_kernel\b", body)
+    for fn, gather in (("int down_sample_wm(", "down_gather_kernel<T>"),
+                       ("int up_sample_wm(", "up_gather_kernel<T>")):
+        body = _body(code, fn)
+        assert re.search(r"(?<![\w.])gemm\s*\(", body)
+        assert "ln_rows<T>(" in body and gather in body
+        assert "mma_gemm" not in body
+    for entry, f32, bf16 in (
+            ('extern "C" int pangu_down_sample_wm(', "down_sample_wm<float>(",
+             "down_sample_wm_bf16("),
+            ('extern "C" int pangu_up_sample_wm(', "up_sample_wm<float>(",
+             "up_sample_wm_bf16(")):
+        body = _body(code, entry)
+        assert body.index(f32) < body.index("aligned16_all(") < body.index(bf16)
+    assert not re.search(r"\b(down|up)_sample_wm\s*<bf16>", code)
+    epi = _body(_code("mma_gemm.cuh"), "struct PadEpi {")
+    assert "is_pad_row(r, pad)" in epi and "PadRows pad;" in epi
+
+
+# (channels, LayerNorm width) of DownSample and UpSample by config: (C,
+# 2C) and 4C; (C2, C3) and C3
+def _updown_shapes(cfg):
+    c0, c2, c3 = cfg.stage(0).dim, cfg.stage(2).dim, cfg.stage(3).dim
+    return {"down": ((c0, 2 * c0), 4 * c0), "up": ((c2, c3), c3)}
+
+
+@pytest.mark.parametrize("cfg", [PANGU_24, TINY], ids=["full width", "TINY"])
+@pytest.mark.parametrize("which", ["down", "up"])
+def test_updown_shapes_are_taken(cfg, which):
+    channels, ln_width = _updown_shapes(cfg)[which]
+    check_updown_shape(channels, ln_width, "test")
+
+
+@pytest.mark.parametrize("channels,ln_width,match", [
+    ((20, 40), 80, "multiples of 8"), ((384, 12), 12, "multiples of 8"),
+    ((8, 16), LN_ROW_MAX + 8, "LayerNorm rows")])
+def test_updown_shapes_outside_the_bf16_route_raise(channels, ln_width,
+                                                    match):
+    with pytest.raises(ValueError, match=match):
+        check_updown_shape(channels, ln_width, "test")
+
+
+def _updown_params(c_in, c_out, which, dtype):
+    g = torch.Generator().manual_seed(1)
+
+    def r(*shape):
+        return (0.02 * torch.randn(shape, generator=g)).to(dtype)
+
+    if which == "down":
+        return {"norm": {"scale": r(4 * c_in), "bias": r(4 * c_in)},
+                "reduce": {"kernel": r(4 * c_in, 2 * c_in)}}
+    return {"expand": {"kernel": r(c_in, 4 * c_out)},
+            "norm": {"scale": r(c_out), "bias": r(c_out)},
+            "mix": {"kernel": r(c_out, c_out)}}
+
+
+def _updown_case(dims, which, dtype, misaligned=False):
+    """(operands function, params, storage input, geometries) of TINY with
+    the stage widths ``dims``; CPU tensors, nothing is launched."""
+    cfg = dataclasses.replace(TINY, dims=dims)
+    i, fn = (0, down_operands) if which == "down" else (2, up_operands)
+    gin, gout = cfg.stage(i), cfg.stage(i + 1)
+    wz, wh, ww = gin.window
+    shape = (1, gin.z // wz, gin.h_padded // wh, gin.w // ww, wz * wh * ww,
+             gin.dim)
+    numel = torch.Size(shape).numel()
+    x = torch.randn(numel + misaligned).to(dtype)[int(misaligned):].view(shape)
+    return fn, _updown_params(gin.dim, gout.dim, which, dtype), x, gin, gout
+
+
+@pytest.mark.parametrize("which", ["down", "up"])
+@pytest.mark.parametrize("dims", [(16, 32, 32, 16), (20, 40, 40, 20)],
+                         ids=["TINY", "C 20"])
+def test_bf16_updown_checks_shapes_before_a_launch(which, dims):
+    """``down_operands`` / ``up_operands``, which the wrappers run before a
+    launch, raise ValueError on a bf16 input whose channels are not
+    multiples of 8 and take TINY's; float32 takes both."""
+    for dtype in (torch.bfloat16, torch.float32):
+        fn, p, x, gin, gout = _updown_case(dims, which, dtype)
+        if dims[0] % 8 == 0 or dtype == torch.float32:
+            _, _, shape = fn(p, x, gin, gout)
+            assert shape[:2] == x.shape[:2] and shape[-1] == gout.dim
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                fn(p, x, gin, gout)
+
+
+@pytest.mark.parametrize("which", ["down", "up"])
+def test_bf16_updown_operands_are_16_byte_aligned(which):
+    """A bf16 input or weight that starts off a 16-byte boundary is handed
+    to the kernel as an aligned copy."""
+    fn, p, x, gin, gout = _updown_case((16, 32, 32, 16), which,
+                                       torch.bfloat16, misaligned=True)
+    leaf = "reduce" if which == "down" else "mix"
+    w = p[leaf]["kernel"]
+    p[leaf]["kernel"] = torch.zeros(w.numel() + 1,
+                                    dtype=w.dtype)[1:].view(w.shape)
+    assert x.data_ptr() % 16 and p[leaf]["kernel"].data_ptr() % 16
+    got, q, _ = fn(p, x, gin, gout)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+    for sub in q.values():
+        assert all(t.data_ptr() % 16 == 0 for t in sub.values())
