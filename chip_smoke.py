@@ -14,8 +14,9 @@ Phases, each with its wall seconds:
      forward (the block kernel's and the grid attention's objects, with
      their 16-byte row kernels), of the bf16 block tail and recovery
      backward (their objects' products, row passes, relayout and split
-     sum) and of the bf16 DownSample and UpSample (their products and
-     gather + LayerNorm passes) on lines of their own;
+     sum), of the bf16 DownSample and UpSample (their products and
+     gather + LayerNorm passes) and of the bf16 transition and upper
+     recovery (their tensor-core kernel) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -24,23 +25,26 @@ Phases, each with its wall seconds:
      and 1; DownSample / UpSample, window-major and canonical; the edge
      kernels: embed, transition and recovery upper / surface, the last three
      at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
-     8 through the stage-0 block, DownSample and UpSample and of 16 through
-     UpSample (its mix product then has more than 65,535 row tiles), the
-     last sample against a batch-1 launch (DownSample's and UpSample's bit
-     for bit); then full-width float32
+     8 through the stage-0 block, DownSample, UpSample, the transition and
+     the upper recovery and of 16 through UpSample (its mix product then
+     has more than 65,535 row tiles), the last sample against a batch-1
+     launch (bit for bit but the block's); then full-width float32
      forwards, without and with the edge kernels, kernels against plain
-     versions.  Every bf16 block entry, DownSample and UpSample twice, bit
-     for bit, and the grouped
+     versions.  Every bf16 block entry, DownSample, UpSample, the transition
+     and the upper recovery twice, bit for bit, and the grouped
      block equal to the ungrouped one on the same input; beside each bf16
      time of a redesigned row its earlier kernel's (``PREVIOUS_BF16_MS``);
      the float32 error lines of the block entries, the grid attention,
-     DownSample and UpSample (here and in phases 6a, 7a, 8a, 9a) equal to
-     their earlier kernels' (``F32_BEFORE``, the float32 route being
-     unchanged); one stage-0 bf16 block and grid attention forward,
-     DownSample and UpSample by class of kernel (``torch.profiler``:
-     products, attention, row passes, each with its rate); junk on the
-     latitude-pad rows of the bf16 DownSample's and UpSample's input
-     leaves their output bit-equal, whose pad rows are zeros;
+     DownSample, UpSample, the transition and the upper recovery (here and
+     in phases 6a, 7a, 8a, 9a) equal to their earlier kernels'
+     (``F32_BEFORE``, the float32 route being unchanged); one stage-0 bf16
+     block and grid attention forward, DownSample, UpSample, transition and
+     upper recovery by class of kernel (``torch.profiler``: products,
+     attention, row passes, each with its rate); junk on the latitude-pad
+     rows of the bf16 DownSample's and UpSample's input leaves their output
+     bit-equal, whose pad rows are zeros, and junk on those of the rolled
+     pair leaves the bf16 transition's and upper recovery's outputs
+     bit-equal;
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
      tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
      batch 1, random weights and synthetic constants from a seed, each driven
@@ -52,8 +56,11 @@ Phases, each with its wall seconds:
         grouped blocks, 3 DownSample, 3 UpSample, 1 embed, 2 transitions,
         1 recovery upper, 1 recovery surface; its final state must match the
         same rollout with plain versions and the 3-step full-step rollout;
-        then (not gates) the bf16 drift of both rollouts against float32
-        over 3 and 7 chained steps;
+        the 3-step full-step rollout with the edge kernels (the JAX
+        package's default served step: per step the trunk, 1 embed, 1
+        recovery upper, 1 recovery surface), timed, its final state against
+        the same rollout with plain versions; then (not gates) the bf16
+        drift of both rollouts against float32 over 3 and 7 chained steps;
      c. the hierarchical rollout, two parameter sets (seeds 0 and 1) as the
         24 h and 6 h models, horizon 30 h (schedule [24, 6]), full-step and
         token-space with the edge kernels: the launch counters, the final
@@ -163,7 +170,8 @@ max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
 backward, every bf16 block entry, the block tail, the recovery backward,
-DownSample and UpSample must also agree bit for bit over two runs
+DownSample, UpSample, the transition and the upper recovery must also agree
+bit for bit over two runs
 (``BIT_IDENTICAL``, ``BIT_IDENTICAL_FWD``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
@@ -296,7 +304,8 @@ def sdpa_report(ptxas, lib):
 def _short_kernel(mangled):
     """A readable name of a mangled tensor-core kernel:
     mma_gemm_kernel<A transposed, B transposed, epilogue>,
-    wattn_mma_{fwd,bwd}_kernel<table dtype>, or a row kernel's name."""
+    wattn_mma_{fwd,bwd}_kernel<table dtype>, edge_mma_kernel<Op>, or a row
+    kernel's name."""
     m = re.search(r"(block_gather16_kernel|ln_rows16_kernel|"
                   r"field_cot_wm_kernel|concat_heads_kernel|head_sum_kernel)",
                   mangled)
@@ -305,6 +314,9 @@ def _short_kernel(mangled):
     m = re.search(r"((?:down|up)_gather_ln_kernel)ILi(\d+)E", mangled)
     if m:
         return f"{m[1]}<{m[2]}>"
+    m = re.search(r"edge_mma_kernelINS_\d+([A-Za-z]\w*?)EEEvT_", mangled)
+    if m:
+        return f"edge_mma_kernel<{m[1]}>"
     m = re.search(r"\d+(mma_gemm_kernel|wattn_mma_\w+?_kernel)I(.*)", mangled)
     if not m:
         return mangled
@@ -368,6 +380,13 @@ def updown_report(ptxas):
                      r"PadEpi|gather_ln_kernel", "updown ")
 
 
+def edge_report(ptxas):
+    """The same lines for the bf16 transition and upper recovery: their
+    tensor-core kernel (``csrc/edge_mma.cuh``), one instantiation each."""
+    return tc_report(ptxas_parts(ptxas, {"transition_wm_0", "recovery_wm_0"}),
+                     r"edge_mma_kernel", "edge ")
+
+
 def tail_recovery_report(ptxas):
     """The same lines for the bf16 block tail and recovery backward: their
     objects' products, LayerNorm passes, relayout and split sum."""
@@ -381,8 +400,17 @@ def tail_recovery_report(ptxas):
 # the new times: name -> label -> ms.  The block entries and the grid
 # attention: the CUDA-core forward (commit e1271cc); the block tail and the
 # recovery backward: their first versions (commit 37b26cf); DownSample and
-# UpSample: their first versions (commit a7e41b5).
+# UpSample: their first versions (commit a7e41b5); the transition and the
+# upper recovery: their first versions (commit e35ad6a).
 PREVIOUS_BF16_MS = {
+    'transition_wm': {
+        'off (0, 0, 0)': 4.551,
+        'off (1, 3, 6)': 4.519,
+    },
+    'recovery_wm_upper': {
+        'off (0, 0, 0)': 3.194,
+        'off (1, 3, 6)': 3.183,
+    },
     'down_sample_wm': {
         'stage 0 -> 1, off (1, 3, 6)': 2.562,
     },
@@ -438,9 +466,11 @@ def previous_ms(name, label):
 
 
 # The float32 route of the block kernel, the grid attention forward, the
-# block tail, the recovery backward, DownSample and UpSample did not change
-# with their bf16 redesigns, so their float32 error lines must read as the
-# earlier kernels' (commits e1271cc, 37b26cf and a7e41b5, as
+# block tail, the recovery backward, DownSample, UpSample, the transition
+# and the upper recovery did not change with their bf16 redesigns (nor did
+# embed_wm and the surface recovery, which share the transition's and the
+# recovery's first GEMM), so their float32 error lines must read as the
+# earlier kernels' (commits e1271cc, 37b26cf, a7e41b5 and e35ad6a, as
 # PREVIOUS_BF16_MS) did in the same run of this script ("max_abs_err rel",
 # as printed), where torch and the card are the ones of that run (inputs
 # drawn elsewhere are not comparable)
@@ -496,12 +526,27 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
                     '1.431e-06 5.053e-07',
                 'up_sample_wm | stage 2 -> 3, off (1, 3, 6), valid rows':
                     '4.768e-07 3.566e-07',
+                'embed_wm | full width':
+                    '0.000e+00 0.000e+00',
+                'transition_wm | off (0, 0, 0)':
+                    '4.768e-07 6.108e-07',
+                'transition_wm | off (1, 3, 6)':
+                    '4.172e-07 5.260e-07',
+                'recovery_wm_upper | off (0, 0, 0)':
+                    '1.907e-06 9.569e-07',
+                'recovery_wm_upper | off (1, 3, 6)':
+                    '1.907e-06 9.569e-07',
+                'recovery_wm_surface | off (0, 0, 0)':
+                    '1.669e-06 8.374e-07',
+                'recovery_wm_surface | off (1, 3, 6)':
+                    '1.550e-06 8.439e-07',
             }}
 
 
 # bf16 forward kernels of phase 3 (besides the block entries) whose two
 # runs must agree bit for bit
-BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm")
+BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm", "transition_wm",
+                     "recovery_wm_upper")
 
 
 def f32_as_before(name, label, err, rel):
@@ -673,6 +718,19 @@ def recovery_class(key):
     return "relayout"
 
 
+def edge_work(flops, nbytes_):
+    """(FLOP, bytes) of a bf16 transition or upper recovery launch by
+    class: the gather of the pair's rows, the product and the epilogue are
+    one kernel (the tensor-core route's ``edge_mma_kernel``, the first
+    version's ``edge_gemm_bf16``), so one class holds the launch's work."""
+    return {"gather + product + epilogue": (flops, nbytes_)}
+
+
+def edge_class(key):
+    """The class of a transition or upper recovery kernel (one)."""
+    return "gather + product + epilogue"
+
+
 def bound(flops, nbytes_, dtype):
     t_bytes = nbytes_ / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOP_PER_S[dtype]
@@ -746,7 +804,8 @@ def main() -> int:
     print(f"built {os.path.relpath(lib_path)}")
     ptxas = _build.ptxas_report()
     for line in (sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas)
-                 + tail_recovery_report(ptxas) + updown_report(ptxas)):
+                 + tail_recovery_report(ptxas) + updown_report(ptxas)
+                 + edge_report(ptxas)):
         print(line)
     done("build", t0)
 
@@ -1050,6 +1109,46 @@ def main() -> int:
             raise AssertionError(f"{name}: pad rows reach the output")
     del xs, grid, kept, junk, got, with_junk, pb
 
+    # bf16 transition and upper recovery, at the served offset: by class
+    # of kernel (gather, product and epilogue are one kernel); junk on the
+    # rolled pair's latitude-pad rows, which neither reads, must leave their
+    # outputs bit-equal.  Inputs from a generator of their own
+    gedge = torch.Generator(device=dev).manual_seed(SEED + 11)
+    skip, dec = (storage(g0, torch.bfloat16, g=gedge) for _ in range(2))
+    tp = build_transition_wm(params, consts_dev, perf)
+    pr = params["patch_recovery"]
+    edge_fns = {
+        "transition_wm": lambda a, b: apply_transition_wm(tp, a, b, g0, half),
+        "recovery_wm_upper": lambda a, b: recovery_wm_upper(pr, a, b, half,
+                                                            perf)}
+    edge_cost = {      # phase 3's work and bytes of the two
+        "transition_wm": (2 * valid0 * 2 * c0 * c0,
+                          3 * valid0 * c0 * 2 + 6 * 2 * c0 * c0 * 2
+                          + rows(g0) * c0 * 2),
+        "recovery_wm_upper": (2 * upper_rows * 2 * c0 * 160,
+                              2 * upper_rows * c0 * 2
+                              + weight_bytes(pr["upper"], torch.bfloat16)
+                              + field_u * 2)}
+    junk = []
+    for t in (skip, dec):
+        grid = from_window_major(t, g0.window)
+        kept = pad_rows_zeroed(grid, g0, half[1])
+        junk.append(to_window_major(kept + 50 * (grid - kept),
+                                    g0.window).contiguous())
+    for name, fn in edge_fns.items():
+        print(f"{name} bf16 by class (torch.profiler): " + class_breakdown(
+            lambda fn=fn: fn(skip, dec), edge_work(*edge_cost[name]),
+            edge_class))
+        got, with_junk = fn(skip, dec), fn(*junk)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, with_junk))
+        print(f"{name} bf16, junk (50x) on the pair's latitude-pad rows: "
+              f"output bit-equal {same}")
+        if not same:
+            raise AssertionError(f"{name}: the pair's pad rows reach the "
+                                 "output")
+    del skip, dec, grid, kept, junk, got, with_junk
+
     # a batch of 8, the last sample against a batch-1 launch: at stage 0
     # 8 x 535,680 rows, 33,480 row tiles of the 128-row tensor-core
     # products (66,960 of the first version's 64-row tiles), and a batch
@@ -1082,6 +1181,14 @@ def main() -> int:
                         half)[0]
     torch.cuda.synchronize()
     b8.append(("up_sample_wm", 16, got, want))
+    del x8
+    s8, d8 = (storage(g0, torch.bfloat16, batch=8, g=gedge) for _ in range(2))
+    for name, fn in edge_fns.items():
+        got = fn(s8, d8)[7]
+        want = fn(s8[7:].contiguous(), d8[7:].contiguous())[0]
+        torch.cuda.synchronize()
+        b8.append((name, 8, got, want))
+    del s8, d8, tp, edge_fns
     for label, batch, got, want in b8:
         err, rel = rel_err(got, want)
         same = bool(torch.equal(got, want))
@@ -1093,7 +1200,7 @@ def main() -> int:
         if label in BIT_IDENTICAL_FWD and not same:
             raise AssertionError(f"batch {batch} {label}: the last sample "
                                  "differs from a batch-1 launch")
-    del x8, got, want, b8
+    del got, want, b8
     torch.cuda.empty_cache()
 
     params32 = to_dtype(params, torch.float32)
@@ -1198,24 +1305,41 @@ def main() -> int:
         raise AssertionError("token-space rollout output is not finite")
     (fu, fs), full_ms, _, full_peak = timed(make_rollout(
         perf, consts, TOKEN_STEPS, device=dev))
+    # the JAX package's default served step: the full step with the edge
+    # kernels, embed and both recoveries every step
+    (eu, es), edge_ms, edge_counts, edge_peak = timed(make_rollout(
+        perf_edge, consts, TOKEN_STEPS, device=dev))
+    print(f"launches, full-step rollout with edge kernels {edge_counts}")
+    path_counts["full-step rollout, edge kernels"] = edge_counts
+    want_counts = {**{name: 0 for name in edge_counts},
+                   **{k: TOKEN_STEPS * v for k, v in trunk_counts.items()},
+                   "embed_wm": TOKEN_STEPS, "recovery_wm_upper": TOKEN_STEPS,
+                   "recovery_wm_surface": TOKEN_STEPS}
+    if edge_counts != want_counts:
+        raise AssertionError(f"launch counts {edge_counts} != {want_counts}")
     plain_u, plain_s = make_rollout(perf_edge, consts, TOKEN_STEPS,
                                     token_space=True, device=dev,
                                     kernels=False)(params, u0, s0)
+    plain_eu, plain_es = make_rollout(perf_edge, consts, TOKEN_STEPS,
+                                      device=dev, kernels=False)(params, u0, s0)
     failed = []
-    for other, (ou, os_) in (("plain versions", (plain_u, plain_s)),
-                             ("full-step rollout", (fu, fs))):
+    for what, (xu, xs_), other, (ou, os_) in (
+            ("token-space", (tu, ts), "plain versions", (plain_u, plain_s)),
+            ("token-space", (tu, ts), "full-step rollout", (fu, fs)),
+            ("full-step with edge kernels", (eu, es), "plain versions",
+             (plain_eu, plain_es))):
         for part, a, b in zip(("upper", "surface"),
-                              norm_data(tu, ts, consts_dev),
+                              norm_data(xu, xs_, consts_dev),
                               norm_data(ou, os_, consts_dev)):
             err, rel = rel_err(a, b)
             mean = float((a - b).abs().mean())
-            print(f"final state bf16 token-space {part} vs {other}: "
+            print(f"final state bf16 {what} {part} vs {other}: "
                   f"max_abs_err {err:.3e} rel {rel:.3e} mean_abs_err "
                   f"{mean:.3e} (tol {TOL_FORWARD[torch.bfloat16]:.1e})")
             if rel > TOL_FORWARD[torch.bfloat16]:
-                failed.append(f"{part} vs {other}: rel err {rel:.3e}")
+                failed.append(f"{what} {part} vs {other}: rel err {rel:.3e}")
     if failed:
-        raise AssertionError("token-space final state: " + "; ".join(failed))
+        raise AssertionError("final states: " + "; ".join(failed))
 
     # not gates: the bf16 rollouts against the full-step rollout in float32
     # (perf config otherwise) after 3 and 7 chained steps, and the
@@ -1257,11 +1381,14 @@ def main() -> int:
           f"steps, batch 1, bf16), peak memory {tok_peak / 2**30:.2f} GiB")
     print(f"full-step rollout:   {full_ms:.1f} ms per step ({TOKEN_STEPS} "
           f"steps, batch 1, bf16), peak memory {full_peak / 2**30:.2f} GiB")
+    print(f"full-step rollout with edge kernels: {edge_ms:.1f} ms per step "
+          f"({TOKEN_STEPS} steps, batch 1, bf16), peak memory "
+          f"{edge_peak / 2**30:.2f} GiB")
     _, g1_ms, _, _ = timed(make_rollout(dataclasses.replace(perf, lat_group=1),
                                         consts, TOKEN_STEPS, device=dev))
     print(f"full-step rollout at lat_group 1 (not a gate): {g1_ms:.1f} ms per "
           f"step ({TOKEN_STEPS} steps, batch 1, bf16)")
-    del tu, ts, fu, fs, plain_u, plain_s
+    del tu, ts, fu, fs, eu, es, plain_u, plain_s, plain_eu, plain_es
     torch.cuda.empty_cache()
     done(f"{TOKEN_STEPS}-step token-space rollout, edge kernels", t0)
 
@@ -1537,7 +1664,8 @@ def main() -> int:
                       "token_space_rollout": {
                           "ms_per_step": tok_ms, "steps": TOKEN_STEPS,
                           "batch": 1, "peak_bytes": tok_peak,
-                          "full_step_ms_per_step": full_ms},
+                          "full_step_ms_per_step": full_ms,
+                          "full_step_edge_kernels_ms_per_step": edge_ms},
                       "v2": v2, "per_block": per_block, "canon": canon}))
     print(json.dumps({"kernels": kernels}))
     print(smi)

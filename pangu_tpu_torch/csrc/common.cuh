@@ -52,8 +52,8 @@ __device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
-__device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
+// eight bf16 held in 16 bytes, as float
+__device__ __forceinline__ void unpack8(uint4 u, float (&v)[8]) {
   const uint32_t w[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -61,6 +61,11 @@ __device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
     v[2 * i] = f.x, v[2 * i + 1] = f.y;
   }
+}
+
+__device__ __forceinline__ void ld8(const bf16* p, float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);  // one 16-byte load
+  unpack8(u, v);
 }
 
 __device__ __forceinline__ void st8(float* p, const float (&v)[8]) {

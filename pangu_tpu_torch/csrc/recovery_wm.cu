@@ -21,9 +21,16 @@
 // neighbouring threads write neighbouring longitudes.
 //
 // What bounds it on an H100: memory traffic.  At full width (bf16) the upper
-// branch reads 7/8 of the pair (360 MB) and writes the 135 MB field; the
-// surface branch reads plane 0 (51 MB) and writes 8.3 MB.
-#include "edge_gemm.cuh"
+// branch reads 7/8 of the pair's real rows (350 MB) and writes the 135 MB
+// field for 5.6e10 FLOP; the surface branch reads plane 0 (50 MB) and
+// writes 8.3 MB.  The bf16 upper branch runs on the tensor cores
+// (edge_mma.cuh: one CTA a 128-row tile of one group, all 160 features, so
+// each gathered row is read once, 16 bytes a copy; y rounded into shared
+// memory, then each (var, zo, ho) line of the tile's 4 x 128 longitudes
+// written 16 bytes a lane).  float32, and the surface branch in both
+// dtypes, keep the first version (edge_gemm.cuh: the element-a-lane gather,
+// 64 x 64 tiles, 2-byte scattered stores).
+#include "edge_mma.cuh"
 
 namespace pangu {
 
@@ -106,12 +113,108 @@ int recovery_wm(int surface, const void* skip, const void* dec, const void* w,
   return 0;
 }
 
+// the bf16 upper branch on the tensor cores (edge_mma.cuh): y staged as
+// round_T(acc + b), then each (var, zo, ho) line of the field written as the
+// tile's consecutive longitudes 4r + wo, two rows (16 bytes) a lane
+struct RecoveryMma {
+  using Tile = EmTile<4, 2, 2, 10, 2>;       // 128 rows x 160 features
+  // a lane reads 8 bytes of rows 2q and 2q + 1: a row of 82 words puts a
+  // half-warp's 16 reads on 8 bank pairs (BN + 8: 4)
+  static constexpr int kOutLd = Tile::BN + 4;
+  const bf16* skip;
+  const bf16* dec;
+  const bf16* w;     // (2C, N)
+  const bf16* bias;  // (N)
+  bf16* out;         // (B, V, levels, lat, lon)
+  WmShape s;
+  int C, planes, HT, V, levels, lat, lon, oz, olat, olon, vec16;
+  int K, N, M;
+  long long groups;
+
+  __device__ bool active(int) const { return true; }
+  __device__ const bf16* mat(int) const { return w; }
+  __device__ long long src(int g, int r) const {
+    const int h = g % HT, zp = (g / HT) % planes, b = g / (HT * planes);
+    return rolled_row(b, zp + 1, h, r, s, oz, olat, olon) * C;
+  }
+  __device__ long long dst(int g, int r) const {  // out[b, 0, 2zp, 4h, 4r]
+    const int h = g % HT, zp = (g / HT) % planes, b = g / (HT * planes);
+    return ((((long long)b * V) * levels + PZ * zp) * lat + PH * h) * lon +
+           PW * r;
+  }
+  __device__ float pre(int n, float acc) const {  // the bias in float32
+    return n < N ? acc + to_f(bias[n]) : 0.f;
+  }
+  // feature n = (var, zo, ho, wo) of row r to out[var, 2zp + zo, 4h + ho,
+  // 4r + wo], a level or latitude past the field's cropped
+  template <int kBN>
+  __device__ void write(int g, int, int nrows, int n0, const bf16* tile,
+                        const long long* dst, bool) const {
+    const int h = g % HT, zp = (g / HT) % planes;
+    const int lines = min(kBN, N - n0) / PW, pairs = (nrows + 1) / 2;
+    const long long plane = (long long)lat * lon;
+    for (int idx = threadIdx.x; idx < lines * pairs; idx += blockDim.x) {
+      const int q = idx % pairs, ln = idx / pairs, l = n0 / PW + ln;
+      const int ho = l % PH, zo = (l / PH) % PZ, var = l / (PZ * PH);
+      if (PZ * zp + zo >= levels || PH * h + ho >= lat) continue;
+      const int r = 2 * q;
+      bf16* o = out + dst[r] + ((long long)var * levels + zo) * plane +
+                (long long)ho * lon;
+      const bf16* y = tile + r * kOutLd + PW * ln;
+      const uint2 lo = *reinterpret_cast<const uint2*>(y);
+      if (r + 1 >= nrows) {
+        *reinterpret_cast<uint2*>(o) = lo;
+      } else {
+        const uint2 hi = *reinterpret_cast<const uint2*>(y + kOutLd);
+        if (vec16) {
+          *reinterpret_cast<uint4*>(o) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+        } else {
+          *reinterpret_cast<uint2*>(o) = lo;
+          *reinterpret_cast<uint2*>(o + PW) = hi;
+        }
+      }
+    }
+  }
+};
+
+static int recovery_upper_bf16(const bf16* skip, const bf16* dec, const bf16* w,
+                               const bf16* bias, bf16* out, int B, WmShape s,
+                               int C, int HT, int V, int levels, int lat,
+                               int lon, int oz, int olat, int olon,
+                               cudaStream_t st) {
+  RecoveryMma op;
+  op.skip = skip;
+  op.dec = dec;
+  op.w = w;
+  op.bias = bias;
+  op.out = out;
+  op.s = s;
+  op.C = C;
+  op.planes = s.nz * s.wz - 1;
+  op.HT = HT;
+  op.V = V;
+  op.levels = levels;
+  op.lat = lat;
+  op.lon = lon;
+  op.oz = oz;
+  op.olat = olat;
+  op.olon = olon;
+  op.vec16 = lon % 8 == 0;  // every line's 16-byte chunks then aligned
+  op.K = 2 * C;
+  op.N = V * PZ * PH * PW;
+  op.M = s.nlon * s.ww;
+  op.groups = (long long)B * op.planes * HT;
+  return (int)edge_mma(op, st);
+}
+
 }  // namespace pangu
 
 using namespace pangu;
 
 // dtype: 0 = float32, 1 = bfloat16; surface: 0 = upper branch, 1 = surface
-// branch.  Returns a cudaError_t (0 = ok).
+// branch.  Returns a cudaError_t (0 = ok; cudaErrorInvalidValue for a bf16
+// upper branch whose C is not a multiple of 8 or whose operands are off a
+// 16-byte boundary).
 extern "C" int pangu_recovery_wm(int dtype, int surface, const void* skip,
                                  const void* dec, const void* w, const void* bias,
                                  void* out, int B, int nz, int nlat, int nlon,
@@ -123,8 +226,13 @@ extern "C" int pangu_recovery_wm(int dtype, int surface, const void* skip,
   if (dtype == 0)
     return recovery_wm<float>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
                               levels, lat, lon, off_z, off_lat, off_lon, st);
-  if (dtype == 1)
+  if (dtype == 1 && surface)
     return recovery_wm<bf16>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
                              levels, lat, lon, off_z, off_lat, off_lon, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16 upper branch: the tensor-core tiles
+  if (dtype != 1 || C % 8 || lon % 4 || !aligned16_all({skip, dec, w, out}))
+    return (int)cudaErrorInvalidValue;
+  return recovery_upper_bf16((const bf16*)skip, (const bf16*)dec, (const bf16*)w,
+                             (const bf16*)bias, (bf16*)out, B, s, C, HT, V,
+                             levels, lat, lon, off_z, off_lat, off_lon, st);
 }

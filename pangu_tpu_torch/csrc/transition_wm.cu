@@ -22,11 +22,16 @@
 // the rounding is the plain version's (engine/transition_wm.py).
 //
 // What bounds it on an H100: memory traffic.  At full width (bf16) it reads
-// the skip/decoder pair and the bias field (3 x 206 MB) and writes 206 MB for
-// 7.9e10 FLOP, a few FLOP per byte against the ~295 at which the tensor cores
-// would bind.  This first version re-reads each gathered row once per
-// 64-column output tile (from L2) and loads element by element.
-#include "edge_gemm.cuh"
+// the skip/decoder pair of the real rows (400 MB) and the bias field (206
+// MB) and writes 206 MB for 7.7e10 FLOP, ~95 FLOP per byte against the ~295
+// at which the tensor cores would bind.  bf16 runs on the tensor cores
+// (edge_mma.cuh: one CTA a 128-row tile of one group, all 192 output
+// columns, so each gathered row is read once, 16 bytes a copy; the first
+// rounding into shared memory, the bias field added and the row stored 16
+// bytes a lane).  float32 keeps the first version (edge_gemm.cuh: 64 x 64
+// tiles that re-read each gathered row once per output tile and load it
+// element by element).
+#include "edge_mma.cuh"
 
 namespace pangu {
 
@@ -96,11 +101,107 @@ int transition_wm(const void* skip, const void* dec, const void* bias,
   return 0;
 }
 
+// the bf16 route on the tensor cores (edge_mma.cuh): the same contract, the
+// output written from the staged tile as whole rows, 16 bytes a lane
+struct TransitionMma {
+  using Tile = EmTile<4, 2, 2, 12, 2>;       // 128 rows x 192 columns
+  static constexpr int kOutLd = Tile::BN + 8;  // rows read 16 bytes a lane
+  const bf16* skip;
+  const bf16* dec;
+  const bf16* bias;  // (1, nz, nlat, nlon, N, C)
+  bf16* out;
+  const bf16* mats[6];  // M_s, M_sh, M_u, M_uh, M_uz, M_uzh
+  WmShape s;
+  int C, Z, Hp, h_real, oz, olat, olon;
+  int K, N, M;
+  long long groups, sample_rows;
+
+  __device__ bool active(int g) const { return g % Hp < h_real; }
+  __device__ const bf16* mat(int g) const {
+    const int lat = g % Hp, z = (g / Hp) % Z;
+    const int kind = z == 0 ? 0 : (z == Z - 1 ? 4 : 2);
+    return mats[kind + (lat == h_real - 1 ? 1 : 0)];
+  }
+  __device__ long long src(int g, int r) const {
+    const int lat = g % Hp, z = (g / Hp) % Z, b = g / (Hp * Z);
+    return rolled_row(b, z, lat, r, s, oz, olat, olon) * C;
+  }
+  __device__ long long dst(int g, int r) const {  // the output row
+    const int lat = g % Hp, z = (g / Hp) % Z, b = g / (Hp * Z);
+    return wm_row(b, z, lat, r, s);
+  }
+  __device__ float pre(int, float acc) const { return acc; }  // round_T(acc)
+  __device__ const bf16* bias_row(int g, long long row) const {  // sample 0's
+    return bias + (row - (long long)(g / (Hp * Z)) * sample_rows) * N;
+  }
+  // out = round_T(tile + bias), or zeros on a pad group, 8 columns a lane;
+  // each lane's kLoads bias loads are in flight together
+  template <int kBN>
+  __device__ void write(int g, int, int nrows, int n0, const bf16* tile,
+                        const long long* dst, bool act) const {
+    constexpr int kLoads = 6;
+    const int chunks = min(kBN, N - n0) / 8, total = nrows * chunks;
+    for (int base = threadIdx.x; base < total; base += kLoads * blockDim.x) {
+      uint4 braw[kLoads];
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * blockDim.x;
+        if (act && idx < total)
+          braw[u] = __ldg(reinterpret_cast<const uint4*>(
+              bias_row(g, dst[idx / chunks]) + n0 + idx % chunks * 8));
+      }
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int idx = base + u * blockDim.x;
+        if (idx >= total) break;
+        const int r = idx / chunks, c = idx % chunks * 8;
+        float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        if (act) {
+          float b[8];
+          ld8(tile + r * kOutLd + c, v);
+          unpack8(braw[u], b);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] += b[e];
+        }
+        st8(out + dst[r] * N + n0 + c, v);
+      }
+    }
+  }
+};
+
+static int transition_wm_bf16(const bf16* skip, const bf16* dec,
+                              const bf16* bias, const void* const* mats,
+                              bf16* out, int B, WmShape s, int C, int h_real,
+                              int oz, int olat, int olon, cudaStream_t st) {
+  TransitionMma op;
+  op.skip = skip;
+  op.dec = dec;
+  op.bias = bias;
+  op.out = out;
+  for (int i = 0; i < 6; ++i) op.mats[i] = (const bf16*)mats[i];
+  op.s = s;
+  op.C = C;
+  op.Z = s.nz * s.wz;
+  op.Hp = s.nlat * s.wh;
+  op.h_real = h_real;
+  op.oz = oz;
+  op.olat = olat;
+  op.olon = olon;
+  op.K = 2 * C;
+  op.N = C;
+  op.M = s.nlon * s.ww;
+  op.groups = (long long)B * op.Z * op.Hp;
+  op.sample_rows = (long long)s.nz * s.nlat * s.nlon * s.n;
+  return (int)edge_mma(op, st);
+}
+
 }  // namespace pangu
 
 using namespace pangu;
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok).
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok;
+// cudaErrorInvalidValue for a bf16 C that is not a multiple of 8 or an
+// operand off a 16-byte boundary).
 extern "C" int pangu_transition_wm(int dtype, const void* skip, const void* dec,
                                    const void* bias, const void* m_s,
                                    const void* m_sh, const void* m_u,
@@ -115,8 +216,11 @@ extern "C" int pangu_transition_wm(int dtype, const void* skip, const void* dec,
   if (dtype == 0)
     return transition_wm<float>(skip, dec, bias, mats, out, B, s, C, h_real, off_z,
                                 off_lat, off_lon, st);
-  if (dtype == 1)
-    return transition_wm<bf16>(skip, dec, bias, mats, out, B, s, C, h_real, off_z,
-                               off_lat, off_lon, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles
+  if (dtype != 1 || C % 8 ||
+      !aligned16_all({skip, dec, bias, m_s, m_sh, m_u, m_uh, m_uz, m_uzh, out}))
+    return (int)cudaErrorInvalidValue;
+  return transition_wm_bf16((const bf16*)skip, (const bf16*)dec,
+                            (const bf16*)bias, mats, (bf16*)out, B, s, C, h_real,
+                            off_z, off_lat, off_lon, st);
 }

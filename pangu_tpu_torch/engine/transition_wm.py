@@ -9,11 +9,12 @@ stage-0 window-major entry storage in canonical coordinates.  Latitude-pad
 rows of the output are zeros (the next entry block zero-synthesises them
 anyway).
 
-``apply_transition_wm`` launches the CUDA kernel (``csrc/transition_wm.cu``)
-on a CUDA tensor and runs ``apply_transition_wm_plain`` on a CPU tensor or
-with ``kernels=False``; ``apply_transition_wm.launches`` counts the kernel's
-launches.  The tp z-sharded variant (``z_base``, ``nz_global``) is not
-ported yet (ROADMAP queue A).
+``apply_transition_wm`` launches the CUDA kernel (``csrc/transition_wm.cu``;
+bf16 on the tensor cores, ``csrc/edge_mma.cuh``) on a CUDA tensor and runs
+``apply_transition_wm_plain`` on a CPU tensor or with ``kernels=False``;
+``apply_transition_wm.launches`` counts the kernel's launches.  The tp
+z-sharded variant (``z_base``, ``nz_global``) is not ported yet (ROADMAP
+queue A).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import ModelConfig, StageGeometry
 from pangu_tpu_torch.engine.transition import apply_transition, build_transition
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, aligned16,
+                                                check_tensor_core_shape,
                                                 to_window_major,
                                                 wm_to_canonical)
 
@@ -77,6 +79,10 @@ def apply_transition_wm(tp, skip, dec, geom: StageGeometry, off: Offset, *,
         if t.dtype != skip.dtype or t.device != skip.device:
             raise ValueError(f"apply_transition_wm: operator {t.dtype} on "
                              f"{t.device}, input {skip.dtype} on {skip.device}")
+    if skip.dtype == torch.bfloat16:    # the tensor-core route
+        check_tensor_core_shape((c,), None, "apply_transition_wm")
+        skip, dec, bias, *mats = (aligned16(t) for t in (skip, dec, bias,
+                                                          *mats))
     out = torch.empty_like(skip)
     tensors = (skip, dec, bias, *mats, out)
     with _build.launch_stream(*tensors) as stream:

@@ -9,7 +9,8 @@ fields (B, 5, levels, lat, lon) and (B, 4, lat, lon), cropped, equal to
 token planes 1.., the surface branch plane 0.
 
 ``recovery_wm_upper`` / ``recovery_wm_surface`` launch one CUDA kernel each
-(``csrc/recovery_wm.cu``) on a CUDA tensor, with a launch counter each, and
+(``csrc/recovery_wm.cu``; the bf16 upper branch on the tensor cores,
+``csrc/edge_mma.cuh``) on a CUDA tensor, with a launch counter each, and
 run their plain versions on a CPU tensor; ``recovery_wm`` runs both.
 
 Training: ``recovery_wm_train`` is the differentiable recovery, an autograd
@@ -79,6 +80,10 @@ def _launch(surface: bool, p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
         shape = (b, v, cfg.levels, cfg.lat, cfg.lon)
     if q["kernel"].shape != (2 * c, feat):
         raise ValueError(f"recovery_wm: kernel {tuple(q['kernel'].shape)}")
+    if not surface and skip_wm.dtype == torch.bfloat16:  # the tensor cores
+        check_tensor_core_shape((c,), None, "recovery_wm_upper")
+        skip_wm, dec_wm, q["kernel"] = (aligned16(t) for t in (
+            skip_wm, dec_wm, q["kernel"]))
     out = torch.empty(shape, dtype=skip_wm.dtype, device=skip_wm.device)
     tensors = (skip_wm, dec_wm, q["kernel"], q["bias"], out)
     with _build.launch_stream(*tensors) as stream:

@@ -5,8 +5,11 @@ that two versions compare in one call: the forward block kernel (every
 entry of ``csrc/block_wm.cu``), the grid attention forward
 (``csrc/grid_attn.cu``), the block tail (``csrc/block_tail.cu``, tanh and
 erf GELU), the recovery backward (``csrc/recovery_bwd.cu``, pair
-offsets (1, 3, 6) and (0, 0, 0)) and the window-major DownSample and
-UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)).
+offsets (1, 3, 6) and (0, 0, 0)), the window-major DownSample and
+UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)), and
+the token-space transition (``csrc/transition_wm.cu``) and the upper
+patch recovery (``csrc/recovery_wm.cu``), pair offsets (1, 3, 6) and (0,
+0, 0).
 
     python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
                                         [--only REGEX]
@@ -17,8 +20,10 @@ version (max |kernel - plain| / max |plain| over every output, gate 2^-6),
 whether two runs agree bit for bit, ms per launch (CUDA events over
 ``--reps`` launches after one warm-up) and the bound of chip_smoke.py.
 ``--split``: one stage-0 block, grid attention and tail, one recovery
-backward, DownSample and UpSample by class of kernel (``torch.profiler``,
-chip_smoke.py's classes).  ``--only``: the cases (and splits) whose
+backward, DownSample, UpSample, transition and upper recovery by class of
+kernel (``torch.profiler``, chip_smoke.py's classes; the transition's and
+the recovery's gather, product and epilogue are one kernel in both
+versions, ``edge_class``).  ``--only``: the cases (and splits) whose
 ``name label`` the regular expression finds, e.g. ``--only sample_wm``.
 The last line is one JSON object of the times.
 """
@@ -67,6 +72,9 @@ def main() -> int:
         raise RuntimeError(f"imported {pangu_tpu_torch.__file__}, not {repo}")
     from pangu_tpu_torch import _build
     from pangu_tpu_torch.config import PANGU_24, _pick_gh
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.engine.transition_wm import (
+        apply_transition_wm, apply_transition_wm_plain, build_transition_wm)
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.models.layers import window_region_ids
     from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
@@ -77,7 +85,9 @@ def main() -> int:
                                                     block_wm_group,
                                                     block_wm_plain)
     from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
-                                                 recovery_bwd_plain)
+                                                 recovery_bwd_plain,
+                                                 recovery_wm_upper,
+                                                 recovery_wm_upper_plain)
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                                down_sample_wm_plain,
                                                up_sample_wm, up_sample_wm_plain)
@@ -237,6 +247,36 @@ def main() -> int:
                    lambda o=off: up_sample_wm_plain(pu, xu, g2, g3, o),
                    up_cost)]
 
+    # the edge products on the rolled stage-3 exit pair (chip_smoke.py's
+    # work: the real rows; bytes: their pair rows, the bias field or the
+    # weights, the output)
+    skip3, dec3 = storage(g3), storage(g3)
+    tp = build_transition_wm(params, to_device(
+        synthetic_constants(PANGU_24, seed=0), dev), perf)
+    valid0 = g0.z * g0.h * g0.w
+    upper_rows = (g0.z - 1) * g0.h * g0.w
+    field_u = 5 * PANGU_24.levels * PANGU_24.lat * PANGU_24.lon
+    edge_cost = {
+        "transition_wm": (2 * valid0 * 2 * c3 * c3,
+                          3 * valid0 * c3 * 2 + 6 * 2 * c3 * c3 * 2
+                          + rows_all * c3 * 2),
+        "recovery_wm_upper": (2 * upper_rows * 2 * c3 * 160,
+                              2 * upper_rows * c3 * 2
+                              + sum(t.numel() for t in cs.leaves(pr["upper"]))
+                              * 2 + field_u * 2)}
+    for off in (half, (0, 0, 0)):
+        cases += [("transition_wm", f"off {off}",
+                   lambda o=off: apply_transition_wm(tp, skip3, dec3, g0, o),
+                   lambda o=off: apply_transition_wm_plain(tp, skip3, dec3, g0,
+                                                           o),
+                   edge_cost["transition_wm"]),
+                  ("recovery_wm_upper", f"off {off}",
+                   lambda o=off: recovery_wm_upper(pr, skip3, dec3, o,
+                                                   PANGU_24),
+                   lambda o=off: recovery_wm_upper_plain(pr, skip3, dec3, o,
+                                                         PANGU_24),
+                   edge_cost["recovery_wm_upper"])]
+
     def wanted(what):
         return re.search(args.only, what) is not None
 
@@ -287,7 +327,13 @@ def main() -> int:
              cs.down_work(r0, r1, g0.dim), cs.fwd_class),
             ("up_sample_wm off (1, 3, 6)",
              lambda: up_sample_wm(pu, xu, g2, g3, half),
-             cs.up_work(r2, r3, c_in, c_out), cs.fwd_class)]
+             cs.up_work(r2, r3, c_in, c_out), cs.fwd_class),
+            ("transition_wm off (1, 3, 6)",
+             lambda: apply_transition_wm(tp, skip3, dec3, g0, half),
+             cs.edge_work(*edge_cost["transition_wm"]), cs.edge_class),
+            ("recovery_wm_upper off (1, 3, 6)",
+             lambda: recovery_wm_upper(pr, skip3, dec3, half, PANGU_24),
+             cs.edge_work(*edge_cost["recovery_wm_upper"]), cs.edge_class)]
         for what, fn, work, classify in splits:
             if wanted(what):
                 print(f"{what} bf16 by class:",

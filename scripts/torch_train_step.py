@@ -13,10 +13,10 @@ train steps and served per-block steps (``forward`` with
 ``lora_fused=False`` on rank-16 adapters on each stage's first block, as
 chip_smoke.py phase 8b) is timed alone on the host clock, ending in
 ``torch.cuda.synchronize()``; so is each of ``--steps`` 3-step rollouts,
-full-step and token-space with the edge kernels (chip_smoke.py phases
-4a-b), each time divided by 3: ms a chained step.  Printed: every time,
-the median, and the peak memory of the train steps.  The last line is one
-JSON object.
+full-step, full-step with the edge kernels and token-space with the edge
+kernels (chip_smoke.py phases 4a-b), each time divided by 3: ms a chained
+step.  Printed: every time, the median, and the peak memory of the train
+steps.  The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -109,6 +109,7 @@ def main() -> int:
 
     served_steps = {}
     for label, rcfg, token in (("full-step", perf, False),
+                               ("full-step, edge kernels", cfg, False),
                                ("token-space", cfg, True)):
         rollout = make_rollout(rcfg, consts, 3, token_space=token, device=dev)
 

@@ -42,7 +42,11 @@ the pair's pad rows); and the window-major DownSample and UpSample (junk
 on their input's latitude-pad rows leaves the output unchanged, the
 output's pad rows zeros, a batch-2 sample equal to it run alone, bf16
 bit-identical in two runs, ValueError for bf16 channels not a multiple of
-8).  Needs a CUDA
+8); and the transition and the recovery (both branches: each sample of a
+batch of 2 equal to it run alone, junk on the pair's latitude-pad rows
+leaving the outputs unchanged, bf16 bit-identical in two runs; ValueError
+for a bf16 C not a multiple of 8 in the transition and the upper
+recovery, which run on the tensor cores).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -245,24 +249,63 @@ def test_embed_wm_kernel_matches_plain(cuda, cfg_name, dtype):
 @pytest.mark.parametrize("off", [(0, 0, 0), (1, 3, 6)])
 def test_transition_and_recovery_kernels_match_plain(cuda, cfg_name, dtype,
                                                      off):
+    """The transition and both recovery branches against their plain
+    versions; each sample of the batch of 2 equal bit for bit to it run
+    alone, 50x junk on the pair's latitude-pad rows (never read) leaves the
+    outputs bit-equal, and a bf16 output is bit-identical in two runs."""
     cfg = _in_dtype(CFGS[cfg_name], dtype)
     params = _params(cfg, cuda)
     g0 = cfg.stage(0)
     skip, dec = _storage(g0, cuda, dtype, seed=4), _storage(g0, cuda, dtype, seed=5)
+    junk = (_pad_junk(skip, g0, off), _pad_junk(dec, g0, off))
+    assert not torch.equal(junk[0], skip)
     tp = build_transition_wm(params, to_device(synthetic_constants(cfg), cuda),
                              cfg)
-    got = apply_transition_wm(tp, skip, dec, g0, off)
-    want = apply_transition_wm_plain(tp, skip, dec, g0, off)
-    torch.cuda.synchronize()
-    assert got.shape == want.shape and got.dtype == dtype
-    assert _rel_err(got, want) <= TOL[dtype]      # pad rows: zeros in both
-    for kern, plain in ((recovery_wm_upper, recovery_wm_upper_plain),
-                        (recovery_wm_surface, recovery_wm_surface_plain)):
-        got = kern(params["patch_recovery"], skip, dec, off, cfg)
-        want = plain(params["patch_recovery"], skip, dec, off, cfg)
+    pr = params["patch_recovery"]
+    for kern, plain in (
+            (lambda a, b: apply_transition_wm(tp, a, b, g0, off),
+             lambda a, b: apply_transition_wm_plain(tp, a, b, g0, off)),
+            (lambda a, b: recovery_wm_upper(pr, a, b, off, cfg),
+             lambda a, b: recovery_wm_upper_plain(pr, a, b, off, cfg)),
+            (lambda a, b: recovery_wm_surface(pr, a, b, off, cfg),
+             lambda a, b: recovery_wm_surface_plain(pr, a, b, off, cfg))):
+        got = kern(skip, dec)
+        want = plain(skip, dec)
+        alone = [kern(skip[i:i + 1].contiguous(), dec[i:i + 1].contiguous())
+                 for i in range(2)]
+        with_junk = kern(*junk)
+        again = kern(skip, dec)
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == dtype
-        assert _rel_err(got, want) <= TOL[dtype]
+        assert _rel_err(got, want) <= TOL[dtype]  # transition pad rows: zeros
+        assert all(torch.equal(a[0], got[i]) for i, a in enumerate(alone))
+        assert torch.equal(with_junk, got)
+        if dtype == torch.bfloat16:
+            assert torch.equal(again, got)
+
+
+@pytest.mark.parametrize("which", ["transition", "recovery_upper"])
+def test_edge_bf16_refuses_shapes_outside_the_tiles(cuda, which):
+    """A bf16 transition or upper recovery whose C is not a multiple of 8
+    raises ValueError before a launch (no fallback)."""
+    cfg = _in_dtype(dataclasses.replace(TINY, dims=(20, 40, 40, 20)),
+                    torch.bfloat16)
+    params = _params(cfg, cuda)
+    g0 = cfg.stage(0)
+    skip, dec = (_storage(g0, cuda, torch.bfloat16, seed=s) for s in (4, 5))
+    if which == "transition":
+        tp = build_transition_wm(
+            params, to_device(synthetic_constants(cfg), cuda), cfg)
+        fn = apply_transition_wm
+        call = lambda: fn(tp, skip, dec, g0, (0, 0, 0))  # noqa: E731
+    else:
+        fn = recovery_wm_upper
+        call = lambda: fn(params["patch_recovery"], skip, dec,  # noqa: E731
+                          (0, 0, 0), cfg)
+    before = fn.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        call()
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])

@@ -12,8 +12,11 @@ route of ``csrc/recovery_bwd.cu`` runs its products on ``mma_gemm.cuh``;
 and that the bf16 route of ``csrc/updown_wm.cu`` (DownSample, UpSample)
 runs its products on ``mma_gemm.cuh`` with the pad-row epilogue and its
 gather and LayerNorm in one pass, what its wrappers refuse before a launch
-and the alignment of their operands.  The kernels themselves run only on
-the card (``tests/test_torch_kernels_gpu.py``)."""
+and the alignment of their operands; and that the bf16 transition and upper
+recovery (``csrc/transition_wm.cu``, ``csrc/recovery_wm.cu``) run on
+``csrc/edge_mma.cuh``'s tensor-core kernel, float32 and the surface
+recovery on ``csrc/edge_gemm.cuh``'s first kernels.  The kernels themselves
+run only on the card (``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
 import re
@@ -453,3 +456,33 @@ def test_bf16_updown_operands_are_16_byte_aligned(which):
     assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
     for sub in q.values():
         assert all(t.data_ptr() % 16 == 0 for t in sub.values())
+
+
+@pytest.mark.parametrize("source,fn,op,entry,first,bf16", [
+    ("transition_wm.cu", "static int transition_wm_bf16(", "TransitionMma",
+     'extern "C" int pangu_transition_wm(', "transition_wm<float>(",
+     "transition_wm_bf16("),
+    ("recovery_wm.cu", "static int recovery_upper_bf16(", "RecoveryMma",
+     'extern "C" int pangu_recovery_wm(', "recovery_wm<float>(",
+     "recovery_upper_bf16(")])
+def test_edge_bf16_routes_run_on_the_tensor_cores(source, fn, op, entry, first,
+                                                  bf16):
+    """The bf16 transition and upper recovery launch edge_mma.cuh's kernel
+    (mma.sync fed by 16-byte cp.async copies of the gathered rows) through
+    their Op, after the entry's shape and alignment check; float32 (and the
+    bf16 surface recovery) keep edge_gemm.cuh's first kernels."""
+    code = _code(source)
+    body = _body(code, fn)
+    assert f"{op} op;" in body and "edge_mma(op, st)" in body
+    assert "edge_gemm(" not in body
+    head = _body(code, entry)
+    assert head.index(first) < head.index("aligned16_all(") < head.index(bf16)
+    assert "edge_gemm(op, " in _body(code, "int " + first.replace("<float>",
+                                                                  ""))
+    if source == "transition_wm.cu":
+        assert "transition_wm<bf16>" not in code
+    else:
+        assert head.index("dtype == 1 && surface") < head.index(bf16)
+    edge = _code("edge_mma.cuh")
+    for name in ("cp_async16_zfill(", "load_a_n(", "load_b_t(", "mma_bf16("):
+        assert name in _body(edge, "edge_mma_kernel(Op op) {")
