@@ -15,8 +15,9 @@ Phases, each with its wall seconds:
      their 16-byte row kernels), of the bf16 block tail and recovery
      backward (their objects' products, row passes, relayout and split
      sum), of the bf16 DownSample and UpSample (their products and
-     gather + LayerNorm passes) and of the bf16 transition and upper
-     recovery (their tensor-core kernel) on lines of their own;
+     gather + LayerNorm passes) and of the bf16 transition, recovery
+     (upper and surface) and embed (their tensor-core kernel) on lines
+     of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -25,26 +26,28 @@ Phases, each with its wall seconds:
      and 1; DownSample / UpSample, window-major and canonical; the edge
      kernels: embed, transition and recovery upper / surface, the last three
      at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
-     8 through the stage-0 block, DownSample, UpSample, the transition and
-     the upper recovery and of 16 through UpSample (its mix product then
-     has more than 65,535 row tiles), the last sample against a batch-1
-     launch (bit for bit but the block's); then full-width float32
-     forwards, without and with the edge kernels, kernels against plain
-     versions.  Every bf16 block entry, DownSample, UpSample, the transition
-     and the upper recovery twice, bit for bit, and the grouped
-     block equal to the ungrouped one on the same input; beside each bf16
+     8 through the stage-0 block, DownSample, UpSample, the transition,
+     both recovery branches and the embed and of 16 through UpSample (its
+     mix product then has more than 65,535 row tiles), the last sample
+     against a batch-1 launch (bit for bit but the block's); then
+     full-width float32 forwards, without and with the edge kernels,
+     kernels against plain versions.  Every bf16 block entry, DownSample,
+     UpSample, the transition, both recovery branches and the embed twice,
+     bit for bit, and the grouped block equal to the ungrouped one on the
+     same input; beside each bf16
      time of a redesigned row its earlier kernel's (``PREVIOUS_BF16_MS``);
      the float32 error lines of the block entries, the grid attention,
      DownSample, UpSample, the transition and the upper recovery (here and
      in phases 6a, 7a, 8a, 9a) equal to their earlier kernels'
      (``F32_BEFORE``, the float32 route being unchanged); one stage-0 bf16
      block and grid attention forward, DownSample, UpSample, transition and
-     upper recovery by class of kernel (``torch.profiler``: products,
-     attention, row passes, each with its rate); junk on the latitude-pad
-     rows of the bf16 DownSample's and UpSample's input leaves their output
-     bit-equal, whose pad rows are zeros, and junk on those of the rolled
-     pair leaves the bf16 transition's and upper recovery's outputs
-     bit-equal;
+     upper and surface recovery by class of kernel (``torch.profiler``:
+     products, attention, row passes, each with its rate), and the embed
+     wrapper by prepass, upper product and plane-0 copy; junk on the
+     latitude-pad rows of the bf16 DownSample's and UpSample's input leaves
+     their output bit-equal, whose pad rows are zeros, and junk on those of
+     the rolled pair leaves the bf16 transition's and both recovery
+     branches' outputs bit-equal;
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
      tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
      batch 1, random weights and synthetic constants from a seed, each driven
@@ -170,8 +173,8 @@ max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
 backward, every bf16 block entry, the block tail, the recovery backward,
-DownSample, UpSample, the transition and the upper recovery must also agree
-bit for bit over two runs
+DownSample, UpSample, the transition, both recovery branches and the embed
+must also agree bit for bit over two runs
 (``BIT_IDENTICAL``, ``BIT_IDENTICAL_FWD``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
@@ -381,9 +384,11 @@ def updown_report(ptxas):
 
 
 def edge_report(ptxas):
-    """The same lines for the bf16 transition and upper recovery: their
-    tensor-core kernel (``csrc/edge_mma.cuh``), one instantiation each."""
-    return tc_report(ptxas_parts(ptxas, {"transition_wm_0", "recovery_wm_0"}),
+    """The same lines for the bf16 transition, recovery (upper and surface)
+    and embed: their tensor-core kernel (``csrc/edge_mma.cuh``), one
+    instantiation each."""
+    return tc_report(ptxas_parts(ptxas, {"transition_wm_0", "recovery_wm_0",
+                                         "embed_wm_0"}),
                      r"edge_mma_kernel", "edge ")
 
 
@@ -401,8 +406,16 @@ def tail_recovery_report(ptxas):
 # attention: the CUDA-core forward (commit e1271cc); the block tail and the
 # recovery backward: their first versions (commit 37b26cf); DownSample and
 # UpSample: their first versions (commit a7e41b5); the transition and the
-# upper recovery: their first versions (commit e35ad6a).
+# upper recovery: their first versions (commit e35ad6a); the embed and the
+# surface recovery: their first versions (commit 5d574eb).
 PREVIOUS_BF16_MS = {
+    'embed_wm': {
+        'full width': 2.663,
+    },
+    'recovery_wm_surface': {
+        'off (0, 0, 0)': 0.278,
+        'off (1, 3, 6)': 0.279,
+    },
     'transition_wm': {
         'off (0, 0, 0)': 4.551,
         'off (1, 3, 6)': 4.519,
@@ -466,12 +479,11 @@ def previous_ms(name, label):
 
 
 # The float32 route of the block kernel, the grid attention forward, the
-# block tail, the recovery backward, DownSample, UpSample, the transition
-# and the upper recovery did not change with their bf16 redesigns (nor did
-# embed_wm and the surface recovery, which share the transition's and the
-# recovery's first GEMM), so their float32 error lines must read as the
-# earlier kernels' (commits e1271cc, 37b26cf, a7e41b5 and e35ad6a, as
-# PREVIOUS_BF16_MS) did in the same run of this script ("max_abs_err rel",
+# block tail, the recovery backward, DownSample, UpSample, the transition,
+# the recovery (both branches) and the embed did not change with their bf16
+# redesigns, so their float32 error lines must read as the earlier kernels'
+# (commits e1271cc, 37b26cf, a7e41b5 and e35ad6a, as PREVIOUS_BF16_MS) did
+# in the same run of this script ("max_abs_err rel",
 # as printed), where torch and the card are the ones of that run (inputs
 # drawn elsewhere are not comparable)
 F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
@@ -546,7 +558,7 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
 # bf16 forward kernels of phase 3 (besides the block entries) whose two
 # runs must agree bit for bit
 BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm", "transition_wm",
-                     "recovery_wm_upper")
+                     "recovery_wm_upper", "recovery_wm_surface", "embed_wm")
 
 
 def f32_as_before(name, label, err, rel):
@@ -624,14 +636,16 @@ def fwd_class(key):
             "attention" if "attn" in key else "row passes")
 
 
-def class_breakdown(fn, work, classify=fwd_class, reps=3):
+def class_breakdown(fn, work, classify=fwd_class, reps=3, detail=None):
     """Device time of one launch by class: torch.profiler (CPU and CUDA
     activity) over ``reps`` launches after one warm-up launch in the
     profiler's warm-up step (a profile without one was seen to miss
     kernels late in this script), each kernel's class from ``classify``
     (its name -> a key of ``work``), each class with its rate from
     ``work`` (class -> FLOP, bytes); beside the total, the launch's time by
-    CUDA events, so that a profile that missed kernels shows."""
+    CUDA events, so that a profile that missed kernels shows.  With
+    ``detail`` a class, its kernels follow, each with its launches and
+    device time a launch of ``fn``, slowest first."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
@@ -643,6 +657,7 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3):
             torch.cuda.synchronize()
             prof.step()
     ms = {k: 0.0 for k in work}
+    listed = []
     for e in prof.key_averages():
         t = e.self_device_time_total / 1e3 / reps
         # a step's annotation spans its kernels on the device timeline
@@ -651,14 +666,19 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3):
                 or e.key.startswith("ProfilerStep")):
             continue
         ms[classify(e.key)] += t
+        if classify(e.key) == detail:
+            listed.append((t, e.count / reps, e.key))
     parts = []
     for k, t in ms.items():
         flops, byts = work[k]
         rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
                 f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
         parts.append(f"{k} {t:.3f} ms ({rate})")
-    return (f"{sum(ms.values()):.3f} ms of device time ({time_ms(fn, reps):.3f}"
-            f" ms a launch by CUDA events): " + "; ".join(parts))
+    out = (f"{sum(ms.values()):.3f} ms of device time ({time_ms(fn, reps):.3f}"
+           f" ms a launch by CUDA events): " + "; ".join(parts))
+    for t, n, key in sorted(listed, reverse=True):
+        out += f"\n  {detail}: {n:g} x {key[:72]} {t:.3f} ms"
+    return out
 
 
 def down_work(rows0, rows1, c):
@@ -719,16 +739,38 @@ def recovery_class(key):
 
 
 def edge_work(flops, nbytes_):
-    """(FLOP, bytes) of a bf16 transition or upper recovery launch by
-    class: the gather of the pair's rows, the product and the epilogue are
-    one kernel (the tensor-core route's ``edge_mma_kernel``, the first
-    version's ``edge_gemm_bf16``), so one class holds the launch's work."""
+    """(FLOP, bytes) of a bf16 transition or recovery launch by class: the
+    gather of the pair's rows, the product and the epilogue are one kernel
+    (the tensor-core route's ``edge_mma_kernel``, the first version's
+    ``edge_gemm_bf16``), so one class holds the launch's work."""
     return {"gather + product + epilogue": (flops, nbytes_)}
 
 
 def edge_class(key):
-    """The class of a transition or upper recovery kernel (one)."""
+    """The class of a transition or recovery kernel (one)."""
     return "gather + product + epilogue"
+
+
+def embed_work(flops, field, const_h, st, plane0, upper):
+    """(FLOP, bytes) of a bf16 embed wrapper by class, each input read once:
+    the prepass (the field normalised: read and written once; the surface
+    token plane written), the upper product (the normalised field and
+    const_h in, the upper planes' storage out) and the plane-0 copy (the
+    surface token plane in, plane 0's storage out)."""
+    return {"prepass": (0, 2 * field + st),
+            "upper product": (flops, field + const_h + upper),
+            "plane-0 copy": (0, st + plane0)}
+
+
+def embed_class(key):
+    """The class of a kernel the embed wrapper launches: the upper product
+    (``edge_mma_kernel``, the first version's ``edge_gemm_bf16``), the
+    plane-0 copy, or the PyTorch prepass (the rest)."""
+    if "edge_mma_kernel" in key or "edge_gemm" in key:
+        return "upper product"
+    if "embed_plane0" in key or "embed_surface_kernel" in key:
+        return "plane-0 copy"
+    return "prepass"
 
 
 def bound(flops, nbytes_, dtype):
@@ -1109,10 +1151,10 @@ def main() -> int:
             raise AssertionError(f"{name}: pad rows reach the output")
     del xs, grid, kept, junk, got, with_junk, pb
 
-    # bf16 transition and upper recovery, at the served offset: by class
-    # of kernel (gather, product and epilogue are one kernel); junk on the
-    # rolled pair's latitude-pad rows, which neither reads, must leave their
-    # outputs bit-equal.  Inputs from a generator of their own
+    # bf16 transition and both recovery branches, at the served offset: by
+    # class of kernel (gather, product and epilogue are one kernel); junk on
+    # the rolled pair's latitude-pad rows, which none reads, must leave
+    # their outputs bit-equal.  Inputs from a generator of their own
     gedge = torch.Generator(device=dev).manual_seed(SEED + 11)
     skip, dec = (storage(g0, torch.bfloat16, g=gedge) for _ in range(2))
     tp = build_transition_wm(params, consts_dev, perf)
@@ -1120,15 +1162,21 @@ def main() -> int:
     edge_fns = {
         "transition_wm": lambda a, b: apply_transition_wm(tp, a, b, g0, half),
         "recovery_wm_upper": lambda a, b: recovery_wm_upper(pr, a, b, half,
-                                                            perf)}
-    edge_cost = {      # phase 3's work and bytes of the two
+                                                            perf),
+        "recovery_wm_surface": lambda a, b: recovery_wm_surface(pr, a, b, half,
+                                                                perf)}
+    edge_cost = {      # phase 3's work and bytes of the three
         "transition_wm": (2 * valid0 * 2 * c0 * c0,
                           3 * valid0 * c0 * 2 + 6 * 2 * c0 * c0 * 2
                           + rows(g0) * c0 * 2),
         "recovery_wm_upper": (2 * upper_rows * 2 * c0 * 160,
                               2 * upper_rows * c0 * 2
                               + weight_bytes(pr["upper"], torch.bfloat16)
-                              + field_u * 2)}
+                              + field_u * 2),
+        "recovery_wm_surface": (2 * g0.h * g0.w * 2 * c0 * 64,
+                                2 * g0.h * g0.w * c0 * 2
+                                + weight_bytes(pr["surface"], torch.bfloat16)
+                                + field_s * 2)}
     junk = []
     for t in (skip, dec):
         grid = from_window_major(t, g0.window)
@@ -1148,6 +1196,18 @@ def main() -> int:
             raise AssertionError(f"{name}: the pair's pad rows reach the "
                                  "output")
     del skip, dec, grid, kept, junk, got, with_junk
+    # the bf16 embed wrapper by prepass, upper product and plane-0 copy, on
+    # the bf16 state of its phase-3 line
+    pe, ub, sb = params["patch_embed"], u0.to(torch.bfloat16), \
+        s0.to(torch.bfloat16)
+    plane_bytes = g0.h_padded * g0.w * c0 * 2
+    print("embed_wm bf16 by class (torch.profiler): " + class_breakdown(
+        lambda: embed_wm(pe, ub, sb, consts_dev, perf),
+        embed_work(2 * upper_rows * pe["upper"]["kernel"].shape[0] * c0,
+                   nbytes(ub), consts_dev["const_h"].numel() * 2,
+                   g0.h * g0.w * c0 * 2, plane_bytes,
+                   (g0.z - 1) * plane_bytes), embed_class, detail="prepass"))
+    del ub, sb
 
     # a batch of 8, the last sample against a batch-1 launch: at stage 0
     # 8 x 535,680 rows, 33,480 row tiles of the 128-row tensor-core
@@ -1189,6 +1249,18 @@ def main() -> int:
         torch.cuda.synchronize()
         b8.append((name, 8, got, want))
     del s8, d8, tp, edge_fns
+    u8 = (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
+          * torch.randn((8, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                        generator=gedge, device=dev)).to(torch.bfloat16)
+    s8 = (consts_dev["surface_mean"][None] + consts_dev["surface_std"][None]
+          * torch.randn((8, 4, PANGU_24.lat, PANGU_24.lon), generator=gedge,
+                        device=dev)).to(torch.bfloat16)
+    got = embed_wm(pe, u8, s8, consts_dev, perf)[7]
+    want = embed_wm(pe, u8[7:].contiguous(), s8[7:].contiguous(), consts_dev,
+                    perf)[0]
+    torch.cuda.synchronize()
+    b8.append(("embed_wm", 8, got, want))
+    del u8, s8
     for label, batch, got, want in b8:
         err, rel = rel_err(got, want)
         same = bool(torch.equal(got, want))

@@ -1,6 +1,6 @@
 // The one GEMM shape of the edge kernels (embed, token-space transition,
-// recovery): a product whose rows are GATHERED and whose outputs are
-// SCATTERED, with one (K x N) matrix chosen per group of rows.
+// recovery) in float32: a product whose rows are GATHERED and whose outputs
+// are SCATTERED, with one (K x N) matrix chosen per group of rows.
 //
 // A group is one (batch, token plane, token-lat row) of the stage-0 grid:
 // its rows are that row's longitude tokens, which all have the same token
@@ -24,10 +24,10 @@
 // the row, then n / 4, so that row r and w_off wo -- longitude 4r + wo of the
 // recovered field -- are written by neighbouring threads.
 //
-// Routes: float32 runs smem-tiled FMA (64x64x16, 4x4 per thread), bf16 runs
-// WMMA 16x16x16 tensor-core fragments (64x64x32, four warps of 32x32), as
-// the shared GEMMs of common.cuh; both accumulate in float32 and hand the
-// float32 sum to the Op's store, which rounds where the Pallas kernel rounds.
+// The float32 route of the embed, the transition and the recovery: smem-tiled
+// FMA (64x64x16, 4x4 per thread), as the shared GEMM of common.cuh, handing
+// the float32 sum to the Op's store.  Their bf16 routes run on the tensor
+// cores (edge_mma.cuh).
 #pragma once
 
 #include "common.cuh"
@@ -126,82 +126,12 @@ __global__ void __launch_bounds__(256) edge_gemm_f32(Op op) {
   eg_epilogue(op, t, rows, Cs, active);
 }
 
-// bf16: WMMA fragments
-template <class Op>
-__global__ void __launch_bounds__(128) edge_gemm_bf16(Op op) {
-  using namespace nvcuda;
-  using Row = typename Op::Row;
-  __shared__ __align__(128) bf16 As[EG_M][HK + 8];
-  __shared__ __align__(128) bf16 Bs[HK][EG_N + 8];
-  __shared__ __align__(128) float Cs[EG_M][EG_N + 4];
-  __shared__ Row rows[EG_M];
-  const EgTile t = eg_tile(op);
-  const int tid = threadIdx.x;
-  for (int i = tid; i < t.nrows; i += blockDim.x) rows[i] = op.row(t.g, t.r0 + i);
-  const bool active = op.active(t.g);
-  __syncthreads();
-  if (active) {
-    const bf16* B = op.mat(t.g);
-    const bf16 zero = __float2bfloat16(0.f);
-    const int warp = tid / 32;
-    const int wr = warp / 2, wc = warp % 2;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (int k0 = 0; k0 < op.K; k0 += HK) {
-      for (int idx = tid; idx < EG_M * HK; idx += 128) {
-        int r = idx / HK, c = idx % HK;
-        As[r][c] = (r < t.nrows && k0 + c < op.K) ? op.load(rows[r], k0 + c) : zero;
-      }
-      for (int idx = tid; idx < HK * EG_N; idx += 128) {
-        int r = idx / EG_N, c = idx % EG_N;
-        int gr = k0 + r, gc = t.n0 + c;
-        Bs[r][c] = (gr < op.K && gc < op.N) ? B[(long long)gr * op.N + gc] : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < HK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &As[wr * 32 + i * 16][kk], HK + 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[kk][wc * 32 + j * 16], EG_N + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16], acc[i][j],
-                                EG_N + 4, wmma::mem_row_major);
-    __syncthreads();
-  }
-  eg_epilogue(op, t, rows, Cs, active);
-}
-
 // one launch over ``groups`` groups
 template <class Op>
-inline void edge_gemm(const Op& op, int groups, float*, cudaStream_t st) {
+inline void edge_gemm(const Op& op, int groups, cudaStream_t st) {
   const long long blocks = (long long)groups * ((op.M + EG_M - 1) / EG_M) *
                            ((op.N + EG_N - 1) / EG_N);
   edge_gemm_f32<Op><<<(unsigned)blocks, 256, 0, st>>>(op);
-}
-
-template <class Op>
-inline void edge_gemm(const Op& op, int groups, bf16*, cudaStream_t st) {
-  const long long blocks = (long long)groups * ((op.M + EG_M - 1) / EG_M) *
-                           ((op.N + EG_N - 1) / EG_N);
-  edge_gemm_bf16<Op><<<(unsigned)blocks, 128, 0, st>>>(op);
 }
 
 // the rolled-storage row of canonical stage-0 token (z, lat, lon): storage

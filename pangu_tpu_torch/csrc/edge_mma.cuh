@@ -1,41 +1,47 @@
-// The bf16 edge products that read the rolled window-major skip/decoder
-// pair, on the tensor cores:
+// The bf16 edge products on the tensor cores:
 //   transition_wm.cu  the token-space transition (one of six matrices per
 //                     group, the bias field added after the first rounding);
-//   recovery_wm.cu    the upper patch recovery (one matrix, the bias added in
-//                     float32, the (var, zo, ho, wo) features scattered into
-//                     the field and cropped).
-// The float32 routes of both, and the surface recovery and embed in every
-// dtype, stay on edge_gemm.cuh's first kernels.
+//   recovery_wm.cu    the patch recovery, upper and surface branches (one
+//                     matrix, the bias added in float32, the features
+//                     scattered into the field and cropped);
+//   embed_wm.cu       the patch embed's upper planes (one matrix, the bias
+//                     added in float32, whole rows of wm storage out).
+// The first two read the rolled window-major skip/decoder pair (PairA), the
+// embed gathers the field's patches (EmbedMma).  Their float32 routes stay
+// on edge_gemm.cuh's first kernels.
 //
 // A group is one (batch, token plane, token-lat row) of the stage-0 grid, as
 // in edge_gemm.cuh: its M rows are that row's longitude tokens, all of one
 // token type, so one CTA, which covers rows of one group only, multiplies by
-// one matrix.  Row r of group g reads the pair's storage row that holds its
-// canonical token (rolled_row); the K = 2C features are [skip | dec] of
-// that row, and the output goes where the Op puts it.
+// one matrix.  The Op loads the A rows: row r of group g reads the pair's
+// storage row that holds its canonical token (rolled_row), whose K = 2C
+// features are [skip | dec] of that row, or the embed's patch of token r;
+// the output goes where the Op puts it.
 //
 // What bounds these products on an H100: at full width the transition does
-// 7.7e10 FLOP on 812 MB (the pair, the bias field, the output) and the
-// upper recovery 5.6e10 on 485 MB, ~95 and ~115 FLOP per byte against the
-// ~295 at which the tensor cores would bind, so bytes bound them, but at
-// the ~150-210 TFLOP/s that mma.sync products reach here the products take
-// longer than the bytes: the design reads each operand once and keeps the
-// tensor cores fed.
+// 7.7e10 FLOP on 812 MB (the pair, the bias field, the output), the upper
+// recovery 5.6e10 on 485 MB and the embed 3.4e10 on 368 MB, ~90-115 FLOP
+// per byte against the ~295 at which the tensor cores would bind, so bytes
+// bound them, but at the ~150-210 TFLOP/s that mma.sync products reach here
+// the products take longer than the bytes: the design reads each operand
+// once and keeps the tensor cores fed.
 //
 // Design: one CTA of kWM x kWN warps computes a BM x BN tile (BN the whole
-// output width at full width: 192 for the transition, 160 for the
-// recovery), so each gathered A row is read from device memory once.  Once
-// per CTA the rows' source offsets (and their destinations) go into a table
-// in shared memory; a cp.async ring like mma_gemm.cuh's is fed from it with
-// 16-byte copies (a 16-byte chunk lies wholly in skip or wholly in dec, C
-// being a multiple of 8), and read by ldmatrix into m16n8k16 products with
-// float32 accumulators.  Two CTAs of 8 warps a SM (128 registers) ran
-// fastest on an H100: one CTA without the cap took 1.5x as long, three of
-// 4 warps (64-row tiles) 1.2x.  The epilogue rounds the tile into shared memory
-// (over the idle ring, Op::pre giving the value to round) and the Op writes
-// it from there 16 bytes a lane: whole output rows for the transition,
-// lines of consecutive longitudes of the field for the recovery.
+// output width at full width: 192 for the transition and the embed, 160 and
+// 64 for the recovery's branches), so each gathered A row is read from
+// device memory once.  Once per CTA the rows' source offsets (and their
+// destinations) go into a table in shared memory; a cp.async ring like
+// mma_gemm.cuh's is fed from it by the Op's load_a (the pair: 16-byte
+// copies, a chunk lying wholly in skip or wholly in dec, C being a multiple
+// of 8; the embed: 8-byte copies of 4 w_off values) and the kernel's B
+// loader, and read by ldmatrix into m16n8k16 products with float32
+// accumulators.  Two CTAs of 8 warps a SM (128 registers) ran the
+// transition and the upper recovery fastest on an H100: one CTA without the
+// cap took 1.5x as long, three of 4 warps (64-row tiles) 1.2x.  The
+// epilogue rounds the tile into shared memory (over the idle ring, Op::pre
+// giving the value to round) and the Op writes it from there 16 bytes a
+// lane: whole output rows for the transition and the embed, lines of
+// consecutive longitudes of the field for the recovery.
 // Requirements (the C entries check them): C and N multiples of 8, every
 // operand 16-byte aligned.
 #pragma once
@@ -63,20 +69,48 @@ struct EmTile {
   static_assert(kNT % 2 == 0, "a warp's columns come in pairs of n8 tiles");
 };
 
-// An Op (TransitionMma, RecoveryMma) describes one product:
+// An Op (TransitionMma, RecoveryMma, EmbedMma) describes one product:
 //   using Tile = EmTile<...>;  static constexpr int kOutLd;  the staged
 //                              tile's row stride (elements)
-//   const bf16 *skip, *dec;  int C;   the pair, K = 2C
 //   int K, N, M;  long long groups;   depth, width, rows a group, groups
 //   bool active(int g);               false: no product (the Op's write
 //                                     decides what the rows get)
 //   const bf16* mat(int g);           the group's (K x N) row-major matrix
-//   long long src(int g, int r);      element offset of row r in skip / dec
+//   long long src(int g, int r);      row r's source offset (the Op's unit)
 //   long long dst(int g, int r);      where row r goes (the Op's unit)
+//   template <class T> void load_a(as, k0, g, nrows, src);
+//                                     the k slice [k0, k0 + EM_BK) of the
+//                                     tile's rows into the stage ``as``
+//                                     (row stride T::A_LD), zeros past the
+//                                     rows and the depth, by the whole CTA
+//                                     with cp.async copies
 //   float pre(int n, float acc);      the value of column n rounded into
 //                                     the staged tile
 //   template <int kBN> void write(g, r0, nrows, n0, tile, dst, active);
 //                                     the tile's rows out, by the whole CTA
+
+// The A rows of the products that read the rolled pair: row r's K = 2C
+// features are [skip | dec] at element offset src[r] of both, 16 bytes a
+// copy
+struct PairA {
+  const bf16* skip;
+  const bf16* dec;
+  int C;
+
+  template <class T>
+  __device__ void load_a(bf16* as, int k0, int, int nrows,
+                         const long long* src) const {
+    for (int idx = threadIdx.x; idx < T::BM * EM_BK / 8; idx += T::THREADS) {
+      const int r = idx / (EM_BK / 8), c = idx % (EM_BK / 8) * 8;
+      const int k = k0 + c;
+      const bool ok = r < nrows && k < 2 * C;
+      const long long s = ok ? src[r] : 0;
+      const bf16* p = k < C ? skip + s + k : dec + s + (k - C);
+      cp_async16_zfill(as + r * T::A_LD + c, ok ? p : skip, ok);
+    }
+  }
+};
+
 template <class Op>
 __global__ void __launch_bounds__(Op::Tile::THREADS, Op::Tile::MINB)
 edge_mma_kernel(Op op) {
@@ -110,15 +144,7 @@ edge_mma_kernel(Op op) {
     const int nk = (op.K + EM_BK - 1) / EM_BK;
     auto load = [&](int stage, int kt) {
       const int k0 = kt * EM_BK;
-      bf16* as = sa + stage * T::A_ELEMS;
-      for (int idx = tid; idx < T::BM * EM_BK / 8; idx += T::THREADS) {
-        const int r = idx / (EM_BK / 8), c = idx % (EM_BK / 8) * 8;
-        const int k = k0 + c;
-        const bool ok = r < nrows && k < op.K;
-        const long long s = ok ? src[r] : 0;
-        const bf16* p = k < op.C ? op.skip + s + k : op.dec + s + (k - op.C);
-        cp_async16_zfill(as + r * T::A_LD + c, ok ? p : op.skip, ok);
-      }
+      op.template load_a<T>(sa + stage * T::A_ELEMS, k0, g, nrows, src);
       bf16* bs = sb + stage * T::B_ELEMS;
       for (int idx = tid; idx < EM_BK * T::BN / 8; idx += T::THREADS) {
         const int r = idx / (T::BN / 8), c = idx % (T::BN / 8) * 8;

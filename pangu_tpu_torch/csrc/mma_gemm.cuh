@@ -97,6 +97,16 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                : "memory");
 }
 
+// 8 bytes src -> dst, or 8 zero bytes where !valid (src not read); .ca, as
+// .cg takes 16-byte copies only
+__device__ __forceinline__ void cp_async8_zfill(void* dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // A's k-slice [k0, k0 + BK) of output rows [m0, m0 + BM), by the whole
 // block.  !kAT: element (m, k) = a[m * lda + k], m < M.  kAT (a weight
 // gradient): element (i, r) = a[r * lda + i] for columns i < acols; column

@@ -23,13 +23,15 @@
 // What bounds it on an H100: memory traffic.  At full width (bf16) the upper
 // branch reads 7/8 of the pair's real rows (350 MB) and writes the 135 MB
 // field for 5.6e10 FLOP; the surface branch reads plane 0 (50 MB) and
-// writes 8.3 MB.  The bf16 upper branch runs on the tensor cores
-// (edge_mma.cuh: one CTA a 128-row tile of one group, all 160 features, so
-// each gathered row is read once, 16 bytes a copy; y rounded into shared
-// memory, then each (var, zo, ho) line of the tile's 4 x 128 longitudes
-// written 16 bytes a lane).  float32, and the surface branch in both
-// dtypes, keep the first version (edge_gemm.cuh: the element-a-lane gather,
-// 64 x 64 tiles, 2-byte scattered stores).
+// writes 8.3 MB for 3.2e9 FLOP.  bf16 runs on the tensor cores
+// (edge_mma.cuh: one CTA a tile of one group and all the branch's features,
+// 128 rows x 160 (upper) or 64 rows x 64 (surface: 1086 CTAs of 4 warps at
+// full width, no spills; 543 CTAs of 128 rows and 8 warps ran as fast on an
+// H100), each gathered row read once, 16 bytes a copy; y rounded into
+// shared memory, then each (var, zo, ho) line of the tile's consecutive
+// longitudes written 16 bytes a lane).  float32 keeps the first version
+// (edge_gemm.cuh: the element-a-lane gather, 64 x 64 tiles, 4-byte
+// scattered stores).
 #include "edge_mma.cuh"
 
 namespace pangu {
@@ -108,34 +110,38 @@ int recovery_wm(int surface, const void* skip, const void* dec, const void* w,
   op.K = 2 * C;
   op.N = V * (surface ? 1 : PZ) * PH * PW;
   op.M = s.nlon * s.ww;
-  edge_gemm(op, B * op.planes * HT, (T*)nullptr, st);
+  edge_gemm(op, B * op.planes * HT, st);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
 
-// the bf16 upper branch on the tensor cores (edge_mma.cuh): y staged as
-// round_T(acc + b), then each (var, zo, ho) line of the field written as the
-// tile's consecutive longitudes 4r + wo, two rows (16 bytes) a lane
-struct RecoveryMma {
-  using Tile = EmTile<4, 2, 2, 10, 2>;       // 128 rows x 160 features
-  // a lane reads 8 bytes of rows 2q and 2q + 1: a row of 82 words puts a
-  // half-warp's 16 reads on 8 bank pairs (BN + 8: 4)
+// the bf16 branches on the tensor cores (edge_mma.cuh): y staged as
+// round_T(acc + b), then each (var, zo, ho) line of the field (zo = 0 for
+// the surface) written as the tile's consecutive longitudes 4r + wo, two
+// rows (16 bytes) a lane
+template <bool kSurface>
+struct RecoveryMma : PairA {
+  // upper: 128 rows x 160 features (var, zo, ho, wo); surface: 64 rows x
+  // 64 features (var, ho, wo)
+  using Tile = std::conditional_t<kSurface, EmTile<2, 2, 2, 4, 4>,
+                                  EmTile<4, 2, 2, 10, 2>>;
+  static constexpr int kZo = kSurface ? 1 : PZ;  // level offsets a feature
+  // a lane reads 8 bytes of rows 2q and 2q + 1: a row of BN / 2 + 2 words
+  // puts a half-warp's 16 reads on 8 bank pairs (BN + 8: 4)
   static constexpr int kOutLd = Tile::BN + 4;
-  const bf16* skip;
-  const bf16* dec;
   const bf16* w;     // (2C, N)
   const bf16* bias;  // (N)
-  bf16* out;         // (B, V, levels, lat, lon)
+  bf16* out;  // upper (B, V, levels, lat, lon); surface (B, V, lat, lon)
   WmShape s;
-  int C, planes, HT, V, levels, lat, lon, oz, olat, olon, vec16;
+  int planes, HT, V, levels, lat, lon, oz, olat, olon, vec16;
   int K, N, M;
   long long groups;
 
   __device__ bool active(int) const { return true; }
   __device__ const bf16* mat(int) const { return w; }
-  __device__ long long src(int g, int r) const {
+  __device__ long long src(int g, int r) const {  // token plane zp + 1, or 0
     const int h = g % HT, zp = (g / HT) % planes, b = g / (HT * planes);
-    return rolled_row(b, zp + 1, h, r, s, oz, olat, olon) * C;
+    return rolled_row(b, kSurface ? 0 : zp + 1, h, r, s, oz, olat, olon) * C;
   }
   __device__ long long dst(int g, int r) const {  // out[b, 0, 2zp, 4h, 4r]
     const int h = g % HT, zp = (g / HT) % planes, b = g / (HT * planes);
@@ -155,7 +161,7 @@ struct RecoveryMma {
     const long long plane = (long long)lat * lon;
     for (int idx = threadIdx.x; idx < lines * pairs; idx += blockDim.x) {
       const int q = idx % pairs, ln = idx / pairs, l = n0 / PW + ln;
-      const int ho = l % PH, zo = (l / PH) % PZ, var = l / (PZ * PH);
+      const int ho = l % PH, zo = (l / PH) % kZo, var = l / (kZo * PH);
       if (PZ * zp + zo >= levels || PH * h + ho >= lat) continue;
       const int r = 2 * q;
       bf16* o = out + dst[r] + ((long long)var * levels + zo) * plane +
@@ -177,12 +183,12 @@ struct RecoveryMma {
   }
 };
 
-static int recovery_upper_bf16(const bf16* skip, const bf16* dec, const bf16* w,
-                               const bf16* bias, bf16* out, int B, WmShape s,
-                               int C, int HT, int V, int levels, int lat,
-                               int lon, int oz, int olat, int olon,
-                               cudaStream_t st) {
-  RecoveryMma op;
+template <bool kSurface>
+static int recovery_bf16(const bf16* skip, const bf16* dec, const bf16* w,
+                         const bf16* bias, bf16* out, int B, WmShape s, int C,
+                         int HT, int V, int levels, int lat, int lon, int oz,
+                         int olat, int olon, cudaStream_t st) {
+  RecoveryMma<kSurface> op;
   op.skip = skip;
   op.dec = dec;
   op.w = w;
@@ -190,10 +196,10 @@ static int recovery_upper_bf16(const bf16* skip, const bf16* dec, const bf16* w,
   op.out = out;
   op.s = s;
   op.C = C;
-  op.planes = s.nz * s.wz - 1;
+  op.planes = kSurface ? 1 : s.nz * s.wz - 1;
   op.HT = HT;
   op.V = V;
-  op.levels = levels;
+  op.levels = kSurface ? 1 : levels;
   op.lat = lat;
   op.lon = lon;
   op.oz = oz;
@@ -201,7 +207,7 @@ static int recovery_upper_bf16(const bf16* skip, const bf16* dec, const bf16* w,
   op.olon = olon;
   op.vec16 = lon % 8 == 0;  // every line's 16-byte chunks then aligned
   op.K = 2 * C;
-  op.N = V * PZ * PH * PW;
+  op.N = V * RecoveryMma<kSurface>::kZo * PH * PW;
   op.M = s.nlon * s.ww;
   op.groups = (long long)B * op.planes * HT;
   return (int)edge_mma(op, st);
@@ -213,8 +219,8 @@ using namespace pangu;
 
 // dtype: 0 = float32, 1 = bfloat16; surface: 0 = upper branch, 1 = surface
 // branch.  Returns a cudaError_t (0 = ok; cudaErrorInvalidValue for a bf16
-// upper branch whose C is not a multiple of 8 or whose operands are off a
-// 16-byte boundary).
+// C that is not a multiple of 8, a longitude count that is not a multiple
+// of 4, or an operand off a 16-byte boundary).
 extern "C" int pangu_recovery_wm(int dtype, int surface, const void* skip,
                                  const void* dec, const void* w, const void* bias,
                                  void* out, int B, int nz, int nlat, int nlon,
@@ -226,13 +232,11 @@ extern "C" int pangu_recovery_wm(int dtype, int surface, const void* skip,
   if (dtype == 0)
     return recovery_wm<float>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
                               levels, lat, lon, off_z, off_lat, off_lon, st);
-  if (dtype == 1 && surface)
-    return recovery_wm<bf16>(surface, skip, dec, w, bias, out, B, s, C, HT, V,
-                             levels, lat, lon, off_z, off_lat, off_lon, st);
-  // bf16 upper branch: the tensor-core tiles
+  // bf16, both branches: the tensor-core tiles
   if (dtype != 1 || C % 8 || lon % 4 || !aligned16_all({skip, dec, w, out}))
     return (int)cudaErrorInvalidValue;
-  return recovery_upper_bf16((const bf16*)skip, (const bf16*)dec, (const bf16*)w,
-                             (const bf16*)bias, (bf16*)out, B, s, C, HT, V,
-                             levels, lat, lon, off_z, off_lat, off_lon, st);
+  return (surface ? recovery_bf16<true> : recovery_bf16<false>)(
+      (const bf16*)skip, (const bf16*)dec, (const bf16*)w, (const bf16*)bias,
+      (bf16*)out, B, s, C, HT, V, levels, lat, lon, off_z, off_lat, off_lon,
+      st);
 }

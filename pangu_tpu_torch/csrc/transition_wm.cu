@@ -96,23 +96,21 @@ int transition_wm(const void* skip, const void* dec, const void* bias,
   op.K = 2 * C;
   op.N = C;
   op.M = s.nlon * s.ww;
-  edge_gemm(op, B * op.Z * op.Hp, (T*)nullptr, st);
+  edge_gemm(op, B * op.Z * op.Hp, st);
   PANGU_CHECK_LAUNCH();
   return 0;
 }
 
 // the bf16 route on the tensor cores (edge_mma.cuh): the same contract, the
 // output written from the staged tile as whole rows, 16 bytes a lane
-struct TransitionMma {
+struct TransitionMma : PairA {
   using Tile = EmTile<4, 2, 2, 12, 2>;       // 128 rows x 192 columns
   static constexpr int kOutLd = Tile::BN + 8;  // rows read 16 bytes a lane
-  const bf16* skip;
-  const bf16* dec;
   const bf16* bias;  // (1, nz, nlat, nlon, N, C)
   bf16* out;
   const bf16* mats[6];  // M_s, M_sh, M_u, M_uh, M_uz, M_uzh
   WmShape s;
-  int C, Z, Hp, h_real, oz, olat, olon;
+  int Z, Hp, h_real, oz, olat, olon;
   int K, N, M;
   long long groups, sample_rows;
 

@@ -10,7 +10,9 @@ field normalised in the compute dtype, and the surface token plane (a small
 im2col and matrix product) rounded where ``patch_embed`` rounds it.  The
 kernel (``csrc/embed_wm.cu``) does the rest: the (var, z_off, h_off, w_off) patch
 gather of the 5 upper variables plus const_h, the 192 -> C projection
-(float32 sum plus bias, rounded once) and the write into wm storage.
+(float32 sum plus bias, rounded once) and the write into wm storage; in
+bf16 on the tensor cores (``csrc/edge_mma.cuh``), whose operands
+``embed_operands`` checks and aligns before a launch.
 
 ``embed_wm`` launches the kernel on a CUDA tensor and runs ``embed_wm_plain``
 on a CPU tensor; ``embed_wm.launches`` counts the kernel's launches.
@@ -31,7 +33,9 @@ import torch
 from pangu_tpu_torch import _build, _device
 from pangu_tpu_torch.config import ModelConfig, embed_supported
 from pangu_tpu_torch.models.layers import _dot, _patches
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, from_window_major,
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, aligned16,
+                                                check_tensor_core_shape,
+                                                from_window_major,
                                                 to_window_major)
 
 F = torch.nn.functional
@@ -90,16 +94,15 @@ def embed_wm_plain(p, upper, surface, constants, cfg: ModelConfig):
     return to_window_major(x, g.window)
 
 
-def embed_wm(p, upper, surface, constants, cfg: ModelConfig):
-    """upper (B, 5, levels, lat, lon), surface (B, 4, lat, lon) in physical
-    units; ``constants`` as tensors on their device.  Returns the stage-0 wm
-    entry storage in the compute dtype: the CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor."""
-    if not upper.is_cuda:
-        return embed_wm_plain(p, upper, surface, constants, cfg)
+def embed_operands(p, upper, surface, constants, cfg: ModelConfig):
+    """What the kernel takes, checked before a launch: ``(un, ch, st, w,
+    bias)`` in the compute dtype, the prepass done (the normalised upper
+    field, const_h, the surface token plane, the upper weight and bias).
+    Raises ValueError on an unsupported input or, in bf16 (the tensor-core
+    route), on a C that is not a multiple of 8 or a longitude count that is
+    not a multiple of 4; the bf16 operands are 16-byte aligned (copies
+    where they are not)."""
     dt = _device.dtype_of(cfg.compute_dtype)
-    g = cfg.stage(0)
-    wz, wh, ww = g.window
     b = upper.shape[0]
     if (not embed_supported(cfg) or dt not in DTYPE_CODE
             or upper.shape != (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
@@ -110,17 +113,38 @@ def embed_wm(p, upper, surface, constants, cfg: ModelConfig):
         if t.device != upper.device:
             raise ValueError(f"embed_wm: {name} on {t.device}, input on "
                              f"{upper.device}")
-    un, st = _prepass(p, upper, surface, constants, cfg)
-    ch = constants["const_h"].to(dt).contiguous()
     w = p["upper"]["kernel"].to(dt).contiguous()
-    bias = p["upper"]["bias"].to(dt).contiguous()
-    c = w.shape[1]
+    if dt == torch.bfloat16:
+        check_tensor_core_shape((w.shape[1],), None, "embed_wm")
+        if cfg.lon % cfg.patch[2]:
+            raise ValueError(f"embed_wm: the bf16 kernel takes a longitude "
+                             f"count that is a multiple of {cfg.patch[2]}, "
+                             f"got {cfg.lon}")
+    un, st = _prepass(p, upper, surface, constants, cfg)
+    ops = (un, constants["const_h"].to(dt).contiguous(), st, w,
+           p["upper"]["bias"].to(dt).contiguous())
+    if dt == torch.bfloat16:
+        ops = tuple(aligned16(t) for t in ops)
+    return ops
+
+
+def embed_wm(p, upper, surface, constants, cfg: ModelConfig):
+    """upper (B, 5, levels, lat, lon), surface (B, 4, lat, lon) in physical
+    units; ``constants`` as tensors on their device.  Returns the stage-0 wm
+    entry storage in the compute dtype: the CUDA kernel for a CUDA tensor,
+    the plain version for a CPU tensor."""
+    if not upper.is_cuda:
+        return embed_wm_plain(p, upper, surface, constants, cfg)
+    g = cfg.stage(0)
+    wz, wh, ww = g.window
+    b = upper.shape[0]
+    un, ch, st, w, bias = embed_operands(p, upper, surface, constants, cfg)
     out = torch.empty((b, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww,
-                       c), dtype=dt, device=upper.device)
+                       w.shape[1]), dtype=w.dtype, device=upper.device)
     tensors = (un, ch, st, w, bias, out)
     with _build.launch_stream(*tensors) as stream:
         code = _build.library().pangu_embed_wm(
-            DTYPE_CODE[dt], *(t.data_ptr() for t in tensors),
+            DTYPE_CODE[w.dtype], *(t.data_ptr() for t in tensors),
             b, *out.shape[1:], wz, wh, ww, cfg.upper_vars, cfg.levels,
             cfg.lat, cfg.lon, cfg.h_tokens, stream)
     _build.check(code, "embed_wm")

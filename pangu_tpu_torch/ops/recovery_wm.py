@@ -9,9 +9,10 @@ fields (B, 5, levels, lat, lon) and (B, 4, lat, lon), cropped, equal to
 token planes 1.., the surface branch plane 0.
 
 ``recovery_wm_upper`` / ``recovery_wm_surface`` launch one CUDA kernel each
-(``csrc/recovery_wm.cu``; the bf16 upper branch on the tensor cores,
-``csrc/edge_mma.cuh``) on a CUDA tensor, with a launch counter each, and
-run their plain versions on a CPU tensor; ``recovery_wm`` runs both.
+(``csrc/recovery_wm.cu``; bf16 on the tensor cores, ``csrc/edge_mma.cuh``,
+whose operands ``recovery_operands`` checks and aligns before a launch) on
+a CUDA tensor, with a launch counter each, and run their plain versions on
+a CPU tensor; ``recovery_wm`` runs both.
 
 Training: ``recovery_wm_train`` is the differentiable recovery, an autograd
 Function whose backward is ``recovery_bwd`` alone (the kernel
@@ -61,36 +62,50 @@ def recovery_wm_plain(p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
             recovery_wm_surface_plain(p, skip_wm, dec_wm, off, cfg))
 
 
-def _launch(surface: bool, p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
-    _check_pair(skip_wm, dec_wm, cfg, "recovery_wm")
-    g = cfg.stage(3)
-    wz, wh, ww = g.window
-    b, nz, nlat, nlon, n, c = skip_wm.shape
+def recovery_operands(surface: bool, p, skip_wm, dec_wm, cfg: ModelConfig):
+    """What the kernel of one branch takes, checked before a launch:
+    ``(skip_wm, dec_wm, q, out_shape)``, q the branch's params in the
+    pair's dtype.  Raises ValueError on an unsupported input or, in bf16
+    (the tensor-core route of both branches), on a C that is not a multiple
+    of 8; the bf16 pair and kernel are 16-byte aligned (copies where they
+    are not)."""
+    what = "recovery_wm_surface" if surface else "recovery_wm_upper"
+    _check_pair(skip_wm, dec_wm, cfg, what)
+    b, c = skip_wm.shape[0], skip_wm.shape[-1]
     q = params_in(p["surface" if surface else "upper"], skip_wm.dtype)
     for t in q.values():
         if t.device != skip_wm.device:
-            raise ValueError(f"recovery_wm: parameter on {t.device}, input on "
+            raise ValueError(f"{what}: parameter on {t.device}, input on "
                              f"{skip_wm.device}")
     pz, ph, pw = cfg.patch
     if surface:
-        v, feat = cfg.surface_vars, cfg.surface_vars * ph * pw
-        shape = (b, v, cfg.lat, cfg.lon)
+        feat = cfg.surface_vars * ph * pw
+        shape = (b, cfg.surface_vars, cfg.lat, cfg.lon)
     else:
-        v, feat = cfg.upper_vars, cfg.upper_vars * pz * ph * pw
-        shape = (b, v, cfg.levels, cfg.lat, cfg.lon)
+        feat = cfg.upper_vars * pz * ph * pw
+        shape = (b, cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon)
     if q["kernel"].shape != (2 * c, feat):
-        raise ValueError(f"recovery_wm: kernel {tuple(q['kernel'].shape)}")
-    if not surface and skip_wm.dtype == torch.bfloat16:  # the tensor cores
-        check_tensor_core_shape((c,), None, "recovery_wm_upper")
+        raise ValueError(f"{what}: kernel {tuple(q['kernel'].shape)}")
+    if skip_wm.dtype == torch.bfloat16:                 # the tensor cores
+        check_tensor_core_shape((c,), None, what)
         skip_wm, dec_wm, q["kernel"] = (aligned16(t) for t in (
             skip_wm, dec_wm, q["kernel"]))
+    return skip_wm, dec_wm, q, shape
+
+
+def _launch(surface: bool, p, skip_wm, dec_wm, off: Offset, cfg: ModelConfig):
+    skip_wm, dec_wm, q, shape = recovery_operands(surface, p, skip_wm, dec_wm,
+                                                  cfg)
+    wz, wh, ww = cfg.stage(3).window
+    b, nz, nlat, nlon, n, c = skip_wm.shape
     out = torch.empty(shape, dtype=skip_wm.dtype, device=skip_wm.device)
     tensors = (skip_wm, dec_wm, q["kernel"], q["bias"], out)
     with _build.launch_stream(*tensors) as stream:
         code = _build.library().pangu_recovery_wm(
             DTYPE_CODE[skip_wm.dtype], int(surface),
             *(t.data_ptr() for t in tensors), b, nz, nlat, nlon, n, c, wz, wh,
-            ww, cfg.h_tokens, v, cfg.levels, cfg.lat, cfg.lon, *off, stream)
+            ww, cfg.h_tokens, shape[1], cfg.levels, cfg.lat, cfg.lon, *off,
+            stream)
     _build.check(code, "recovery_wm")
     return out
 

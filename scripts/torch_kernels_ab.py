@@ -6,10 +6,11 @@ entry of ``csrc/block_wm.cu``), the grid attention forward
 (``csrc/grid_attn.cu``), the block tail (``csrc/block_tail.cu``, tanh and
 erf GELU), the recovery backward (``csrc/recovery_bwd.cu``, pair
 offsets (1, 3, 6) and (0, 0, 0)), the window-major DownSample and
-UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)), and
-the token-space transition (``csrc/transition_wm.cu``) and the upper
-patch recovery (``csrc/recovery_wm.cu``), pair offsets (1, 3, 6) and (0,
-0, 0).
+UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)), the
+token-space transition (``csrc/transition_wm.cu``) and the upper and
+surface patch recovery (``csrc/recovery_wm.cu``), pair offsets (1, 3, 6)
+and (0, 0, 0), and the patch embed (``csrc/embed_wm.cu``, the wrapper with
+its PyTorch prepass, on the bf16 state ``chip_smoke.py`` gives it).
 
     python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
                                         [--only REGEX]
@@ -20,11 +21,15 @@ version (max |kernel - plain| / max |plain| over every output, gate 2^-6),
 whether two runs agree bit for bit, ms per launch (CUDA events over
 ``--reps`` launches after one warm-up) and the bound of chip_smoke.py.
 ``--split``: one stage-0 block, grid attention and tail, one recovery
-backward, DownSample, UpSample, transition and upper recovery by class of
-kernel (``torch.profiler``, chip_smoke.py's classes; the transition's and
-the recovery's gather, product and epilogue are one kernel in both
-versions, ``edge_class``).  ``--only``: the cases (and splits) whose
-``name label`` the regular expression finds, e.g. ``--only sample_wm``.
+backward, DownSample, UpSample, transition and upper and surface recovery
+by class of kernel (``torch.profiler``, chip_smoke.py's classes; the edge
+products' gather, product and epilogue are one kernel in both versions,
+``edge_class``), and the embed wrapper split into its prepass (the
+normalisation passes, the surface columns and products), the upper
+product and the plane-0 copy (``embed_class``), the prepass's kernels
+listed one by one.  ``--only``: the cases
+(and splits) whose ``name label`` the regular expression finds, e.g.
+``--only sample_wm`` or ``--only "embed_wm|recovery_wm_surface"``.
 The last line is one JSON object of the times.
 """
 
@@ -84,8 +89,11 @@ def main() -> int:
                                                     block_wm_canon_plain,
                                                     block_wm_group,
                                                     block_wm_plain)
+    from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
     from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
                                                  recovery_bwd_plain,
+                                                 recovery_wm_surface,
+                                                 recovery_wm_surface_plain,
                                                  recovery_wm_upper,
                                                  recovery_wm_upper_plain)
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
@@ -251,11 +259,12 @@ def main() -> int:
     # work: the real rows; bytes: their pair rows, the bias field or the
     # weights, the output)
     skip3, dec3 = storage(g3), storage(g3)
-    tp = build_transition_wm(params, to_device(
-        synthetic_constants(PANGU_24, seed=0), dev), perf)
+    consts = to_device(synthetic_constants(PANGU_24, seed=0), dev)
+    tp = build_transition_wm(params, consts, perf)
     valid0 = g0.z * g0.h * g0.w
     upper_rows = (g0.z - 1) * g0.h * g0.w
     field_u = 5 * PANGU_24.levels * PANGU_24.lat * PANGU_24.lon
+    field_s = 4 * PANGU_24.lat * PANGU_24.lon
     edge_cost = {
         "transition_wm": (2 * valid0 * 2 * c3 * c3,
                           3 * valid0 * c3 * 2 + 6 * 2 * c3 * c3 * 2
@@ -263,7 +272,12 @@ def main() -> int:
         "recovery_wm_upper": (2 * upper_rows * 2 * c3 * 160,
                               2 * upper_rows * c3 * 2
                               + sum(t.numel() for t in cs.leaves(pr["upper"]))
-                              * 2 + field_u * 2)}
+                              * 2 + field_u * 2),
+        "recovery_wm_surface": (2 * g0.h * g0.w * 2 * c3 * 64,
+                                2 * g0.h * g0.w * c3 * 2
+                                + sum(t.numel() for t in
+                                      cs.leaves(pr["surface"])) * 2
+                                + field_s * 2)}
     for off in (half, (0, 0, 0)):
         cases += [("transition_wm", f"off {off}",
                    lambda o=off: apply_transition_wm(tp, skip3, dec3, g0, o),
@@ -275,7 +289,37 @@ def main() -> int:
                                                    PANGU_24),
                    lambda o=off: recovery_wm_upper_plain(pr, skip3, dec3, o,
                                                          PANGU_24),
-                   edge_cost["recovery_wm_upper"])]
+                   edge_cost["recovery_wm_upper"]),
+                  ("recovery_wm_surface", f"off {off}",
+                   lambda o=off: recovery_wm_surface(pr, skip3, dec3, o,
+                                                     PANGU_24),
+                   lambda o=off: recovery_wm_surface_plain(pr, skip3, dec3, o,
+                                                           PANGU_24),
+                   edge_cost["recovery_wm_surface"])]
+
+    # the patch embed on chip_smoke.py's bf16 state (work: the upper-plane
+    # rows; bytes: the fields and const_h in, the weights, wm storage out)
+    pe = params["patch_embed"]
+    ecfg = dataclasses.replace(PANGU_24, compute_dtype="bfloat16")
+    ge = torch.Generator(device=dev).manual_seed(2)
+    ue = (consts["upper_mean"][None] + consts["upper_std"][None]
+          * torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                        generator=ge, device=dev)).to(bf)
+    se = (consts["surface_mean"][None] + consts["surface_std"][None]
+          * torch.randn((1, 4, PANGU_24.lat, PANGU_24.lon), generator=ge,
+                        device=dev)).to(bf)
+    flops_e = 2 * upper_rows * pe["upper"]["kernel"].shape[0] * c
+    plane = g0.h_padded * g0.w * c * 2              # a token plane's storage
+    cases.append(("embed_wm", "full width",
+                  lambda: embed_wm(pe, ue, se, consts, ecfg),
+                  lambda: embed_wm_plain(pe, ue, se, consts, ecfg),
+                  (flops_e, cs.nbytes(ue, se) + consts["const_h"].numel() * 2
+                   + sum(t.numel() for t in cs.leaves(pe)) * 2
+                   + g0.z * plane)))
+    embed_split = cs.embed_work(flops_e, cs.nbytes(ue),
+                                consts["const_h"].numel() * 2,
+                                g0.h * g0.w * c * 2, plane,
+                                (g0.z - 1) * plane)
 
     def wanted(what):
         return re.search(args.only, what) is not None
@@ -333,11 +377,18 @@ def main() -> int:
              cs.edge_work(*edge_cost["transition_wm"]), cs.edge_class),
             ("recovery_wm_upper off (1, 3, 6)",
              lambda: recovery_wm_upper(pr, skip3, dec3, half, PANGU_24),
-             cs.edge_work(*edge_cost["recovery_wm_upper"]), cs.edge_class)]
+             cs.edge_work(*edge_cost["recovery_wm_upper"]), cs.edge_class),
+            ("recovery_wm_surface off (1, 3, 6)",
+             lambda: recovery_wm_surface(pr, skip3, dec3, half, PANGU_24),
+             cs.edge_work(*edge_cost["recovery_wm_surface"]), cs.edge_class),
+            ("embed_wm full width",
+             lambda: embed_wm(pe, ue, se, consts, ecfg), embed_split,
+             cs.embed_class)]
         for what, fn, work, classify in splits:
             if wanted(what):
-                print(f"{what} bf16 by class:",
-                      cs.class_breakdown(fn, work, classify))
+                print(f"{what} bf16 by class:", cs.class_breakdown(
+                    fn, work, classify, detail="prepass"
+                    if classify is cs.embed_class else None))
     print(json.dumps({"repo": str(repo), "card": smi, "ms": times}))
     return 0 if ok else 1
 

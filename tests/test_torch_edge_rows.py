@@ -1,24 +1,32 @@
-"""The index logic of the bf16 transition and upper recovery on the tensor
-cores (``csrc/edge_mma.cuh``'s ``edge_mma_kernel`` with ``TransitionMma``
-in ``csrc/transition_wm.cu`` and ``RecoveryMma`` in
-``csrc/recovery_wm.cu``), modelled in PyTorch on the CPU at TINY, batch 2,
-the pair's offsets (0, 0, 0) and (1, 3, 6), float32 and bf16.
+"""The index logic of the bf16 edge products on the tensor cores
+(``csrc/edge_mma.cuh``'s ``edge_mma_kernel`` with ``TransitionMma`` in
+``csrc/transition_wm.cu``, ``RecoveryMma`` (upper and surface branches) in
+``csrc/recovery_wm.cu`` and ``EmbedMma`` in ``csrc/embed_wm.cu``),
+modelled in PyTorch on the CPU at TINY, batch 2, the pair's offsets (0, 0,
+0) and (1, 3, 6), float32 and bf16.
 
 The model walks the kernel's tiles as its grid does (``blockIdx.x`` -> the
 group, the row tile, the column tile; the tile sizes read from the
 sources), builds each tile's row table as the kernel does (the rolled
-source row of each output row, its destination), picks the group's matrix
-(plane 0 / interior / top, the last real latitude row) and writes the
-output as the Ops' epilogues do (the transition's whole rows, zeros on
-latitude-pad groups; the recovery's (var, zo, ho) lines two rows at a
-time, cropped).  Checked: every output element is written exactly once,
-the recovery's 16-byte chunks start on 8-element boundaries, and the
-result equals ``apply_transition_wm_plain`` / ``recovery_wm_upper_plain``
-(float32 1e-6 of the output's max: float32 sums in another order; bf16
-2^-6, the kernels' tolerance: a sum that rounds the other way moves by a
-bf16 ulp).  The kernels themselves run only on the card
+source row of each output row, its destination; the embed's patch corner),
+loads the A rows as the Op's ``load_a`` does (the pair's rows; the embed's
+8-byte runs of 4 w_off values, one variable's 8 (zo, ho) runs a 32-wide k
+slice, zero-filled past the field's levels and latitudes, const_h the last
+variable), picks the group's matrix (plane 0 / interior / top, the last
+real latitude row) and writes the output as the Ops' epilogues do (the
+transition's and the embed's whole rows, zeros on latitude-pad groups, and
+the embed's plane-0 copy 8 channels a lane; the recovery's (var, zo, ho)
+lines two rows at a time, cropped).  Checked: every output element is
+written exactly once, the 8-byte runs start on 4-element boundaries and
+the 16-byte chunks on 8-element boundaries, and the result equals
+``apply_transition_wm_plain`` / ``recovery_wm_upper_plain`` /
+``recovery_wm_surface_plain`` / ``embed_wm_plain`` (float32 1e-6 of the
+output's max: float32 sums in another order; bf16 2^-6, the kernels'
+tolerance: a sum that rounds the other way moves by a bf16 ulp).  The
+kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -32,7 +40,9 @@ from pangu_tpu_torch.engine.transition_wm import (MATRICES,
                                                   apply_transition_wm_plain,
                                                   build_transition_wm)
 from pangu_tpu_torch.models import pangu
-from pangu_tpu_torch.ops.recovery_wm import recovery_wm_upper_plain
+from pangu_tpu_torch.ops.embed_wm import embed_operands, embed_wm_plain
+from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface_plain,
+                                             recovery_wm_upper_plain)
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
 B = 2
@@ -42,12 +52,16 @@ TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -6}
 PZ, PH, PW = TINY.patch
 
 
-def _tile(source, op):
-    """(BM, BN) of ``op``'s EmTile<WM, WN, MT, NT, MinB> in ``source``."""
+def _tile(source, op, which=-1):
+    """(BM, BN) of ``op``'s EmTile<WM, WN, MT, NT, MinB> in ``source``; of
+    a Tile chosen by ``std::conditional_t``, the one at ``which`` (0: the
+    condition true)."""
     text = (CSRC / source).read_text()
-    m = re.search(rf"struct {op} {{\s*using Tile = EmTile<(\d+), (\d+), "
-                  r"(\d+), (\d+), (\d+)>", text)
-    wm, wn, mt, nt, _ = map(int, m.groups())
+    m = re.search(rf"struct {op}\b[^{{]*{{\s*(?://[^\n]*\n\s*)*"
+                  r"using Tile = ([^;]*);", text)
+    tiles = re.findall(r"EmTile<(\d+), (\d+), (\d+), (\d+), (\d+)>",
+                       m.group(1))
+    wm, wn, mt, nt, _ = map(int, tiles[which])
     return 16 * mt * wm, 8 * nt * wn
 
 
@@ -131,18 +145,19 @@ def test_transition_rows_model_matches_plain(setup, off, dtype):
     _close(out.reshape(skip.shape), want, dtype)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("off", OFFSETS)
-def test_recovery_upper_rows_model_matches_plain(setup, off, dtype):
-    params, _, skip, dec = setup
+def _recovery_rows_model(params, skip, dec, off, dtype, surface):
+    """The recovery branch's output as RecoveryMma<surface> writes it."""
     skip, dec = skip.to(dtype), dec.to(dtype)
-    p = {k: v.to(dtype) for k, v in params["patch_recovery"]["upper"].items()}
+    head = "surface" if surface else "upper"
+    p = {k: v.to(dtype) for k, v in params["patch_recovery"][head].items()}
     g = TINY.stage(3)
-    c, v, levels, lat, lon = (g.dim, TINY.upper_vars, TINY.levels, TINY.lat,
-                              TINY.lon)
-    n = v * PZ * PH * PW
-    planes, ht = g.z - 1, TINY.h_tokens
-    bm, bn = _tile("recovery_wm.cu", "RecoveryMma")
+    c, lat, lon = g.dim, TINY.lat, TINY.lon
+    v = TINY.surface_vars if surface else TINY.upper_vars
+    pz = 1 if surface else PZ                       # the features' level run
+    levels = 1 if surface else TINY.levels
+    n = v * pz * PH * PW
+    planes, ht = (1 if surface else g.z - 1), TINY.h_tokens
+    bm, bn = _tile("recovery_wm.cu", "RecoveryMma", 0 if surface else 1)
     assert lon % 8 == 0                     # the 16-byte route
     pair = torch.cat([skip.reshape(-1, c), dec.reshape(-1, c)], dim=1)
     out = torch.full((B * v * levels * lat * lon,), float("nan"), dtype=dtype)
@@ -151,14 +166,14 @@ def test_recovery_upper_rows_model_matches_plain(setup, off, dtype):
     for grp, r0, nrows, n0 in _tiles(B * planes * ht, g.w, n, bm, bn):
         h, zp, b = grp % ht, grp // ht % planes, grp // (ht * planes)
         r = torch.arange(r0, r0 + nrows)
-        src = _rolled_row(b, zp + 1, h, r, g, off)
+        src = _rolled_row(b, 0 if surface else zp + 1, h, r, g, off)
         y = (pair[src].float() @ p["kernel"][:, n0:n0 + bn].float()
              + p["bias"][n0:n0 + bn].float()).to(dtype)
         dst = (((b * v) * levels + PZ * zp) * lat + PH * h) * lon + PW * r
         q = torch.arange(0, nrows, 2)       # a lane: rows 2q, 2q + 1
         for ln in range(min(bn, n - n0) // PW):
             line = n0 // PW + ln
-            ho, zo, var = line % PH, line // PH % PZ, line // (PZ * PH)
+            ho, zo, var = line % PH, line // PH % pz, line // (pz * PH)
             if PZ * zp + zo >= levels or PH * h + ho >= lat:
                 continue                    # cropped
             o = dst[q] + (var * levels + zo) * lat * lon + ho * lon
@@ -170,6 +185,90 @@ def test_recovery_upper_rows_model_matches_plain(setup, off, dtype):
                 out[at] = y[rows[keep], PW * ln:PW * ln + PW].reshape(-1)
                 writes[at] += 1
     assert bool((writes == 1).all())
-    want = recovery_wm_upper_plain(params["patch_recovery"], skip, dec, off,
-                                   TINY)
+    return out
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("off", OFFSETS)
+def test_recovery_upper_rows_model_matches_plain(setup, off, dtype):
+    params, _, skip, dec = setup
+    out = _recovery_rows_model(params, skip, dec, off, dtype, surface=False)
+    want = recovery_wm_upper_plain(params["patch_recovery"], skip.to(dtype),
+                                   dec.to(dtype), off, TINY)
+    _close(out.reshape(want.shape), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("off", OFFSETS)
+def test_recovery_surface_rows_model_matches_plain(setup, off, dtype):
+    params, _, skip, dec = setup
+    out = _recovery_rows_model(params, skip, dec, off, dtype, surface=True)
+    want = recovery_wm_surface_plain(params["patch_recovery"],
+                                     skip.to(dtype), dec.to(dtype), off, TINY)
+    _close(out.reshape(want.shape), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_embed_rows_model_matches_plain(setup, dtype):
+    """EmbedMma's tiles, 8-byte source runs with their zero-fill predicates
+    and whole-row writes, and the plane-0 copy, against embed_wm_plain on
+    the operands the wrapper hands the kernel."""
+    params = setup[0]
+    cfg = dataclasses.replace(TINY, compute_dtype="bfloat16"
+                              if dtype == torch.bfloat16 else "float32")
+    consts = to_device(synthetic_constants(cfg), "cpu")
+    rng = np.random.default_rng(12)
+    upper = (consts["upper_mean"][None] + consts["upper_std"][None]
+             * torch.as_tensor(rng.normal(size=(B, 5, cfg.levels, cfg.lat,
+                                                cfg.lon)).astype(np.float32)))
+    surface = (consts["surface_mean"][None] + consts["surface_std"][None]
+               * torch.as_tensor(rng.normal(size=(B, 4, cfg.lat, cfg.lon))
+                                 .astype(np.float32)))
+    pe = params["patch_embed"]
+    un, ch, st, w, bias = embed_operands(pe, upper, surface, consts, cfg)
+    g = cfg.stage(0)
+    c, v, levels, lat, lon = g.dim, cfg.upper_vars, cfg.levels, cfg.lat, \
+        cfg.lon
+    zp_n, hp, ht, wt = g.z - 1, g.h_padded, cfg.h_tokens, g.w
+    bm, bn = _tile("embed_wm.cu", "EmbedMma")
+    bk = int(re.search(r"EM_BK = (\d+)",
+                       (CSRC / "edge_mma.cuh").read_text()).group(1))
+    assert bk == PZ * PH * PW and w.shape[0] == (v + 1) * bk
+    vol = levels * lat * lon
+    field, chf = un.reshape(-1), ch.reshape(-1)
+    out = torch.full((B * g.z * hp * wt, c), float("nan"), dtype=dtype)
+    writes = torch.zeros(out.shape, dtype=torch.int32)
+    for grp, r0, nrows, n0 in _tiles(B * zp_n * hp, wt, c, bm, bn):
+        h, zp, b = grp % hp, grp // hp % zp_n, grp // (hp * zp_n)
+        r = torch.arange(r0, r0 + nrows)
+        dst = _wm_row(b, zp + 1, h, r, g)
+        cols = slice(n0, min(n0 + bn, c))
+        assert n0 % 8 == 0 and (cols.stop - n0) % 8 == 0
+        writes[dst, cols] += 1
+        if h >= ht:                         # a latitude-pad group: zeros
+            out[dst, cols] = 0
+            continue
+        corner = (PZ * zp * lat + PH * h) * lon + PW * r     # the row table
+        a = torch.zeros((nrows, w.shape[0]), dtype=dtype)
+        for kt in range(w.shape[0] // bk):   # a k slice: variable kt
+            src, base = (field, (b * v + kt) * vol) if kt < v else (chf, 0)
+            for j in range(PZ * PH):         # its (zo, ho) runs
+                zo, ho = divmod(j, PH)
+                if PZ * zp + zo >= levels or PH * h + ho >= lat:
+                    continue                 # zero-filled
+                at = base + corner + (zo * lat + ho) * lon
+                assert bool((at % PW == 0).all())        # 8-byte runs
+                a[:, kt * bk + PW * j:kt * bk + PW * j + PW] = \
+                    src[at[:, None] + torch.arange(PW)]
+        out[dst, cols] = (a.float() @ w[:, cols].float()
+                          + bias[cols].float()).to(dtype)
+    # plane 0: the surface token plane, 8 channels a lane
+    assert c % 8 == 0
+    for b in range(B):
+        for h in range(hp):
+            dst = _wm_row(b, 0, h, torch.arange(wt), g)
+            writes[dst] += 1
+            out[dst] = st[b, h] if h < ht else 0
+    assert bool((writes == 1).all())
+    want = embed_wm_plain(pe, upper, surface, consts, cfg)
     _close(out.reshape(want.shape), want, dtype)

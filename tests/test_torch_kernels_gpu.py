@@ -42,11 +42,11 @@ the pair's pad rows); and the window-major DownSample and UpSample (junk
 on their input's latitude-pad rows leaves the output unchanged, the
 output's pad rows zeros, a batch-2 sample equal to it run alone, bf16
 bit-identical in two runs, ValueError for bf16 channels not a multiple of
-8); and the transition and the recovery (both branches: each sample of a
-batch of 2 equal to it run alone, junk on the pair's latitude-pad rows
-leaving the outputs unchanged, bf16 bit-identical in two runs; ValueError
-for a bf16 C not a multiple of 8 in the transition and the upper
-recovery, which run on the tensor cores).  Needs a CUDA
+8); and the transition, the recovery (both branches) and the embed
+(each sample of a batch of 2 equal to it run alone, junk on the pair's
+latitude-pad rows leaving the outputs unchanged, bf16 bit-identical in two
+runs; ValueError for a bf16 C not a multiple of 8, all four running on the
+tensor cores in bf16).  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -234,14 +234,23 @@ def _in_dtype(cfg, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
 def test_embed_wm_kernel_matches_plain(cuda, cfg_name, dtype):
+    """The embed against its plain version; each sample of the batch of 2
+    equal bit for bit to it run alone, and a bf16 output bit-identical in
+    two runs."""
     cfg = _in_dtype(CFGS[cfg_name], dtype)
     p = _params(cfg, cuda)["patch_embed"]
     consts, upper, surface = _state(cfg, cuda)
     got = embed_wm(p, upper, surface, consts, cfg)
     want = embed_wm_plain(p, upper, surface, consts, cfg)
+    alone = [embed_wm(p, upper[i:i + 1], surface[i:i + 1], consts, cfg)
+             for i in range(2)]
+    again = embed_wm(p, upper, surface, consts, cfg)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == dtype
     assert _rel_err(got, want) <= TOL[dtype]
+    assert all(torch.equal(a[0], got[i]) for i, a in enumerate(alone))
+    if dtype == torch.bfloat16:
+        assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -284,10 +293,11 @@ def test_transition_and_recovery_kernels_match_plain(cuda, cfg_name, dtype,
             assert torch.equal(again, got)
 
 
-@pytest.mark.parametrize("which", ["transition", "recovery_upper"])
+@pytest.mark.parametrize("which", ["transition", "recovery_upper",
+                                   "recovery_surface", "embed"])
 def test_edge_bf16_refuses_shapes_outside_the_tiles(cuda, which):
-    """A bf16 transition or upper recovery whose C is not a multiple of 8
-    raises ValueError before a launch (no fallback)."""
+    """A bf16 transition, recovery (either branch) or embed whose C is not
+    a multiple of 8 raises ValueError before a launch (no fallback)."""
     cfg = _in_dtype(dataclasses.replace(TINY, dims=(20, 40, 40, 20)),
                     torch.bfloat16)
     params = _params(cfg, cuda)
@@ -298,8 +308,14 @@ def test_edge_bf16_refuses_shapes_outside_the_tiles(cuda, which):
             params, to_device(synthetic_constants(cfg), cuda), cfg)
         fn = apply_transition_wm
         call = lambda: fn(tp, skip, dec, g0, (0, 0, 0))  # noqa: E731
+    elif which == "embed":
+        consts, upper, surface = _state(cfg, cuda)
+        fn = embed_wm
+        call = lambda: fn(params["patch_embed"], upper,  # noqa: E731
+                          surface, consts, cfg)
     else:
-        fn = recovery_wm_upper
+        fn = (recovery_wm_upper if which == "recovery_upper"
+              else recovery_wm_surface)
         call = lambda: fn(params["patch_recovery"], skip, dec,  # noqa: E731
                           (0, 0, 0), cfg)
     before = fn.launches

@@ -12,11 +12,14 @@ route of ``csrc/recovery_bwd.cu`` runs its products on ``mma_gemm.cuh``;
 and that the bf16 route of ``csrc/updown_wm.cu`` (DownSample, UpSample)
 runs its products on ``mma_gemm.cuh`` with the pad-row epilogue and its
 gather and LayerNorm in one pass, what its wrappers refuse before a launch
-and the alignment of their operands; and that the bf16 transition and upper
-recovery (``csrc/transition_wm.cu``, ``csrc/recovery_wm.cu``) run on
-``csrc/edge_mma.cuh``'s tensor-core kernel, float32 and the surface
-recovery on ``csrc/edge_gemm.cuh``'s first kernels.  The kernels themselves
-run only on the card (``tests/test_torch_kernels_gpu.py``)."""
+and the alignment of their operands; and that the bf16 transition, the
+recovery (both branches) and the embed (``csrc/transition_wm.cu``,
+``csrc/recovery_wm.cu``, ``csrc/embed_wm.cu``) run on
+``csrc/edge_mma.cuh``'s tensor-core kernel and float32 on
+``csrc/edge_gemm.cuh``'s first kernels, what the recovery's and the
+embed's wrappers refuse before a launch and the alignment of their
+operands.  The kernels themselves run only on the card
+(``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
 import re
@@ -26,9 +29,13 @@ import pytest
 import torch
 
 from pangu_tpu_torch.config import PANGU_24, TINY
+from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.ops.block_tail import tail_operands
 from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
                                                 check_tensor_core_shape)
+from pangu_tpu_torch.ops.embed_wm import embed_operands
+from pangu_tpu_torch.ops.recovery_wm import recovery_operands
 from pangu_tpu_torch.ops.updown_wm import (LN_ROW_MAX, check_updown_shape,
                                            down_operands, up_operands)
 from pangu_tpu_torch.ops.window_attention import _checked
@@ -462,27 +469,117 @@ def test_bf16_updown_operands_are_16_byte_aligned(which):
     ("transition_wm.cu", "static int transition_wm_bf16(", "TransitionMma",
      'extern "C" int pangu_transition_wm(', "transition_wm<float>(",
      "transition_wm_bf16("),
-    ("recovery_wm.cu", "static int recovery_upper_bf16(", "RecoveryMma",
+    ("recovery_wm.cu", "static int recovery_bf16(", "RecoveryMma<kSurface>",
      'extern "C" int pangu_recovery_wm(', "recovery_wm<float>(",
-     "recovery_upper_bf16(")])
+     "recovery_bf16<false>"),
+    ("recovery_wm.cu", "static int recovery_bf16(", "RecoveryMma<kSurface>",
+     'extern "C" int pangu_recovery_wm(', "recovery_wm<float>(",
+     "recovery_bf16<true>"),
+    ("embed_wm.cu", "static int embed_wm_bf16(", "EmbedMma",
+     'extern "C" int pangu_embed_wm(', "embed_wm<float>(", "embed_wm_bf16(")])
 def test_edge_bf16_routes_run_on_the_tensor_cores(source, fn, op, entry, first,
                                                   bf16):
-    """The bf16 transition and upper recovery launch edge_mma.cuh's kernel
-    (mma.sync fed by 16-byte cp.async copies of the gathered rows) through
-    their Op, after the entry's shape and alignment check; float32 (and the
-    bf16 surface recovery) keep edge_gemm.cuh's first kernels."""
+    """The bf16 transition, both recovery branches and the embed launch
+    edge_mma.cuh's kernel (mma.sync fed by cp.async copies of the gathered
+    rows: 16 bytes of the pair, 8 bytes (4 w_off values) of the embed's
+    field) through their Op, after the entry's shape and alignment check;
+    float32 keeps edge_gemm.cuh's first kernels, which have no bf16 route
+    left."""
     code = _code(source)
     body = _body(code, fn)
-    assert f"{op} op;" in body and "edge_mma(op, st)" in body
+    assert f"{op} op;" in body and re.search(r"\bedge_mma\(op, \w+\)", body)
     assert "edge_gemm(" not in body
     head = _body(code, entry)
     assert head.index(first) < head.index("aligned16_all(") < head.index(bf16)
     assert "edge_gemm(op, " in _body(code, "int " + first.replace("<float>",
                                                                   ""))
-    if source == "transition_wm.cu":
-        assert "transition_wm<bf16>" not in code
-    else:
-        assert head.index("dtype == 1 && surface") < head.index(bf16)
+    assert first.replace("<float>", "<bf16>") not in code
     edge = _code("edge_mma.cuh")
-    for name in ("cp_async16_zfill(", "load_a_n(", "load_b_t(", "mma_bf16("):
+    for name in ("load_a<T>(", "cp_async16_zfill(", "load_a_n(", "load_b_t(",
+                 "mma_bf16("):
         assert name in _body(edge, "edge_mma_kernel(Op op) {")
+    loader = (_body(code, "struct EmbedMma") if source == "embed_wm.cu"
+              else _body(edge, "struct PairA"))
+    assert ("cp_async8_zfill(" if source == "embed_wm.cu"
+            else "cp_async16_zfill(") in loader
+    first_route = _code("edge_gemm.cuh")
+    assert "edge_gemm_bf16" not in first_route and "wmma" not in first_route
+
+
+def _edge_case(which, dims, dtype, misaligned=False):
+    """(call, operands' params) of the bf16 embed or recovery at TINY with
+    the stage widths ``dims``: ``call()`` runs the operands function that
+    the wrapper runs before a launch, on CPU tensors (nothing is
+    launched); with ``misaligned``, the field-side inputs and the kernel
+    start 2 bytes off a 16-byte boundary."""
+    cfg = dataclasses.replace(TINY, dims=dims, compute_dtype="bfloat16"
+                              if dtype == torch.bfloat16 else "float32")
+    params = pangu.init_params(torch.Generator().manual_seed(0), cfg,
+                               device="cpu")
+
+    def off16(t):                   # the same values, 2 bytes further on
+        t = t.to(dtype)
+        if not misaligned:
+            return t
+        flat = torch.zeros(t.numel() + 1, dtype=dtype)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    if which == "embed":
+        consts = to_device(synthetic_constants(cfg), "cpu")
+        consts["const_h"] = off16(consts["const_h"])
+        p = params["patch_embed"]
+        p["upper"]["kernel"] = off16(p["upper"]["kernel"])
+        g = torch.Generator().manual_seed(1)
+        upper = torch.randn((1, 5, cfg.levels, cfg.lat, cfg.lon), generator=g)
+        surface = torch.randn((1, 4, cfg.lat, cfg.lon), generator=g)
+        return (lambda: embed_operands(p, upper, surface, consts, cfg)), p
+    gs = cfg.stage(3)
+    wz, wh, ww = gs.window
+    shape = (1, gs.z // wz, gs.h_padded // wh, gs.w // ww, wz * wh * ww,
+             gs.dim)
+    skip, dec = (off16(torch.randn(shape)) for _ in range(2))
+    p = params["patch_recovery"]
+    head = "surface" if which == "recovery_surface" else "upper"
+    p[head]["kernel"] = off16(p[head]["kernel"])
+    return (lambda: recovery_operands(head == "surface", p, skip, dec,
+                                      cfg)), p
+
+
+@pytest.mark.parametrize("which", ["embed", "recovery_surface",
+                                   "recovery_upper"])
+@pytest.mark.parametrize("dims", [(16, 32, 32, 16), (20, 40, 40, 20)],
+                         ids=["TINY", "C 20"])
+def test_bf16_edge_checks_shapes_before_a_launch(which, dims):
+    """``embed_operands`` / ``recovery_operands``, which the wrappers run
+    before a launch, raise ValueError on a bf16 C that is not a multiple of
+    8 and take TINY's; float32 takes both."""
+    for dtype in (torch.bfloat16, torch.float32):
+        call, _ = _edge_case(which, dims, dtype)
+        if dims[0] % 8 == 0 or dtype == torch.float32:
+            assert all(t.dtype == dtype for t in call()
+                       if isinstance(t, torch.Tensor))
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                call()
+
+
+@pytest.mark.parametrize("which", ["embed", "recovery_surface"])
+def test_bf16_edge_operands_are_16_byte_aligned(which):
+    """A bf16 field-side input or kernel that starts off a 16-byte boundary
+    is handed to the embed or the surface recovery as an aligned copy of
+    the same values."""
+    call, p = _edge_case(which, (16, 32, 32, 16), torch.bfloat16,
+                         misaligned=True)
+    if which == "embed":
+        w = p["upper"]["kernel"]
+        assert w.data_ptr() % 16
+        ops = call()
+        assert torch.equal(ops[3], w)
+    else:
+        w = p["surface"]["kernel"]
+        assert w.data_ptr() % 16
+        skip, dec, q, _ = call()
+        ops = (skip, dec, q["kernel"])
+        assert torch.equal(q["kernel"], w)
+    assert all(t.data_ptr() % 16 == 0 for t in ops)
