@@ -15,9 +15,10 @@ Phases, each with its wall seconds:
      their 16-byte row kernels), of the bf16 block tail and recovery
      backward (their objects' products, row passes, relayout and split
      sum), of the bf16 DownSample and UpSample (their products and
-     gather + LayerNorm passes) and of the bf16 transition, recovery
-     (upper and surface) and embed (their tensor-core kernel) on lines
-     of their own;
+     gather + LayerNorm passes), of the bf16 transition, recovery
+     (upper and surface) and embed (their tensor-core kernel) and of the
+     bf16 upper embed weight gradient and canonical UpSample (relayout,
+     products, split sum, gather + LayerNorm pass) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -26,19 +27,22 @@ Phases, each with its wall seconds:
      and 1; DownSample / UpSample, window-major and canonical; the edge
      kernels: embed, transition and recovery upper / surface, the last three
      at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
-     8 through the stage-0 block, DownSample, UpSample, the transition,
-     both recovery branches and the embed and of 16 through UpSample (its
-     mix product then has more than 65,535 row tiles), the last sample
+     8 through the stage-0 block, DownSample, UpSample (window-major and
+     canonical), the transition, both recovery branches and the embed and
+     of 16 through UpSample (its mix product then has more than 65,535 row
+     tiles), the last sample
      against a batch-1 launch (bit for bit but the block's); then
      full-width float32 forwards, without and with the edge kernels,
      kernels against plain versions.  Every bf16 block entry, DownSample,
-     UpSample, the transition, both recovery branches and the embed twice,
+     UpSample (both), the transition, both recovery branches and the embed
+     twice,
      bit for bit, and the grouped block equal to the ungrouped one on the
      same input; beside each bf16
      time of a redesigned row its earlier kernel's (``PREVIOUS_BF16_MS``);
      the float32 error lines of the block entries, the grid attention,
-     DownSample, UpSample, the transition and the upper recovery (here and
-     in phases 6a, 7a, 8a, 9a) equal to their earlier kernels'
+     DownSample, UpSample (both), the transition, the recovery and the
+     embed (here and in phases 6a, 7a, 8a, 9a) equal to their earlier
+     kernels'
      (``F32_BEFORE``, the float32 route being unchanged); one stage-0 bf16
      block and grid attention forward, DownSample, UpSample, transition and
      upper and surface recovery by class of kernel (``torch.profiler``:
@@ -82,10 +86,16 @@ Phases, each with its wall seconds:
         1.25} and without scales; the recovery backward at offset (1, 3,
         6) and (0, 0, 0); the upper embed weight gradient; the redesigned
         rows' earlier bf16 times beside the new ones (``PREVIOUS_BF16_MS``),
-        the recovery backward's float32 line equal to its first version's
-        (``F32_BEFORE``), and one stage-0 bf16 block backward's and one bf16
-        recovery backward's device time by class (``torch.profiler``:
-        relayout, token-cotangent product, weight gradient, split sum);
+        the recovery backward's and the weight gradient's float32 lines
+        equal to their first versions' (``F32_BEFORE``), and one stage-0
+        bf16 block backward's, one bf16 recovery backward's (relayout,
+        token-cotangent product, weight gradient, split sum) and one bf16
+        upper embed weight gradient's (prepass, relayout, product, split
+        sum) device time by class (``torch.profiler``); junk on the
+        cotangent's token-lat pad rows and other values on its plane-0 rows
+        leave the bf16 weight gradient bit-equal; its library column:
+        cuDNN's weight and bias gradient of the equivalent Conv3d on the
+        canonical layout, the relayout into that layout timed apart;
      b. the float32 train step (loss and every gradient) with the kernels
         against ``kernels=False``, the same scales, both paths
         back-propagating the same loss cotangent;
@@ -173,8 +183,9 @@ max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
 backward, every bf16 block entry, the block tail, the recovery backward,
-DownSample, UpSample, the transition, both recovery branches and the embed
-must also agree bit for bit over two runs
+the upper embed weight gradient, DownSample, UpSample (window-major and
+canonical), the transition, both recovery branches and the embed must also
+agree bit for bit over two runs
 (``BIT_IDENTICAL``, ``BIT_IDENTICAL_FWD``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
@@ -310,13 +321,15 @@ def _short_kernel(mangled):
     wattn_mma_{fwd,bwd}_kernel<table dtype>, edge_mma_kernel<Op>, or a row
     kernel's name."""
     m = re.search(r"(block_gather16_kernel|ln_rows16_kernel|"
-                  r"field_cot_wm_kernel|concat_heads_kernel|head_sum_kernel)",
-                  mangled)
+                  r"field_cot_wm_kernel|concat_heads_kernel|head_sum_kernel|"
+                  r"patch_rows_kernel|split_sum_kernel)", mangled)
     if m:
         return m[1]
-    m = re.search(r"((?:down|up)_gather_ln_kernel)ILi(\d+)E", mangled)
-    if m:
-        return f"{m[1]}<{m[2]}>"
+    m = re.search(r"((?:down|up)_gather_ln_kernel)ILi(\d+)E(?:NS_(\d+))?",
+                  mangled)
+    if m:   # UpSample's kernel names its row map
+        rmap = mangled[m.end():m.end() + int(m[3])] if m[3] else ""
+        return f"{m[1]}<{m[2]}{',' + rmap if rmap else ''}>"
     m = re.search(r"edge_mma_kernelINS_\d+([A-Za-z]\w*?)EEEvT_", mangled)
     if m:
         return f"edge_mma_kernel<{m[1]}>"
@@ -392,6 +405,15 @@ def edge_report(ptxas):
                      r"edge_mma_kernel", "edge ")
 
 
+def dw_up_report(ptxas):
+    """The same lines for the bf16 upper embed weight gradient and the
+    canonical UpSample: their relayout, products, split sum and gather +
+    LayerNorm pass."""
+    return tc_report(ptxas_parts(ptxas, {"embed_dw_0", "updown_0"}),
+                     r"mma_gemm_kernel|patch_rows|split_sum|gather_ln_kernel",
+                     "embed_dw / updown ")
+
+
 def tail_recovery_report(ptxas):
     """The same lines for the bf16 block tail and recovery backward: their
     objects' products, LayerNorm passes, relayout and split sum."""
@@ -407,8 +429,16 @@ def tail_recovery_report(ptxas):
 # recovery backward: their first versions (commit 37b26cf); DownSample and
 # UpSample: their first versions (commit a7e41b5); the transition and the
 # upper recovery: their first versions (commit e35ad6a); the embed and the
-# surface recovery: their first versions (commit 5d574eb).
+# surface recovery: their first versions (commit 5d574eb); the upper embed
+# weight gradient and the canonical UpSample: their first versions (commit
+# 8ea71dc).
 PREVIOUS_BF16_MS = {
+    'embed_dw_upper': {
+        'full width': 7.846,
+    },
+    'up_sample': {
+        'stage 2 -> 3, canonical grid': 3.310,
+    },
     'embed_wm': {
         'full width': 2.663,
     },
@@ -479,10 +509,11 @@ def previous_ms(name, label):
 
 
 # The float32 route of the block kernel, the grid attention forward, the
-# block tail, the recovery backward, DownSample, UpSample, the transition,
-# the recovery (both branches) and the embed did not change with their bf16
-# redesigns, so their float32 error lines must read as the earlier kernels'
-# (commits e1271cc, 37b26cf, a7e41b5 and e35ad6a, as PREVIOUS_BF16_MS) did
+# block tail, the recovery backward, DownSample, UpSample (window-major and
+# canonical), the transition, the recovery (both branches), the embed and
+# its upper weight gradient did not change with their bf16 redesigns, so
+# their float32 error lines must read as the earlier kernels' (commits
+# e1271cc, 37b26cf, a7e41b5, e35ad6a and 8ea71dc, as PREVIOUS_BF16_MS) did
 # in the same run of this script ("max_abs_err rel",
 # as printed), where torch and the card are the ones of that run (inputs
 # drawn elsewhere are not comparable)
@@ -552,13 +583,18 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
                     '1.669e-06 8.374e-07',
                 'recovery_wm_surface | off (1, 3, 6)':
                     '1.550e-06 8.439e-07',
+                'up_sample | stage 2 -> 3, canonical grid':
+                    '7.153e-07 5.161e-07',
+                'embed_dw_upper | full width':
+                    '7.568e-03 2.655e-06',
             }}
 
 
 # bf16 forward kernels of phase 3 (besides the block entries) whose two
 # runs must agree bit for bit
 BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm", "transition_wm",
-                     "recovery_wm_upper", "recovery_wm_surface", "embed_wm")
+                     "recovery_wm_upper", "recovery_wm_surface", "embed_wm",
+                     "up_sample")
 
 
 def f32_as_before(name, label, err, rel):
@@ -643,31 +679,35 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3, detail=None):
     kernels late in this script), each kernel's class from ``classify``
     (its name -> a key of ``work``), each class with its rate from
     ``work`` (class -> FLOP, bytes); beside the total, the launch's time by
-    CUDA events, so that a profile that missed kernels shows.  With
+    CUDA events, so that a profile that missed kernels shows (an empty one
+    is taken again, up to three times).  With
     ``detail`` a class, its kernels follow, each with its launches and
     device time a launch of ``fn``, slowest first."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=reps,
-                                   repeat=1)) as prof:
-        for _ in range(1 + reps):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
-    ms = {k: 0.0 for k in work}
-    listed = []
-    for e in prof.key_averages():
-        t = e.self_device_time_total / 1e3 / reps
-        # a step's annotation spans its kernels on the device timeline
-        if (e.device_type != torch.autograd.DeviceType.CUDA or t == 0.0
-                or getattr(e, "is_user_annotation", False)
-                or e.key.startswith("ProfilerStep")):
-            continue
-        ms[classify(e.key)] += t
-        if classify(e.key) == detail:
-            listed.append((t, e.count / reps, e.key))
+    for _ in range(3):   # a profile right after another was seen to be empty
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=reps,
+                                       repeat=1)) as prof:
+            for _ in range(1 + reps):
+                fn()
+                torch.cuda.synchronize()
+                prof.step()
+        ms = {k: 0.0 for k in work}
+        listed = []
+        for e in prof.key_averages():
+            t = e.self_device_time_total / 1e3 / reps
+            # a step's annotation spans its kernels on the device timeline
+            if (e.device_type != torch.autograd.DeviceType.CUDA or t == 0.0
+                    or getattr(e, "is_user_annotation", False)
+                    or e.key.startswith("ProfilerStep")):
+                continue
+            ms[classify(e.key)] += t
+            if classify(e.key) == detail:
+                listed.append((t, e.count / reps, e.key))
+        if any(ms.values()):
+            break
     parts = []
     for k, t in ms.items():
         flops, byts = work[k]
@@ -773,6 +813,71 @@ def embed_class(key):
     return "prepass"
 
 
+def dw_work(rows, k, c, field, const_h):
+    """(FLOP, bytes) of a bf16 upper embed weight-gradient wrapper by class
+    (``field`` and ``const_h`` in elements), each input read once: the
+    PyTorch prepass (the float32 field and const_h read, their bf16 copies
+    written), the relayout (those in, the patch matrix A out: ``rows``
+    storage rows of k + 8 values), the product over every storage row (A
+    and the cotangent in, the float32 split partials out) and the split
+    sum."""
+    part = -(-rows // 4096) * (k + 1) * c * 4
+    return {"prepass": (0, 6 * (field + const_h)),
+            "relayout": (0, 2 * (field + const_h) + 2 * rows * (k + 8)),
+            "product": (2 * rows * (k + 1) * c,
+                        2 * rows * (k + 8 + c) + part),
+            "split sum": (0, part + 4 * (k + 1) * c)}
+
+
+def dw_class(key):
+    """The class of a kernel the weight-gradient wrapper launches: the
+    relayout, the product (``mma_gemm_kernel``; the first version's
+    ``xgemm_bf16_kernel``, gathers included), the split sum, or the PyTorch
+    prepass (the rest)."""
+    if "mma_gemm_kernel" in key or "xgemm" in key:
+        return "product"
+    if "patch_rows" in key:
+        return "relayout"
+    if "split_sum" in key:
+        return "split sum"
+    return "prepass"
+
+
+def embed_dw_library(dxs, un, const_h, cfg):
+    """The library yardstick of the upper embed's weight gradient: cuDNN's
+    weight and bias gradient of the equivalent Conv3d (kernel and stride the
+    patch), ``torch.ops.aten.convolution_backward``, which takes the field
+    padded to whole patches with const_h as its last channel and the
+    cotangent's upper planes in the canonical channels-first layout.
+    Returns ``(relayout, library)``: ``relayout()`` builds those two inputs
+    from the port's (the wm cotangent ``dxs``, the normalised field ``un``,
+    const_h); ``library(x6, dy)`` returns (dK, db) in the port's layout
+    (dK in ONNX row order, db), in the dtype of ``dxs``.  Never on a path of
+    the port."""
+    from pangu_tpu_torch.ops.earth_block_wm import from_window_major
+    g = cfg.stage(0)
+    c, b = dxs.shape[-1], dxs.shape[0]
+    weight = torch.empty((c, un.shape[1] + 1, *cfg.patch), dtype=dxs.dtype,
+                         device=dxs.device)
+
+    def relayout():
+        x6 = torch.cat([un, const_h[None, None].expand(b, 1, *const_h.shape)],
+                       1)
+        x6 = torch.nn.functional.pad(
+            x6, (0, 0, 0, cfg.lat_padded - cfg.lat,
+                 0, cfg.levels_padded - cfg.levels))
+        dy = from_window_major(dxs, g.window)[:, 1:, :cfg.h_tokens]
+        return x6, dy.permute(0, 4, 1, 2, 3).contiguous()
+
+    def library(x6, dy):
+        _, dw, db = torch.ops.aten.convolution_backward(
+            dy, x6, weight, [c], list(cfg.patch), [0, 0, 0], [1, 1, 1], False,
+            [0, 0, 0], 1, [False, True, True])
+        return dw.reshape(c, -1).T, db
+
+    return relayout, library
+
+
 def bound(flops, nbytes_, dtype):
     t_bytes = nbytes_ / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOP_PER_S[dtype]
@@ -847,7 +952,7 @@ def main() -> int:
     ptxas = _build.ptxas_report()
     for line in (sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas)
                  + tail_recovery_report(ptxas) + updown_report(ptxas)
-                 + edge_report(ptxas)):
+                 + edge_report(ptxas) + dw_up_report(ptxas)):
         print(line)
     done("build", t0)
 
@@ -1241,6 +1346,13 @@ def main() -> int:
                         half)[0]
     torch.cuda.synchronize()
     b8.append(("up_sample_wm", 16, got, want))
+    del x8
+    x8 = torch.randn((8, g2.z, g2.h, g2.w, g2.dim), generator=gud,
+                     device=dev).to(torch.bfloat16)
+    got = up_sample(params["upsample"], x8, g3.h)[7]
+    want = up_sample(params["upsample"], x8[7:].contiguous(), g3.h)[0]
+    torch.cuda.synchronize()
+    b8.append(("up_sample", 8, got, want))
     del x8
     s8, d8 = (storage(g0, torch.bfloat16, batch=8, g=gedge) for _ in range(2))
     for name, fn in edge_fns.items():
@@ -1825,7 +1937,7 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
 BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd",
                  "block_wm drop", "block_v2", "grid_attention",
                  "block_noroll_fused", "block_wm_group", "fused_block_tail",
-                 "recovery_bwd")
+                 "recovery_bwd", "embed_dw_upper")
 
 
 def flat(tree):
@@ -2013,8 +2125,11 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
     from pangu_tpu_torch.engine.train import weighted_l1_loss
     from pangu_tpu_torch.models import pangu
     from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
-    from pangu_tpu_torch.ops.earth_block_wm import block_wm, block_wm_plain
-    from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
+    from pangu_tpu_torch.ops.earth_block_wm import (block_wm, block_wm_plain,
+                                                    from_window_major,
+                                                    to_window_major)
+    from pangu_tpu_torch.ops.embed_wm import (embed_dw_operands,
+                                              embed_dw_upper,
                                               embed_dw_upper_plain)
     from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
                                                  recovery_bwd_plain)
@@ -2026,6 +2141,7 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
     u1, s1 = state(SEED + 3)                    # the targets
     field_u, field_s = u0.numel(), s0.numel()
     cfg = PANGU_24
+    rows_all_0 = g0.z * g0.h_padded * g0.w     # stage-0 storage rows
 
     def kernels_vs_plain():
         # ---- 6a. the training kernels against their plain versions -----------
@@ -2113,8 +2229,49 @@ def train_phase(params, perf, consts, consts_dev, state, storage, ids_of,
                           kern, recovery_work(rows_all, c0, 160, 64,
                                               field_u + field_s),
                           recovery_class), flush=True)
+                embed_dw_checks(dxs, ecfg)
             del cases, skip, dec, dxs, du, ds
             torch.cuda.empty_cache()
+
+    def embed_dw_checks(dxs, ecfg):
+        # the bf16 upper embed weight gradient by class; junk (50x) on the
+        # cotangent's token-lat pad rows and other values on plane 0's rows
+        # must leave dK and db bit-equal (neither is summed); the library
+        # yardstick, cuDNN's Conv3d weight gradient, on its own layout
+        k = cfg.upper_patch_features
+        print("embed_dw_upper full width bf16 by class (torch.profiler): "
+              + class_breakdown(
+                  lambda: embed_dw_upper(dxs, u0, consts_dev, ecfg),
+                  dw_work(rows_all_0, k, g0.dim, field_u,
+                          consts_dev["const_h"].numel()), dw_class),
+              flush=True)
+        grid = from_window_major(dxs, g0.window).clone()
+        grid[:, :, g0.h:] = 50 * grid[:, :, g0.h:] + 7
+        grid[:, 0] = -3 * grid[:, 0] + 1
+        junk = to_window_major(grid, g0.window).contiguous()
+        got = embed_dw_upper(dxs, u0, consts_dev, ecfg)
+        same = all(torch.equal(a, b) for a, b in zip(
+            got, embed_dw_upper(junk, u0, consts_dev, ecfg)))
+        print(f"embed_dw_upper bf16, junk (50x) on the cotangent's token-lat "
+              f"pad rows and other values on plane 0's rows: dK, db "
+              f"bit-equal {same}", flush=True)
+        if not same:
+            raise AssertionError("embed_dw_upper: the cotangent's pad rows or "
+                                 "plane 0 reach dK or db")
+        _, un, ch = embed_dw_operands(dxs, u0, consts_dev, ecfg)
+        relayout, library = embed_dw_library(dxs, un, ch, ecfg)
+        x6, dy = relayout()
+        rel = max(e[2] for e in tree_errs(
+            library(x6, dy), embed_dw_upper_plain(dxs, u0, consts_dev, ecfg)))
+        lib_ms = time_ms(lambda: library(x6, dy), 2)
+        relayout_ms = time_ms(relayout, 2)
+        records["embed_dw_upper"]["library_ms"] = lib_ms
+        print(f"library (embed_dw_upper full width, bf16): cuDNN "
+              f"convolution_backward (weight and bias of the equivalent "
+              f"Conv3d, canonical layout) {lib_ms:.3f} ms, rel {rel:.3e} "
+              f"against the plain version (its outputs bf16); the relayout "
+              f"into that layout {relayout_ms:.3f} ms apart", flush=True)
+        del grid, junk, got, un, ch, x6, dy
 
     def float32_step():
         # ---- 6b. the float32 train step, kernels against plain versions -------

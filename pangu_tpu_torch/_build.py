@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
 # compiled with -Xptxas -v too (it reports; the code is the same)
 VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu", "block_wm.cu",
                    "block_tail.cu", "recovery_bwd.cu", "updown_wm.cu",
-                   "transition_wm.cu", "recovery_wm.cu", "embed_wm.cu")
+                   "transition_wm.cu", "recovery_wm.cu", "embed_wm.cu",
+                   "embed_dw.cu", "updown.cu")
 # sources built as several objects in parallel, one per set of defines (the
 # source says what each part holds)
 PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"]),

@@ -18,9 +18,10 @@
 // its activations; a row-major B).  The tile load puts the contiguous index
 // on neighbouring threads.
 //
-// Routes: float32 runs smem-tiled FMA (64x64x16, 4x4 per thread), bf16 runs
-// WMMA 16x16x16 fragments (64x64x32, four warps of 32x32), the tiles of
-// common.cuh's gemm.  Neither is tuned.
+// float32 only (the parity config's first kernels: smem-tiled FMA,
+// 64x64x16, 4x4 per thread, untuned); every bf16 product of the backward
+// runs on mma_gemm.cuh's tensor-core tiles, whose deterministic split sum
+// (split_sum) is the one below.
 #pragma once
 
 #include "common.cuh"
@@ -151,77 +152,6 @@ xgemm_f32_kernel(long long M, int N, long long K, long long kchunk, LA la,
   }
 }
 
-template <typename LA, typename LB, typename Epi>
-__global__ void __launch_bounds__(128)
-xgemm_bf16_kernel(long long M, int N, long long K, long long kchunk, LA la,
-                  LB lb, Epi epi) {
-  using namespace nvcuda;
-  __shared__ __align__(128) bf16 As[HM][HK + 8];
-  __shared__ __align__(128) bf16 Bs[HK][HN + 8];
-  __shared__ __align__(128) float Cs[HM][HN + 4];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wr = warp / 2, wc = warp % 2;
-  const int n0 = blockIdx.x * HN;
-  const long long kbeg = blockIdx.z * kchunk;
-  const long long kend = min(K, kbeg + kchunk);
-  const bf16 zero = __float2bfloat16(0.f);
-  for (long long mt = blockIdx.y; mt * HM < M; mt += gridDim.y) {
-    const long long m0 = mt * HM;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-    for (long long k0 = kbeg; k0 < kend; k0 += HK) {
-      for (int idx = tid; idx < HM * HK; idx += 128) {
-        const int r = LA::kKFast ? idx / HK : idx % HM;
-        const int c = LA::kKFast ? idx % HK : idx / HM;
-        const long long gr = m0 + r, gc = k0 + c;
-        As[r][c] = (gr < M && gc < kend) ? la(gr, gc) : zero;
-      }
-      for (int idx = tid; idx < HK * HN; idx += 128) {
-        const int r = LB::kKFast ? idx % HK : idx / HN;
-        const int c = LB::kKFast ? idx / HK : idx % HN;
-        const long long gr = k0 + r;
-        const int gc = n0 + c;
-        Bs[r][c] = (gr < kend && gc < N) ? lb(gr, gc) : zero;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < HK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(fa[i], &As[wr * 32 + i * 16][kk], HK + 8);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(fb[j], &Bs[kk][wc * 32 + j * 16], HN + 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::store_matrix_sync(&Cs[wr * 32 + i * 16][wc * 32 + j * 16], acc[i][j],
-                                HN + 4, wmma::mem_row_major);
-    __syncthreads();
-    for (int idx = tid; idx < HM * HN; idx += 128) {
-      const int r = idx / HN, c = idx % HN;
-      const long long gr = m0 + r;
-      const int gc = n0 + c;
-      if (gr < M && gc < N) epi(blockIdx.z, gr, gc, Cs[r][c]);
-    }
-    __syncthreads();  // Cs is read before the next row tile's store
-  }
-}
-
 inline unsigned xgemm_row_blocks(long long M, int tile) {
   const long long tiles = (M + tile - 1) / tile;
   return (unsigned)(tiles < 65535 ? tiles : 65535);
@@ -236,15 +166,6 @@ inline void xgemm(float*, long long M, int N, long long K, LA la, LB lb,
   dim3 grid((N + FN - 1) / FN, xgemm_row_blocks(M, FM), splits);
   xgemm_f32_kernel<<<grid, 256, 0, st>>>(M, N, K, splits > 1 ? kchunk : K, la,
                                          lb, epi);
-}
-
-template <typename LA, typename LB, typename Epi>
-inline void xgemm(bf16*, long long M, int N, long long K, LA la, LB lb,
-                  Epi epi, cudaStream_t st, int splits = 1,
-                  long long kchunk = 0) {
-  dim3 grid((N + HN - 1) / HN, xgemm_row_blocks(M, HM), splits);
-  xgemm_bf16_kernel<<<grid, 128, 0, st>>>(M, N, K, splits > 1 ? kchunk : K,
-                                          la, lb, epi);
 }
 
 // out[i] = sum over z of part[z][i], z in order

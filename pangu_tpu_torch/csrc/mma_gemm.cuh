@@ -9,6 +9,11 @@
 //                  bf16 only: its float32 route is its own),
 //   updown_wm.cu   DownSample's and UpSample's products (mma_gemm with
 //                  PadEpi; bf16 only: their float32 route is their own),
+//   updown.cu      the canonical UpSample's products (mma_gemm with
+//                  RoundEpi; bf16 only),
+//   embed_dw.cu    the upper embed's weight and bias gradient
+//                  (mma_gemm_launch, transposed A, the bias row an
+//                  indicator column of A; bf16 only),
 // and the dispatches that keep float32 on the first version's kernels:
 // unit_gemm / unit_wgrad (float32 on grad_gemm.cuh) and fwd_gemm (float32
 // on common.cuh's gemm, so the float32 outputs stay bit for bit).

@@ -20,11 +20,27 @@
 //   3. LN      y = round_T(LN(y))                over C'
 //   4. GEMM    out = round_T(y @ Wmix)           (C' -> C', no bias)
 //
-// What bounds them on an H100: memory traffic, as for the wm pair (~8e10
-// FLOP on ~0.3 GB each at full width in bf16, near the balance point).  This
-// first version adds a round trip of the 4C-wide intermediate through device
+// What bounds them on an H100: UpSample does 1.16e11 FLOP at full width
+// (bf16, (1, 8, 91, 180, 384) -> (1, 8, 181, 360, 192)) on ~0.2 GB, just
+// above the bf16 balance point (operations); DownSample ~8e10 FLOP on
+// ~0.3 GB, just below it (bytes).  So each pass should move its bytes once
+// and the products should run on the tensor cores.
+//
+// UpSample in bf16 (the perf config) runs the window-major UpSample's plan
+// (updown_wm.cu) with the canonical row map: the expand and mix products on
+// mma_gemm.cuh (128 x 96 mma.sync tiles, a plain rounding store: the
+// canonical grid has no pad rows) and between them one fused gather +
+// LayerNorm pass (updown_rows.cuh's up_gather_ln_kernel with UpCanonMap:
+// four rows a warp for C' = 192, 16 bytes a lane).  It takes channel counts
+// that are multiples of 8, LayerNorm rows of at most 256 * LN_MAX_NJ values
+// and 16-byte aligned operands (the entry refuses the rest; the wrapper
+// checks first).  float32 UpSample (the parity config) and DownSample in
+// both dtypes keep the first version: an element-a-lane gather, then
+// common.cuh's ln_rows in place and its gemm (64 x 64 tiles, no pipeline),
+// which adds a round trip of the 4C-wide intermediate through device
 // memory.
-#include "common.cuh"
+#include "mma_gemm.cuh"
+#include "updown_rows.cuh"
 
 namespace pangu {
 
@@ -89,6 +105,7 @@ int down_sample(const void* x, void* out, void* ws, const void* ns,
   return 0;
 }
 
+// the float32 UpSample (the first version; bf16 runs up_sample_bf16 below)
 template <typename T>
 int up_sample(const void* x, void* out, void* ws, const void* we,
               const void* ns, const void* nb, const void* wm, int BZ, int H,
@@ -112,6 +129,46 @@ int up_sample(const void* x, void* out, void* ws, const void* we,
   return 0;
 }
 
+// ---- the bf16 UpSample -----------------------------------------------------
+
+// UpSample's canonical row map (up_gather_ln_kernel): y row (bz, i, j) of
+// the (BZ, out_h, 2W) grid reads part (i % 2, j % 2) of e row (bz, i / 2,
+// j / 2); the crop keeps i < out_h <= 2H, so no row is padding
+struct UpCanonMap {
+  int H, W, out_h, C;
+  __device__ long long operator()(long long m) const {
+    const int W3 = 2 * W;
+    const int j = (int)(m % W3);
+    const long long q = m / W3;
+    const int i = (int)(q % out_h);
+    const long long bz = q / out_h;
+    return ((bz * H + i / 2) * W + j / 2) * 4 * C + (2 * (i % 2) + j % 2) * C;
+  }
+};
+
+static int up_sample_bf16(const bf16* x, bf16* out, bf16* ws, const bf16* we,
+                          const bf16* ns, const bf16* nb, const bf16* wm,
+                          int BZ, int H, int W, int c_in, int c_out,
+                          int out_h, cudaStream_t st) {
+  const long long M2 = (long long)BZ * H * W;
+  const long long M3 = (long long)BZ * out_h * 2 * W;
+  bf16* e = ws;                  // M2 * 4C'
+  bf16* y = e + M2 * 4 * c_out;  // M3 * C'
+  int err = (int)mma_gemm<false>(x, we, M2, 4 * c_out, c_in,
+                                 RoundEpi<bf16>{e, 4 * c_out}, st);
+  if (err) return err;
+  err = with_nj(row_nj(c_out / 8), [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    const long long warps = (M3 + up_rows<NJ>() - 1) / up_rows<NJ>();
+    up_gather_ln_kernel<NJ, UpCanonMap><<<row_blocks(warps), 256, 0, st>>>(
+        e, y, M3, c_out, UpCanonMap{H, W, out_h, c_out}, ns, nb);
+    return (int)cudaGetLastError();
+  });
+  if (err) return err;
+  return (int)mma_gemm<false>(y, wm, M3, c_out, c_out,
+                              RoundEpi<bf16>{out, c_out}, st);
+}
+
 }  // namespace pangu
 
 using namespace pangu;
@@ -132,6 +189,10 @@ extern "C" int pangu_down_sample(int dtype, const void* x, void* out,
 }
 
 // x: (B, Z, H, W, c_in) -> out (B, Z, out_h, 2W, c_out), out_h <= 2H.
+// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok;
+// cudaErrorInvalidValue for a bf16 channel count that is not a multiple of
+// 8, a LayerNorm row the row pass cannot hold or an operand off a 16-byte
+// boundary).
 extern "C" int pangu_up_sample(int dtype, const void* x, void* out,
                                void* workspace, const void* we, const void* ns,
                                const void* nb, const void* wm, int BZ, int H,
@@ -142,8 +203,11 @@ extern "C" int pangu_up_sample(int dtype, const void* x, void* out,
   if (dtype == 0)
     return up_sample<float>(x, out, workspace, we, ns, nb, wm, BZ, H, W, c_in,
                             c_out, out_h, st);
-  if (dtype == 1)
-    return up_sample<bf16>(x, out, workspace, we, ns, nb, wm, BZ, H, W, c_in,
-                           c_out, out_h, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles and the 16-byte row pass
+  if (dtype != 1 || c_in % 8 || c_out % 8 || row_nj(c_out / 8) > LN_MAX_NJ ||
+      !aligned16_all({x, out, workspace, we, ns, nb, wm}))
+    return (int)cudaErrorInvalidValue;
+  return up_sample_bf16((const bf16*)x, (bf16*)out, (bf16*)workspace,
+                        (const bf16*)we, (const bf16*)ns, (const bf16*)nb,
+                        (const bf16*)wm, BZ, H, W, c_in, c_out, out_h, st);
 }

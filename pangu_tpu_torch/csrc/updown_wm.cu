@@ -40,14 +40,16 @@
 //               then one mma_gemm.cuh product (128 x 96 mma.sync tiles)
 //               whose epilogue (PadEpi) zeroes the latitude-pad rows;
 //   UpSample    the expand product on mma_gemm (PadEpi, every row kept),
-//               one fused gather + LayerNorm pass (up_gather_ln_kernel:
-//               four stage-3 rows a warp, each reading its C' slice of e
-//               16 bytes a lane), the mix product on mma_gemm with
-//               PadEpi.
+//               one fused gather + LayerNorm pass (updown_rows.cuh's
+//               up_gather_ln_kernel with the rolled row map UpWmMap: four
+//               stage-3 rows a warp, each reading its C' slice of e 16
+//               bytes a lane; the canonical UpSample of updown.cu runs the
+//               same kernel), the mix product on mma_gemm with PadEpi.
 // So the bf16 route takes channel counts that are multiples of 8, 16-byte
 // aligned operands and LayerNorm rows of at most 256 * LN_MAX_NJ values
 // (the C entries refuse the rest; the wrappers check first).
 #include "mma_gemm.cuh"
+#include "updown_rows.cuh"
 
 namespace pangu {
 
@@ -153,54 +155,6 @@ int up_sample_wm(const void* x, void* out, void* ws, const void* we,
 
 // ---- the bf16 route ---------------------------------------------------------------
 
-// A row pass holds a LayerNorm row in registers: lane j the 8-value chunks
-// j, j + 32, ..., NJ of them (chunk k = columns [8k, 8k + 8)).
-constexpr int LN_MAX_NJ = 8;
-
-// v (the lane's chunks of a row of `width` values, `chunks` = width / 8
-// in all) -> out = round_bf16(LN(v)), float32 statistics (the sums run 8
-// values a lane first, as block_common.cuh's ln_rows16_kernel)
-template <int NJ>
-__device__ __forceinline__ void ln_store_row(float (&v)[NJ][8], int chunks,
-                                             int width,
-                                             const bf16* __restrict__ scale,
-                                             const bf16* __restrict__ shift,
-                                             bf16* out, int lane) {
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    if (lane + 32 * j < chunks)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += v[j][e];
-  const float mu = warp_sum(s) / width;
-  float q = 0.f;
-#pragma unroll
-  for (int j = 0; j < NJ; ++j)
-    if (lane + 32 * j < chunks)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        const float d = v[j][e] - mu;
-        q += d * d;
-      }
-  const float rs = rsqrtf(warp_sum(q) / width + 1e-5f);
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int k = lane + 32 * j;
-    if (k >= chunks) continue;
-    float g[8], b[8];
-    ld8(scale + 8 * k, g);
-    ld8(shift + 8 * k, b);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[j][e] = (v[j][e] - mu) * rs * g[e] + b[e];
-    st8(out + 8 * k, v[j]);
-  }
-}
-
-__device__ __forceinline__ void zero_row16(bf16* out, int chunks, int lane) {
-  for (int k = lane; k < chunks; k += 32)
-    *reinterpret_cast<uint4*>(out + 8 * k) = make_uint4(0u, 0u, 0u, 0u);
-}
-
 // DownSample's gather + LayerNorm: one warp per stage-1 row m, cat[m] =
 // round_bf16(LN([x0 rows of parts 0..3])); an output latitude-pad row
 // (lat1 >= h1, zeroed by the product) is written as zeros
@@ -243,74 +197,23 @@ down_gather_ln_kernel(const bf16* __restrict__ x, bf16* __restrict__ cat,
   ln_store_row<NJ>(v, chunks, 4 * C, scale, shift, dst, lane);
 }
 
-// UpSample's gather + LayerNorm: one warp per up_rows<NJ>() consecutive
-// stage-3 rows, y[m] = round_bf16(LN(the C' slice of e that m takes)); a
-// latitude-pad row (lat3 >= h3) is written as zeros, and no pad row of e is
-// read.  A C' = 192 row is 384 bytes, so a warp takes four: lane j works out
-// where row j % 4 reads (the index arithmetic of four rows in one pass) and
-// the four rows' loads are all in flight before the first reduction.
-template <int NJ>
-__host__ __device__ constexpr int up_rows() { return NJ < 4 ? 4 / NJ : 1; }
-
-template <int NJ>
-__global__ void __launch_bounds__(256)
-up_gather_ln_kernel(const bf16* __restrict__ e, bf16* __restrict__ y,
-                    long long M3, int C, WmShape s2, WmShape s3, Roll off,
-                    int h2, int h3, const bf16* __restrict__ scale,
-                    const bf16* __restrict__ shift) {
-  constexpr int R = up_rows<NJ>();
-  const int lane = threadIdx.x % 32, chunks = C / 8;
-  const long long m0 = ((long long)blockIdx.x * 8 + threadIdx.x / 32) * R;
-  if (m0 >= M3) return;
-  // where row m0 + lane % R reads in e (an element offset); -1: a pad row
-  // (zeros), -2: past M3
-  long long mine = -2;
-  {
-    const long long m = m0 + lane % R;
-    if (m < M3) {
-      const WmPos p = wm_split(m, s3);
-      const int lat3 = s3.wh * p.hh + p.rh, w3 = s3.ww * p.l + p.rw;
-      const int Z = s2.nz * s2.wz, hp2 = s2.nlat * s2.wh, W2 = s2.nlon * s2.ww;
-      mine = -1;
-      if (lat3 < h3 && lat3 / 2 < h2)
-        mine = wm_row(p.b, pmod(s3.wz * p.zz + p.rz - off.z, Z),
-                      pmod(lat3 / 2 - off.lat, hp2), pmod(w3 / 2 - off.lon, W2),
-                      s2) * 4 * C + (2 * (lat3 % 2) + w3 % 2) * C;
-    }
+// UpSample's row map (up_gather_ln_kernel, updown_rows.cuh): stage-3 row m
+// reads the C' slice of e at canonical (z, lat3 / 2, w3 / 2) - off, part
+// (lat3 % 2, w3 % 2); a latitude-pad row (lat3 >= h3) is -1 (zeros)
+struct UpWmMap {
+  WmShape s2, s3;
+  Roll off;
+  int h2, h3, C;
+  __device__ long long operator()(long long m) const {
+    const WmPos p = wm_split(m, s3);
+    const int lat3 = s3.wh * p.hh + p.rh, w3 = s3.ww * p.l + p.rw;
+    const int Z = s2.nz * s2.wz, hp2 = s2.nlat * s2.wh, W2 = s2.nlon * s2.ww;
+    if (lat3 >= h3 || lat3 / 2 >= h2) return -1;
+    return wm_row(p.b, pmod(s3.wz * p.zz + p.rz - off.z, Z),
+                  pmod(lat3 / 2 - off.lat, hp2), pmod(w3 / 2 - off.lon, W2),
+                  s2) * 4 * C + (2 * (lat3 % 2) + w3 % 2) * C;
   }
-  long long src[R];
-  float v[R][NJ][8];
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    src[r] = __shfl_sync(0xffffffffu, mine, r);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      if (lane + 32 * j < chunks && src[r] >= 0)
-        ld8(e + src[r] + 8 * (lane + 32 * j), v[r][j]);
-  }
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    bf16* dst = y + (m0 + r) * C;
-    if (src[r] == -1)
-      zero_row16(dst, chunks, lane);
-    else if (src[r] >= 0)
-      ln_store_row<NJ>(v[r], chunks, C, scale, shift, dst, lane);
-  }
-}
-
-// launch(std::integral_constant<int, nj>) for 1 <= nj <= LN_MAX_NJ, the
-// row kernels' instantiation that holds nj chunks a lane
-template <int NJ = 1, typename Launch>
-inline int with_nj(int nj, Launch launch) {
-  if constexpr (NJ > LN_MAX_NJ) {
-    return (int)cudaErrorInvalidValue;
-  } else {
-    if (nj == NJ) return launch(std::integral_constant<int, NJ>{});
-    return with_nj<NJ + 1>(nj, launch);
-  }
-}
-
-inline int row_nj(int chunks) { return (chunks + 31) / 32; }
+};
 
 static int down_sample_wm_bf16(const bf16* x, bf16* out, bf16* cat,
                                const bf16* ns, const bf16* nb,
@@ -345,8 +248,8 @@ static int up_sample_wm_bf16(const bf16* x, bf16* out, bf16* ws,
   err = with_nj(row_nj(c_out / 8), [&](auto nj) {
     constexpr int NJ = decltype(nj)::value;
     const long long warps = (M3 + up_rows<NJ>() - 1) / up_rows<NJ>();
-    up_gather_ln_kernel<NJ><<<row_blocks(warps), 256, 0, st>>>(
-        e, y, M3, c_out, s2, s3, off, h2, h3, ns, nb);
+    up_gather_ln_kernel<NJ, UpWmMap><<<row_blocks(warps), 256, 0, st>>>(
+        e, y, M3, c_out, UpWmMap{s2, s3, off, h2, h3, c_out}, ns, nb);
     return (int)cudaGetLastError();
   });
   if (err) return err;

@@ -21,9 +21,10 @@ Training: ``embed_wm_train`` is the differentiable embed, an autograd
 Function around the same forward.  Its backward takes the upper weight and
 bias gradients from ``embed_dw_upper`` (the kernel ``csrc/embed_dw.cu``,
 counterpart of ``pangu_tpu/ops/embed_wm.py::embed_dw_upper``, with its own
-``launches`` count) and computes the rest -- the surface head's gradients
-and, where asked for, the fields' cotangents -- as plain tensor math, as the
-JAX package computes them in XLA.
+``launches`` count; in bf16 a relayout of the field's patches into the
+cotangent's row order and one tensor-core product) and computes the rest --
+the surface head's gradients and, where asked for, the fields' cotangents
+-- as plain tensor math, as the JAX package computes them in XLA.
 """
 
 from __future__ import annotations
@@ -171,15 +172,14 @@ def embed_dw_upper_plain(dxs, upper, constants, cfg: ModelConfig):
     return cols.T @ dtok, dtok.sum(0)
 
 
-def embed_dw_upper(dxs, upper, constants, cfg: ModelConfig):
-    """Upper embed weight and bias gradients straight from the wm cotangent
-    ``dxs`` of the entry storage and the physical upper field: (dK in the
-    ONNX row order of ``p["upper"]["kernel"]``, db), float32.  The field is
-    normalised again in the dtype of ``dxs``, as the forward's prepass
-    normalised it.  The CUDA kernel for a CUDA tensor, the plain version for
-    a CPU tensor."""
-    if not dxs.is_cuda:
-        return embed_dw_upper_plain(dxs, upper, constants, cfg)
+def embed_dw_operands(dxs, upper, constants, cfg: ModelConfig):
+    """What the weight-gradient kernel takes, checked before a launch:
+    ``(dxs, un, ch)`` in the dtype of ``dxs`` (the cotangent, the upper
+    field normalised as the forward's prepass normalises it, const_h).
+    Raises ValueError on an unsupported input or, in bf16 (the tensor-core
+    route), on a C that is not a multiple of 8 or a longitude count that is
+    not a multiple of 4; the bf16 operands are 16-byte aligned (copies
+    where they are not)."""
     g = cfg.stage(0)
     wz, wh, ww = g.window
     b = upper.shape[0]
@@ -195,10 +195,35 @@ def embed_dw_upper(dxs, upper, constants, cfg: ModelConfig):
         if t.device != dxs.device:
             raise ValueError(f"embed_dw_upper: {name} on {t.device}, "
                              f"cotangent on {dxs.device}")
-    un = _normalised_upper(upper, constants, dt)
-    ch = constants["const_h"].to(dt).contiguous()
+    if dt == torch.bfloat16:
+        check_tensor_core_shape((c,), None, "embed_dw_upper")
+        if cfg.lon % cfg.patch[2]:
+            raise ValueError(f"embed_dw_upper: the bf16 kernel takes a "
+                             f"longitude count that is a multiple of "
+                             f"{cfg.patch[2]}, got {cfg.lon}")
+    ops = (dxs, _normalised_upper(upper, constants, dt),
+           constants["const_h"].to(dt).contiguous())
+    if dt == torch.bfloat16:
+        ops = tuple(aligned16(t) for t in ops)
+    return ops
+
+
+def embed_dw_upper(dxs, upper, constants, cfg: ModelConfig):
+    """Upper embed weight and bias gradients straight from the wm cotangent
+    ``dxs`` of the entry storage and the physical upper field: (dK in the
+    ONNX row order of ``p["upper"]["kernel"]``, db), float32.  The field is
+    normalised again in the dtype of ``dxs``, as the forward's prepass
+    normalised it.  The CUDA kernel for a CUDA tensor (in bf16 a relayout
+    and one tensor-core product, whose operands ``embed_dw_operands``
+    checks and aligns), the plain version for a CPU tensor."""
+    if not dxs.is_cuda:
+        return embed_dw_upper_plain(dxs, upper, constants, cfg)
+    dxs, un, ch = embed_dw_operands(dxs, upper, constants, cfg)
+    g = cfg.stage(0)
+    wz, wh, ww = g.window
+    b, c = dxs.shape[0], dxs.shape[-1]
     lib = _build.library()
-    dims = (b, *want[1:5], wz, wh, ww, c, cfg.h_tokens, cfg.upper_vars)
+    dims = (b, *dxs.shape[1:5], wz, wh, ww, c, cfg.h_tokens, cfg.upper_vars)
     part = torch.empty(lib.pangu_embed_dw_ws(*dims), dtype=torch.float32,
                        device=dxs.device)
     k = cfg.upper_patch_features
@@ -206,7 +231,7 @@ def embed_dw_upper(dxs, upper, constants, cfg: ModelConfig):
     tensors = (dxs, un, ch, part, out)
     with _build.launch_stream(*tensors) as stream:
         code = lib.pangu_embed_dw(
-            DTYPE_CODE[dt], *(t.data_ptr() for t in tensors), *dims,
+            DTYPE_CODE[dxs.dtype], *(t.data_ptr() for t in tensors), *dims,
             cfg.levels, cfg.lat, cfg.lon, stream)
     _build.check(code, "embed_dw_upper")
     embed_dw_upper.launches += 1

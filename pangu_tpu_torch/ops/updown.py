@@ -13,8 +13,13 @@
 
 Each wrapper launches its CUDA kernel (``csrc/updown.cu``) on a CUDA tensor
 and counts the launch in ``launches``, and runs its plain version on a CPU
-tensor.  ``down_sample_train`` / ``up_sample_train`` (the ``block_layout=
-"v2"`` training trunk) run the kernel forward and, backward, autograd
+tensor.  The bf16 UpSample runs on the tensor cores (two ``csrc/
+mma_gemm.cuh`` products around a fused gather + LayerNorm pass, the
+window-major UpSample's plan), so it takes channel counts that are
+multiples of 8 and LayerNorm rows of at most ``LN_ROW_MAX`` values:
+``up_sample_operands`` checks the input before a launch.
+``down_sample_train`` / ``up_sample_train`` (the ``block_layout="v2"``
+training trunk) run the kernel forward and, backward, autograd
 through a recompute of the plain version (``recompute_train``, which the
 window-major pair in ``ops/updown_wm`` shares), as the JAX package's
 ``_down_core`` / ``_up_core`` take an XLA ``jax.vjp`` of their reference.
@@ -26,8 +31,31 @@ import torch
 
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.models.layers import dense, layer_norm
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, params_in,
-                                                require_device)
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, aligned16,
+                                                check_tensor_core_shape,
+                                                params_in, require_device)
+
+
+# the bf16 row passes hold a LayerNorm row in registers: at most 8 chunks of
+# 8 values a lane (csrc/updown_rows.cuh, LN_MAX_NJ)
+LN_ROW_MAX = 32 * 8 * 8
+
+
+def check_updown_shape(channels, ln_width: int, what: str) -> None:
+    """Raise ValueError on what the bf16 routes of ``csrc/updown_wm.cu``
+    and ``csrc/updown.cu`` do not take: a channel count (input, output,
+    LayerNorm) that is not a multiple of 8, or a LayerNorm row wider than
+    ``LN_ROW_MAX``."""
+    check_tensor_core_shape(channels, None, what)
+    if ln_width > LN_ROW_MAX:
+        raise ValueError(f"{what}: the bf16 row pass takes LayerNorm rows of "
+                         f"at most {LN_ROW_MAX} values, got {ln_width}")
+
+
+def aligned_tree(tree):
+    """A param tree with every leaf 16-byte aligned (copies where not)."""
+    return {k: aligned_tree(v) if isinstance(v, dict) else aligned16(v)
+            for k, v in tree.items()}
 
 
 def down_sample_plain(p, x):
@@ -83,12 +111,13 @@ def up_sample_plain(p, x, out_h: int):
     return dense(p["mix"], layer_norm(p["norm"], y))
 
 
-def up_sample(p, x, out_h: int):
-    """x: the canonical (B, Z, H, W, 2C) grid; ``out_h`` <= 2H latitude rows
-    are kept.  The CUDA kernel for a CUDA tensor, the plain version for a
-    CPU tensor."""
-    if not x.is_cuda:
-        return up_sample_plain(p, x, out_h)
+def up_sample_operands(p, x, out_h: int):
+    """What the UpSample kernel takes, checked before a launch: ``(x, q,
+    c_out)``, q the params in x's dtype.  Raises ValueError on an
+    unsupported input or, in bf16 (the tensor-core route), on channel
+    counts that are not multiples of 8 or a LayerNorm row the row pass
+    cannot hold; the bf16 input and params are 16-byte aligned (copies
+    where they are not)."""
     B, Z, H, W, c_in = x.shape
     if (x.dtype not in DTYPE_CODE or not x.is_contiguous()
             or not 0 < out_h <= 2 * H):
@@ -100,6 +129,21 @@ def up_sample(p, x, out_h: int):
     if (q["expand"]["kernel"].shape != (c_in, 4 * c_out)
             or q["mix"]["kernel"].shape != (c_out, c_out)):
         raise ValueError(f"up_sample: kernels for C={c_in} -> {c_out}")
+    if x.dtype == torch.bfloat16:
+        check_updown_shape((c_in, c_out), c_out, "up_sample")
+        x, q = aligned16(x), aligned_tree(q)
+    return x, q, c_out
+
+
+def up_sample(p, x, out_h: int):
+    """x: the canonical (B, Z, H, W, 2C) grid; ``out_h`` <= 2H latitude rows
+    are kept.  The CUDA kernel for a CUDA tensor (in bf16 the tensor-core
+    route, whose operands ``up_sample_operands`` checks and aligns), the
+    plain version for a CPU tensor."""
+    if not x.is_cuda:
+        return up_sample_plain(p, x, out_h)
+    x, q, c_out = up_sample_operands(p, x, out_h)
+    B, Z, H, W, c_in = x.shape
     out = torch.empty((B, Z, out_h, 2 * W, c_out), dtype=x.dtype,
                       device=x.device)
     # workspace: e (rows x 4C') | y (out rows x C')

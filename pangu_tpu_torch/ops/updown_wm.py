@@ -18,11 +18,11 @@ both versions here write zeros there.
 
 bf16 runs on the tensor cores (a fused gather + LayerNorm row pass, then
 ``csrc/mma_gemm.cuh`` products), so it takes channel counts that are
-multiples of 8, LayerNorm rows of at most ``LN_ROW_MAX`` values and 16-byte
-aligned operands: ``down_operands`` / ``up_operands`` check the input
-before a launch and raise ValueError on the rest (aligned copies of a
-misaligned input or weight); float32 runs the first CUDA-core kernels and
-takes any width.
+multiples of 8, LayerNorm rows of at most ``ops.updown.LN_ROW_MAX`` values
+and 16-byte aligned operands: ``down_operands`` / ``up_operands`` check
+the input before a launch and raise ValueError on the rest (aligned copies
+of a misaligned input or weight); float32 runs the first CUDA-core kernels
+and takes any width.
 
 Training: ``down_sample_wm_train`` / ``up_sample_wm_train`` run the kernel
 forward and, backward, PyTorch autograd through a recompute of the plain
@@ -37,33 +37,18 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
-                                                aligned16,
-                                                check_tensor_core_shape,
-                                                params_in, require_device,
+                                                aligned16, params_in,
+                                                require_device,
                                                 to_window_major,
                                                 wm_to_canonical)
-from pangu_tpu_torch.ops.updown import (down_sample_plain, recompute_train,
+from pangu_tpu_torch.ops.updown import (aligned_tree, check_updown_shape,
+                                        down_sample_plain, recompute_train,
                                         up_sample_plain)
-
-
-# the bf16 row passes hold a LayerNorm row in registers: at most 8 chunks of
-# 8 values a lane (csrc/updown_wm.cu, LN_MAX_NJ)
-LN_ROW_MAX = 32 * 8 * 8
 
 
 def _pad_lat(x, hp: int):
     """Zero-pad the latitude axis of (B, Z, H, W, C) to hp rows."""
     return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, hp - x.shape[2]))
-
-
-def check_updown_shape(channels, ln_width: int, what: str) -> None:
-    """Raise ValueError on what the bf16 route of ``csrc/updown_wm.cu``
-    does not take: a channel count (input, output, LayerNorm) that is not a
-    multiple of 8, or a LayerNorm row wider than ``LN_ROW_MAX``."""
-    check_tensor_core_shape(channels, None, what)
-    if ln_width > LN_ROW_MAX:
-        raise ValueError(f"{what}: the bf16 row pass takes LayerNorm rows of "
-                         f"at most {LN_ROW_MAX} values, got {ln_width}")
 
 
 def _operands(p, xs, channels, ln_width: int, what: str):
@@ -74,13 +59,8 @@ def _operands(p, xs, channels, ln_width: int, what: str):
     require_device(q, xs.device, what)
     if xs.dtype == torch.bfloat16:
         check_updown_shape(channels, ln_width, what)
-        xs, q = aligned16(xs), _aligned(q)
+        xs, q = aligned16(xs), aligned_tree(q)
     return xs, q
-
-
-def _aligned(tree):
-    return {k: _aligned(v) if isinstance(v, dict) else aligned16(v)
-            for k, v in tree.items()}
 
 
 # ---------------------------------------------------------------------------

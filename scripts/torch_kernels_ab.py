@@ -9,8 +9,12 @@ offsets (1, 3, 6) and (0, 0, 0)), the window-major DownSample and
 UpSample (``csrc/updown_wm.cu``, offsets (1, 3, 6) and (0, 0, 0)), the
 token-space transition (``csrc/transition_wm.cu``) and the upper and
 surface patch recovery (``csrc/recovery_wm.cu``), pair offsets (1, 3, 6)
-and (0, 0, 0), and the patch embed (``csrc/embed_wm.cu``, the wrapper with
-its PyTorch prepass, on the bf16 state ``chip_smoke.py`` gives it).
+and (0, 0, 0), the patch embed (``csrc/embed_wm.cu``, the wrapper with
+its PyTorch prepass, on the bf16 state ``chip_smoke.py`` gives it), the
+upper embed's weight gradient (``csrc/embed_dw.cu``, the wrapper with its
+prepass, on a bf16 stage-0 cotangent and the physical field) and the
+canonical UpSample (``csrc/updown.cu``, stage 2 -> 3 on the canonical
+grid).
 
     python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
                                         [--only REGEX]
@@ -27,9 +31,14 @@ products' gather, product and epilogue are one kernel in both versions,
 ``edge_class``), and the embed wrapper split into its prepass (the
 normalisation passes, the surface columns and products), the upper
 product and the plane-0 copy (``embed_class``), the prepass's kernels
-listed one by one.  ``--only``: the cases
+listed one by one, the weight gradient into its prepass, relayout, product
+and split sum (``dw_class``) and the canonical UpSample into its products
+and row passes.  The case ``embed_dw_upper library`` times the library
+yardstick of the weight gradient (``chip_smoke.embed_dw_library``: cuDNN's
+weight and bias gradient of the equivalent Conv3d) and, apart, the relayout
+of its inputs into the layout it takes.  ``--only``: the cases
 (and splits) whose ``name label`` the regular expression finds, e.g.
-``--only sample_wm`` or ``--only "embed_wm|recovery_wm_surface"``.
+``--only sample_wm`` or ``--only "embed_dw|up_sample stage"``.
 The last line is one JSON object of the times.
 """
 
@@ -89,13 +98,16 @@ def main() -> int:
                                                     block_wm_canon_plain,
                                                     block_wm_group,
                                                     block_wm_plain)
-    from pangu_tpu_torch.ops.embed_wm import embed_wm, embed_wm_plain
+    from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
+                                              embed_dw_upper_plain, embed_wm,
+                                              embed_wm_plain)
     from pangu_tpu_torch.ops.recovery_wm import (recovery_bwd,
                                                  recovery_bwd_plain,
                                                  recovery_wm_surface,
                                                  recovery_wm_surface_plain,
                                                  recovery_wm_upper,
                                                  recovery_wm_upper_plain)
+    from pangu_tpu_torch.ops.updown import up_sample, up_sample_plain
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                                down_sample_wm_plain,
                                                up_sample_wm, up_sample_wm_plain)
@@ -321,6 +333,35 @@ def main() -> int:
                                 g0.h * g0.w * c * 2, plane,
                                 (g0.z - 1) * plane)
 
+    # the upper embed's weight gradient on a bf16 stage-0 cotangent and the
+    # physical field, as a bf16 train step gives it (work and bytes:
+    # chip_smoke.py's phase-6 line), and the canonical UpSample (phase 3's
+    # line); inputs from a generator of their own
+    gb = torch.Generator(device=dev).manual_seed(3)
+    wz, wh, ww = g0.window
+    dxs = torch.randn((1, g0.z // wz, g0.h_padded // wh, g0.w // ww,
+                       wz * wh * ww, c), generator=gb, device=dev).to(bf)
+    uw = (consts["upper_mean"][None] + consts["upper_std"][None]
+          * torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                        generator=gb, device=dev))
+    k_up = pe["upper"]["kernel"].shape[0]
+    n_ch = consts["const_h"].numel()
+    cases.append(("embed_dw_upper", "full width",
+                  lambda: embed_dw_upper(dxs, uw, consts, ecfg),
+                  lambda: embed_dw_upper_plain(dxs, uw, consts, ecfg),
+                  (2 * upper_rows * (k_up + 1) * c,
+                   upper_rows * c * 2 + field_u * 4 + n_ch * 4
+                   + (k_up + 1) * c * 4)))
+    dw_split = cs.dw_work(dxs.numel() // c, k_up, c, field_u, n_ch)
+    xc = torch.randn((1, g2.z, g2.h, g2.w, c_in), generator=gb,
+                     device=dev).to(bf)
+    cases.append(("up_sample", "stage 2 -> 3, canonical grid",
+                  lambda: up_sample(pu, xc, g3.h),
+                  lambda: up_sample_plain(pu, xc, g3.h),
+                  (2 * g2.z * g2.h * g2.w * c_in * 4 * c_out
+                   + 2 * g3.z * g3.h * g3.w * c_out * c_out,
+                   cs.nbytes(xc) + g3.z * g3.h * g3.w * c_out * 2 + wu)))
+
     def wanted(what):
         return re.search(args.only, what) is not None
 
@@ -343,6 +384,26 @@ def main() -> int:
         print(f"{name:18s} {label:36s} rel {rel:.3e} bit-identical {same} "
               f"{'ok' if good else 'FAIL'}  kernel {ms:.3f} ms  bound "
               f"{bound_ms:.3f} ms ({by})", flush=True)
+    if wanted("embed_dw_upper library"):
+        # cuDNN on the canonical layout: the cotangent's upper planes
+        # channels-first, the normalised field padded with const_h
+        un = ((uw.to(bf) - consts["upper_mean"].to(bf)[None])
+              / consts["upper_std"].to(bf)[None]).contiguous()
+        relayout, library = cs.embed_dw_library(
+            dxs, un, consts["const_h"].to(bf), ecfg)
+        x6, dy = relayout()
+        rel = max(e[2] for e in cs.tree_errs(
+            library(x6, dy), embed_dw_upper_plain(dxs, uw, consts, ecfg)))
+        lib_ms = cs.time_ms(lambda: library(x6, dy), args.reps)
+        relayout_ms = cs.time_ms(relayout, args.reps)
+        times["embed_dw_upper library"] = lib_ms
+        times["embed_dw_upper library relayout"] = relayout_ms
+        print(f"embed_dw_upper library (cuDNN convolution_backward, weight "
+              f"and bias, canonical layout): {lib_ms:.3f} ms, rel "
+              f"{rel:.3e} against the plain version (its outputs bf16); "
+              f"the relayout into its layout {relayout_ms:.3f} ms apart",
+              flush=True)
+        del un, x6, dy
     if args.split:
         xb, xg = storage(g0), grid(g0)
         at = s0["attn"]
@@ -383,12 +444,19 @@ def main() -> int:
              cs.edge_work(*edge_cost["recovery_wm_surface"]), cs.edge_class),
             ("embed_wm full width",
              lambda: embed_wm(pe, ue, se, consts, ecfg), embed_split,
-             cs.embed_class)]
+             cs.embed_class),
+            ("embed_dw_upper full width",
+             lambda: embed_dw_upper(dxs, uw, consts, ecfg), dw_split,
+             cs.dw_class),
+            ("up_sample stage 2 -> 3, canonical grid",
+             lambda: up_sample(pu, xc, g3.h),
+             cs.up_work(g2.z * g2.h * g2.w, g3.z * g3.h * g3.w, c_in, c_out),
+             cs.fwd_class)]
         for what, fn, work, classify in splits:
             if wanted(what):
                 print(f"{what} bf16 by class:", cs.class_breakdown(
                     fn, work, classify, detail="prepass"
-                    if classify is cs.embed_class else None))
+                    if classify in (cs.embed_class, cs.dw_class) else None))
     print(json.dumps({"repo": str(repo), "card": smi, "ms": times}))
     return 0 if ok else 1
 

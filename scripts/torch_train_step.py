@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time the port's bf16 window-major train step (Pangu-24 at full width and
 depth, batch 1, the perf config with the edge kernels, Adam included), its
-served 24 h steps (full-step and token-space rollouts) and its served
-per-block step on one CUDA card, for the copy of the port in a given
-directory, so that two versions compare in one call.
+served 24 h steps (full-step and token-space rollouts, and the
+``block_layout="v2"`` full step) and its served per-block step on one CUDA
+card, for the copy of the port in a given directory, so that two versions
+compare in one call.
 
     python3 scripts/torch_train_step.py [--repo DIR] [--steps N]
 
@@ -13,10 +14,11 @@ train steps and served per-block steps (``forward`` with
 ``lora_fused=False`` on rank-16 adapters on each stage's first block, as
 chip_smoke.py phase 8b) is timed alone on the host clock, ending in
 ``torch.cuda.synchronize()``; so is each of ``--steps`` 3-step rollouts,
-full-step, full-step with the edge kernels and token-space with the edge
-kernels (chip_smoke.py phases 4a-b), each time divided by 3: ms a chained
-step.  Printed: every time, the median, and the peak memory of the train
-steps.  The last line is one JSON object.
+full-step, full-step with the edge kernels, token-space with the edge
+kernels (chip_smoke.py phases 4a-b) and the v2 full step (phase 7c; its
+trunk runs the canonical DownSample and UpSample), each time divided by 3:
+ms a chained step.  Printed: every time, the median, and the peak memory
+of the train steps.  The last line is one JSON object.
 """
 
 from __future__ import annotations
@@ -110,7 +112,10 @@ def main() -> int:
     served_steps = {}
     for label, rcfg, token in (("full-step", perf, False),
                                ("full-step, edge kernels", cfg, False),
-                               ("token-space", cfg, True)):
+                               ("token-space", cfg, True),
+                               ("v2 full-step",
+                                dataclasses.replace(perf, block_layout="v2"),
+                                False)):
         rollout = make_rollout(rcfg, consts, 3, token_space=token, device=dev)
 
         def run():

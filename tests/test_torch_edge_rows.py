@@ -22,7 +22,19 @@ the 16-byte chunks on 8-element boundaries, and the result equals
 ``apply_transition_wm_plain`` / ``recovery_wm_upper_plain`` /
 ``recovery_wm_surface_plain`` / ``embed_wm_plain`` (float32 1e-6 of the
 output's max: float32 sums in another order; bf16 2^-6, the kernels'
-tolerance: a sum that rounds the other way moves by a bf16 ulp).  The
+tolerance: a sum that rounds the other way moves by a bf16 ulp).
+
+Two more bf16 routes, modelled the same way: the upper embed weight
+gradient (``csrc/embed_dw.cu``), whose relayout writes the patch matrix A
+in the cotangent's window-major row order as its grid walks the lon lines
+(8-feature groups from two 8-byte runs of the field, then the indicator
+column, zero rows on plane 0 and the token-lat pad rows), so that A^T dxs
+is dK and db (1e-5 of each output's max: float32 sums in another order,
+junk on the cotangent's pad rows and values on its plane-0 rows), and a
+row of ones in place of the indicator would get db wrong; and the
+canonical UpSample (``csrc/updown.cu``), whose gather + LayerNorm kernel
+takes up_rows rows a warp and reads each row's C' slice of the expand
+product where ``UpCanonMap`` says, for an odd and an even crop.  The
 kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 
@@ -40,9 +52,15 @@ from pangu_tpu_torch.engine.transition_wm import (MATRICES,
                                                   apply_transition_wm_plain,
                                                   build_transition_wm)
 from pangu_tpu_torch.models import pangu
-from pangu_tpu_torch.ops.embed_wm import embed_operands, embed_wm_plain
+from pangu_tpu_torch.models.layers import dense, layer_norm
+from pangu_tpu_torch.ops.earth_block_wm import (from_window_major,
+                                                to_window_major)
+from pangu_tpu_torch.ops.embed_wm import (embed_dw_operands,
+                                          embed_dw_upper_plain,
+                                          embed_operands, embed_wm_plain)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface_plain,
                                              recovery_wm_upper_plain)
+from pangu_tpu_torch.ops.updown import up_sample_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
 B = 2
@@ -271,4 +289,149 @@ def test_embed_rows_model_matches_plain(setup, dtype):
             out[dst] = st[b, h] if h < ht else 0
     assert bool((writes == 1).all())
     want = embed_wm_plain(pe, upper, surface, consts, cfg)
+    _close(out.reshape(want.shape), want, dtype)
+
+
+def _dw_case(dtype):
+    """TINY, batch B: the physical upper field, the constants and a stage-0
+    wm cotangent in ``dtype`` whose token-lat pad rows hold junk (50x + 7)
+    and whose plane-0 rows hold values (neither is summed)."""
+    cfg = TINY
+    consts = to_device(synthetic_constants(cfg), "cpu")
+    rng = np.random.default_rng(13)
+    upper = (consts["upper_mean"][None] + consts["upper_std"][None]
+             * torch.as_tensor(rng.normal(size=(B, 5, cfg.levels, cfg.lat,
+                                                cfg.lon)).astype(np.float32)))
+    g = cfg.stage(0)
+    grid = torch.as_tensor(rng.normal(size=(B, g.z, g.h_padded, g.w, g.dim))
+                           .astype(np.float32))
+    assert g.h < g.h_padded
+    grid[:, :, g.h:] = 50 * grid[:, :, g.h:] + 7
+    dxs = to_window_major(grid, g.window).contiguous().to(dtype)
+    return cfg, consts, upper, dxs
+
+
+def _patch_rows_model(un, ch, cfg):
+    """A (storage rows, K + 8) as embed_dw.cu's patch_rows_kernel writes
+    it: a block per (b, z, h) lon line and DW_TOK tokens, each token's row
+    at its wm row; an upper token's row its K patch values, 8 features (v,
+    zo, ho | ho + 1, wo) from two 8-byte runs of 4 wo values, then the
+    indicator group (1, then 7 zeros); plane 0's rows and the token-lat pad
+    rows all zeros."""
+    tok = int(re.search(r"DW_TOK = (\d+)",
+                        (CSRC / "embed_dw.cu").read_text()).group(1))
+    g = cfg.stage(0)
+    v_n, levels, lat, lon = cfg.upper_vars, cfg.levels, cfg.lat, cfg.lon
+    k = (v_n + 1) * PZ * PH * PW
+    assert k % 8 == 0 and lon % PW == 0
+    b_n = un.shape[0]
+    a = torch.full((b_n * g.z * g.h_padded * g.w, k + 8), float("nan"),
+                   dtype=un.dtype)
+    writes = torch.zeros(a.shape[0], dtype=torch.int32)
+    field, chf, vol = un.reshape(-1), ch.reshape(-1), levels * lat * lon
+    run = torch.arange(PW)
+    for line in range(b_n * g.z * g.h_padded):
+        h, z, b = (line % g.h_padded, line // g.h_padded % g.z,
+                   line // (g.h_padded * g.z))
+        for w0 in range(0, g.w, tok):
+            w = torch.arange(w0, min(w0 + tok, g.w))
+            dst = _wm_row(b, z, h, w, g)
+            writes[dst] += 1
+            if z == 0 or h >= cfg.h_tokens:
+                a[dst] = 0
+                continue
+            row = torch.zeros((len(w), k + 8), dtype=un.dtype)
+            for f0 in range(0, k, 8):
+                v, zo = f0 // (PZ * PH * PW), f0 // (PH * PW) % PZ
+                lev, la = PZ * (z - 1) + zo, PH * h + f0 // PW % PH
+                src, base = (field, (b * v_n + v) * vol) if v < v_n else \
+                    (chf, 0)
+                for i, at_lat in enumerate((la, la + 1)):
+                    if lev >= levels or at_lat >= lat:
+                        continue            # zeros
+                    at = base + (lev * lat + at_lat) * lon + PW * w
+                    assert bool((at % PW == 0).all())     # 8-byte runs
+                    row[:, f0 + PW * i:f0 + PW * i + PW] = \
+                        src[at[:, None] + run]
+            row[:, k] = 1                   # the indicator
+            a[dst] = row
+    assert bool((writes == 1).all())
+    return a, k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_embed_dw_relayout_model_matches_plain(dtype):
+    """A^T dxs over every storage row, A as the relayout writes it, is the
+    plain version's dK (its first K rows) and db (the indicator row); the
+    padding columns give zeros."""
+    cfg, consts, upper, dxs = _dw_case(dtype)
+    dxs, un, ch = embed_dw_operands(dxs, upper, consts, cfg)
+    a, k = _patch_rows_model(un, ch, cfg)
+    got = a.float().T @ dxs.reshape(-1, dxs.shape[-1]).float()
+    dk, db = embed_dw_upper_plain(dxs, upper, consts, cfg)
+    for part, want in ((got[:k], dk), (got[k], db)):
+        scale = float(want.abs().max())
+        assert scale > 0
+        assert float((part - want).abs().max()) <= 1e-5 * scale
+    assert bool((got[k + 1:] == 0).all())
+
+
+def test_embed_dw_row_of_ones_gets_db_wrong():
+    """mma_wgrad's row of ones in place of the indicator sums every storage
+    row, plane 0's cotangent and the junk on the pad rows with the rest:
+    its db is not the plain version's (the trap the indicator avoids)."""
+    cfg, consts, upper, dxs = _dw_case(torch.float32)
+    dxs, un, ch = embed_dw_operands(dxs, upper, consts, cfg)
+    a, k = _patch_rows_model(un, ch, cfg)
+    a[:, k] = 1
+    got = a.T @ dxs.reshape(-1, dxs.shape[-1])
+    _, db = embed_dw_upper_plain(dxs, upper, consts, cfg)
+    assert float((got[k] - db).abs().max()) > 0.5 * float(db.abs().max())
+
+
+def _up_canon_src(m, h, w, out_h, c):
+    """updown.cu's UpCanonMap: where y row m of the (BZ, out_h, 2W) grid
+    reads its C' slice of e (an element offset)."""
+    j, q = m % (2 * w), m // (2 * w)
+    i, bz = q % out_h, q // out_h
+    return ((bz * h + i // 2) * w + j // 2) * 4 * c + (2 * (i % 2) + j % 2) * c
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("crop", ["odd", "even"])
+def test_canonical_up_sample_row_map_model_matches_plain(setup, crop, dtype):
+    """The canonical UpSample's gather as up_gather_ln_kernel runs it with
+    UpCanonMap: up_rows rows a warp (from the source, for the C' of
+    TINY), each row read 16 bytes a lane from its C' slice of e, every row
+    of the cropped grid written once; then the LayerNorm and the mix
+    product as the plain version computes them, against
+    ``up_sample_plain``."""
+    params = setup[0]
+    p = {k: {j: t.to(dtype) for j, t in v.items()}
+         for k, v in params["upsample"].items()}
+    g2 = TINY.stage(2)
+    c = p["mix"]["kernel"].shape[0]
+    h, w = g2.h, g2.w
+    out_h = 2 * h - 1 if crop == "odd" else 2 * h
+    rng = np.random.default_rng(14)
+    x = torch.as_tensor(rng.normal(size=(B, g2.z, h, w, g2.dim))
+                        .astype(np.float32)).to(dtype)
+    rows = re.search(r"constexpr int up_rows\(\) \{ return NJ < (\d+) \? "
+                     r"(\d+) / NJ : 1; \}",
+                     (CSRC / "updown_rows.cuh").read_text())
+    nj = -(-(c // 8) // 32)
+    r_n = int(rows.group(2)) // nj if nj < int(rows.group(1)) else 1
+    e = dense(p["expand"], x).reshape(-1)
+    m3 = B * g2.z * out_h * 2 * w
+    y = torch.full((m3, c), float("nan"), dtype=dtype)
+    writes = torch.zeros(m3, dtype=torch.int32)
+    for warp in range(-(-m3 // r_n)):
+        m = torch.arange(warp * r_n, min(warp * r_n + r_n, m3))
+        src = _up_canon_src(m, h, w, out_h, c)
+        assert bool((src % 8 == 0).all())            # 16-byte loads
+        y[m] = e[src[:, None] + torch.arange(c)]
+        writes[m] += 1
+    assert bool((writes == 1).all())
+    out = dense(p["mix"], layer_norm(p["norm"], y))
+    want = up_sample_plain(p, x, out_h)
     _close(out.reshape(want.shape), want, dtype)

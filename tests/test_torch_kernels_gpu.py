@@ -46,7 +46,12 @@ bit-identical in two runs, ValueError for bf16 channels not a multiple of
 (each sample of a batch of 2 equal to it run alone, junk on the pair's
 latitude-pad rows leaving the outputs unchanged, bf16 bit-identical in two
 runs; ValueError for a bf16 C not a multiple of 8, all four running on the
-tensor cores in bf16).  Needs a CUDA
+tensor cores in bf16); and the bf16 tensor-core routes of the upper embed
+weight gradient (bit-identical in two runs, blind to junk on the
+cotangent's token-lat pad rows and plane-0 rows) and of the canonical
+UpSample (odd and even ``out_h``, bit-identical in two runs, a batch-2
+sample equal to it run alone), each refusing a bf16 C not a multiple of 8
+with ValueError.  Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -613,23 +618,96 @@ def _leaves(tree):
         yield tree
 
 
+def _dw_inputs(cfg, dev, dtype):
+    """(a stage-0 wm cotangent, the physical upper field, the constants) of
+    the upper embed weight gradient at batch 2."""
+    consts = to_device(synthetic_constants(cfg), dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    upper = (consts["upper_mean"][None] + consts["upper_std"][None]
+             * torch.randn((2, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
+                           device=dev))
+    return _storage(cfg.stage(0), dev, dtype, 5), upper, consts
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
 def test_embed_dw_kernel_matches_plain(cuda, cfg_name, dtype):
     from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
                                               embed_dw_upper_plain)
     cfg = CFGS[cfg_name]
-    consts = to_device(synthetic_constants(cfg), cuda)
-    g = torch.Generator(device=cuda).manual_seed(4)
-    upper = (consts["upper_mean"][None] + consts["upper_std"][None]
-             * torch.randn((2, 5, cfg.levels, cfg.lat, cfg.lon), generator=g,
-                           device=cuda))
-    dxs = _storage(cfg.stage(0), cuda, dtype, 5)
+    dxs, upper, consts = _dw_inputs(cfg, cuda, dtype)
     got = embed_dw_upper(dxs, upper, consts, cfg)
     want = embed_dw_upper_plain(dxs, upper, consts, cfg)
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.shape == b.shape and _rel_err(a, b) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_embed_dw_bf16_tensor_core_route(cuda, cfg_name):
+    """The bf16 route of the upper embed weight gradient (a relayout into
+    the patch matrix with its indicator column, one tensor-core product, a
+    split sum) at batch 2: against the plain version, two runs bit for bit,
+    and dK, db the same bit for bit with junk (50x) on the cotangent's
+    token-lat pad rows and other values on its plane-0 rows, neither of
+    which is summed."""
+    from pangu_tpu_torch.ops.embed_wm import (embed_dw_upper,
+                                              embed_dw_upper_plain)
+    cfg = CFGS[cfg_name]
+    g0 = cfg.stage(0)
+    bf = torch.bfloat16
+    dxs, upper, consts = _dw_inputs(cfg, cuda, bf)
+    got = embed_dw_upper(dxs, upper, consts, cfg)
+    want = embed_dw_upper_plain(dxs, upper, consts, cfg)
+    torch.cuda.synchronize()
+    assert all(_rel_err(a, b) <= TOL[bf] for a, b in zip(got, want))
+    assert g0.h < g0.h_padded
+    grid = from_window_major(dxs, g0.window).clone()
+    grid[:, :, g0.h:] = 50 * grid[:, :, g0.h:] + 7
+    grid[:, 0] = -3 * grid[:, 0] + 1
+    junk = to_window_major(grid, g0.window).contiguous()
+    for again in (embed_dw_upper(dxs, upper, consts, cfg),
+                  embed_dw_upper(junk, upper, consts, cfg)):
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_embed_dw_bf16_refuses_shapes_outside_the_tiles(cuda):
+    from pangu_tpu_torch.ops.embed_wm import embed_dw_upper
+    cfg = dataclasses.replace(TINY, dims=(20, 40, 40, 20))
+    dxs, upper, consts = _dw_inputs(cfg, cuda, torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        embed_dw_upper(dxs, upper, consts, cfg)
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_canonical_up_sample_bf16_tensor_core_route(cuda, cfg_name):
+    """The bf16 canonical UpSample on the tensor cores at batch 2, cropped
+    to an odd and an even latitude count: against the plain version,
+    bit-identical in two runs, its second sample bit-equal to that sample
+    run alone."""
+    cfg = CFGS[cfg_name]
+    p = _params(cfg, cuda)["upsample"]
+    g2 = cfg.stage(2)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((2, g2.z, g2.h, g2.w, g2.dim), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    for out_h in (2 * g2.h - 1, 2 * g2.h):
+        got = up_sample(p, x, out_h)
+        want = up_sample_plain(p, x, out_h)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[torch.bfloat16]
+        assert torch.equal(got, up_sample(p, x, out_h))
+        assert torch.equal(got[1], up_sample(p, x[1:].contiguous(), out_h)[0])
+
+
+def test_canonical_up_sample_bf16_refuses_shapes_outside_the_tiles(cuda):
+    cfg = dataclasses.replace(TINY, dims=(20, 40, 40, 20))
+    g2 = cfg.stage(2)
+    x = torch.randn((1, g2.z, g2.h, g2.w, g2.dim), device=cuda)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        up_sample(_params(cfg, cuda)["upsample"], x.to(torch.bfloat16),
+                  2 * g2.h - 1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -18,7 +18,15 @@ recovery (both branches) and the embed (``csrc/transition_wm.cu``,
 ``csrc/edge_mma.cuh``'s tensor-core kernel and float32 on
 ``csrc/edge_gemm.cuh``'s first kernels, what the recovery's and the
 embed's wrappers refuse before a launch and the alignment of their
-operands.  The kernels themselves run only on the card
+operands; and that the bf16 upper embed weight gradient
+(``csrc/embed_dw.cu``: a relayout, then one transposed-A product of
+``mma_gemm.cuh`` whose bias row is an indicator column, not a row of
+ones) and the bf16 canonical UpSample (``csrc/updown.cu``: two
+``mma_gemm.cuh`` products around the gather + LayerNorm kernel that the
+window-major UpSample runs too, ``csrc/updown_rows.cuh``) run on the
+tensor cores while float32 keeps the first kernels (``grad_gemm.cuh`` has
+no bf16 route left), what their wrappers refuse before a launch and the
+alignment of their operands.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
@@ -34,10 +42,11 @@ from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.ops.block_tail import tail_operands
 from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
                                                 check_tensor_core_shape)
-from pangu_tpu_torch.ops.embed_wm import embed_operands
+from pangu_tpu_torch.ops.embed_wm import embed_dw_operands, embed_operands
 from pangu_tpu_torch.ops.recovery_wm import recovery_operands
-from pangu_tpu_torch.ops.updown_wm import (LN_ROW_MAX, check_updown_shape,
-                                           down_operands, up_operands)
+from pangu_tpu_torch.ops.updown import (LN_ROW_MAX, check_updown_shape,
+                                        up_sample_operands)
+from pangu_tpu_torch.ops.updown_wm import down_operands, up_operands
 from pangu_tpu_torch.ops.window_attention import _checked
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
@@ -583,3 +592,145 @@ def test_bf16_edge_operands_are_16_byte_aligned(which):
         ops = (skip, dec, q["kernel"])
         assert torch.equal(q["kernel"], w)
     assert all(t.data_ptr() % 16 == 0 for t in ops)
+
+
+def test_embed_dw_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 entry runs embed_dw_bf16: the relayout (patch_rows, which
+    writes the indicator), one transposed-A mma_gemm.cuh product with no
+    row of ones (``ones`` 0: mma_wgrad's row would sum plane 0 and the pad
+    rows into db) and split_sum; no grad_gemm.cuh product or gathering
+    functor.  float32 keeps the first version's wgrad, and grad_gemm.cuh
+    has no bf16 route left."""
+    code = _code("embed_dw.cu")
+    bf16 = _body(code, "static int embed_dw_bf16(")
+    m = re.search(r"\bmma_gemm_launch\s*<true,\s*false>\s*\(([^;]*)\);", bf16)
+    assert [a.strip() for a in m.group(1).split(",")][3] == "0"
+    assert "patch_rows(" in bf16 and "split_sum(" in bf16
+    for first in ("wgrad<", "xgemm(", "PatchCols", "TokenRows", "mma_wgrad("):
+        assert first not in bf16
+    assert "0x3F80u" in _body(code, "patch_rows_kernel(")
+    assert "wgrad<T>(" in _body(code, "int embed_dw(")
+    entry = _body(code, 'extern "C" int pangu_embed_dw(')
+    assert entry.index("embed_dw<float>(") < entry.index(
+        "aligned16_all(") < entry.index("embed_dw_bf16(")
+    assert "embed_dw<bf16>" not in code
+    grad = _code("grad_gemm.cuh")
+    assert "xgemm_bf16_kernel" not in grad and "wmma" not in grad
+    assert "xgemm(bf16*" not in grad.replace(" ", "")
+
+
+def test_canonical_up_sample_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 canonical UpSample: two mma_gemm.cuh products with a plain
+    rounding store and one gather + LayerNorm pass, the kernel of
+    updown_rows.cuh with the canonical row map -- the one the window-major
+    UpSample launches with its rolled map; no common.cuh gemm, ln_rows or
+    element-a-lane gather.  float32 keeps the first version's kernels."""
+    code = _code("updown.cu")
+    body = _body(code, "static int up_sample_bf16(")
+    assert len(re.findall(r"\bmma_gemm\s*<false>\s*\(", body)) == 2
+    assert body.count("RoundEpi<bf16>") == 2
+    assert "up_gather_ln_kernel<NJ, UpCanonMap>" in body
+    assert not re.search(r"(?<![\w.])gemm\s*\(|\bln_rows\s*<|"
+                         r"\bup_canon_gather_kernel\b", body)
+    f32 = _body(code, "int up_sample(")
+    assert re.search(r"(?<![\w.])gemm\s*\(", f32)
+    assert "ln_rows<T>(" in f32 and "up_canon_gather_kernel<T>" in f32
+    entry = _body(code, 'extern "C" int pangu_up_sample(')
+    assert entry.index("up_sample<float>(") < entry.index(
+        "aligned16_all(") < entry.index("up_sample_bf16(")
+    assert "up_sample<bf16>" not in code
+    assert "up_gather_ln_kernel(" in _code("updown_rows.cuh")
+    for source, rmap in (("updown.cu", "UpCanonMap"),
+                         ("updown_wm.cu", "UpWmMap")):
+        text = _code(source)
+        assert '#include "updown_rows.cuh"' in text
+        assert f"up_gather_ln_kernel<NJ, {rmap}>" in text
+        assert not re.search(r"\bup_gather_ln_kernel\s*\(", text)
+
+
+def _dw_case(dims, dtype, misaligned=False):
+    """(dxs, upper, constants, cfg) of TINY with the stage widths ``dims``,
+    batch 1, CPU tensors; with ``misaligned``, dxs starts 2 bytes off a
+    16-byte boundary."""
+    cfg = dataclasses.replace(TINY, dims=dims)
+    consts = to_device(synthetic_constants(cfg), "cpu")
+    g = cfg.stage(0)
+    wz, wh, ww = g.window
+    shape = (1, g.z // wz, g.h_padded // wh, g.w // ww, wz * wh * ww, g.dim)
+    numel = torch.Size(shape).numel()
+    dxs = torch.randn(numel + misaligned).to(dtype)[int(misaligned):]
+    upper = torch.randn((1, 5, cfg.levels, cfg.lat, cfg.lon))
+    return dxs.view(shape), upper, consts, cfg
+
+
+@pytest.mark.parametrize("dims", [(16, 32, 32, 16), (20, 40, 40, 20)],
+                         ids=["TINY", "C 20"])
+def test_bf16_embed_dw_checks_shapes_before_a_launch(dims):
+    """``embed_dw_operands``, which the weight-gradient wrapper runs before
+    a launch, raises ValueError on a bf16 C that is not a multiple of 8 and
+    takes TINY's; float32 takes both."""
+    for dtype in (torch.bfloat16, torch.float32):
+        dxs, upper, consts, cfg = _dw_case(dims, dtype)
+        if dims[0] % 8 == 0 or dtype == torch.float32:
+            assert all(t.dtype == dtype
+                       for t in embed_dw_operands(dxs, upper, consts, cfg))
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                embed_dw_operands(dxs, upper, consts, cfg)
+
+
+def test_bf16_embed_dw_operands_are_16_byte_aligned():
+    """A bf16 cotangent that starts off a 16-byte boundary is handed to the
+    kernel as an aligned copy of the same values, beside the aligned
+    normalised field and const_h."""
+    dxs, upper, consts, cfg = _dw_case((16, 32, 32, 16), torch.bfloat16,
+                                       misaligned=True)
+    assert dxs.data_ptr() % 16
+    ops = embed_dw_operands(dxs, upper, consts, cfg)
+    assert torch.equal(ops[0], dxs)
+    assert all(t.data_ptr() % 16 == 0 for t in ops)
+
+
+def _up_canon_case(dims, dtype, misaligned=False):
+    """(params, input, out_h) of the canonical UpSample at TINY with the
+    stage widths ``dims``, batch 1, an odd crop; with ``misaligned``, the
+    input and the mix kernel start 2 bytes off a 16-byte boundary."""
+    cfg = dataclasses.replace(TINY, dims=dims)
+    g2 = cfg.stage(2)
+    p = _updown_params(g2.dim, cfg.stage(3).dim, "up", dtype)
+    shape = (1, g2.z, g2.h, g2.w, g2.dim)
+    numel = torch.Size(shape).numel()
+    x = torch.randn(numel + misaligned).to(dtype)[int(misaligned):]
+    if misaligned:
+        w = p["mix"]["kernel"]
+        p["mix"]["kernel"] = torch.zeros(w.numel() + 1,
+                                         dtype=w.dtype)[1:].view(w.shape)
+    return p, x.view(shape), 2 * g2.h - 1
+
+
+@pytest.mark.parametrize("dims", [(16, 32, 32, 16), (20, 40, 40, 20)],
+                         ids=["TINY", "C 20"])
+def test_bf16_canonical_up_sample_checks_shapes_before_a_launch(dims):
+    """``up_sample_operands``, which the canonical UpSample runs before a
+    launch, raises ValueError on bf16 channels that are not multiples of 8
+    and takes TINY's; float32 takes both."""
+    for dtype in (torch.bfloat16, torch.float32):
+        p, x, out_h = _up_canon_case(dims, dtype)
+        if dims[0] % 8 == 0 or dtype == torch.float32:
+            _, q, c_out = up_sample_operands(p, x, out_h)
+            assert c_out == dims[3] and q["mix"]["kernel"].dtype == dtype
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                up_sample_operands(p, x, out_h)
+
+
+def test_bf16_canonical_up_sample_operands_are_16_byte_aligned():
+    """A bf16 input or weight that starts off a 16-byte boundary is handed
+    to the canonical UpSample as an aligned copy."""
+    p, x, out_h = _up_canon_case((16, 32, 32, 16), torch.bfloat16,
+                                 misaligned=True)
+    assert x.data_ptr() % 16 and p["mix"]["kernel"].data_ptr() % 16
+    got, q, _ = up_sample_operands(p, x, out_h)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+    for sub in q.values():
+        assert all(t.data_ptr() % 16 == 0 for t in sub.values())
