@@ -18,7 +18,9 @@ Phases, each with its wall seconds:
      gather + LayerNorm passes), of the bf16 transition, recovery
      (upper and surface) and embed (their tensor-core kernel) and of the
      bf16 upper embed weight gradient and canonical UpSample (relayout,
-     products, split sum, gather + LayerNorm pass) on lines of their own;
+     products, split sum, gather + LayerNorm pass) and of the bf16
+     canonical DownSample and fused window attention (their products,
+     attention and gather + LayerNorm pass) on lines of their own;
   3. each kernel against its plain PyTorch version on the card, at the
      full-width Pangu-24 shapes the served paths give it, in float32 and bf16:
      error, time per launch, the plain version's time and the card's bound
@@ -27,31 +29,35 @@ Phases, each with its wall seconds:
      and 1; DownSample / UpSample, window-major and canonical; the edge
      kernels: embed, transition and recovery upper / surface, the last three
      at the stage-end offsets (0, 0, 0) and the served (1, 3, 6)); a batch of
-     8 through the stage-0 block, DownSample, UpSample (window-major and
+     8 through the stage-0 block, DownSample and UpSample (window-major and
      canonical), the transition, both recovery branches and the embed and
      of 16 through UpSample (its mix product then has more than 65,535 row
      tiles), the last sample
      against a batch-1 launch (bit for bit but the block's); then
      full-width float32 forwards, without and with the edge kernels,
-     kernels against plain versions.  Every bf16 block entry, DownSample,
-     UpSample (both), the transition, both recovery branches and the embed
-     twice,
+     kernels against plain versions.  Every bf16 block entry, DownSample
+     and UpSample (both), the transition, both recovery branches and the
+     embed twice,
      bit for bit, and the grouped block equal to the ungrouped one on the
      same input; beside each bf16
      time of a redesigned row its earlier kernel's (``PREVIOUS_BF16_MS``);
      the float32 error lines of the block entries, the grid attention,
-     DownSample, UpSample (both), the transition, the recovery and the
-     embed (here and in phases 6a, 7a, 8a, 9a) equal to their earlier
-     kernels'
+     DownSample and UpSample (both), the transition, the recovery, the
+     embed and the fused window attention (here and in phases 6a, 7a, 8a,
+     9a) equal to their earlier kernels'
      (``F32_BEFORE``, the float32 route being unchanged); one stage-0 bf16
-     block and grid attention forward, DownSample, UpSample, transition and
-     upper and surface recovery by class of kernel (``torch.profiler``:
+     block and grid attention forward, DownSample (both), UpSample,
+     transition and upper and surface recovery by class of kernel
+     (``torch.profiler``:
      products, attention, row passes, each with its rate), and the embed
      wrapper by prepass, upper product and plane-0 copy; junk on the
      latitude-pad rows of the bf16 DownSample's and UpSample's input leaves
      their output bit-equal, whose pad rows are zeros, and junk on those of
      the rolled pair leaves the bf16 transition's and both recovery
-     branches' outputs bit-equal;
+     branches' outputs bit-equal; the bf16 window-major DownSample at
+     offset (0, 0, 0) on the canonical grid bit-equal to the canonical
+     DownSample on its real rows (one gather + LayerNorm kernel, two row
+     maps);
   4. the main paths, Pangu-24 in the perf config (bf16 params and compute,
      tanh GELU, float32 LayerNorm statistics and softmax, lat_group 2),
      batch 1, random weights and synthetic constants from a seed, each driven
@@ -158,8 +164,11 @@ Phases, each with its wall seconds:
      a. float32 and bf16 against the plain versions: the fused window
         attention (``window_attention_pallas``) forward on the stage-0
         windows (1, 30, 124, 144, 192) and the stage-1 windows (1, 15, 64,
-        144, 384), with and without region ids, and every gradient of its
-        drop-in at stage 0; the block backward with a canonical end
+        144, 384), with and without region ids (bf16 twice, bit for bit;
+        each sample of a batch of 2 at stage 0 bit-equal to it run alone;
+        one stage-0 launch by class: products, attention), and every
+        gradient of its drop-in at stage 0; the block backward with a
+        canonical end
         (``block_bwd_canon``: the first block reading the grid, the shifted
         last block reading its cotangent as the grid) at stages 0 and 1
         with branch scales, and the first block without; the grouped block
@@ -183,9 +192,9 @@ max; the bf16 steps' losses and gradient norms finite.
 
 The bf16 block backward (both layouts), the grid attention and its
 backward, every bf16 block entry, the block tail, the recovery backward,
-the upper embed weight gradient, DownSample, UpSample (window-major and
-canonical), the transition, both recovery branches and the embed must also
-agree bit for bit over two runs
+the upper embed weight gradient, DownSample and UpSample (window-major and
+canonical), the transition, both recovery branches, the embed and the
+fused window attention must also agree bit for bit over two runs
 (``BIT_IDENTICAL``, ``BIT_IDENTICAL_FWD``, phase 3).
 
 Every failed check raises, and the script exits nonzero.  The last lines are
@@ -327,7 +336,7 @@ def _short_kernel(mangled):
         return m[1]
     m = re.search(r"((?:down|up)_gather_ln_kernel)ILi(\d+)E(?:NS_(\d+))?",
                   mangled)
-    if m:   # UpSample's kernel names its row map
+    if m:   # the gather + LayerNorm kernels name their row map
         rmap = mangled[m.end():m.end() + int(m[3])] if m[3] else ""
         return f"{m[1]}<{m[2]}{',' + rmap if rmap else ''}>"
     m = re.search(r"edge_mma_kernelINS_\d+([A-Za-z]\w*?)EEEvT_", mangled)
@@ -414,6 +423,13 @@ def dw_up_report(ptxas):
                      "embed_dw / updown ")
 
 
+def window_report(ptxas):
+    """The same lines for the bf16 fused window attention (the object of
+    ``WINDOW_ATTN_PART`` 1): its two products and its attention."""
+    return tc_report(ptxas_parts(ptxas, {"window_attn_1"}),
+                     r"QScaleEpi|BiasEpi|wattn_mma_fwd", "window attention ")
+
+
 def tail_recovery_report(ptxas):
     """The same lines for the bf16 block tail and recovery backward: their
     objects' products, LayerNorm passes, relayout and split sum."""
@@ -431,8 +447,22 @@ def tail_recovery_report(ptxas):
 # upper recovery: their first versions (commit e35ad6a); the embed and the
 # surface recovery: their first versions (commit 5d574eb); the upper embed
 # weight gradient and the canonical UpSample: their first versions (commit
-# 8ea71dc).
+# 8ea71dc); the canonical DownSample and the fused window attention (and
+# the drop-in's gradients, whose forward it is): their first versions
+# (commit b419df9).
 PREVIOUS_BF16_MS = {
+    'down_sample': {
+        'stage 0 -> 1, canonical grid': 2.097,
+    },
+    'window_attention_pallas': {
+        'stage 0 windows (1, 30, 124, 144, 192), region ids': 13.236,
+        'stage 0 windows (1, 30, 124, 144, 192), no ids': 12.888,
+        'stage 1 windows (1, 15, 64, 144, 384), region ids': 8.494,
+        'stage 1 windows (1, 15, 64, 144, 384), no ids': 8.452,
+    },
+    'window_attention_pallas backward': {
+        'stage 0, region ids, every gradient': 42.164,
+    },
     'embed_dw_upper': {
         'full width': 7.846,
     },
@@ -509,11 +539,12 @@ def previous_ms(name, label):
 
 
 # The float32 route of the block kernel, the grid attention forward, the
-# block tail, the recovery backward, DownSample, UpSample (window-major and
-# canonical), the transition, the recovery (both branches), the embed and
-# its upper weight gradient did not change with their bf16 redesigns, so
-# their float32 error lines must read as the earlier kernels' (commits
-# e1271cc, 37b26cf, a7e41b5, e35ad6a and 8ea71dc, as PREVIOUS_BF16_MS) did
+# block tail, the recovery backward, DownSample and UpSample (window-major
+# and canonical), the transition, the recovery (both branches), the embed,
+# its upper weight gradient and the fused window attention did not change
+# with their bf16 redesigns, so their float32 error lines must read as the
+# earlier kernels' (commits e1271cc, 37b26cf, a7e41b5, e35ad6a, 8ea71dc and
+# b419df9, as PREVIOUS_BF16_MS) did
 # in the same run of this script ("max_abs_err rel",
 # as printed), where torch and the card are the ones of that run (inputs
 # drawn elsewhere are not comparable)
@@ -587,6 +618,23 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
                     '7.153e-07 5.161e-07',
                 'embed_dw_upper | full width':
                     '7.568e-03 2.655e-06',
+                'down_sample | stage 0 -> 1, canonical grid':
+                    '1.550e-06 5.777e-07',
+                'window_attention_pallas | stage 0 windows (1, 30, 124, '
+                '144, 192), region ids':
+                    '1.583e-08 3.310e-07',
+                'window_attention_pallas | stage 0 windows (1, 30, 124, '
+                '144, 192), no ids':
+                    '1.118e-08 4.364e-07',
+                'window_attention_pallas | stage 1 windows (1, 15, 64, '
+                '144, 384), region ids':
+                    '3.353e-08 3.579e-07',
+                'window_attention_pallas | stage 1 windows (1, 15, 64, '
+                '144, 384), no ids':
+                    '2.235e-08 4.238e-07',
+                'window_attention_pallas backward | stage 0, region ids, '
+                'every gradient':
+                    '6.104e-05 7.918e-07',
             }}
 
 
@@ -594,7 +642,7 @@ F32_BEFORE = {"torch": "2.11.0+cu128", "card": "NVIDIA H100 80GB HBM3",
 # runs must agree bit for bit
 BIT_IDENTICAL_FWD = ("down_sample_wm", "up_sample_wm", "transition_wm",
                      "recovery_wm_upper", "recovery_wm_surface", "embed_wm",
-                     "up_sample")
+                     "up_sample", "down_sample")
 
 
 def f32_as_before(name, label, err, rel):
@@ -665,6 +713,14 @@ def grid_fwd_work(rows, c, n):
             "row passes": (0, 2 * rows * 2 * c)}
 
 
+def window_work(rows, c, n):
+    """The same for a bf16 fused window attention: the qkv and proj
+    products and the attention (no gather: its windows come partitioned)."""
+    work = grid_fwd_work(rows, c, n)
+    return {"products": work["products"], "attention": work["attention"],
+            "row passes": (0, 0)}
+
+
 def fwd_class(key):
     """A forward kernel's class by its name: the products (``*gemm*``),
     the attention (``*attn*``) or the row passes (the rest)."""
@@ -679,13 +735,18 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3, detail=None):
     kernels late in this script), each kernel's class from ``classify``
     (its name -> a key of ``work``), each class with its rate from
     ``work`` (class -> FLOP, bytes); beside the total, the launch's time by
-    CUDA events, so that a profile that missed kernels shows (an empty one
-    is taken again, up to three times).  With
+    CUDA events, so that a profile that missed kernels shows (one whose
+    device time is under a quarter of that time is taken again, up to
+    three times: late in this script a profile was seen to come back
+    empty, or with a few of the launch's kernels only; a wrapper's host
+    time keeps some launches' device time under half their events'
+    time).  With
     ``detail`` a class, its kernels follow, each with its launches and
     device time a launch of ``fn``, slowest first."""
     from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
+    events_ms = time_ms(fn, reps)
     for _ in range(3):   # a profile right after another was seen to be empty
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=reps,
@@ -706,7 +767,7 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3, detail=None):
             ms[classify(e.key)] += t
             if classify(e.key) == detail:
                 listed.append((t, e.count / reps, e.key))
-        if any(ms.values()):
+        if sum(ms.values()) >= 0.25 * events_ms:
             break
     parts = []
     for k, t in ms.items():
@@ -714,7 +775,7 @@ def class_breakdown(fn, work, classify=fwd_class, reps=3, detail=None):
         rate = (f"{flops / t / 1e9:.1f} TFLOP/s" if flops else
                 f"{byts / t / 1e6:.0f} GB/s") if t else "not run"
         parts.append(f"{k} {t:.3f} ms ({rate})")
-    out = (f"{sum(ms.values()):.3f} ms of device time ({time_ms(fn, reps):.3f}"
+    out = (f"{sum(ms.values()):.3f} ms of device time ({events_ms:.3f}"
            f" ms a launch by CUDA events): " + "; ".join(parts))
     for t, n, key in sorted(listed, reverse=True):
         out += f"\n  {detail}: {n:g} x {key[:72]} {t:.3f} ms"
@@ -952,7 +1013,8 @@ def main() -> int:
     ptxas = _build.ptxas_report()
     for line in (sdpa_report(ptxas, lib) + tc_report(ptxas) + fwd_report(ptxas)
                  + tail_recovery_report(ptxas) + updown_report(ptxas)
-                 + edge_report(ptxas) + dw_up_report(ptxas)):
+                 + edge_report(ptxas) + dw_up_report(ptxas)
+                 + window_report(ptxas)):
         print(line)
     done("build", t0)
 
@@ -1354,6 +1416,30 @@ def main() -> int:
     torch.cuda.synchronize()
     b8.append(("up_sample", 8, got, want))
     del x8
+    # the canonical DownSample: batch 8, its first sample by class and, at
+    # offset (0, 0, 0) on the same grid with zero pad rows, the window-major
+    # DownSample's real rows bit-equal to it
+    x8 = torch.randn((8, g0.z, g0.h, g0.w, c0), generator=gud,
+                     device=dev).to(torch.bfloat16)
+    got = down_sample(params["downsample"], x8)[7]
+    want = down_sample(params["downsample"], x8[7:].contiguous())[0]
+    torch.cuda.synchronize()
+    b8.append(("down_sample", 8, got, want))
+    x1 = x8[:1].contiguous()
+    print("down_sample bf16 by class (torch.profiler): " + class_breakdown(
+        lambda: down_sample(params["downsample"], x1),
+        down_work(g0.z * g0.h * g0.w, g1.z * g1.h * g1.w, c0)))
+    grid = torch.nn.functional.pad(x1, (0, 0, 0, 0, 0, g0.h_padded - g0.h))
+    wm = from_window_major(down_sample_wm(
+        params["downsample"], to_window_major(grid, g0.window).contiguous(),
+        g0, g1, (0, 0, 0)), g1.window)[:, :, :g1.h]
+    same = bool(torch.equal(wm, down_sample(params["downsample"], x1)))
+    print(f"down_sample_wm bf16 at off (0, 0, 0) on the canonical grid: its "
+          f"real rows bit-equal to down_sample {same}")
+    if not same:
+        raise AssertionError("the window-major and canonical DownSample "
+                             "differ on the same tokens")
+    del x8, x1, grid, wm
     s8, d8 = (storage(g0, torch.bfloat16, batch=8, g=gedge) for _ in range(2))
     for name, fn in edge_fns.items():
         got = fn(s8, d8)[7]
@@ -1937,7 +2023,7 @@ def float32_train_steps(params, fields, tgt, consts_dev, runs, pairs, label):
 BIT_IDENTICAL = ("block_bwd", "block_bwd_canon", "grid_attention_bwd",
                  "block_wm drop", "block_v2", "grid_attention",
                  "block_noroll_fused", "block_wm_group", "fused_block_tail",
-                 "recovery_bwd", "embed_dw_upper")
+                 "recovery_bwd", "embed_dw_upper", "window_attention_pallas")
 
 
 def flat(tree):
@@ -3044,6 +3130,35 @@ def canon_phase(params, perf, consts_dev, state, storage, ids_of, block_cost,
         check_kernels(cases, dtype, records)
         del cases
         torch.cuda.empty_cache()
+
+    # the bf16 fused window attention at stage 0 with region ids: each
+    # sample of a batch of 2 bit-equal to it run alone, one launch by class
+    # (inputs from a generator of their own, so that gen's draws stay)
+    g2w = torch.Generator(device=dev).manual_seed(SEED + 81)
+    at = to_dtype(params["stages"][0]["blocks"][1]["attn"], torch.bfloat16)
+    w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+         at["proj"]["bias"])
+    bias = folded(at["bias_table"], ids_of(g0))
+    x2 = L.window_partition(torch.randn(
+        (2, g0.z, g0.h_padded, g0.w, g0.dim), generator=g2w,
+        device=dev).to(torch.bfloat16), g0.window).contiguous()
+    got = window_attention_fused(x2, *w, bias)
+    for b in range(2):
+        alone = window_attention_fused(x2[b:b + 1].contiguous(), *w, bias)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got[b:b + 1], alone))
+        print(f"batch 2, sample {b} vs batch 1: window_attention_pallas "
+              f"stage 0, region ids bf16 bit-equal {same}")
+        if not same:
+            raise AssertionError(f"window_attention_pallas batch 2: sample "
+                                 f"{b} differs from a batch-1 launch")
+    x1 = x2[:1].contiguous()
+    print("window_attention_pallas stage 0, region ids bf16 by class "
+          "(torch.profiler): " + class_breakdown(
+              lambda: window_attention_fused(x1, *w, bias),
+              window_work(x1.numel() // g0.dim, g0.dim, g0.window_tokens)))
+    del x2, x1, got, alone, bias
+    torch.cuda.empty_cache()
 
     # ---- 9b. the drop-in on the embedded state: a path of its own ----------
     at = params["stages"][0]["blocks"][0]["attn"]

@@ -38,14 +38,16 @@ NVCC_FLAGS = ["-O3", "-std=c++17", "-arch=sm_90a", "-Xcompiler", "-fPIC"]
 VERBOSE_SOURCES = ("sdpa.cu", "block_bwd.cu", "grid_attn.cu", "block_wm.cu",
                    "block_tail.cu", "recovery_bwd.cu", "updown_wm.cu",
                    "transition_wm.cu", "recovery_wm.cu", "embed_wm.cu",
-                   "embed_dw.cu", "updown.cu")
+                   "embed_dw.cu", "updown.cu", "window_attn.cu")
 # sources built as several objects in parallel, one per set of defines (the
 # source says what each part holds)
 PARTS = {"sdpa.cu": (["-DSDPA_PART=0"], ["-DSDPA_PART=1"]),
          "block_bwd.cu": (["-DBLOCK_BWD_PART=0"], ["-DBLOCK_BWD_PART=1"]),
          "block_wm.cu": (["-DBLOCK_WM_PART=0"], ["-DBLOCK_WM_PART=1"]),
          "grid_attn.cu": (["-DGRID_ATTN_PART=0"], ["-DGRID_ATTN_PART=1"],
-                          ["-DGRID_ATTN_PART=2"])}
+                          ["-DGRID_ATTN_PART=2"]),
+         "window_attn.cu": (["-DWINDOW_ATTN_PART=0"],
+                            ["-DWINDOW_ATTN_PART=1"])}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int

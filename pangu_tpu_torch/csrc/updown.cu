@@ -26,18 +26,22 @@
 // ~0.3 GB, just below it (bytes).  So each pass should move its bytes once
 // and the products should run on the tensor cores.
 //
-// UpSample in bf16 (the perf config) runs the window-major UpSample's plan
-// (updown_wm.cu) with the canonical row map: the expand and mix products on
-// mma_gemm.cuh (128 x 96 mma.sync tiles, a plain rounding store: the
-// canonical grid has no pad rows) and between them one fused gather +
-// LayerNorm pass (updown_rows.cuh's up_gather_ln_kernel with UpCanonMap:
-// four rows a warp for C' = 192, 16 bytes a lane).  It takes channel counts
-// that are multiples of 8, LayerNorm rows of at most 256 * LN_MAX_NJ values
-// and 16-byte aligned operands (the entry refuses the rest; the wrapper
-// checks first).  float32 UpSample (the parity config) and DownSample in
-// both dtypes keep the first version: an element-a-lane gather, then
-// common.cuh's ln_rows in place and its gemm (64 x 64 tiles, no pipeline),
-// which adds a round trip of the 4C-wide intermediate through device
+// In bf16 (the perf config) both run the window-major pair's plan
+// (updown_wm.cu) with canonical row maps.  DownSample: one fused gather +
+// LayerNorm pass (updown_rows.cuh's down_gather_ln_kernel with
+// DownCanonMap: a warp a stage-1 row, its 4C values in registers, read 16
+// bytes a lane; the zero latitude row of an odd H is a zero part, so no
+// padded copy of x is made), then the reduce product on mma_gemm.cuh (128
+// x 96 mma.sync tiles, a plain rounding store: the canonical grid has no
+// pad rows).  UpSample: the expand and mix products on mma_gemm.cuh and
+// between them one fused gather + LayerNorm pass (up_gather_ln_kernel with
+// UpCanonMap: four rows a warp for C' = 192, 16 bytes a lane).  So the
+// bf16 route takes channel counts that are multiples of 8, LayerNorm rows
+// of at most 256 * LN_MAX_NJ values and 16-byte aligned operands (the
+// entries refuse the rest; the wrappers check first).  float32 (the
+// parity config) keeps the first version: an element-a-lane gather, then
+// common.cuh's ln_rows in place and its gemm (64 x 64 tiles, no
+// pipeline), which adds a round trip of the intermediate through device
 // memory.
 #include "mma_gemm.cuh"
 #include "updown_rows.cuh"
@@ -86,6 +90,7 @@ up_canon_gather_kernel(const T* __restrict__ e, T* __restrict__ y, long long M3,
   for (int c = lane; c < C; c += 32) dst[c] = src[c];
 }
 
+// the float32 DownSample (the first version; bf16 runs down_sample_bf16 below)
 template <typename T>
 int down_sample(const void* x, void* out, void* ws, const void* ns,
                 const void* nb, const void* wr, int BZ, int H, int W, int C,
@@ -127,6 +132,41 @@ int up_sample(const void* x, void* out, void* ws, const void* we,
        c_out, ACT_NONE, none, st);
   PANGU_CHECK_LAUNCH();
   return 0;
+}
+
+// ---- the bf16 DownSample ---------------------------------------------------
+
+// DownSample's canonical row map (down_gather_ln_kernel): part (h_off,
+// w_off) of row (bz, i, j) of the (BZ, H2, W2) grid reads x at (bz, 2i +
+// h_off, 2j + w_off); past an odd H the part is zero (-1), the zero row
+// the JAX wrapper pads; no row is padding
+struct DownCanonMap {
+  int H, W, H2, W2, C;
+  __device__ long long operator()(long long m, int part) const {
+    const int j = (int)(m % W2);
+    const long long q = m / W2;
+    const int i = (int)(q % H2);
+    const long long bz = q / H2;
+    const int lat = 2 * i + part / 2;
+    if (lat >= H) return -1;
+    return ((bz * H + lat) * W + 2 * j + part % 2) * C;
+  }
+};
+
+static int down_sample_bf16(const bf16* x, bf16* out, bf16* cat,
+                            const bf16* ns, const bf16* nb, const bf16* wr,
+                            int BZ, int H, int W, int C, cudaStream_t st) {
+  const int H2 = (H + 1) / 2, W2 = W / 2;
+  const long long M1 = (long long)BZ * H2 * W2;
+  int err = with_nj(row_nj(C / 2), [&](auto nj) {
+    constexpr int NJ = decltype(nj)::value;
+    down_gather_ln_kernel<NJ, DownCanonMap><<<row_blocks(M1), 256, 0, st>>>(
+        x, cat, M1, C, DownCanonMap{H, W, H2, W2, C}, ns, nb);
+    return (int)cudaGetLastError();
+  });
+  if (err) return err;
+  return (int)mma_gemm<false>(cat, wr, M1, 2 * C, 4 * C,
+                              RoundEpi<bf16>{out, 2 * C}, st);
 }
 
 // ---- the bf16 UpSample -----------------------------------------------------
@@ -174,7 +214,9 @@ static int up_sample_bf16(const bf16* x, bf16* out, bf16* ws, const bf16* we,
 using namespace pangu;
 
 // dtype: 0 = float32, 1 = bfloat16.  x: (B, Z, H, W, C), BZ = B * Z.
-// Returns a cudaError_t (0 = ok).
+// Returns a cudaError_t (0 = ok; cudaErrorInvalidValue for an odd W and,
+// in bf16, for a channel count that is not a multiple of 8, a LayerNorm row
+// the row pass cannot hold or an operand off a 16-byte boundary).
 extern "C" int pangu_down_sample(int dtype, const void* x, void* out,
                                  void* workspace, const void* ns,
                                  const void* nb, const void* wr, int BZ, int H,
@@ -183,9 +225,13 @@ extern "C" int pangu_down_sample(int dtype, const void* x, void* out,
   if (W % 2 != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return down_sample<float>(x, out, workspace, ns, nb, wr, BZ, H, W, C, st);
-  if (dtype == 1)
-    return down_sample<bf16>(x, out, workspace, ns, nb, wr, BZ, H, W, C, st);
-  return (int)cudaErrorInvalidValue;
+  // bf16: the tensor-core tiles and the 16-byte row pass
+  if (dtype != 1 || C % 8 || row_nj(C / 2) > LN_MAX_NJ ||
+      !aligned16_all({x, out, workspace, ns, nb, wr}))
+    return (int)cudaErrorInvalidValue;
+  return down_sample_bf16((const bf16*)x, (bf16*)out, (bf16*)workspace,
+                          (const bf16*)ns, (const bf16*)nb, (const bf16*)wr,
+                          BZ, H, W, C, st);
 }
 
 // x: (B, Z, H, W, c_in) -> out (B, Z, out_h, 2W, c_out), out_h <= 2H.

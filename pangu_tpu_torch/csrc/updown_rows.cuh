@@ -1,11 +1,12 @@
 // The bf16 row passes that the window-major (updown_wm.cu) and canonical
 // (updown.cu) DownSample and UpSample share: a LayerNorm row held in
-// registers and written 16 bytes a lane, and UpSample's fused gather +
-// LayerNorm kernel, templated on a row map (where a stage-3 row reads its
-// C' slice of the expand product e): the window-major map rolls the
-// coordinates back and zeroes latitude-pad rows (updown_wm.cu, UpWmMap),
-// the canonical one halves the coordinates of a cropped grid that has no
-// pad rows (updown.cu, UpCanonMap).  Both UpSample routes run one kernel.
+// registers and written 16 bytes a lane, and the fused gather + LayerNorm
+// kernels of both, templated on a row map (where an output row reads its
+// values): the window-major maps roll the coordinates back and mark
+// latitude-pad rows (updown_wm.cu, DownWmMap, UpWmMap), the canonical ones
+// work on a grid without pad rows (updown.cu, DownCanonMap: a zero part
+// past an odd latitude count; UpCanonMap: the coordinates of a cropped
+// grid halved).  Both DownSamples run one kernel, and both UpSamples.
 #pragma once
 
 #include <type_traits>
@@ -60,6 +61,41 @@ __device__ __forceinline__ void ln_store_row(float (&v)[NJ][8], int chunks,
 __device__ __forceinline__ void zero_row16(bf16* out, int chunks, int lane) {
   for (int k = lane; k < chunks; k += 32)
     *reinterpret_cast<uint4*>(out + 8 * k) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// DownSample's gather + LayerNorm: one warp per stage-1 row m, cat[m] =
+// round_bf16(LN([the four parts' C values in (h_off, w_off) order])), 4C
+// values in registers, each part read 16 bytes a lane.  Lane j asks the
+// map for part j % 4 once (the index arithmetic of a row in one pass) and
+// each lane takes its chunks' offsets by shuffle.  Map: ``long long
+// operator()(long long m, int part)``, the element offset in x of part
+// ``part`` (h_off = part / 2, w_off = part % 2) of row m, -1 for a part
+// read as zeros, or -2 for every part of a padding row (written as zeros).
+template <int NJ, typename Map>
+__global__ void __launch_bounds__(256)
+down_gather_ln_kernel(const bf16* __restrict__ x, bf16* __restrict__ cat,
+                      long long M1, int C, Map map,
+                      const bf16* __restrict__ scale,
+                      const bf16* __restrict__ shift) {
+  const int lane = threadIdx.x % 32, cpr = C / 8, chunks = 4 * cpr;
+  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  if (m >= M1) return;
+  const long long mine = map(m, lane % 4);
+  bf16* dst = cat + m * 4 * C;
+  if (__shfl_sync(0xffffffffu, mine, 0) == -2) {
+    zero_row16(dst, chunks, lane);
+    return;
+  }
+  float v[NJ][8];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int k = lane + 32 * j, part = min(k / cpr, 3);
+    const long long src = __shfl_sync(0xffffffffu, mine, part);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[j][e] = 0.f;
+    if (k < chunks && src >= 0) ld8(x + src + 8 * (k - part * cpr), v[j]);
+  }
+  ln_store_row<NJ>(v, chunks, 4 * C, scale, shift, dst, lane);
 }
 
 // UpSample's gather + LayerNorm: one warp per up_rows<NJ>() consecutive

@@ -33,10 +33,12 @@
 // float32 (the parity config) runs the first version's kernels: an element
 // a lane gather, common.cuh's ln_rows in place, common.cuh's FMA gemm (the
 // outputs stay the same bit for bit).  bf16 (the perf config) runs
-//   DownSample  one fused gather + LayerNorm pass (down_gather_ln_kernel:
+//   DownSample  one fused gather + LayerNorm pass (updown_rows.cuh's
+//               down_gather_ln_kernel with the rolled row map DownWmMap:
 //               a warp a stage-1 row, its 4C values in registers, read 16
-//               bytes a lane from the four source rows, whose offsets and
-//               moduli are computed once a row and shuffled to the lanes),
+//               bytes a lane from the four source rows, whose offsets are
+//               computed once a row and shuffled to the lanes; the
+//               canonical DownSample of updown.cu runs the same kernel),
 //               then one mma_gemm.cuh product (128 x 96 mma.sync tiles)
 //               whose epilogue (PadEpi) zeroes the latitude-pad rows;
 //   UpSample    the expand product on mma_gemm (PadEpi, every row kept),
@@ -155,47 +157,26 @@ int up_sample_wm(const void* x, void* out, void* ws, const void* we,
 
 // ---- the bf16 route ---------------------------------------------------------------
 
-// DownSample's gather + LayerNorm: one warp per stage-1 row m, cat[m] =
-// round_bf16(LN([x0 rows of parts 0..3])); an output latitude-pad row
-// (lat1 >= h1, zeroed by the product) is written as zeros
-template <int NJ>
-__global__ void __launch_bounds__(256)
-down_gather_ln_kernel(const bf16* __restrict__ x, bf16* __restrict__ cat,
-                      long long M1, int C, WmShape s0, WmShape s1, Roll off,
-                      int h0, int h1, const bf16* __restrict__ scale,
-                      const bf16* __restrict__ shift) {
-  const int lane = threadIdx.x % 32, cpr = C / 8, chunks = 4 * cpr;
-  const long long m = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  if (m >= M1) return;
-  const WmPos p = wm_split(m, s1);
-  const int lat1 = s1.wh * p.hh + p.rh;
-  bf16* dst = cat + m * 4 * C;
-  if (lat1 >= h1) {
-    zero_row16(dst, chunks, lane);
-    return;
-  }
-  // lane j computes the source row of part j % 4 (h_off = part / 2, w_off =
-  // part % 2; -1 past h0: zeros), each lane then takes its chunks' rows
-  const int Z = s0.nz * s0.wz, hp0 = s0.nlat * s0.wh, W0 = s0.nlon * s0.ww;
-  long long row = -1;
-  {
-    const int part = lane % 4, lat0 = 2 * lat1 + part / 2;
+// DownSample's row map (down_gather_ln_kernel, updown_rows.cuh): part
+// (h_off, w_off) of stage-1 row m reads x0 at canonical (z, 2 lat1 + h_off,
+// 2 w1 + w_off) - off; a part past h0 is -1 (zeros), an output
+// latitude-pad row (lat1 >= h1, zeroed by the product) -2 (zeros)
+struct DownWmMap {
+  WmShape s0, s1;
+  Roll off;
+  int h0, h1, C;
+  __device__ long long operator()(long long m, int part) const {
+    const WmPos p = wm_split(m, s1);
+    const int lat1 = s1.wh * p.hh + p.rh;
+    if (lat1 >= h1) return -2;
+    const int lat0 = 2 * lat1 + part / 2;
+    if (lat0 >= h0) return -1;
+    const int Z = s0.nz * s0.wz, hp0 = s0.nlat * s0.wh, W0 = s0.nlon * s0.ww;
     const int w0 = 2 * (s1.ww * p.l + p.rw) + part % 2;
-    if (lat0 < h0)
-      row = wm_row(p.b, pmod(s1.wz * p.zz + p.rz - off.z, Z),
-                   pmod(lat0 - off.lat, hp0), pmod(w0 - off.lon, W0), s0);
+    return wm_row(p.b, pmod(s1.wz * p.zz + p.rz - off.z, Z),
+                  pmod(lat0 - off.lat, hp0), pmod(w0 - off.lon, W0), s0) * C;
   }
-  float v[NJ][8];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int k = lane + 32 * j, part = min(k / cpr, 3);
-    const long long src = __shfl_sync(0xffffffffu, row, part);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) v[j][e] = 0.f;
-    if (k < chunks && src >= 0) ld8(x + src * C + 8 * (k - part * cpr), v[j]);
-  }
-  ln_store_row<NJ>(v, chunks, 4 * C, scale, shift, dst, lane);
-}
+};
 
 // UpSample's row map (up_gather_ln_kernel, updown_rows.cuh): stage-3 row m
 // reads the C' slice of e at canonical (z, lat3 / 2, w3 / 2) - off, part
@@ -222,8 +203,9 @@ static int down_sample_wm_bf16(const bf16* x, bf16* out, bf16* cat,
                                cudaStream_t st) {
   const long long M1 = (long long)B * s1.nz * s1.nlat * s1.nlon * s1.n;
   int e = with_nj(row_nj(C / 2), [&](auto nj) {
-    down_gather_ln_kernel<decltype(nj)::value><<<row_blocks(M1), 256, 0, st>>>(
-        x, cat, M1, C, s0, s1, off, h0, h1, ns, nb);
+    constexpr int NJ = decltype(nj)::value;
+    down_gather_ln_kernel<NJ, DownWmMap><<<row_blocks(M1), 256, 0, st>>>(
+        x, cat, M1, C, DownWmMap{s0, s1, off, h0, h1, C}, ns, nb);
     return (int)cudaGetLastError();
   });
   if (e) return e;

@@ -2,6 +2,9 @@
 // block kernel (block_wm.cu, ungrouped and grouped alike) and of the grid
 // attention (grid_attn.cu), the forward the backward units (block_bwd.cu,
 // grid_attn.cu) recompute, and the backward with the bias-table gradient.
+// The forward also runs the fused window attention (window_attn.cu), whose
+// windows come partitioned lon-major: window w of type t is read as the
+// type-t window of sample w of a grid with nz = nlon = 1, nlat = ntype.
 // In bf16 they take the place of block_common.cuh::window_attention,
 // block_wm.cu's group_attn_kernel and attn_bwd.cuh::attn_bwd_kernel;
 // float32 keeps those CUDA-core kernels (TF32 products would miss float32's
@@ -554,11 +557,13 @@ inline bool wa_vec(const WaGeo& w, const void* a, const void* b) {
          ((uintptr_t)b & 15) == 0;
 }
 
-// attention forward of every window of B samples (out (M, C))
+// attention forward of every window of B samples (out (M, C)); the logits
+// scale (q k^T) + bias with scale hd^-1/2, or ``scale`` where it is not 0
+// (window_attn.cu passes 1: its q is already scaled, in bf16)
 template <typename TB>
 inline int wa_attention(const bf16* qkv, bf16* out, const TB* table,
                         const int* ids, int B, const WmShape& s, int C,
-                        int heads, cudaStream_t st) {
+                        int heads, cudaStream_t st, float scale = 0.f) {
   const WaGeo w = {B, s.nz, s.nlat, s.nlon, s.n, C, heads, C / heads};
   const WaPlan p = wa_plan(false, s.n, w.hd, sizeof(TB), wa_max_smem());
   if (!p.smem) return (int)cudaErrorInvalidValue;
@@ -568,7 +573,8 @@ inline int wa_attention(const bf16* qkv, bf16* out, const TB* table,
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(s.nz * s.nlat * heads);
   wattn_mma_fwd_kernel<TB><<<grid, 2 * pad16(s.n), p.smem, st>>>(
-      qkv, out, table, ids, w, attn_scale(w.hd), wa_vec(w, qkv, qkv));
+      qkv, out, table, ids, w, scale != 0.f ? scale : attn_scale(w.hd),
+      wa_vec(w, qkv, qkv));
   return (int)cudaGetLastError();
 }
 

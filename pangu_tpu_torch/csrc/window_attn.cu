@@ -24,14 +24,32 @@
 //   GEMM       out = round_T(o Wp + bp): the per-head proj products summed
 //              in float32 with the bias, rounded once
 // The TPU kernel keeps qkv and o in VMEM (it reads x once and writes y
-// once); this first version keeps them in device memory (4 C values a row).
+// once); here they stay in device memory (4 C values a row), as in the
+// grid attention (grid_attn.cu), which computes the same three steps.
 //
 // What bounds it on an H100: arithmetic, 2 M C (4C + 2N) FLOP for M rows
 // (0.22 ms in bf16 at stage 0, 30 x 124 windows of 144 tokens at C = 192)
-// against reading x and the bias and writing out (~0.47 GB, 0.14 ms).  The
-// untuned GEMM tiles of common.cuh and the one-warp-per-query attention loop
-// of the block kernel run it well below that bound.
-#include "block_common.cuh"
+// against reading x and the bias and writing out (~0.47 GB, 0.14 ms).
+//
+// bf16 (the perf config) runs the grid attention forward's plan without its
+// gather (the windows come partitioned): the qkv product on mma_gemm.cuh
+// (128 x 96 mma.sync tiles) whose epilogue (QScaleEpi) adds the bias in
+// float32, rounds once and, on q's C columns, multiplies by the rounded
+// scale and rounds again; wattn_mma.cuh's tensor-core attention with its
+// logit scale 1 (q is scaled already), one block of nine warps per
+// (window type, head) walking the windows of that type (window w of type t
+// starts at row (w ntype + t) N: wa_base with nz = nlon = 1, nlat =
+// ntype), the float32 folded bias as its table and no region ids; the proj
+// product on mma_gemm.cuh with the bias in float32 and one rounding
+// (fwd_gemm: the Pallas body's per-head float32 sums plus bp, in another
+// order).  So the bf16 route takes C a multiple of 8, windows of at most
+// 144 tokens and 16-byte aligned x, out, workspace and weights (the entry
+// refuses the rest; the wrapper checks first); any head dim (the attention
+// copies a head dim off 8 element by element).  float32 (the parity
+// config) keeps the first version: common.cuh's gemm and the one-warp-per-
+// query attention of block_common.cuh (window_attend, kScaleQ).
+#include "mma_gemm.cuh"
+#include "wattn_mma.cuh"
 
 namespace pangu {
 
@@ -56,6 +74,7 @@ inline float q_scale(int hd, int bf16_dtype) {
   return bf16_dtype ? __bfloat162float(__float2bfloat16(s)) : s;
 }
 
+// the float32 route (the first version; bf16 runs window_attn_bf16)
 template <typename T>
 int window_attn(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
                 const T* wp, const T* bp, const float* bias, long long nwin,
@@ -84,9 +103,65 @@ int window_attn(const T* x, T* out, T* ws, const T* wqkv, const T* bqkv,
   return 0;
 }
 
+// ---- the bf16 route -------------------------------------------------------
+
+// qkv = round_bf16(acc + bias); on q's C columns, then round_bf16(q *
+// scale_t): the Pallas body's rounding of q after its bias, then q times
+// the scale in the dtype (two bf16 values multiply exactly in float32, so
+// one more rounding gives the bf16 product)
+struct QScaleEpi {
+  const bf16* bias;
+  bf16* out;
+  int N, C;
+  float scale_t;
+  __device__ void operator()(int, long long r, int c,
+                             const float (&v)[8]) const {
+    float o[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = v[e] + to_f(bias[c + e]);
+    if (c < C)   // 8-column groups: C % 8 == 0, so a group is q's or not
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = round_t<bf16>(o[e]) * scale_t;
+    st8(out + r * N + c, o);
+  }
+};
+
+int window_attn_bf16(const bf16* x, bf16* out, bf16* ws, const bf16* wqkv,
+                     const bf16* bqkv, const bf16* wp, const bf16* bp,
+                     const float* bias, int nwin, int ntype, int N, int C,
+                     int heads, float scale_t, cudaStream_t st);
+
+// The file builds as two objects compiled in parallel (_build.PARTS): with
+// WINDOW_ATTN_PART 1 only window_attn_bf16 (the tensor-core products and
+// attention, most of the file's compile time), with WINDOW_ATTN_PART 0
+// everything else, the entry calling it across the objects.  Without
+// WINDOW_ATTN_PART it builds whole.
+#if !defined(WINDOW_ATTN_PART) || WINDOW_ATTN_PART == 1
+int window_attn_bf16(const bf16* x, bf16* out, bf16* ws, const bf16* wqkv,
+                     const bf16* bqkv, const bf16* wp, const bf16* bp,
+                     const float* bias, int nwin, int ntype, int N, int C,
+                     int heads, float scale_t, cudaStream_t st) {
+  const long long M = (long long)nwin * ntype * N;
+  // workspace: qkv (3C) | o (C)
+  bf16* qkv = ws;
+  bf16* attn = qkv + M * 3 * C;
+  int e = (int)mma_gemm<false>(x, wqkv, M, 3 * C, C,
+                               QScaleEpi{bqkv, qkv, 3 * C, C, scale_t}, st);
+  if (e) return e;
+  // window w of type t: sample w, lat window t of a (1, ntype, 1) grid
+  const WmShape s = {1, ntype, 1, N, 1, 1, N};
+  e = wa_attention<float>(qkv, attn, bias, nullptr, nwin, s, C, heads, st,
+                          1.f);
+  if (e) return e;
+  return fwd_gemm(attn, wp, bp, out, M, C, C, ACT_NONE, st);
+}
+#endif
+
 }  // namespace pangu
 
 using namespace pangu;
+
+#if !defined(WINDOW_ATTN_PART) || WINDOW_ATTN_PART == 0
 
 // T elements of workspace the entry below needs for ``rows`` window rows
 extern "C" long long pangu_window_attn_ws(long long rows, int C) {
@@ -94,7 +169,10 @@ extern "C" long long pangu_window_attn_ws(long long rows, int C) {
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (x, out, the weights); bias is
-// float32.  Returns a cudaError_t (0 = ok).
+// float32.  Returns a cudaError_t (0 = ok; cudaErrorInvalidValue for a
+// window of more than 256 tokens and, in bf16, for a C that is not a
+// multiple of 8, a window of more than 144 tokens or an operand off a
+// 16-byte boundary).
 extern "C" int pangu_window_attn(int dtype, const void* x, void* out, void* ws,
                                  const void* wqkv, const void* bqkv,
                                  const void* wp, const void* bp,
@@ -104,13 +182,21 @@ extern "C" int pangu_window_attn(int dtype, const void* x, void* out, void* ws,
   if (n > 32 * ATT_MAXJ || heads < 1 || C % heads != 0)
     return (int)cudaErrorInvalidValue;
   const float scale_t = q_scale(C / heads, dtype == 1);
-#define PANGU_WATTN(T)                                                         \
-  return window_attn<T>((const T*)x, (T*)out, (T*)ws, (const T*)wqkv,         \
-                        (const T*)bqkv, (const T*)wp, (const T*)bp,           \
-                        (const float*)bias, nwin, ntype, n, C, heads,         \
-                        scale_t, st)
-  if (dtype == 0) PANGU_WATTN(float);
-  if (dtype == 1) PANGU_WATTN(bf16);
-#undef PANGU_WATTN
-  return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return window_attn<float>((const float*)x, (float*)out, (float*)ws,
+                              (const float*)wqkv, (const float*)bqkv,
+                              (const float*)wp, (const float*)bp,
+                              (const float*)bias, nwin, ntype, n, C, heads,
+                              scale_t, st);
+  // bf16: the tensor-core tiles take 8-column groups, 16-byte aligned
+  // operands and windows of at most 144 tokens
+  if (dtype != 1 || C % 8 || pad16(n) > 16 * WA_KT ||
+      !aligned16_all({x, out, ws, wqkv, wp}))
+    return (int)cudaErrorInvalidValue;
+  return window_attn_bf16((const bf16*)x, (bf16*)out, (bf16*)ws,
+                          (const bf16*)wqkv, (const bf16*)bqkv,
+                          (const bf16*)wp, (const bf16*)bp,
+                          (const float*)bias, nwin, ntype, n, C, heads,
+                          scale_t, st);
 }
+#endif  // WINDOW_ATTN_PART 0

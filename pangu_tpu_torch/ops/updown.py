@@ -13,11 +13,13 @@
 
 Each wrapper launches its CUDA kernel (``csrc/updown.cu``) on a CUDA tensor
 and counts the launch in ``launches``, and runs its plain version on a CPU
-tensor.  The bf16 UpSample runs on the tensor cores (two ``csrc/
-mma_gemm.cuh`` products around a fused gather + LayerNorm pass, the
-window-major UpSample's plan), so it takes channel counts that are
-multiples of 8 and LayerNorm rows of at most ``LN_ROW_MAX`` values:
-``up_sample_operands`` checks the input before a launch.
+tensor.  In bf16 both run on the tensor cores, with the window-major
+pair's plans: DownSample one fused gather + LayerNorm pass and one
+``csrc/mma_gemm.cuh`` product, UpSample two products around a fused
+gather + LayerNorm pass.  So they take channel counts that are multiples
+of 8 and LayerNorm rows of at most ``LN_ROW_MAX`` values:
+``down_sample_operands`` and ``up_sample_operands`` check the input before
+a launch.
 ``down_sample_train`` / ``up_sample_train`` (the ``block_layout="v2"``
 training trunk) run the kernel forward and, backward, autograd
 through a recompute of the plain version (``recompute_train``, which the
@@ -69,11 +71,13 @@ def down_sample_plain(p, x):
     return dense(p["reduce"], layer_norm(p["norm"], x))
 
 
-def down_sample(p, x):
-    """x: the canonical (B, Z, H, W, C) grid, W even.  The CUDA kernel for
-    a CUDA tensor, the plain version for a CPU tensor."""
-    if not x.is_cuda:
-        return down_sample_plain(p, x)
+def down_sample_operands(p, x):
+    """What the DownSample kernel takes, checked before a launch: ``(x,
+    q)``, q the params in x's dtype.  Raises ValueError on an unsupported
+    input or, in bf16 (the tensor-core route), on a channel count that is
+    not a multiple of 8 or a LayerNorm row the row pass cannot hold; the
+    bf16 input and params are 16-byte aligned (copies where they are
+    not)."""
     B, Z, H, W, C = x.shape
     if x.dtype not in DTYPE_CODE or not x.is_contiguous() or W % 2:
         raise ValueError(f"down_sample: unsupported input {tuple(x.shape)} "
@@ -83,6 +87,21 @@ def down_sample(p, x):
     if q["reduce"]["kernel"].shape != (4 * C, 2 * C):
         raise ValueError(f"down_sample: reduce kernel "
                          f"{tuple(q['reduce']['kernel'].shape)} for C={C}")
+    if x.dtype == torch.bfloat16:
+        check_updown_shape((C,), 4 * C, "down_sample")
+        x, q = aligned16(x), aligned_tree(q)
+    return x, q
+
+
+def down_sample(p, x):
+    """x: the canonical (B, Z, H, W, C) grid, W even.  The CUDA kernel for
+    a CUDA tensor (in bf16 the tensor-core route, whose operands
+    ``down_sample_operands`` checks and aligns), the plain version for a
+    CPU tensor."""
+    if not x.is_cuda:
+        return down_sample_plain(p, x)
+    x, q = down_sample_operands(p, x)
+    B, Z, H, W, C = x.shape
     out = torch.empty((B, Z, -(-H // 2), W // 2, 2 * C), dtype=x.dtype,
                       device=x.device)
     ws = torch.empty(out.numel() * 2, dtype=x.dtype, device=x.device)  # 4C rows

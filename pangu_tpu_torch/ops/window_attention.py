@@ -33,7 +33,8 @@ output projections included, on the same grid.
     (B, nlon, ntype, N, C) windows, the public drop-in for
     ``models/layers.py::earth_attention`` (the JAX package's
     ``window_attention_pallas``): region ids folded into a float32 bias
-    outside the kernel, the kernel (CUDA ``csrc/window_attn.cu``) forward
+    outside the kernel, the kernel (CUDA ``csrc/window_attn.cu``; bf16 on
+    the tensor cores, checked by ``window_operands``) forward
     and, through ``WindowAttention``, autograd of the reference composition
     (qkv product, ``Sdpa``, proj product) backward, as ``_fused_core``;
     ``earth_attention`` itself where qkv or proj carries LoRA leaves.
@@ -558,18 +559,18 @@ def window_attention_plain(x, wqkv, bqkv, wp, bp, bias):
     return dense({"kernel": wp.to(dt), "bias": bp.to(dt)}, o)
 
 
-def window_attention_fused(x, wqkv, bqkv, wp, bp, bias):
-    """The fused window attention forward on ``x`` (..., ntype, N, C),
-    contiguous, with the folded float32 ``bias`` (ntype, heads, N, N): the
-    CUDA kernel for a CUDA tensor (counted in
-    ``window_attention_pallas.launches``), the plain version for a CPU
-    tensor."""
-    if not x.is_cuda:
-        return window_attention_plain(x, wqkv, bqkv, wp, bp, bias)
+def window_operands(x, weights, bias):
+    """What the fused window attention kernel takes, checked before a
+    launch: ``(x, weights, heads)``, the weights ``[wqkv, bqkv, wp, bp]``
+    in x's dtype.  Raises ValueError on an unsupported input or, in bf16
+    (the tensor-core route, ``csrc/window_attn.cu``), on a C that is not a
+    multiple of 8 or a window of more than 144 tokens
+    (``check_tensor_core_shape``; any head dim, as the grid attention's);
+    the bf16 input and weights are 16-byte aligned (copies where they are
+    not).  float32 takes any window of at most 256 tokens."""
     *lead, ntype, n, c = x.shape
     heads = bias.shape[1] if bias.dim() == 4 else 0
     shapes = [(c, 3 * c), (3 * c,), (c, c), (c,)]
-    weights = [wqkv, bqkv, wp, bp]
     if (x.dtype not in DTYPE_CODE or not x.is_contiguous() or not lead
             or heads < 1 or c % heads
             or [tuple(t.shape) for t in weights] != shapes
@@ -580,10 +581,29 @@ def window_attention_fused(x, wqkv, bqkv, wp, bp, bias):
                          f"{[tuple(t.shape) for t in weights]}, bias "
                          f"{tuple(bias.shape)} {bias.dtype}")
     weights = [t.to(x.dtype).contiguous() for t in weights]
+    if x.dtype == torch.bfloat16:   # the tensor-core tiles, 16-byte rows
+        check_tensor_core_shape((c,), n, "window_attention_pallas")
+        x = aligned16(x)
+        weights = [aligned16(t) for t in weights]
     for t in weights + [bias]:
         if t.device != x.device:
             raise ValueError(f"window_attention_pallas: parameter on "
                              f"{t.device}, input on {x.device}")
+    return x, weights, heads
+
+
+def window_attention_fused(x, wqkv, bqkv, wp, bp, bias):
+    """The fused window attention forward on ``x`` (..., ntype, N, C),
+    contiguous, with the folded float32 ``bias`` (ntype, heads, N, N): the
+    CUDA kernel for a CUDA tensor (counted in
+    ``window_attention_pallas.launches``; in bf16 the tensor-core route,
+    which takes C a multiple of 8 and N <= 144 and raises ValueError
+    otherwise, checked by ``window_operands``), the plain version for a
+    CPU tensor."""
+    if not x.is_cuda:
+        return window_attention_plain(x, wqkv, bqkv, wp, bp, bias)
+    x, weights, heads = window_operands(x, [wqkv, bqkv, wp, bp], bias)
+    *lead, ntype, n, c = x.shape
     lib = _build.library()
     ws = torch.empty(lib.pangu_window_attn_ws(x.numel() // c, c),
                      dtype=x.dtype, device=x.device)
@@ -649,8 +669,11 @@ def window_attention_pallas(p, x, heads: int,
     (-100 between regions) or None.  The mask is folded into the float32
     (ntype, heads, N, N) bias here, outside the kernel; differentiable
     through :class:`WindowAttention`.  Where qkv or proj carries LoRA leaves
-    it is ``earth_attention`` itself, as in the JAX package.
-    ``kernels=False`` runs the plain versions on any device."""
+    it is ``earth_attention`` itself, as in the JAX package.  On the card
+    the bf16 kernel (tensor cores) takes C a multiple of 8 and windows of
+    at most 144 tokens and raises ValueError otherwise; float32 takes
+    windows of at most 256 tokens.  ``kernels=False`` runs the plain
+    versions on any device."""
     if "lora_a" in p["qkv"] or "lora_a" in p["proj"]:
         return earth_attention(p, x, heads, ids)
     if p["bias_table"].shape[1] != heads:

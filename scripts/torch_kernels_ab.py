@@ -13,17 +13,23 @@ and (0, 0, 0), the patch embed (``csrc/embed_wm.cu``, the wrapper with
 its PyTorch prepass, on the bf16 state ``chip_smoke.py`` gives it), the
 upper embed's weight gradient (``csrc/embed_dw.cu``, the wrapper with its
 prepass, on a bf16 stage-0 cotangent and the physical field) and the
-canonical UpSample (``csrc/updown.cu``, stage 2 -> 3 on the canonical
-grid).
+canonical UpSample and DownSample (``csrc/updown.cu``, stage 2 -> 3 and
+0 -> 1 on the canonical grid) and the fused window attention
+(``csrc/window_attn.cu``, ``window_attention_pallas``'s kernel on the
+stage-0 and stage-1 windows, with and without the folded mask); the last
+two in float32 too.
 
     python3 scripts/torch_kernels_ab.py [--repo DIR] [--reps N] [--split]
                                         [--only REGEX]
 
 ``--repo`` (default: this checkout) is the directory whose
 ``pangu_tpu_torch`` is imported.  Per case: the error against the plain
-version (max |kernel - plain| / max |plain| over every output, gate 2^-6),
-whether two runs agree bit for bit, ms per launch (CUDA events over
-``--reps`` launches after one warm-up) and the bound of chip_smoke.py.
+version (max |kernel - plain| / max |plain| over every output, gate 2^-6
+in bf16, 1e-4 in float32), whether two runs agree bit for bit, the first
+12 hex digits of the sha256 of the output's bytes (so that two versions'
+bits compare across runs: the inputs are drawn the same way for every
+``--repo``), ms per launch (CUDA events over ``--reps`` launches after one
+warm-up) and the bound of chip_smoke.py.
 ``--split``: one stage-0 block, grid attention and tail, one recovery
 backward, DownSample, UpSample, transition and upper and surface recovery
 by class of kernel (``torch.profiler``, chip_smoke.py's classes; the edge
@@ -32,11 +38,13 @@ products' gather, product and epilogue are one kernel in both versions,
 normalisation passes, the surface columns and products), the upper
 product and the plane-0 copy (``embed_class``), the prepass's kernels
 listed one by one, the weight gradient into its prepass, relayout, product
-and split sum (``dw_class``) and the canonical UpSample into its products
-and row passes.  The case ``embed_dw_upper library`` times the library
-yardstick of the weight gradient (``chip_smoke.embed_dw_library``: cuDNN's
-weight and bias gradient of the equivalent Conv3d) and, apart, the relayout
-of its inputs into the layout it takes.  ``--only``: the cases
+and split sum (``dw_class``), the canonical UpSample and DownSample into
+their products and row passes and the fused window attention at stage 0
+(region ids) into its products and attention.  The case ``embed_dw_upper
+library`` times the library yardstick of the weight gradient
+(``chip_smoke.embed_dw_library``: cuDNN's weight and bias gradient of the
+equivalent Conv3d) and, apart, the relayout of its inputs into the layout
+it takes.  ``--only``: the cases
 (and splits) whose ``name label`` the regular expression finds, e.g.
 ``--only sample_wm`` or ``--only "embed_dw|up_sample stage"``.
 The last line is one JSON object of the times.
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import importlib.util
 import json
 import re
@@ -107,14 +116,18 @@ def main() -> int:
                                                  recovery_wm_surface_plain,
                                                  recovery_wm_upper,
                                                  recovery_wm_upper_plain)
-    from pangu_tpu_torch.ops.updown import up_sample, up_sample_plain
+    from pangu_tpu_torch.models.layers import window_partition
+    from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
+                                            up_sample, up_sample_plain)
     from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                                down_sample_wm_plain,
                                                up_sample_wm, up_sample_wm_plain)
     from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
                                                       block_noroll_plain,
                                                       grid_attention,
-                                                      grid_attention_plain)
+                                                      grid_attention_plain,
+                                                      window_attention_fused,
+                                                      window_attention_plain)
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -362,11 +375,67 @@ def main() -> int:
                    + 2 * g3.z * g3.h * g3.w * c_out * c_out,
                    cs.nbytes(xc) + g3.z * g3.h * g3.w * c_out * 2 + wu)))
 
+    # the canonical DownSample (stage 0 -> 1, chip_smoke.py's phase-3 line)
+    # and the fused window attention on the stage-0 (region ids and none)
+    # and stage-1 windows (phase 9a's lines), bf16 and float32; inputs from
+    # a generator of their own
+    gw = torch.Generator(device=dev).manual_seed(4)
+    pd32 = cs.to_dtype(pd, torch.float32)
+    wins = {}
+    for dt in (bf, torch.float32):
+        tag = "" if dt == bf else ", float32"
+        xd0 = torch.randn((1, g0.z, g0.h, g0.w, c), generator=gw,
+                          device=dev).to(dt)
+        p_d = pd if dt == bf else pd32
+        cases.append(("down_sample", f"stage 0 -> 1, canonical grid{tag}",
+                      lambda x=xd0, p=p_d: down_sample(p, x),
+                      lambda x=xd0, p=p_d: down_sample_plain(p, x),
+                      (2 * g1.z * g1.h * g1.w * 4 * c * 2 * c,
+                       cs.nbytes(xd0) + g1.z * g1.h * g1.w * 2 * c
+                       * xd0.element_size()
+                       + sum(t.numel() for t in cs.leaves(p_d))
+                       * xd0.element_size()), dt))
+        for st, geom, bp, masked in (("stage 0", g0, s0, True),
+                                     ("stage 0", g0, s0, False),
+                                     ("stage 1", g1, s1, True)):
+            at = bp["attn"]
+            xw = window_partition(
+                torch.randn((1, geom.z, geom.h_padded, geom.w, geom.dim),
+                            generator=gw, device=dev).to(dt),
+                geom.window).contiguous()
+            bias = at["bias_table"].float()
+            if masked:
+                ids = ids_of(geom)
+                bias = bias + torch.where(ids[:, None, :] != ids[:, :, None],
+                                          -100.0, 0.0)[:, None]
+            bias = bias.contiguous()
+            w = [t.to(dt) for t in (at["qkv"]["kernel"], at["qkv"]["bias"],
+                                    at["proj"]["kernel"], at["proj"]["bias"])]
+            rows, cc, n = xw.numel() // geom.dim, geom.dim, geom.window_tokens
+            label = (f"{st}, {'region ids' if masked else 'no ids'}{tag}")
+            wins[label] = (xw, w, bias, rows, cc, n)
+            cases.append(("window_attention_pallas", label,
+                          lambda x=xw, w=w, b=bias:
+                              window_attention_fused(x, *w, b),
+                          lambda x=xw, w=w, b=bias:
+                              window_attention_plain(x, *w, b),
+                          (2 * rows * cc * (4 * cc + 2 * n),
+                           2 * cs.nbytes(xw) + cs.nbytes(bias)
+                           + sum(t.numel() for t in w) * xw.element_size()),
+                          dt))
+
     def wanted(what):
         return re.search(args.only, what) is not None
 
+    def digest(out):
+        h = hashlib.sha256()
+        for t in cs.flat(out):
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        return h.hexdigest()[:12]
+
     times, ok = {}, True
-    for name, label, kern, plain, (flops, byts) in cases:
+    for name, label, kern, plain, (flops, byts), *dtype in cases:
+        dt = dtype[0] if dtype else bf
         if not wanted(f"{name} {label}"):
             continue
         got, want = kern(), plain()
@@ -375,15 +444,16 @@ def main() -> int:
         rel = max(e[2] for e in cs.tree_errs(got, want))
         same = all(torch.equal(x, y) for x, y in zip(cs.flat(got),
                                                      cs.flat(again)))
+        sha = digest(got)
         del got, want, again
         ms = cs.time_ms(kern, args.reps)
-        bound_ms, by = cs.bound(flops, byts, bf)
-        good = rel <= cs.TOL[bf] and same
+        bound_ms, by = cs.bound(flops, byts, dt)
+        good = rel <= cs.TOL[dt] and same
         ok &= good
         times[f"{name} {label}"] = ms
         print(f"{name:18s} {label:36s} rel {rel:.3e} bit-identical {same} "
-              f"{'ok' if good else 'FAIL'}  kernel {ms:.3f} ms  bound "
-              f"{bound_ms:.3f} ms ({by})", flush=True)
+              f"sha {sha} {'ok' if good else 'FAIL'}  kernel {ms:.3f} ms  "
+              f"bound {bound_ms:.3f} ms ({by})", flush=True)
     if wanted("embed_dw_upper library"):
         # cuDNN on the canonical layout: the cotangent's upper planes
         # channels-first, the normalised field padded with const_h
@@ -406,6 +476,8 @@ def main() -> int:
         del un, x6, dy
     if args.split:
         xb, xg = storage(g0), grid(g0)
+        xd0b = torch.randn((1, g0.z, g0.h, g0.w, c), generator=gw,
+                           device=dev).to(bf)
         at = s0["attn"]
         w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
              at["proj"]["bias"], at["bias_table"])
@@ -451,7 +523,15 @@ def main() -> int:
             ("up_sample stage 2 -> 3, canonical grid",
              lambda: up_sample(pu, xc, g3.h),
              cs.up_work(g2.z * g2.h * g2.w, g3.z * g3.h * g3.w, c_in, c_out),
+             cs.fwd_class),
+            ("down_sample stage 0 -> 1, canonical grid",
+             lambda: down_sample(pd, xd0b),
+             cs.down_work(g0.z * g0.h * g0.w, g1.z * g1.h * g1.w, c),
              cs.fwd_class)]
+        xw, w, bias, rows, cc, n = wins["stage 0, region ids"]
+        splits.append(("window_attention_pallas stage 0, region ids",
+                       lambda: window_attention_fused(xw, *w, bias),
+                       cs.window_work(rows, cc, n), cs.fwd_class))
         for what, fn, work, classify in splits:
             if wanted(what):
                 print(f"{what} bf16 by class:", cs.class_breakdown(

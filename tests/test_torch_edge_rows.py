@@ -34,7 +34,15 @@ junk on the cotangent's pad rows and values on its plane-0 rows), and a
 row of ones in place of the indicator would get db wrong; and the
 canonical UpSample (``csrc/updown.cu``), whose gather + LayerNorm kernel
 takes up_rows rows a warp and reads each row's C' slice of the expand
-product where ``UpCanonMap`` says, for an odd and an even crop.  The
+product where ``UpCanonMap`` says, for an odd and an even crop; and the
+canonical DownSample (``csrc/updown.cu``), whose gather + LayerNorm kernel
+takes a warp a row and reads each of its four parts where
+``DownCanonMap`` says (zeros past an odd latitude count).  Last, the bf16
+fused window attention (``csrc/window_attn.cu``): its qkv epilogue
+(``QScaleEpi``: q rounded after its bias, then times the rounded scale and
+rounded again) and ``wattn_mma.cuh``'s walk, one (type, head) at a time
+over the windows of that type at ``wa_base`` of the launch's window grid
+(read from the source), its table slice, logits with scale 1.  The
 kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 
@@ -60,7 +68,8 @@ from pangu_tpu_torch.ops.embed_wm import (embed_dw_operands,
                                           embed_operands, embed_wm_plain)
 from pangu_tpu_torch.ops.recovery_wm import (recovery_wm_surface_plain,
                                              recovery_wm_upper_plain)
-from pangu_tpu_torch.ops.updown import up_sample_plain
+from pangu_tpu_torch.ops.updown import down_sample_plain, up_sample_plain
+from pangu_tpu_torch.ops.window_attention import window_attention_plain
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
 B = 2
@@ -434,4 +443,117 @@ def test_canonical_up_sample_row_map_model_matches_plain(setup, crop, dtype):
     assert bool((writes == 1).all())
     out = dense(p["mix"], layer_norm(p["norm"], y))
     want = up_sample_plain(p, x, out_h)
+    _close(out.reshape(want.shape), want, dtype)
+
+
+def _down_canon_src(m, part, h, w, c):
+    """updown.cu's DownCanonMap: where part ``part`` of row m of the (BZ,
+    ceil(H/2), W/2) grid reads x (an element offset), -1 for zeros."""
+    h2, w2 = -(-h // 2), w // 2
+    j, q = m % w2, m // w2
+    i, bz = q % h2, q // h2
+    lat = 2 * i + part // 2
+    src = ((bz * h + lat) * w + 2 * j + part % 2) * c
+    return torch.where(lat >= h, -1, src)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lat", ["odd", "even"])
+def test_canonical_down_sample_row_map_model_matches_plain(setup, lat,
+                                                           dtype):
+    """The canonical DownSample's gather as down_gather_ln_kernel runs it
+    with DownCanonMap: a warp a row, each part read 16 bytes a lane at its
+    offset (zeros where the map says -1), every row written once; then the
+    LayerNorm and the reduce product as the plain version computes them,
+    against ``down_sample_plain``."""
+    params = setup[0]
+    p = {k: {j: t.to(dtype) for j, t in v.items()}
+         for k, v in params["downsample"].items()}
+    g0 = TINY.stage(0)
+    c, w = g0.dim, g0.w
+    h = g0.h - (g0.h % 2 == (lat == "even"))
+    rng = np.random.default_rng(15)
+    x = torch.as_tensor(rng.normal(size=(B, g0.z, h, w, c))
+                        .astype(np.float32)).to(dtype)
+    flat = x.reshape(-1)
+    m1 = B * g0.z * -(-h // 2) * (w // 2)
+    cat = torch.full((m1, 4 * c), float("nan"), dtype=dtype)
+    writes = torch.zeros(m1, dtype=torch.int32)
+    zero_parts = 0
+    for m in range(m1):
+        for part in range(4):
+            src = int(_down_canon_src(torch.tensor(m), part, h, w, c))
+            if src < 0:
+                cat[m, part * c:(part + 1) * c] = 0
+                zero_parts += 1
+            else:
+                assert src % 8 == 0                  # 16-byte loads
+                cat[m, part * c:(part + 1) * c] = flat[src:src + c]
+        writes[m] += 1
+    assert bool((writes == 1).all())
+    assert zero_parts == (2 * B * g0.z * (w // 2) if h % 2 else 0)
+    out = dense(p["reduce"], layer_norm(p["norm"], cat))
+    want = down_sample_plain(p, x)
+    _close(out.reshape(want.shape), want, dtype)
+
+
+def _wa_base(geo, zz, hh, win):
+    """wattn_mma.cuh's wa_base: the first row of window ``win`` (b = win
+    / nlon, l = win % nlon) of type (zz, hh)."""
+    nz, nlat, nlon, n = geo
+    b, l = win // nlon, win % nlon
+    return (((b * nz + zz) * nlat + hh) * nlon + l) * n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("masked", [True, False])
+def test_window_attention_walk_model_matches_plain(masked, dtype):
+    """The bf16 route's steps on flat rows: the qkv product with
+    QScaleEpi's rounding, then one (type, head) at a time the windows of
+    that type at wa_base of the launch's grid (nz, nlat, nlon, N as
+    window_attn.cu builds its WmShape), the float32 table slice of that
+    type and head as the bias, logits q k^T + bias (scale 1), P and o
+    rounded, then the proj product; every row of o written once, against
+    ``window_attention_plain`` (float32 1e-6, bf16 2^-6 of the output's
+    max)."""
+    nwin, ntype, n, c, heads = 3, 4, 24, 16, 2
+    hd = c // heads
+    rng = np.random.default_rng(16)
+
+    def r(*shape, s=0.3):
+        return torch.as_tensor((rng.normal(size=shape) * s)
+                               .astype(np.float32)).to(dtype)
+
+    x = r(nwin, ntype, n, c, s=1.0)
+    wqkv, bqkv, wp, bp = r(c, 3 * c), r(3 * c), r(c, c), r(c)
+    bias = r(ntype, heads, n, n).float()
+    if masked:
+        bias[:, :, : n // 2, n // 2:] -= 100.0
+    shape = re.search(r"const WmShape s = \{([^}]*)\};",
+                      (CSRC / "window_attn.cu").read_text()).group(1)
+    nz, nlat, nlon, nn = (eval(v, {"ntype": ntype, "N": n})
+                          for v in shape.split(",")[:4])
+    assert nn == n
+    rows = x.reshape(-1, c)
+    qkv = (rows.float() @ wqkv.float() + bqkv.float()).to(dtype)
+    scale_t = torch.tensor(hd ** -0.5, dtype=dtype).float()
+    qkv[:, :c] = (qkv[:, :c].float() * scale_t).to(dtype)
+    o = torch.full((rows.shape[0], c), float("nan"), dtype=dtype)
+    writes = torch.zeros(rows.shape[0], c, dtype=torch.int32)
+    for ty in range(nz * nlat):
+        zz, hh = ty // nlat, ty % nlat
+        for h in range(heads):
+            tab = bias[ty, h]
+            for win in range(nwin * nlon):
+                r0 = _wa_base((nz, nlat, nlon, n), zz, hh, win)
+                t = qkv[r0:r0 + n]
+                q, k, v = (t[:, i * c + h * hd:i * c + (h + 1) * hd].float()
+                           for i in range(3))
+                pr = torch.softmax(q @ k.T + tab, -1).to(dtype)
+                o[r0:r0 + n, h * hd:(h + 1) * hd] = (
+                    pr.float() @ v).to(dtype)
+                writes[r0:r0 + n, h * hd:(h + 1) * hd] += 1
+    assert bool((writes == 1).all())
+    out = (o.float() @ wp.float() + bp.float()).to(dtype)
+    want = window_attention_plain(x, wqkv, bqkv, wp, bp, bias)
     _close(out.reshape(want.shape), want, dtype)

@@ -51,7 +51,17 @@ weight gradient (bit-identical in two runs, blind to junk on the
 cotangent's token-lat pad rows and plane-0 rows) and of the canonical
 UpSample (odd and even ``out_h``, bit-identical in two runs, a batch-2
 sample equal to it run alone), each refusing a bf16 C not a multiple of 8
-with ValueError.  Needs a CUDA
+with ValueError; and the bf16 tensor-core routes of the canonical
+DownSample (odd and even latitude counts, bit-identical in two runs, the
+last sample of a batch of 8 bit-equal to it run alone, bit-equal to the
+window-major DownSample on the same tokens, which runs the same two
+kernels) and of the fused window attention (with and without the folded
+mask, bit-identical in two runs, each sample of a batch of 2 bit-equal to
+it run alone), each refusing what its tiles do not take with ValueError,
+and the float32 outputs of both equal to their first versions' and the
+bf16 window-major DownSample's equal to its output before the shared
+kernel (a digest of each output recorded from the earlier kernels).
+Needs a CUDA
 device and nvcc: marked ``gpu``, skipped elsewhere.  Run on the card with
 ``python -m pytest -m gpu tests/test_torch_kernels_gpu.py``.
 
@@ -1605,3 +1615,232 @@ def test_grid_attention_forward_tensor_core_bit_identical(cuda, case, masked,
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= TOL[bf]
     assert torch.equal(got, grid_attention(x, *args))
+
+
+
+# ---------------------------------------------------------------------------
+# The canonical DownSample and the fused window attention on the tensor
+# cores; their float32 routes as their first versions wrote them
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_canonical_down_sample_bf16_tensor_core_route(cuda, cfg_name):
+    """The bf16 canonical DownSample on the tensor cores at an odd and an
+    even latitude count: against the plain version, bit-identical in two
+    runs, the last sample of a batch of 8 bit-equal to that sample run
+    alone."""
+    cfg = CFGS[cfg_name]
+    p = _params(cfg, cuda)["downsample"]
+    g0 = cfg.stage(0)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    for h in (g0.h, g0.h + 1):
+        x = torch.randn((8, g0.z, h, g0.w, g0.dim), generator=g,
+                        device=cuda).to(torch.bfloat16)
+        got = down_sample(p, x)
+        want = down_sample_plain(p, x)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert _rel_err(got, want) <= TOL[torch.bfloat16]
+        assert torch.equal(got, down_sample(p, x))
+        assert torch.equal(got[7], down_sample(p, x[7:].contiguous())[0])
+
+
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_down_sample_wm_and_canonical_bf16_agree_bit_for_bit(cuda, cfg_name):
+    """The window-major DownSample at offset (0, 0, 0), on storage that
+    holds the canonical grid with zero pad rows, and the canonical
+    DownSample on that grid give the same bits on every real output row:
+    one gather + LayerNorm kernel (two row maps) and one product."""
+    cfg = CFGS[cfg_name]
+    p = _params(cfg, cuda)["downsample"]
+    g0, g1 = cfg.stage(0), cfg.stage(1)
+    grid = _grid(g0, cuda, torch.bfloat16, 11)
+    grid[:, :, g0.h:] = 0
+    xs = to_window_major(grid, g0.window).contiguous()
+    wm = from_window_major(down_sample_wm(p, xs, g0, g1, (0, 0, 0)),
+                           g1.window)[:, :, :g1.h]
+    canon = down_sample(p, grid[:, :, :g0.h].contiguous())
+    torch.cuda.synchronize()
+    assert wm.shape == canon.shape
+    assert torch.equal(wm, canon)
+
+
+def test_canonical_down_sample_bf16_refuses_shapes_outside_the_tiles(cuda):
+    cfg = dataclasses.replace(TINY, dims=(20, 40, 40, 20))
+    g0 = cfg.stage(0)
+    x = torch.randn((1, g0.z, g0.h, g0.w, g0.dim), device=cuda)
+    before = down_sample.launches
+    with pytest.raises(ValueError, match="multiples of 8"):
+        down_sample(_params(cfg, cuda)["downsample"], x.to(torch.bfloat16))
+    assert down_sample.launches == before
+
+
+def _window_inputs(cfg, stage, dev, dtype, masked, batch, seed=18):
+    """(x, [wqkv, bqkv, wp, bp], folded float32 bias) of the fused window
+    attention on the stage's partitioned windows of ``batch`` samples."""
+    from pangu_tpu_torch.models.layers import window_partition
+    geom = cfg.stage(stage)
+    wqkv, bqkv, wp, bp, table = _attn_args(
+        _params(cfg, dev)["stages"][stage]["blocks"][0])
+    bias = table.float()
+    if masked:
+        ids = _ids(geom, dev)
+        bias = bias + torch.where(ids[:, None, :] != ids[:, :, None], -100.0,
+                                  0.0)[:, None]
+    x = window_partition(_grid(geom, dev, dtype, seed, batch), geom.window)
+    return (x.contiguous(), [t.to(dtype) for t in (wqkv, bqkv, wp, bp)],
+            bias.contiguous())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("stage", [0, 1])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_window_attention_bf16_tensor_core_route(cuda, cfg_name, stage,
+                                                 masked):
+    """The bf16 fused window attention on the tensor cores (MID: head dim
+    12, the attention's element-by-element tile loads): against the plain
+    version (q scaled in bf16), bit-identical in two runs, each sample of
+    a batch of 2 bit-equal to it run alone."""
+    from pangu_tpu_torch.ops.window_attention import (window_attention_fused,
+                                                      window_attention_plain)
+    x, w, bias = _window_inputs(CFGS[cfg_name], stage, cuda, torch.bfloat16,
+                                masked, 2)
+    got = window_attention_fused(x, *w, bias)
+    want = window_attention_plain(x, *w, bias)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert _rel_err(got, want) <= TOL[torch.bfloat16]
+    assert torch.equal(got, window_attention_fused(x, *w, bias))
+    for b in range(2):
+        alone = window_attention_fused(x[b:b + 1].contiguous(), *w, bias)
+        assert torch.equal(got[b:b + 1], alone)
+
+
+@pytest.mark.parametrize("dims,window", [((20, 40, 40, 20), (2, 6, 12)),
+                                         ((16, 32, 32, 16), (2, 6, 16))],
+                         ids=["C 20", "N 192"])
+def test_window_attention_bf16_refuses_shapes_outside_the_tiles(cuda, dims,
+                                                                window):
+    """A bf16 C that is not a multiple of 8, or a window of more than 144
+    tokens, raises ValueError before a launch (no fallback); float32 takes
+    both."""
+    from pangu_tpu_torch.ops.window_attention import (window_attention_fused,
+                                                      window_attention_pallas)
+    cfg = dataclasses.replace(TINY, dims=dims, window=window)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, w, bias = _window_inputs(cfg, 0, cuda, dtype, False, 1)
+        before = window_attention_pallas.launches
+        if dtype == torch.float32:
+            assert window_attention_fused(x, *w, bias).shape == x.shape
+            assert window_attention_pallas.launches == before + 1
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                window_attention_fused(x, *w, bias)
+            assert window_attention_pallas.launches == before
+
+
+def _np_leaf(rng, *shape, s=0.3):
+    return (rng.normal(size=shape) * s).astype("float32")
+
+
+def f32_digests(dev=torch.device("cuda")):
+    """sha256 of the float32 outputs of the canonical DownSample and the
+    fused window attention (masked) at TINY and MID stage 0, on inputs and
+    weights drawn with numpy: ``{(kernel, config): hex}``."""
+    import hashlib
+
+    import numpy as np
+
+    from pangu_tpu_torch.models.layers import window_partition
+    from pangu_tpu_torch.ops.window_attention import window_attention_fused
+    out = {}
+    for name, cfg in CFGS.items():
+        rng = np.random.default_rng(19)
+        g0 = cfg.stage(0)
+        c, n = g0.dim, g0.window_tokens
+
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        p = {"norm": {"scale": t(1 + _np_leaf(rng, 4 * c)),
+                      "bias": t(_np_leaf(rng, 4 * c))},
+             "reduce": {"kernel": t(_np_leaf(rng, 4 * c, 2 * c, s=0.05))}}
+        x = t(_np_leaf(rng, 2, g0.z, g0.h, g0.w, c, s=1.0))
+        ys = {"down_sample": down_sample(p, x)}
+        ntype = (g0.z // g0.window[0]) * (g0.h_padded // g0.window[1])
+        ids = _ids(g0, dev)
+        bias = t(_np_leaf(rng, ntype, g0.heads, n, n)) + torch.where(
+            ids[:, None, :] != ids[:, :, None], -100.0, 0.0)[:, None]
+        w = [t(_np_leaf(rng, *s, s=0.1)) for s in ((c, 3 * c), (3 * c,),
+                                                   (c, c), (c,))]
+        grid = t(_np_leaf(rng, 2, g0.z, g0.h_padded, g0.w, c, s=1.0))
+        xw = window_partition(grid, g0.window).contiguous()
+        ys["window_attention_pallas"] = window_attention_fused(
+            xw, *w, bias.contiguous())
+        torch.cuda.synchronize()
+        for kernel, y in ys.items():
+            out[(kernel, name)] = hashlib.sha256(
+                y.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+# f32_digests() as the first versions (commit b419df9) gave them on an
+# NVIDIA H100 80GB HBM3, torch 2.11.0+cu128: the float32 routes of both
+# kernels did not change with their bf16 redesign
+F32_FIRST_VERSION = {
+    ("down_sample", "TINY"):
+        "588063c7f156a8e17e55242962401b5ab7a0e1dcfed5fd833feb54c8b1be2ff2",
+    ("window_attention_pallas", "TINY"):
+        "ab7513fbc81a7d750c4abcbddc2f0a1a50f7747f8b138b54918b979a32aa14b2",
+    ("down_sample", "MID"):
+        "6e069df0dfb8454db3cdb186ff157272451cc878ce2d5ca62332f20a703790e7",
+    ("window_attention_pallas", "MID"):
+        "759e39c604e7650c79af8ef49892eddff6d0d2174b92b61847934cb9337f1875",
+}
+
+
+def test_float32_routes_equal_their_first_versions(cuda):
+    assert f32_digests(cuda) == F32_FIRST_VERSION
+
+
+def wm_down_digests(dev=torch.device("cuda")):
+    """sha256 of the bf16 window-major DownSample's output at TINY and MID
+    (offset (1, 3, 6), batch 2) on inputs and weights drawn with numpy:
+    ``{config: hex}``."""
+    import hashlib
+
+    import numpy as np
+    out = {}
+    for name, cfg in CFGS.items():
+        rng = np.random.default_rng(20)
+        g0, g1 = cfg.stage(0), cfg.stage(1)
+        c = g0.dim
+
+        def t(a):
+            return torch.from_numpy(a).to(dev).to(torch.bfloat16)
+
+        p = {"norm": {"scale": t(1 + _np_leaf(rng, 4 * c)),
+                      "bias": t(_np_leaf(rng, 4 * c))},
+             "reduce": {"kernel": t(_np_leaf(rng, 4 * c, 2 * c, s=0.05))}}
+        wz, wh, ww = g0.window
+        xs = t(_np_leaf(rng, 2, g0.z // wz, g0.h_padded // wh, g0.w // ww,
+                        wz * wh * ww, c, s=1.0))
+        y = down_sample_wm(p, xs, g0, g1, (1, 3, 6))
+        torch.cuda.synchronize()
+        out[name] = hashlib.sha256(
+            y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+# wm_down_digests() as the window-major DownSample's kernels before they
+# shared their gather + LayerNorm kernel with the canonical DownSample
+# (commit b419df9) gave them on an NVIDIA H100 80GB HBM3, torch
+# 2.11.0+cu128
+WM_DOWN_BEFORE = {
+    "TINY": "9174227f57e4d2baddf1302d98f8c8176e8e7077089afeac2b2bcbea1bd5c8ac",
+    "MID": "f89f6d4447fa1c89f321b40cc39b47ac117fc0c5dc50414b4afaa131eaec7d56",
+}
+
+
+def test_down_sample_wm_bf16_bits_unchanged(cuda):
+    assert wm_down_digests(cuda) == WM_DOWN_BEFORE

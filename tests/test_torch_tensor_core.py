@@ -26,7 +26,14 @@ ones) and the bf16 canonical UpSample (``csrc/updown.cu``: two
 window-major UpSample runs too, ``csrc/updown_rows.cuh``) run on the
 tensor cores while float32 keeps the first kernels (``grad_gemm.cuh`` has
 no bf16 route left), what their wrappers refuse before a launch and the
-alignment of their operands.  The kernels themselves run only on the card
+alignment of their operands; and that the bf16 canonical DownSample
+(``csrc/updown.cu``: the gather + LayerNorm kernel that the window-major
+DownSample runs too, then one ``mma_gemm.cuh`` product) and the bf16 fused
+window attention (``csrc/window_attn.cu``: the qkv product with q scaled
+in its epilogue, ``wattn_mma.cuh``'s attention with the logit scale 1, the
+proj product) run on the tensor cores while float32 keeps the first
+kernels, what their wrappers refuse before a launch and the alignment of
+their operands.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``)."""
 
 import dataclasses
@@ -45,9 +52,10 @@ from pangu_tpu_torch.ops.earth_block_wm import (aligned16, block_operands,
 from pangu_tpu_torch.ops.embed_wm import embed_dw_operands, embed_operands
 from pangu_tpu_torch.ops.recovery_wm import recovery_operands
 from pangu_tpu_torch.ops.updown import (LN_ROW_MAX, check_updown_shape,
+                                        down_sample_operands,
                                         up_sample_operands)
 from pangu_tpu_torch.ops.updown_wm import down_operands, up_operands
-from pangu_tpu_torch.ops.window_attention import _checked
+from pangu_tpu_torch.ops.window_attention import _checked, window_operands
 
 CSRC = Path(__file__).resolve().parent.parent / "pangu_tpu_torch" / "csrc"
 
@@ -734,3 +742,155 @@ def test_bf16_canonical_up_sample_operands_are_16_byte_aligned():
     assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
     for sub in q.values():
         assert all(t.data_ptr() % 16 == 0 for t in sub.values())
+
+
+def test_canonical_down_sample_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 canonical DownSample: one gather + LayerNorm pass, the
+    kernel of updown_rows.cuh with the canonical row map -- the one the
+    window-major DownSample launches with its rolled map -- then one
+    mma_gemm.cuh product with a plain rounding store; no common.cuh gemm,
+    ln_rows or element-a-lane gather.  float32 keeps the first version's
+    kernels."""
+    code = _code("updown.cu")
+    body = _body(code, "static int down_sample_bf16(")
+    assert len(re.findall(r"\bmma_gemm\s*<false>\s*\(", body)) == 1
+    assert body.count("RoundEpi<bf16>") == 1
+    assert "down_gather_ln_kernel<NJ, DownCanonMap>" in body
+    assert not re.search(r"(?<![\w.])gemm\s*\(|\bln_rows\s*<|"
+                         r"\bdown_canon_gather_kernel\b", body)
+    f32 = _body(code, "int down_sample(")
+    assert re.search(r"(?<![\w.])gemm\s*\(", f32)
+    assert "ln_rows<T>(" in f32 and "down_canon_gather_kernel<T>" in f32
+    entry = _body(code, 'extern "C" int pangu_down_sample(')
+    assert entry.index("down_sample<float>(") < entry.index(
+        "aligned16_all(") < entry.index("down_sample_bf16(")
+    assert "down_sample<bf16>" not in code
+    assert "down_gather_ln_kernel(" in _code("updown_rows.cuh")
+    for source, rmap in (("updown.cu", "DownCanonMap"),
+                         ("updown_wm.cu", "DownWmMap")):
+        text = _code(source)
+        assert f"down_gather_ln_kernel<NJ, {rmap}>" in text
+        assert not re.search(r"\bdown_gather_ln_kernel\s*\(", text)
+
+
+def test_window_attention_bf16_route_runs_on_the_tensor_cores():
+    """The bf16 fused window attention: the qkv product on mma_gemm.cuh
+    whose epilogue scales q in bf16, wattn_mma.cuh's attention with a float32
+    table, no region ids and the logit scale 1 (q is scaled already), the
+    proj product through fwd_gemm; no common.cuh gemm or CUDA-core
+    attention.  float32 keeps the first version (gemm and window_attend's
+    kScaleQ mode); the other callers of wa_attention keep hd^-1/2."""
+    code = _code("window_attn.cu")
+    body = code[code.rindex("int window_attn_bf16("):]   # the definition
+    body = body[:body.index("\n}\n")]
+    assert re.search(r"\bmma_gemm\s*<false>\s*\([^;]*QScaleEpi\{", body)
+    m = re.search(r"\bwa_attention\s*<float>\s*\(([^;]*)\);", body)
+    args = [a.strip() for a in m.group(1).split(",")]
+    assert args[3] == "nullptr" and args[-1] == "1.f"
+    assert re.search(r"\bfwd_gemm\s*\(", body)
+    assert not re.search(r"(?<![\w.])gemm\s*\(|window_attend|"
+                         r"fused_attn_kernel", body)
+    epi = _body(code, "struct QScaleEpi {")
+    assert "round_t<bf16>(o[e]) * scale_t" in epi and "if (c < C)" in epi
+    f32 = _body(code, "int window_attn(")
+    assert len(re.findall(r"(?<![\w.])gemm\s*\(", f32)) == 2
+    assert "fused_attn_kernel<T>" in f32
+    assert "window_attend<T, float, true>" in _body(
+        code, "fused_attn_kernel(")
+    entry = _body(code, 'extern "C" int pangu_window_attn(')
+    assert entry.index("window_attn<float>(") < entry.index(
+        "aligned16_all(") < entry.index("window_attn_bf16(")
+    assert "window_attn<bf16>" not in code
+    for source in ("grid_attn.cu", "block_wm.cu", "block_bwd.cu"):
+        assert not re.search(r"\bwa_attention\s*<[^>]*>\s*\([^;]*1\.f\)",
+                             _code(source))
+
+
+@pytest.mark.parametrize("dims", [(16, 32, 32, 16), (20, 40, 40, 20)],
+                         ids=["TINY", "C 20"])
+def test_bf16_canonical_down_sample_checks_shapes_before_a_launch(dims):
+    """``down_sample_operands``, which the canonical DownSample runs before
+    a launch, raises ValueError on a bf16 C that is not a multiple of 8 and
+    takes TINY's; float32 takes both."""
+    for dtype in (torch.bfloat16, torch.float32):
+        p, x = _down_canon_case(dims, dtype)
+        if dims[0] % 8 == 0 or dtype == torch.float32:
+            _, q = down_sample_operands(p, x)
+            assert q["reduce"]["kernel"].dtype == dtype
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                down_sample_operands(p, x)
+
+
+def _down_canon_case(dims, dtype, misaligned=False):
+    """(params, input) of the canonical DownSample at TINY with the stage
+    widths ``dims``, batch 1, an odd latitude count; with ``misaligned``,
+    the input and the reduce kernel start 2 bytes off a 16-byte
+    boundary."""
+    cfg = dataclasses.replace(TINY, dims=dims)
+    g0 = cfg.stage(0)
+    p = _updown_params(g0.dim, cfg.stage(1).dim, "down", dtype)
+    shape = (1, g0.z, g0.h - 1 + g0.h % 2, g0.w, g0.dim)
+    numel = torch.Size(shape).numel()
+    x = torch.randn(numel + misaligned).to(dtype)[int(misaligned):]
+    if misaligned:
+        w = p["reduce"]["kernel"]
+        p["reduce"]["kernel"] = torch.zeros(w.numel() + 1,
+                                            dtype=w.dtype)[1:].view(w.shape)
+    return p, x.view(shape)
+
+
+def test_bf16_canonical_down_sample_operands_are_16_byte_aligned():
+    """A bf16 input or weight that starts off a 16-byte boundary is handed
+    to the canonical DownSample as an aligned copy."""
+    p, x = _down_canon_case((16, 32, 32, 16), torch.bfloat16,
+                            misaligned=True)
+    assert x.shape[2] % 2 == 1
+    assert x.data_ptr() % 16 and p["reduce"]["kernel"].data_ptr() % 16
+    got, q = down_sample_operands(p, x)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+    for sub in q.values():
+        assert all(t.data_ptr() % 16 == 0 for t in sub.values())
+
+
+def _window_case(c, n, dtype, misaligned=False):
+    """(x, [wqkv, bqkv, wp, bp], bias) of the fused window attention: 2
+    longitude windows of 3 types, n tokens, C c, 2 heads; with
+    ``misaligned``, x and wqkv start 2 bytes off a 16-byte boundary."""
+    shape = (1, 2, 3, n, c)
+    numel = torch.Size(shape).numel()
+    x = torch.randn(numel + misaligned).to(dtype)[int(misaligned):]
+    weights = [torch.zeros(s, dtype=dtype) for s in ((c, 3 * c), (3 * c,),
+                                                     (c, c), (c,))]
+    if misaligned:
+        weights[0] = torch.zeros(3 * c * c + 1, dtype=dtype)[1:].view(c,
+                                                                    3 * c)
+    return x.view(shape), weights, torch.zeros((3, 2, n, n))
+
+
+@pytest.mark.parametrize("c,n", [(16, 144), (20, 144), (16, 145), (24, 37)],
+                         ids=["TINY", "C 20", "N 145", "N 37"])
+def test_bf16_window_attention_checks_shapes_before_a_launch(c, n):
+    """``window_operands``, which the fused window attention runs before a
+    launch, raises ValueError on a bf16 C that is not a multiple of 8 or a
+    window of more than 144 tokens and takes the rest (any head dim: C 24
+    has head dim 12); float32 takes every one of them."""
+    for dtype in (torch.bfloat16, torch.float32):
+        x, weights, bias = _window_case(c, n, dtype)
+        if (c % 8 == 0 and n <= 144) or dtype == torch.float32:
+            _, got, heads = window_operands(x, weights, bias)
+            assert heads == 2 and all(t.dtype == dtype for t in got)
+        else:
+            with pytest.raises(ValueError, match="multiples of 8"):
+                window_operands(x, weights, bias)
+
+
+def test_bf16_window_operands_are_16_byte_aligned():
+    """A bf16 input or weight that starts off a 16-byte boundary is handed
+    to the fused window attention as an aligned copy."""
+    x, weights, bias = _window_case(16, 144, torch.bfloat16, misaligned=True)
+    assert x.data_ptr() % 16 and weights[0].data_ptr() % 16
+    got, got_w, _ = window_operands(x, weights, bias)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, x)
+    assert all(t.data_ptr() % 16 == 0 for t in got_w)
+    assert torch.equal(got_w[0], weights[0])
