@@ -185,6 +185,29 @@ Phases, each with its wall seconds:
         backwards and 6 canonical ones;
      d. ``attn_impl="xla"``: the served step against "pallas" in bf16 and
         float32 and one bf16 train step, with no kernel launched.
+ 10. the command lines, Pangu-24 at full width (random weights from seed 0,
+     synthetic ERA5 fields and constants, two test dates):
+     a. ``init_params`` (float32, 276,659,936 parameters) through
+        ``export_torch_state_dict`` into a reference ``.pth`` in a temporary
+        directory, ``cli.convert_weights --dtype bfloat16`` into the port's
+        params file, every leaf loaded back equal to the bf16 cast;
+     b. ``cli.inference --bf16 --pallas --set model.gelu=tanh --horizon 48
+        --limit 2 --synthetic --pretrained <file>``: 12 CSVs of 2 rows keyed
+        by the target times, 13 level or 4 surface columns, every value
+        finite and every ACC in [-1, 1]; launches 2 samples x 2 steps x the
+        trunk (4 blocks, 12 grouped blocks, 1 DownSample, 1 UpSample);
+     c. the same with ``--token-space --set model.edge_kernels=true``: per
+        sample besides one embed, one transition and one recovery (upper
+        and surface);
+     d. ``cli.evaluate --limit 2 --no-viz`` twice, the CSVs byte-identical;
+        ``engine.evaluate.make_score_step`` with the kernels against
+        ``kernels=False`` on the first test batch, float32 (RMSE 1e-3
+        relative, ACC 1e-3 absolute) and bf16 (2^-4); the score functions
+        on the card against float64 numpy on the same outputs (RMSE 1e-5
+        relative, ACC 1e-5 absolute);
+     e. each run's wall seconds per sample, split into host loading and
+        device rollout (CUDA events), which fastpack route loaded, the
+        card's name and power limit.
 
 Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
@@ -1871,6 +1894,11 @@ def main() -> int:
     done("fused window attention, canonical training route, "
          'attn_impl="xla"', t0)
 
+    # ---- 10. the command lines ---------------------------------------------
+    t0 = phase("command lines: forecast and score, Pangu-24 full width")
+    cli = cli_phase(smi, trunk_counts, path_counts)
+    done("command lines: forecast and score, Pangu-24 full width", t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -1936,7 +1964,8 @@ def main() -> int:
                           "batch": 1, "peak_bytes": tok_peak,
                           "full_step_ms_per_step": full_ms,
                           "full_step_edge_kernels_ms_per_step": edge_ms},
-                      "v2": v2, "per_block": per_block, "canon": canon}))
+                      "v2": v2, "per_block": per_block, "canon": canon,
+                      "cli": cli}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3281,6 +3310,261 @@ def canon_phase(params, perf, consts_dev, state, storage, ids_of, block_cost,
                              f"finite {finite}")
     out.update(xla_train_ms=ms, xla_train_peak_bytes=peak)
     del p2, grads, loss
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 10. the command lines
+# ---------------------------------------------------------------------------
+
+# the test windows of phase 10: two samples each, at 48 h and at 24 h
+CLI_WINDOW_48 = ("data.test_start=20180103", "data.test_end=20180106",
+                 "data.test_freq=24h")
+CLI_WINDOW_24 = ("data.test_start=20180103", "data.test_end=20180105",
+                 "data.test_freq=24h")
+CLI_SAMPLES, CLI_HORIZON = 2, 48
+F32_SCORE_TOL, BF16_SCORE_TOL, NUMPY_SCORE_TOL = 1e-3, 2.0 ** -4, 1e-5
+
+
+def read_scores(csv_dir):
+    """{table: (header, {row key: float64 values})} of a run's 12 CSVs."""
+    import csv
+    out = {}
+    for name in sorted(os.listdir(csv_dir)):
+        with open(os.path.join(csv_dir, name), newline="") as f:
+            rows = list(csv.reader(f))
+        out[name[:-4]] = (rows[0], {r[0]: [float(v) for v in r[1:]]
+                                    for r in rows[1:]})
+    return out
+
+
+def check_scores(tables, keys, levels):
+    """12 tables, each with a row per target time, 13 level columns or 4
+    surface ones, every value finite, every ACC in [-1, 1]."""
+    if len(tables) != 12:
+        raise AssertionError(f"{len(tables)} CSVs, not 12")
+    for name, (header, rows) in tables.items():
+        width = 4 if name.endswith("surface") else levels
+        if len(header) != width + 1 or list(rows) != keys:
+            raise AssertionError(f"{name}: header {header}, rows {list(rows)}"
+                                 f", want {width} columns and rows {keys}")
+        for key, vals in rows.items():
+            if len(vals) != width or not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"{name} {key}: {vals}")
+            if name.startswith("acc") and not all(-1 <= v <= 1 for v in vals):
+                raise AssertionError(f"{name} {key}: ACC outside [-1, 1]")
+
+
+def cli_timing(log_path):
+    """The last ``timing {json}`` line a command line logged."""
+    with open(log_path) as f:
+        lines = [ln for ln in f if " : timing " in ln]
+    return json.loads(lines[-1].split(" : timing ", 1)[1])
+
+
+def score_gap(got, want, rmse_tol, acc_tol):
+    """max relative RMSE and absolute ACC differences over every table;
+    raises past the tolerances."""
+    rmse = max(float(((got[n] - want[n]).abs() / want[n].abs()).max())
+               for n in want if n.startswith("rmse"))
+    acc = max(float((got[n] - want[n]).abs().max())
+              for n in want if n.startswith("acc"))
+    if not (rmse <= rmse_tol and acc <= acc_tol):
+        raise AssertionError(f"scores: rmse rel {rmse:.3e} (tol {rmse_tol:.1e})"
+                             f", acc abs {acc:.3e} (tol {acc_tol:.1e})")
+    return rmse, acc
+
+
+def numpy_scores(pu, ps, tu, ts, consts):
+    """The RMSE / ACC formula in float64 numpy on the same fields: the
+    reference's weights (3.1416, float32 latitudes) widened to float64."""
+    import numpy as np
+
+    def weights(n):
+        lat = 90.0 - np.arange(n, dtype=np.float32) * 180.0 / (n - 1)
+        cos = np.cos(np.float64(3.1416 / 180.0) * lat.astype(np.float64))
+        return (n * cos / cos.sum())[:, None]
+
+    host = lambda t: t.double().cpu().numpy()[0]     # noqa: E731
+    pu, ps, tu, ts = (host(t) for t in (pu, ps, tu, ts))
+    um = consts["upper_mean"].double().cpu().numpy()
+    sm = consts["surface_mean"].double().cpu().numpy()
+    w = weights(pu.shape[-2])
+
+    def rmse(p, t):
+        return np.sqrt((w * (p - t) ** 2).mean(axis=(-1, -2)))
+
+    def acc(p, t):
+        return ((w * p * t).sum(axis=(-1, -2))
+                / np.sqrt((w * p * p).sum(axis=(-1, -2))
+                          * (w * t * t).sum(axis=(-1, -2))))
+
+    out = {}
+    for i, v in enumerate("zqtuv"):
+        out[f"rmse_upper_{v}"] = rmse(pu[i], tu[i])
+        out[f"acc_upper_{v}"] = acc(pu[i] - um[i], tu[i] - um[i])
+    out["rmse_surface"] = rmse(ps, ts)
+    out["acc_surface"] = acc(ps - sm, ts - sm)
+    return out
+
+
+def cli_phase(smi, trunk_counts, path_counts):
+    """Phase 10: the command lines, Pangu-24 at full width: the reference
+    checkpoint's conversion, full-step and token-space inference, the
+    evaluation sweep twice, the score step with kernels against plain
+    versions and the score functions against float64 numpy.  Returns the
+    numbers of its JSON line."""
+    import argparse
+    import tempfile
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.cli import common
+    from pangu_tpu_torch.cli import convert_weights as cli_convert
+    from pangu_tpu_torch.cli import evaluate as cli_evaluate
+    from pangu_tpu_torch.cli import inference as cli_inference
+    from pangu_tpu_torch.config import PANGU_24, Config, load_config
+    from pangu_tpu_torch.data import era5, fastpack
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.engine.evaluate import make_score_step
+    from pangu_tpu_torch.models import convert, pangu
+    from pangu_tpu_torch.utils.checkpoint import load_params
+
+    dev = torch.device("cuda")
+    out = {"fastpack": fastpack.route()}
+    print(f"fastpack route: {out['fastpack']}")
+    print("card:", smi)
+    with tempfile.TemporaryDirectory(prefix="pangu_cli_") as tmp:
+        # a. the reference checkpoint -> the port's params file
+        t0 = time.perf_counter()
+        params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
+                                     PANGU_24, device="cpu")
+        n = pangu.param_count(params32)
+        size = sum(t.numel() * t.element_size() for t in leaves(params32))
+        if n != 276_659_936:
+            raise AssertionError(f"Pangu-24 has {n:,} parameters")
+        pth, pfile = (os.path.join(tmp, name)
+                      for name in ("pangu_weather_24_torch.pth", "pangu24.pt"))
+        torch.save({"model": convert.export_torch_state_dict(params32,
+                                                             PANGU_24)}, pth)
+        t1 = time.perf_counter()
+        if cli_convert.main(["--input", pth, "--output", pfile,
+                             "--dtype", "bfloat16"]) != 0:
+            raise AssertionError("convert_weights failed")
+        t2 = time.perf_counter()
+        os.unlink(pth)
+        loaded = load_params(pfile, device=dev)
+        for a, b in zip(leaves(loaded), leaves(params32), strict=True):
+            if a.dtype != torch.bfloat16 or not torch.equal(
+                    a.view(torch.int16), b.to(dev, torch.bfloat16)
+                    .view(torch.int16)):
+                raise AssertionError("a converted leaf is not the bf16 cast "
+                                     "of the original")
+        print(f"weights: {n:,} parameters ({size / 2**30:.2f} GiB float32), "
+              f"export + torch.save {t1 - t0:.2f} s, convert_weights "
+              f"{t2 - t1:.2f} s, every leaf the bf16 cast bit for bit")
+        out["convert_s"] = t2 - t1
+        del loaded
+
+        common_args = ["--bf16", "--pallas", "--set", "model.gelu=tanh",
+                       "--synthetic", "--pretrained", pfile,
+                       "--set", f"output_path={tmp}"]
+        window48 = [a for item in CLI_WINDOW_48 for a in ("--set", item)]
+        window24 = [a for item in CLI_WINDOW_24 for a in ("--set", item)]
+        keys48 = ["2018010500", "2018010600"]
+        keys24 = ["2018010400", "2018010500"]
+        per_sample = CLI_SAMPLES * CLI_HORIZON // 24
+        runs = {
+            # b. full-step inference: per step the trunk only
+            "inference": (cli_inference, ["--horizon", str(CLI_HORIZON),
+                                          "--limit", str(CLI_SAMPLES),
+                                          *window48],
+                          {k: per_sample * v for k, v in trunk_counts.items()},
+                          keys48, CLI_HORIZON),
+            # c. token space with the edge kernels (the JAX CLI's --pallas):
+            # per sample one embed, one transition, one recovery
+            "inference_token_space": (
+                cli_inference, ["--horizon", str(CLI_HORIZON), "--limit",
+                                str(CLI_SAMPLES), "--token-space", "--set",
+                                "model.edge_kernels=true", *window48],
+                {**{k: per_sample * v for k, v in trunk_counts.items()},
+                 "embed_wm": CLI_SAMPLES, "transition_wm": CLI_SAMPLES,
+                 "recovery_wm_upper": CLI_SAMPLES,
+                 "recovery_wm_surface": CLI_SAMPLES},
+                keys48, CLI_HORIZON),
+            # d. the evaluation sweep, twice
+            **{name: (cli_evaluate, ["--limit", str(CLI_SAMPLES), "--no-viz",
+                                     *window24],
+                      {k: CLI_SAMPLES * v for k, v in trunk_counts.items()},
+                      keys24, 24)
+               for name in ("evaluate", "evaluate_again")},
+        }
+        csvs = {}
+        for name, (cli, argv, want, keys, horizon) in runs.items():
+            ops.reset_launches()
+            t_run = time.perf_counter()
+            if cli.main(common_args + ["--type_net", name] + argv) != 0:
+                raise AssertionError(f"{name} failed")
+            wall = time.perf_counter() - t_run
+            counts = ops.launches()
+            path_counts[f"cli {name}"] = counts
+            want = {**{k: 0 for k in counts}, **want}
+            if counts != want:
+                raise AssertionError(f"{name}: launches {counts} != {want}")
+            run_dir = os.path.join(tmp, name, str(horizon))
+            check_scores(read_scores(os.path.join(run_dir, "csv")), keys,
+                         PANGU_24.levels)
+            csvs[name] = {f: open(os.path.join(run_dir, "csv", f), "rb").read()
+                          for f in sorted(os.listdir(os.path.join(run_dir,
+                                                                  "csv")))}
+            tm = cli_timing(os.path.join(run_dir, f"{name}.log"))
+            print(f"cli {name}: {tm['samples']} samples, wall "
+                  f"{tm['wall_s_per_sample']:.3f} s per sample (host loading "
+                  f"{tm['load_s_per_sample']:.3f}, device "
+                  f"{tm['device_s_per_sample']:.3f}), the whole command "
+                  f"{wall:.2f} s; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }")
+            out[name] = {**tm, "command_s": wall}
+        if csvs["evaluate"] != csvs["evaluate_again"]:
+            raise AssertionError("two evaluate runs wrote different CSVs")
+        print("evaluate twice: the 12 CSVs byte-identical")
+
+        # d. the score step, kernels against plain versions, first batch
+        batch = era5.make_dataset(load_config(None, CLI_WINDOW_24).data,
+                                  "test", PANGU_24,
+                                  synthetic=True)[0].as_batch()
+        fields = [torch.from_numpy(batch[k]).to(dev) for k in
+                  ("upper", "surface", "target_upper", "target_surface")]
+        consts = synthetic_constants(PANGU_24, seed=SEED)
+        perf = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
+                                   compute_dtype="bfloat16", gelu="tanh")
+        params16 = common.load_params(
+            argparse.Namespace(device="cuda", pretrained=pfile),
+            Config(model=perf))
+        params32 = to_dtype(params32, dev)        # Tensor.to: a device too
+        for label, cfg, p, tol in (
+                ("float32", PANGU_24, params32, F32_SCORE_TOL),
+                ("bf16", perf, params16, BF16_SCORE_TOL)):
+            got, (pu, ps) = make_score_step(cfg, consts, device=dev)(p, *fields)
+            want, _ = make_score_step(cfg, consts, device=dev,
+                                      kernels=False)(p, *fields)
+            rmse, acc = score_gap(got, want, tol, tol)
+            print(f"score step {label}, kernels vs plain: rmse rel "
+                  f"{rmse:.3e}, acc abs {acc:.3e} (tol {tol:.1e})")
+            out[f"score_step_{label}"] = {"rmse_rel": rmse, "acc_abs": acc}
+        # the score functions on the card against float64 numpy on the
+        # same (bf16 step's) outputs
+        ref = numpy_scores(pu, ps, fields[2], fields[3],
+                           to_device(consts, dev))
+        rmse = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max()
+                         / abs(ref[n]).min()) for n in ref if "rmse" in n)
+        acc = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max())
+                  for n in ref if "acc" in n)
+        print(f"score functions vs float64 numpy: rmse rel {rmse:.3e}, acc "
+              f"abs {acc:.3e} (tol {NUMPY_SCORE_TOL:.0e}; ACC's range is 1)")
+        if not (rmse <= NUMPY_SCORE_TOL and acc <= NUMPY_SCORE_TOL):
+            raise AssertionError("score functions differ from float64 numpy")
+        out["scores_vs_numpy"] = {"rmse_rel": rmse, "acc_abs": acc}
+    del params32, params16
     torch.cuda.empty_cache()
     return out
 

@@ -13,5 +13,10 @@ plain PyTorch version that serves CPU tensors.  It trains on either trunk
 attention and its backward), and serves and trains LoRA adapters
 (``models/lora.py``), merged into the fused trunks or unmerged on the
 per-block path (``models/layers.py::earth_block``: the no-roll block, the
-block tail and the windowed sdpa kernels).
+block tail and the windowed sdpa kernels).  It forecasts and scores through
+its own command lines (``cli/``: ``convert_weights``, ``evaluate``,
+``inference``) on JSON config files (``config.load_config``), the ERA5
+pipeline (``data/era5.py``, ``data/fastpack.py``), reference checkpoints
+(``models/convert.py``) and the lat-weighted RMSE / ACC (``metrics/``,
+``engine/evaluate.py``).
 """

@@ -2,9 +2,16 @@
 
 Kept: ``ModelConfig`` with its derived token geometry and its
 stochastic-depth schedule (``drop_path_max``, ``drop_path_rates``),
-``StageGeometry``, ``TrainConfig`` (its LoRA fields included) and the presets
-``PANGU_24``, ``TINY`` and ``MID``.  The JAX package's TPU tuning fields
-(``lon_chunk``, ``attn_unroll``, its VMEM notes) have no counterpart here.
+``StageGeometry``, ``TrainConfig`` (its LoRA fields included), ``DataConfig``,
+``MeshConfig``, ``Config`` (``PANGU_DATA`` / ``PANGU_OUT`` give the data and
+output roots), the presets ``PANGU_24``, ``TINY`` and ``MID``, and
+``load_config`` (a JSON file plus ``a.b.c=value`` overrides).  The JAX
+package's TPU tuning fields of XLA's attention (:data:`TPU_TUNING_FIELDS`:
+``lon_chunk``, ``attn_unroll``) have no counterpart here: ``load_config``
+accepts them from a JAX config file and drops them with one logged warning.
+``fast_math`` (bf16 LayerNorm statistics, CPU/interpret only in the JAX
+package) exists so such a file loads; the port has no bf16-statistics
+LayerNorm, so ``True`` raises ``ValueError``.
 
 Training and LoRA, as in the JAX package: ``remat`` recomputes each block of
 the per-block path in the backward (``torch.utils.checkpoint``); ``train_fused``
@@ -48,7 +55,14 @@ be at least 1.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import json
+import logging
+import os
+from typing import Any, Mapping, Optional, Sequence, Tuple
+
+# ModelConfig fields of the JAX package that tune XLA's attention on a TPU;
+# load_config drops them (the port's kernels have no such knob)
+TPU_TUNING_FIELDS = ("lon_chunk", "attn_unroll")
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -114,6 +128,7 @@ class ModelConfig:
     # "pallas": the kernels; "xla": the plain layers.  The JAX default is
     # "xla" (its CLIs map --pallas to "pallas"); the port's is "pallas"
     attn_impl: str = "pallas"
+    fast_math: bool = False     # bf16 LayerNorm statistics: not in the port
 
     def __post_init__(self):
         pz, ph, pw = self.patch
@@ -147,6 +162,11 @@ class ModelConfig:
         if self.lat_group < 1:
             raise ValueError(f"lat_group must be at least 1, not "
                              f"{self.lat_group}")
+        if self.fast_math:
+            raise ValueError("fast_math=True (bf16 LayerNorm statistics) is "
+                             "the JAX package's CPU/interpret-only mode; the "
+                             "port's LayerNorms keep float32 statistics (the "
+                             "perf config is gelu='tanh')")
 
     @property
     def gelu_tanh(self) -> bool:
@@ -246,6 +266,52 @@ class TrainConfig:
     lora_dropout_mode: str = "element"
 
 
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Host-side ERA5 pipeline configuration, the JAX package's fields and
+    defaults."""
+
+    nc_path: str = os.environ.get("PANGU_DATA", "/data/pangu")
+    aux_path: str = ""           # defaults to <nc_path>/aux_data
+    horizon: int = 24            # forecast horizon in hours
+    train_start: str = "20150101"
+    train_end: str = "20171231"
+    train_freq: str = "12h"
+    val_start: str = "20190101"
+    val_end: str = "20191231"
+    val_freq: str = "12h"
+    test_start: str = "20180103"
+    test_end: str = "20180117"
+    test_freq: str = "12h"
+    prefetch: int = 2            # batches the loader holds ready
+    num_workers: int = 4         # loader threads
+
+    upper_variables: Tuple[str, ...] = ("z", "q", "t", "u", "v")
+    surface_variables: Tuple[str, ...] = ("msl", "u10", "v10", "t2m")
+    # pressure levels, canonical order: index 0 is 1000 hPa
+    levels_hpa: Tuple[str, ...] = (
+        "1000", "925", "850", "700", "600", "500", "400",
+        "300", "250", "200", "150", "100", "50",
+    )
+
+    def resolved_aux_path(self) -> str:
+        return self.aux_path or os.path.join(self.nc_path, "aux_data")
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout (dp batch, sp longitude, tp heads / MLP).  The port
+    runs one device; a mesh larger than 1 is refused where it would run."""
+
+    dp: int = 1
+    sp: int = 1
+    tp: int = 1
+
+    @property
+    def size(self) -> int:
+        return self.dp * self.sp * self.tp
+
+
 def _pick_gh(nlat: int, target: int) -> int:
     """Largest divisor of nlat <= target: the latitude windows one grouped
     block takes together (``pangu_tpu/ops/earth_block_wm.py::_pick_gh``)."""
@@ -273,6 +339,15 @@ def recovery_supported(cfg: ModelConfig) -> bool:
     return (pw == 4 and ph == 4 and pz == 2 and wz == 2
             and cfg.upper_vars * pz * ph * pw <= 256
             and cfg.w_tokens % ww == 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    output_path: str = os.environ.get("PANGU_OUT", "result")
 
 
 # ---------------------------------------------------------------------------
@@ -304,3 +379,61 @@ MID = ModelConfig(
     dims=(48, 96, 96, 48),
     remat=False,
 )
+
+
+# ---------------------------------------------------------------------------
+# Overrides: nested-dict merge from a JSON file / CLI ("a.b.c=v")
+# ---------------------------------------------------------------------------
+
+def _replace_nested(obj, updates: Mapping[str, Any], dropped: list):
+    own = {}
+    for k, v in updates.items():
+        field = next((f for f in dataclasses.fields(obj) if f.name == k), None)
+        if field is None:
+            if isinstance(obj, ModelConfig) and k in TPU_TUNING_FIELDS:
+                dropped.append(k)
+                continue
+            raise KeyError(f"unknown config field {k!r} on {type(obj).__name__}")
+        cur = getattr(obj, k)
+        if dataclasses.is_dataclass(cur) and isinstance(v, Mapping):
+            own[k] = _replace_nested(cur, v, dropped)
+        elif isinstance(cur, tuple) and isinstance(v, Sequence) and not isinstance(v, str):
+            own[k] = tuple(v)
+        elif isinstance(cur, str):
+            # string fields stay strings (a date window "20180103" would
+            # otherwise JSON-parse to an int)
+            own[k] = str(v)
+        else:
+            own[k] = v
+    return dataclasses.replace(obj, **own)
+
+
+def load_config(path: Optional[str] = None, overrides: Sequence[str] = (),
+                base: Optional[Config] = None) -> Config:
+    """A Config from ``base`` (default ``Config()``), an optional JSON file and
+    ``a.b.c=value`` overrides, in that order.  The JAX package's
+    :data:`TPU_TUNING_FIELDS` are dropped with one warning."""
+    cfg = Config() if base is None else base
+    dropped: list = []
+    if path:
+        with open(path) as f:
+            cfg = _replace_nested(cfg, json.load(f), dropped)
+    nested: dict = {}
+    for item in overrides:
+        key, _, raw = item.partition("=")
+        try:
+            val = json.loads(raw)
+        except json.JSONDecodeError:
+            val = raw
+        node = nested
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    if nested:
+        cfg = _replace_nested(cfg, nested, dropped)
+    if dropped:
+        logging.getLogger(__name__).warning(
+            "config: dropped %s (TPU tuning of XLA's attention; the port's "
+            "kernels have no such setting)", ", ".join(sorted(set(dropped))))
+    return cfg

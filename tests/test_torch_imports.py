@@ -1,6 +1,8 @@
 """The port stands alone: no module of ``pangu_tpu_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package, and every port
-module imports in a process where JAX cannot be imported at all."""
+module imports in a process where JAX cannot be imported at all, nor any of
+the optional packages the card's machine lacks (``OPTIONAL``); the serving
+command lines run there too."""
 
 import ast
 import os
@@ -14,6 +16,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(str(p.relative_to(ROOT))
                     for p in (ROOT / "pangu_tpu_torch").rglob("*.py"))
 FORBIDDEN = ("jax", "jaxlib", "pangu_tpu", "bench", "tests")
+# imported, where at all, inside the functions that need them
+OPTIONAL = ("pandas", "h5py", "matplotlib", "xarray", "tensorboardX", "orbax",
+            "onnx", "onnxruntime")
 
 
 def _imported_roots(path: Path):
@@ -46,6 +51,58 @@ def test_every_port_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def _run_blocked(body: str, blocked, cwd, timeout=120):
+    code = ("import sys\n"
+            f"for name in {list(blocked)!r}:\n"
+            "    sys.modules[name] = None\n" + body)
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def test_every_port_module_imports_without_optional_packages():
+    modules = [f[:-3].replace(os.sep, ".").removesuffix(".__init__")
+               for f in PORT_FILES]
+    out = _run_blocked("import importlib\n"
+                       f"for m in {modules!r}:\n"
+                       "    importlib.import_module(m)\n"
+                       f"assert not any(sys.modules.get(n) for n in "
+                       f"{OPTIONAL!r})\n"
+                       "print('ok')\n",
+                       ("jax", "pangu_tpu") + OPTIONAL, ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_serving_command_lines_run_without_optional_packages(tmp_path):
+    """convert_weights, evaluate and inference (token space) at TINY on the
+    CPU with every optional package and JAX unimportable."""
+    args = ["--device", "cpu", "--tiny", "--synthetic", "--limit", "1",
+            "--set", f"output_path={tmp_path}",
+            "--set", "data.test_start=20150106",
+            "--set", "data.test_end=20150109"]
+    body = (f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import torch\n"
+            "from pangu_tpu_torch.cli import convert_weights, evaluate, inference\n"
+            "from pangu_tpu_torch.config import TINY\n"
+            "from pangu_tpu_torch.models import convert, pangu\n"
+            "p = pangu.init_params(torch.Generator().manual_seed(0), TINY, "
+            "device='cpu')\n"
+            f"pth = {str(tmp_path / 'w.pth')!r}\n"
+            "torch.save(convert.export_torch_state_dict(p, TINY), pth)\n"
+            "assert convert_weights.main(['--tiny', '--device', 'cpu', "
+            f"'--input', pth, '--output', {str(tmp_path / 'w.pt')!r}]) == 0\n"
+            f"assert evaluate.main({args!r} + ['--no-viz', '--pretrained', "
+            f"{str(tmp_path / 'w.pt')!r}]) == 0\n"
+            f"assert inference.main({args!r} + ['--horizon', '48', "
+            "'--token-space', '--type_net', 'inf']) == 0\n"
+            "print('ok')\n")
+    out = _run_blocked(body, ("jax", "pangu_tpu") + OPTIONAL, tmp_path)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    for run in ("pangu_tpu/24", "inf/48"):
+        assert len(os.listdir(tmp_path / run / "csv")) == 12
 
 
 def test_chip_smoke_fails_alone(tmp_path):
