@@ -208,6 +208,29 @@ Phases, each with its wall seconds:
      e. each run's wall seconds per sample, split into host loading and
         device rollout (CUDA events), which fastpack route loaded, the
         card's name and power limit.
+ 11. the sharded serving path, a world of ranks on the one card:
+     a. row 5z alone (the transition on a tp z shard, ``z_base`` /
+        ``nz_global``), float32 and bf16, at full width: the stage-0 pair at
+        offsets (0, 3, 6) and (0, 0, 0) cut into tp 2 and tp 4 z shards (and,
+        at (0, 0, 0), tp 2 x sp 3 shards); each shard's kernel against its
+        plain version (``TOL``), the shards' outputs put together against
+        row 5's kernel on the whole pair, bit for bit; per-launch times
+        beside the bound; a launch with a z offset under tp and one with a
+        lon offset on a lon shard must raise;
+     b. a world of 6 ranks, mesh (dp 1, sp 3, tp 2), over gloo
+        (``parallel/launch.py``; the halos through host buffers): Pangu-24
+        from seed 0, float32 and bf16, one seeded state: ``forward`` and a
+        2-step ``make_rollout(token_space=True)`` against the single-device
+        runs of the same params and inputs (float32 1e-4, bf16
+        ``TOL_FORWARD``), whether they are bit-equal; per rank the launch
+        counts (a trunk: 4 blocks, 12 grouped blocks, 1 DownSample, 1
+        UpSample; the rollout one 5z transition; no embed, no recovery
+        kernel), the halo exchanges and bytes and the wall seconds per step;
+     c. in the same world, ``cli.inference --bf16 --pallas --set
+        model.gelu=tanh --token-space --horizon 48 --limit 1`` on phase 10's
+        weights file: rank 0 writes the 12 CSVs, each value within 2^-4 of
+        phase 10's token-space run on that date (RMSE relative, ACC
+        absolute).
 
 Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
@@ -1894,10 +1917,19 @@ def main() -> int:
     done("fused window attention, canonical training route, "
          'attn_impl="xla"', t0)
 
-    # ---- 10. the command lines ---------------------------------------------
-    t0 = phase("command lines: forecast and score, Pangu-24 full width")
-    cli = cli_phase(smi, trunk_counts, path_counts)
-    done("command lines: forecast and score, Pangu-24 full width", t0)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="pangu_cli_") as tmp:
+        # ---- 10. the command lines -----------------------------------------
+        t0 = phase("command lines: forecast and score, Pangu-24 full width")
+        kept = {}
+        cli = cli_phase(smi, trunk_counts, path_counts, tmp, kept)
+        done("command lines: forecast and score, Pangu-24 full width", t0)
+
+        # ---- 11. the sharded serving path ----------------------------------
+        t0 = phase(f"sharded serving: row 5z, a world of {WORLD} ranks, "
+                   f"mesh {WORLD_MESH}")
+        sharded = sharded_phase(smi, records, path_counts, tmp, kept)
+        done("sharded serving", t0)
 
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
@@ -1945,12 +1977,14 @@ def main() -> int:
                                     "pangu_tpu/ops/block_tail.py:130"),
                "window_attention_pallas": (
                    "pangu_tpu_torch/csrc/window_attn.cu",
-                   "pangu_tpu/ops/window_attention.py:294")}
+                   "pangu_tpu/ops/window_attention.py:294"),
+               "transition_wm_z": ("pangu_tpu_torch/csrc/transition_wm.cu",
+                                   "pangu_tpu/engine/transition_wm.py:244")}
     # launches: each kernel's count on the main path that runs it most
-    launches = {name: max(c[name] for c in path_counts.values())
+    launches = {name: max(c.get(name, 0) for c in path_counts.values())
                 for name in sources}
     unlaunched = [name for name, n in launches.items() if n == 0]
-    if unlaunched or set(sources) != set(ops.kernels()):
+    if unlaunched or set(sources) != set(ops.launches()):
         raise AssertionError(f"kernels no main path launched: {unlaunched}")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], "library_ms": None,
@@ -1965,7 +1999,7 @@ def main() -> int:
                           "full_step_ms_per_step": full_ms,
                           "full_step_edge_kernels_ms_per_step": edge_ms},
                       "v2": v2, "per_block": per_block, "canon": canon,
-                      "cli": cli}))
+                      "cli": cli, "sharded": sharded}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2148,7 +2182,7 @@ def adam_steps(cfg, params, batch, consts_dev, step_counts, path_counts,
         raise AssertionError(f"{label}bf16 gradients differ between two runs")
     del runs
     step = make_train_step(cfg, tcfg, consts_dev, opt, device=dev)
-    losses, norms, total = [], [], {k: 0 for k in ops.kernels()}
+    losses, norms, total = [], [], {k: 0 for k in ops.launches()}
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3409,14 +3443,14 @@ def numpy_scores(pu, ps, tu, ts, consts):
     return out
 
 
-def cli_phase(smi, trunk_counts, path_counts):
+def cli_phase(smi, trunk_counts, path_counts, tmp, kept):
     """Phase 10: the command lines, Pangu-24 at full width: the reference
     checkpoint's conversion, full-step and token-space inference, the
     evaluation sweep twice, the score step with kernels against plain
     versions and the score functions against float64 numpy.  Returns the
-    numbers of its JSON line."""
+    numbers of its JSON line; leaves the weights file in ``tmp`` and puts
+    its path and the token-space run's scores in ``kept`` (phase 11)."""
     import argparse
-    import tempfile
     from pangu_tpu_torch import ops
     from pangu_tpu_torch.cli import common
     from pangu_tpu_torch.cli import convert_weights as cli_convert
@@ -3433,141 +3467,464 @@ def cli_phase(smi, trunk_counts, path_counts):
     out = {"fastpack": fastpack.route()}
     print(f"fastpack route: {out['fastpack']}")
     print("card:", smi)
-    with tempfile.TemporaryDirectory(prefix="pangu_cli_") as tmp:
-        # a. the reference checkpoint -> the port's params file
-        t0 = time.perf_counter()
-        params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
-                                     PANGU_24, device="cpu")
-        n = pangu.param_count(params32)
-        size = sum(t.numel() * t.element_size() for t in leaves(params32))
-        if n != 276_659_936:
-            raise AssertionError(f"Pangu-24 has {n:,} parameters")
-        pth, pfile = (os.path.join(tmp, name)
-                      for name in ("pangu_weather_24_torch.pth", "pangu24.pt"))
-        torch.save({"model": convert.export_torch_state_dict(params32,
-                                                             PANGU_24)}, pth)
-        t1 = time.perf_counter()
-        if cli_convert.main(["--input", pth, "--output", pfile,
-                             "--dtype", "bfloat16"]) != 0:
-            raise AssertionError("convert_weights failed")
-        t2 = time.perf_counter()
-        os.unlink(pth)
-        loaded = load_params(pfile, device=dev)
-        for a, b in zip(leaves(loaded), leaves(params32), strict=True):
-            if a.dtype != torch.bfloat16 or not torch.equal(
-                    a.view(torch.int16), b.to(dev, torch.bfloat16)
-                    .view(torch.int16)):
-                raise AssertionError("a converted leaf is not the bf16 cast "
-                                     "of the original")
-        print(f"weights: {n:,} parameters ({size / 2**30:.2f} GiB float32), "
-              f"export + torch.save {t1 - t0:.2f} s, convert_weights "
-              f"{t2 - t1:.2f} s, every leaf the bf16 cast bit for bit")
-        out["convert_s"] = t2 - t1
-        del loaded
+    # a. the reference checkpoint -> the port's params file
+    t0 = time.perf_counter()
+    params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
+                                 PANGU_24, device="cpu")
+    n = pangu.param_count(params32)
+    size = sum(t.numel() * t.element_size() for t in leaves(params32))
+    if n != 276_659_936:
+        raise AssertionError(f"Pangu-24 has {n:,} parameters")
+    pth, pfile = (os.path.join(tmp, name)
+                  for name in ("pangu_weather_24_torch.pth", "pangu24.pt"))
+    torch.save({"model": convert.export_torch_state_dict(params32,
+                                                         PANGU_24)}, pth)
+    t1 = time.perf_counter()
+    if cli_convert.main(["--input", pth, "--output", pfile,
+                         "--dtype", "bfloat16"]) != 0:
+        raise AssertionError("convert_weights failed")
+    t2 = time.perf_counter()
+    os.unlink(pth)
+    loaded = load_params(pfile, device=dev)
+    for a, b in zip(leaves(loaded), leaves(params32), strict=True):
+        if a.dtype != torch.bfloat16 or not torch.equal(
+                a.view(torch.int16), b.to(dev, torch.bfloat16)
+                .view(torch.int16)):
+            raise AssertionError("a converted leaf is not the bf16 cast "
+                                 "of the original")
+    print(f"weights: {n:,} parameters ({size / 2**30:.2f} GiB float32), "
+          f"export + torch.save {t1 - t0:.2f} s, convert_weights "
+          f"{t2 - t1:.2f} s, every leaf the bf16 cast bit for bit")
+    out["convert_s"] = t2 - t1
+    del loaded
 
-        common_args = ["--bf16", "--pallas", "--set", "model.gelu=tanh",
-                       "--synthetic", "--pretrained", pfile,
-                       "--set", f"output_path={tmp}"]
-        window48 = [a for item in CLI_WINDOW_48 for a in ("--set", item)]
-        window24 = [a for item in CLI_WINDOW_24 for a in ("--set", item)]
-        keys48 = ["2018010500", "2018010600"]
-        keys24 = ["2018010400", "2018010500"]
-        per_sample = CLI_SAMPLES * CLI_HORIZON // 24
-        runs = {
-            # b. full-step inference: per step the trunk only
-            "inference": (cli_inference, ["--horizon", str(CLI_HORIZON),
-                                          "--limit", str(CLI_SAMPLES),
-                                          *window48],
-                          {k: per_sample * v for k, v in trunk_counts.items()},
-                          keys48, CLI_HORIZON),
-            # c. token space with the edge kernels (the JAX CLI's --pallas):
-            # per sample one embed, one transition, one recovery
-            "inference_token_space": (
-                cli_inference, ["--horizon", str(CLI_HORIZON), "--limit",
-                                str(CLI_SAMPLES), "--token-space", "--set",
-                                "model.edge_kernels=true", *window48],
-                {**{k: per_sample * v for k, v in trunk_counts.items()},
-                 "embed_wm": CLI_SAMPLES, "transition_wm": CLI_SAMPLES,
-                 "recovery_wm_upper": CLI_SAMPLES,
-                 "recovery_wm_surface": CLI_SAMPLES},
-                keys48, CLI_HORIZON),
-            # d. the evaluation sweep, twice
-            **{name: (cli_evaluate, ["--limit", str(CLI_SAMPLES), "--no-viz",
-                                     *window24],
-                      {k: CLI_SAMPLES * v for k, v in trunk_counts.items()},
-                      keys24, 24)
-               for name in ("evaluate", "evaluate_again")},
-        }
-        csvs = {}
-        for name, (cli, argv, want, keys, horizon) in runs.items():
-            ops.reset_launches()
-            t_run = time.perf_counter()
-            if cli.main(common_args + ["--type_net", name] + argv) != 0:
-                raise AssertionError(f"{name} failed")
-            wall = time.perf_counter() - t_run
-            counts = ops.launches()
-            path_counts[f"cli {name}"] = counts
-            want = {**{k: 0 for k in counts}, **want}
-            if counts != want:
-                raise AssertionError(f"{name}: launches {counts} != {want}")
-            run_dir = os.path.join(tmp, name, str(horizon))
-            check_scores(read_scores(os.path.join(run_dir, "csv")), keys,
-                         PANGU_24.levels)
-            csvs[name] = {f: open(os.path.join(run_dir, "csv", f), "rb").read()
-                          for f in sorted(os.listdir(os.path.join(run_dir,
-                                                                  "csv")))}
-            tm = cli_timing(os.path.join(run_dir, f"{name}.log"))
-            print(f"cli {name}: {tm['samples']} samples, wall "
-                  f"{tm['wall_s_per_sample']:.3f} s per sample (host loading "
-                  f"{tm['load_s_per_sample']:.3f}, device "
-                  f"{tm['device_s_per_sample']:.3f}), the whole command "
-                  f"{wall:.2f} s; launches "
-                  f"{ {k: v for k, v in counts.items() if v} }")
-            out[name] = {**tm, "command_s": wall}
-        if csvs["evaluate"] != csvs["evaluate_again"]:
-            raise AssertionError("two evaluate runs wrote different CSVs")
-        print("evaluate twice: the 12 CSVs byte-identical")
+    common_args = ["--bf16", "--pallas", "--set", "model.gelu=tanh",
+                   "--synthetic", "--pretrained", pfile,
+                   "--set", f"output_path={tmp}"]
+    window48 = [a for item in CLI_WINDOW_48 for a in ("--set", item)]
+    window24 = [a for item in CLI_WINDOW_24 for a in ("--set", item)]
+    keys48 = ["2018010500", "2018010600"]
+    keys24 = ["2018010400", "2018010500"]
+    per_sample = CLI_SAMPLES * CLI_HORIZON // 24
+    runs = {
+        # b. full-step inference: per step the trunk only
+        "inference": (cli_inference, ["--horizon", str(CLI_HORIZON),
+                                      "--limit", str(CLI_SAMPLES),
+                                      *window48],
+                      {k: per_sample * v for k, v in trunk_counts.items()},
+                      keys48, CLI_HORIZON),
+        # c. token space with the edge kernels (the JAX CLI's --pallas):
+        # per sample one embed, one transition, one recovery
+        "inference_token_space": (
+            cli_inference, ["--horizon", str(CLI_HORIZON), "--limit",
+                            str(CLI_SAMPLES), "--token-space", "--set",
+                            "model.edge_kernels=true", *window48],
+            {**{k: per_sample * v for k, v in trunk_counts.items()},
+             "embed_wm": CLI_SAMPLES, "transition_wm": CLI_SAMPLES,
+             "recovery_wm_upper": CLI_SAMPLES,
+             "recovery_wm_surface": CLI_SAMPLES},
+            keys48, CLI_HORIZON),
+        # d. the evaluation sweep, twice
+        **{name: (cli_evaluate, ["--limit", str(CLI_SAMPLES), "--no-viz",
+                                 *window24],
+                  {k: CLI_SAMPLES * v for k, v in trunk_counts.items()},
+                  keys24, 24)
+           for name in ("evaluate", "evaluate_again")},
+    }
+    csvs = {}
+    for name, (cli, argv, want, keys, horizon) in runs.items():
+        ops.reset_launches()
+        t_run = time.perf_counter()
+        if cli.main(common_args + ["--type_net", name] + argv) != 0:
+            raise AssertionError(f"{name} failed")
+        wall = time.perf_counter() - t_run
+        counts = ops.launches()
+        path_counts[f"cli {name}"] = counts
+        want = {**{k: 0 for k in counts}, **want}
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts} != {want}")
+        run_dir = os.path.join(tmp, name, str(horizon))
+        scores = read_scores(os.path.join(run_dir, "csv"))
+        check_scores(scores, keys, PANGU_24.levels)
+        kept[name] = scores
+        csvs[name] = {f: open(os.path.join(run_dir, "csv", f), "rb").read()
+                      for f in sorted(os.listdir(os.path.join(run_dir,
+                                                              "csv")))}
+        tm = cli_timing(os.path.join(run_dir, f"{name}.log"))
+        print(f"cli {name}: {tm['samples']} samples, wall "
+              f"{tm['wall_s_per_sample']:.3f} s per sample (host loading "
+              f"{tm['load_s_per_sample']:.3f}, device "
+              f"{tm['device_s_per_sample']:.3f}), the whole command "
+              f"{wall:.2f} s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        out[name] = {**tm, "command_s": wall}
+    if csvs["evaluate"] != csvs["evaluate_again"]:
+        raise AssertionError("two evaluate runs wrote different CSVs")
+    print("evaluate twice: the 12 CSVs byte-identical")
 
-        # d. the score step, kernels against plain versions, first batch
-        batch = era5.make_dataset(load_config(None, CLI_WINDOW_24).data,
-                                  "test", PANGU_24,
-                                  synthetic=True)[0].as_batch()
-        fields = [torch.from_numpy(batch[k]).to(dev) for k in
-                  ("upper", "surface", "target_upper", "target_surface")]
-        consts = synthetic_constants(PANGU_24, seed=SEED)
-        perf = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
-                                   compute_dtype="bfloat16", gelu="tanh")
-        params16 = common.load_params(
-            argparse.Namespace(device="cuda", pretrained=pfile),
-            Config(model=perf))
-        params32 = to_dtype(params32, dev)        # Tensor.to: a device too
-        for label, cfg, p, tol in (
-                ("float32", PANGU_24, params32, F32_SCORE_TOL),
-                ("bf16", perf, params16, BF16_SCORE_TOL)):
-            got, (pu, ps) = make_score_step(cfg, consts, device=dev)(p, *fields)
-            want, _ = make_score_step(cfg, consts, device=dev,
-                                      kernels=False)(p, *fields)
-            rmse, acc = score_gap(got, want, tol, tol)
-            print(f"score step {label}, kernels vs plain: rmse rel "
-                  f"{rmse:.3e}, acc abs {acc:.3e} (tol {tol:.1e})")
-            out[f"score_step_{label}"] = {"rmse_rel": rmse, "acc_abs": acc}
-        # the score functions on the card against float64 numpy on the
-        # same (bf16 step's) outputs
-        ref = numpy_scores(pu, ps, fields[2], fields[3],
-                           to_device(consts, dev))
-        rmse = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max()
-                         / abs(ref[n]).min()) for n in ref if "rmse" in n)
-        acc = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max())
-                  for n in ref if "acc" in n)
-        print(f"score functions vs float64 numpy: rmse rel {rmse:.3e}, acc "
-              f"abs {acc:.3e} (tol {NUMPY_SCORE_TOL:.0e}; ACC's range is 1)")
-        if not (rmse <= NUMPY_SCORE_TOL and acc <= NUMPY_SCORE_TOL):
-            raise AssertionError("score functions differ from float64 numpy")
-        out["scores_vs_numpy"] = {"rmse_rel": rmse, "acc_abs": acc}
+    # d. the score step, kernels against plain versions, first batch
+    batch = era5.make_dataset(load_config(None, CLI_WINDOW_24).data,
+                              "test", PANGU_24,
+                              synthetic=True)[0].as_batch()
+    fields = [torch.from_numpy(batch[k]).to(dev) for k in
+              ("upper", "surface", "target_upper", "target_surface")]
+    consts = synthetic_constants(PANGU_24, seed=SEED)
+    perf = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
+                               compute_dtype="bfloat16", gelu="tanh")
+    params16 = common.load_params(
+        argparse.Namespace(device="cuda", pretrained=pfile),
+        Config(model=perf))
+    params32 = to_dtype(params32, dev)        # Tensor.to: a device too
+    for label, cfg, p, tol in (
+            ("float32", PANGU_24, params32, F32_SCORE_TOL),
+            ("bf16", perf, params16, BF16_SCORE_TOL)):
+        got, (pu, ps) = make_score_step(cfg, consts, device=dev)(p, *fields)
+        want, _ = make_score_step(cfg, consts, device=dev,
+                                  kernels=False)(p, *fields)
+        rmse, acc = score_gap(got, want, tol, tol)
+        print(f"score step {label}, kernels vs plain: rmse rel "
+              f"{rmse:.3e}, acc abs {acc:.3e} (tol {tol:.1e})")
+        out[f"score_step_{label}"] = {"rmse_rel": rmse, "acc_abs": acc}
+    # the score functions on the card against float64 numpy on the
+    # same (bf16 step's) outputs
+    ref = numpy_scores(pu, ps, fields[2], fields[3],
+                       to_device(consts, dev))
+    rmse = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max()
+                     / abs(ref[n]).min()) for n in ref if "rmse" in n)
+    acc = max(float(abs(got[n].double().cpu().numpy()[0] - ref[n]).max())
+              for n in ref if "acc" in n)
+    print(f"score functions vs float64 numpy: rmse rel {rmse:.3e}, acc "
+          f"abs {acc:.3e} (tol {NUMPY_SCORE_TOL:.0e}; ACC's range is 1)")
+    if not (rmse <= NUMPY_SCORE_TOL and acc <= NUMPY_SCORE_TOL):
+        raise AssertionError("score functions differ from float64 numpy")
+    out["scores_vs_numpy"] = {"rmse_rel": rmse, "acc_abs": acc}
+    kept["weights"], kept["window48"] = pfile, window48
     del params32, params16
     torch.cuda.empty_cache()
     return out
 
+
+
+# ---------------------------------------------------------------------------
+# 11. the sharded serving path
+# ---------------------------------------------------------------------------
+
+WORLD, WORLD_MESH = 6, (1, 3, 2)       # (dp, sp, tp): both halos
+WORLD_TIMEOUT_S = 480
+WORLD_STEPS = 2
+WORLD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -4}
+# per rank, one trunk of the sharded forward
+WORLD_TRUNK = {"block_wm": 4, "block_wm_group": 12, "down_sample_wm": 1,
+               "up_sample_wm": 1}
+
+
+def world_runs():
+    """(label, config, dtype) of phase 11's float32 and bf16 runs."""
+    from pangu_tpu_torch.config import PANGU_24
+    perf = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
+                               compute_dtype="bfloat16", gelu="tanh")
+    return (("float32", PANGU_24, torch.float32),
+            ("bf16", perf, torch.bfloat16))
+
+
+def digest(tensors):
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+def sharded_rank(path, cli_argv):
+    """One rank of phase 11's world: the sharded ``forward`` and 2-step
+    token-space rollout, float32 and bf16, with the rank's launch counts,
+    halo exchanges and wall seconds per step; then ``cli.inference`` in the
+    same world.  Rank 0 also returns the outputs."""
+    import torch.distributed as dist
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.cli import inference as cli_inference
+    from pangu_tpu_torch.config import MeshConfig
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.engine.rollout import make_rollout
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.parallel import mesh as M
+    from pangu_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = M.build_mesh(MeshConfig(*WORLD_MESH))
+    dev = mesh.device
+    blob = torch.load(path, mmap=True, weights_only=False)
+    cfg0 = world_runs()[0][1]
+    consts = to_device(synthetic_constants(cfg0, seed=SEED), dev)
+    u, s = blob["upper"].to(dev), blob["surface"].to(dev)
+    rank = M.world()[0]
+    out = {"rank": rank, "coords": mesh.coords, "backend": dist.get_backend(),
+           "host_staged": mesh.host_staged, "device": str(dev), "runs": {}}
+    params32 = to_dtype(blob["params"], dev)
+    for label, cfg, dtype in world_runs():
+        params = to_dtype(params32, dtype)
+        for run, steps, fn in (
+                ("forward", 1, lambda: pangu.forward(params, u, s, consts,
+                                                     cfg)),
+                ("rollout", WORLD_STEPS, lambda: make_rollout(
+                    cfg, consts, WORLD_STEPS, token_space=True)(params, u, s))):
+            ops.reset_launches()
+            mesh.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sharding.use_mesh(mesh):
+                res = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec = {"counts": ops.launches(), "exchanges": mesh.exchanges,
+                   "bytes": mesh.exchange_bytes, "s_per_step": wall / steps,
+                   "steps": steps, "digest": digest(res)}
+            if rank == 0:
+                rec["result"] = [t.cpu() for t in res]
+            out["runs"][f"{run} {label}"] = rec
+            del res
+        del params
+    del params32
+    torch.cuda.empty_cache()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    if cli_inference.main(cli_argv) != 0:
+        raise AssertionError(f"rank {rank}: cli.inference failed")
+    out["cli"] = {"counts": ops.launches(), "s": time.perf_counter() - t0}
+    return out
+
+
+def row_5z(params32, consts_dev, records):
+    """Phase 11a: the transition on tp z shards (row 5z) against its plain
+    version and, put together, against row 5's kernel on the whole pair;
+    the launches that must raise."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.engine.transition_wm import (
+        apply_transition_wm, apply_transition_wm_plain, build_transition_wm)
+    dev = torch.device("cuda")
+    g0 = PANGU_24.stage(0)
+    wz, wh, ww = g0.window
+    nz, nlat, nlon = g0.z // wz, g0.h_padded // wh, g0.w // ww
+    c = g0.dim
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for label, cfg, dtype in world_runs():
+        isz = torch.tensor([], dtype=dtype).element_size()
+        edge = to_dtype(to_dtype({k: params32[k] for k in (
+            "patch_embed", "patch_recovery")}, dev), dtype)
+        tp = build_transition_wm(edge, consts_dev, cfg)
+        shape = (1, nz, nlat, nlon, wz * wh * ww, c)
+        skip, dec = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+        for off in ((0, 3, 6), (0, 0, 0)):
+            whole = apply_transition_wm(tp, skip, dec, g0, off)
+            cuts = ((2, 1), (4, 1)) + (((2, 3),) if off[2] == 0 else ())
+            for tpn, spn in cuts:
+                nzl, nll = nz // tpn, nlon // spn
+                planes = []
+                for zi in range(tpn):
+                    row = []
+                    for li in range(spn):
+                        def cut(t, zi=zi, li=li):
+                            return t[:, zi * nzl:(zi + 1) * nzl, :,
+                                     li * nll:(li + 1) * nll].contiguous()
+                        tpl = {**tp, "bias_field_wm": cut(tp["bias_field_wm"])}
+                        a, b = cut(skip), cut(dec)
+                        kw = dict(z_base=zi * nzl, nz_global=nz)
+
+                        def kern(tpl=tpl, a=a, b=b, kw=kw):
+                            return apply_transition_wm(tpl, a, b, g0, off, **kw)
+
+                        def plain(tpl=tpl, a=a, b=b, kw=kw):
+                            return apply_transition_wm_plain(tpl, a, b, g0,
+                                                             off, **kw)
+                        got = kern()
+                        err, rel = rel_err(got, plain())
+                        if rel > TOL[dtype]:
+                            raise AssertionError(
+                                f"5z {label} off {off} tp {tpn} sp {spn} "
+                                f"shard ({zi}, {li}): rel err {rel:.3e}")
+                        row.append(got)
+                        if zi or li:
+                            continue
+                        valid = nzl * wz * g0.h * nll * ww
+                        rows_ = nzl * wz * g0.h_padded * nll * ww
+                        ms = time_ms(kern, 20)
+                        plain_ms = time_ms(plain, 3)
+                        bound_ms, bound_by = bound(
+                            2 * valid * 2 * c * c,
+                            3 * valid * c * isz + 6 * 2 * c * c * isz
+                            + rows_ * c * isz, dtype)
+                        key = f"{label} off {off} tp {tpn} sp {spn}"
+                        out[key] = {"max_abs_err": err, "rel": rel, "ms": ms,
+                                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                    "bound_by": bound_by,
+                                    "shape": list(a.shape)}
+                        print(f"transition_wm_z {key:34s} shard {tuple(a.shape)}"
+                              f" max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                              f"{TOL[dtype]:.1e})  kernel {ms:.3f} ms  plain "
+                              f"{plain_ms:.3f} ms  bound {bound_ms:.3f} ms "
+                              f"({bound_by})", flush=True)
+                        if (dtype == torch.bfloat16 and tpn == 2 and spn == 1
+                                and off == (0, 3, 6)):
+                            records["transition_wm_z"] = {
+                                "max_abs_err": err, "ms": ms,
+                                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                                "bound_by": bound_by,
+                                "at": f"{key} shard 0, bf16"}
+                    planes.append(torch.cat(row, dim=3))
+                joined = torch.cat(planes, dim=1)
+                same = torch.equal(joined, whole)
+                err, rel = rel_err(joined, whole)
+                print(f"  {label} off {off} tp {tpn} sp {spn}: the {tpn * spn} "
+                      f"shards put together against row 5 on the whole pair: "
+                      f"{'bit-equal' if same else f'rel {rel:.3e}'}",
+                      flush=True)
+                if not same and rel > TOL[dtype]:
+                    raise AssertionError(f"5z shards differ from row 5: {rel}")
+                out[f"{label} off {off} tp {tpn} sp {spn}"]["bit_equal"] = same
+        for bad, a, what in (
+                ((1, 3, 6), skip[:, :nz // 2].contiguous(),
+                 "a z offset under tp"),
+                ((0, 3, 6), skip[:, :, :, :nlon // 3].contiguous(),
+                 "a lon offset on a lon shard")):
+            tpl = {**tp, "bias_field_wm": tp["bias_field_wm"][
+                :, :a.shape[1], :, :a.shape[3]].contiguous()}
+            try:
+                apply_transition_wm(tpl, a, a, g0, bad, z_base=0,
+                                    nz_global=nz)
+            except ValueError as e:
+                print(f"  {label} {what}: raises ({e})")
+            else:
+                raise AssertionError(f"5z with {what} did not raise")
+        del tp, skip, dec, whole, joined
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_phase(smi, records, path_counts, tmp, kept):
+    """Phase 11: row 5z alone, then a world of ``WORLD`` ranks on the one
+    card serving the sharded forward, rollout and command line, against
+    the single-device runs."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.engine.rollout import make_rollout
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    print("card:", smi)
+    params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
+                                 PANGU_24, device="cpu")
+    consts_dev = to_device(synthetic_constants(PANGU_24, seed=SEED), dev)
+    out = {"row_5z": row_5z(params32, consts_dev, records)}
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+    u = (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
+         * torch.randn((1, 5, PANGU_24.levels, PANGU_24.lat, PANGU_24.lon),
+                       generator=g, device=dev))
+    s = (consts_dev["surface_mean"][None] + consts_dev["surface_std"][None]
+         * torch.randn((1, 4, PANGU_24.lat, PANGU_24.lon), generator=g,
+                       device=dev))
+    path = os.path.join(tmp, "world.pt")
+    torch.save({"params": params32, "upper": u.cpu(), "surface": s.cpu()},
+               path)
+    refs = {}
+    t0 = time.perf_counter()
+    for label, cfg, dtype in world_runs():
+        p = to_dtype(to_dtype(params32, dev), dtype)
+        refs[f"forward {label}"] = pangu.forward(p, u, s, consts_dev, cfg)
+        refs[f"rollout {label}"] = make_rollout(
+            cfg, consts_dev, WORLD_STEPS, token_space=True)(p, u, s)
+        del p
+    torch.cuda.synchronize()
+    print(f"single-device references: {time.perf_counter() - t0:.2f} s")
+    del params32
+    torch.cuda.empty_cache()
+
+    cli_argv = ["--bf16", "--pallas", "--set", "model.gelu=tanh",
+                "--synthetic", "--pretrained", kept["weights"], "--set",
+                f"output_path={tmp}", "--type_net", "sharded", "--horizon",
+                str(CLI_HORIZON), "--limit", "1", "--token-space",
+                *kept["window48"]]
+    t0 = time.perf_counter()
+    ranks = launch.run(sharded_rank, WORLD, path, cli_argv, device="cuda",
+                       timeout_s=WORLD_TIMEOUT_S)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"world of {WORLD} ranks, mesh (dp, sp, tp) {WORLD_MESH}: backend "
+          f"{r0['backend']}, halos through host buffers "
+          f"{r0['host_staged']}, the whole world {world_s:.1f} s (spawn, "
+          f"loads, runs, command line)")
+    out["world_s"] = world_s
+    for label, cfg, dtype in world_runs():
+        for run in ("forward", "rollout"):
+            key = f"{run} {label}"
+            digests = {r["runs"][key]["digest"] for r in ranks}
+            if len(digests) != 1:
+                raise AssertionError(f"{key}: the ranks' results differ")
+            got, want = r0["runs"][key]["result"], refs[key]
+            errs = [rel_err(a.to(dev), b) for a, b in zip(got, want)]
+            rel = max(e[1] for e in errs)
+            same = all(torch.equal(a.to(dev), b) for a, b in zip(got, want))
+            n_trunks = 1 if run == "forward" else WORLD_STEPS
+            want_counts = {k: n_trunks * v for k, v in WORLD_TRUNK.items()}
+            if run == "rollout":
+                want_counts.update(transition_wm=WORLD_STEPS - 1,
+                                   transition_wm_z=WORLD_STEPS - 1)
+            print(f"sharded {key:16s} vs one device: max_abs_err "
+                  f"{max(e[0] for e in errs):.3e} rel {rel:.3e} (tol "
+                  f"{WORLD_TOL[dtype]:.0e}) "
+                  f"{'bit-equal' if same else 'not bit-equal'}", flush=True)
+            if rel > WORLD_TOL[dtype]:
+                raise AssertionError(f"sharded {key}: rel err {rel:.3e}")
+            for r in ranks:
+                rec = r["runs"][key]
+                counts = rec["counts"]
+                print(f"  rank {r['rank']} {r['coords']}: launches "
+                      f"{ {k: v for k, v in counts.items() if v} }, halo "
+                      f"exchanges {rec['exchanges'] / rec['steps']:.0f} and "
+                      f"{rec['bytes'] / rec['steps'] / 2**20:.1f} MiB per "
+                      f"step, wall {rec['s_per_step']:.3f} s per step")
+                if counts != {**{k: 0 for k in counts}, **want_counts}:
+                    raise AssertionError(f"rank {r['rank']} {key}: launches "
+                                         f"{counts}, want {want_counts}")
+            path_counts[f"sharded {key}"] = {
+                k: sum(r["runs"][key]["counts"][k] for r in ranks)
+                for k in r0["runs"][key]["counts"]}
+            out[key] = {"rel": rel, "bit_equal": same, "s_per_step": [
+                r["runs"][key]["s_per_step"] for r in ranks],
+                "exchanges_per_step": r0["runs"][key]["exchanges"] / n_trunks,
+                "bytes_per_step": r0["runs"][key]["bytes"] / n_trunks}
+
+    # c. the command line in the same world: rank 0's CSVs
+    run_dir = os.path.join(tmp, "sharded", str(CLI_HORIZON))
+    scores = read_scores(os.path.join(run_dir, "csv"))
+    key = "2018010500"
+    check_scores(scores, [key], PANGU_24.levels)
+    want = kept["inference_token_space"]
+    rmse = max(abs(a - b) / abs(b) for n in scores if n.startswith("rmse")
+               for a, b in zip(scores[n][1][key], want[n][1][key]))
+    acc = max(abs(a - b) for n in scores if n.startswith("acc")
+              for a, b in zip(scores[n][1][key], want[n][1][key]))
+    tm = cli_timing(os.path.join(run_dir, "sharded.log"))
+    print(f"cli.inference in the world: 12 CSVs by rank 0, against phase 10's "
+          f"token-space run on {key}: rmse rel {rmse:.3e}, acc abs "
+          f"{acc:.3e} (tol {BF16_SCORE_TOL:.1e}); wall "
+          f"{tm['wall_s_per_sample']:.3f} s per sample (device "
+          f"{tm['device_s_per_sample']:.3f}); launches per rank "
+          f"{ {k: v for k, v in ranks[0]['cli']['counts'].items() if v} }")
+    if not (rmse <= BF16_SCORE_TOL and acc <= BF16_SCORE_TOL):
+        raise AssertionError("the sharded command line's scores differ")
+    for r in ranks:
+        if r["cli"]["counts"]["transition_wm_z"] != 1:
+            raise AssertionError(f"rank {r['rank']}: cli launches "
+                                 f"{r['cli']['counts']}")
+    out["cli"] = {"rmse_rel": rmse, "acc_abs": acc, **tm}
+    del refs
+    torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -18,5 +18,7 @@ its own command lines (``cli/``: ``convert_weights``, ``evaluate``,
 ``inference``) on JSON config files (``config.load_config``), the ERA5
 pipeline (``data/era5.py``, ``data/fastpack.py``), reference checkpoints
 (``models/convert.py``) and the lat-weighted RMSE / ACC (``metrics/``,
-``engine/evaluate.py``).
+``engine/evaluate.py``).  It serves the forecast under a (dp, sp, tp) mesh
+of ``torch.distributed`` ranks (``parallel/``: the window-major trunk per
+shard, with lon and z halo exchanges and the tp z-shard transition).
 """

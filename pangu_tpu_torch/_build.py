@@ -59,7 +59,7 @@ _SIGNATURES = {
     "pangu_down_sample_wm": [_I] + [_P] * 6 + [_I] * 16 + [_P],
     "pangu_up_sample_wm": [_I] + [_P] * 7 + [_I] * 17 + [_P],
     "pangu_embed_wm": [_I] + [_P] * 6 + [_I] * 14 + [_P],
-    "pangu_transition_wm": [_I] + [_P] * 10 + [_I] * 13 + [_P],
+    "pangu_transition_wm": [_I] + [_P] * 10 + [_I] * 15 + [_P],
     "pangu_recovery_wm": [_I] * 2 + [_P] * 5 + [_I] * 17 + [_P],
     "pangu_block_bwd": [_I, _I] + [_P] * 25 + [_I] * 22 + [_P],
     "pangu_embed_dw": [_I] + [_P] * 5 + [_I] * 14 + [_P],

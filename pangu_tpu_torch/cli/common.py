@@ -3,6 +3,10 @@
 constants and parameter loading, loaders), with ``--device`` (default
 "cuda"; asking for the card where there is none raises).
 
+Under a launch of several ranks (torchrun, SLURM, ``parallel/launch.py``)
+``setup_mesh`` joins the process group and builds this rank's mesh as the
+JAX command lines build theirs; rank 0 alone writes (``writes``).
+
 ``build_config`` starts from ``TINY`` under ``--tiny`` and then applies the
 config file and the ``--set`` overrides, so ``--tiny --set
 model.edge_kernels=true`` keeps the override (the JAX package replaces the
@@ -15,6 +19,7 @@ import argparse
 import dataclasses
 import itertools
 import json
+import logging
 import os
 import time
 from typing import Tuple
@@ -26,6 +31,7 @@ from pangu_tpu_torch.config import TINY, Config, load_config
 from pangu_tpu_torch.data import era5
 from pangu_tpu_torch.data.constants import get_constants, to_device
 from pangu_tpu_torch.models import convert, pangu
+from pangu_tpu_torch.parallel import mesh as M
 from pangu_tpu_torch.utils import checkpoint
 from pangu_tpu_torch.utils.logging import setup_logger
 
@@ -72,25 +78,37 @@ def build_config(args) -> Config:
     return dataclasses.replace(cfg, model=model)
 
 
-def single_device_only(cfg: Config) -> None:
-    """The port runs one device: a mesh larger than 1, in the config or as
-    a ``torch.distributed`` world, is ROADMAP queue A item 9."""
-    dist = torch.distributed
-    world = (dist.get_world_size()
-             if dist.is_available() and dist.is_initialized() else 1)
-    if cfg.mesh.size > 1 or world > 1:
-        raise NotImplementedError(
-            f"a mesh of {cfg.mesh.size} devices (torch.distributed world "
-            f"{world}) is not served yet: ROADMAP.md queue A item 9 "
-            "(parallelism)")
+def setup_mesh(cfg: Config, device: _device.DeviceLike = "cuda"):
+    """Join the process group where the launch describes one (torchrun,
+    SLURM; idempotent), then build this rank's mesh, as the JAX command
+    lines set theirs up: ``cfg.mesh`` where its size is more than 1, else
+    ``auto_mesh_config`` over the world's ranks (sp dividing stage 1's
+    longitude windows, tp the smallest head count, batch 1).  None on a
+    rank the mesh leaves idle."""
+    M.initialize_distributed(device=device)
+    _, n_world = M.world()
+    mcfg = cfg.mesh if cfg.mesh.size > 1 else M.auto_mesh_config(
+        n_world, lon_windows=cfg.model.stage(1).w // cfg.model.window[2],
+        max_heads=min(cfg.model.heads), batch=1)
+    return M.build_mesh(mcfg, device=device)
+
+
+def writes() -> bool:
+    """True on the rank that writes CSVs, logs and figures: rank 0."""
+    return M.world()[0] == 0
 
 
 def run_dirs(cfg: Config, type_net: str) -> Tuple[str, object]:
-    """<out>/<type_net>/<horizon>/ with a file + stream logger."""
+    """<out>/<type_net>/<horizon>/ with a file + stream logger; on a rank
+    that does not write (:func:`writes`), the path alone and a logger of
+    warnings without a file."""
     out = os.path.join(cfg.output_path, type_net, str(cfg.data.horizon))
+    name = f"{type_net}{cfg.data.horizon}"
+    if not writes():
+        return out, setup_logger(f"{name}.rank{M.world()[0]}",
+                                 level=logging.WARNING)
     os.makedirs(out, exist_ok=True)
-    logger = setup_logger(f"{type_net}{cfg.data.horizon}",
-                          os.path.join(out, f"{type_net}.log"))
+    logger = setup_logger(name, os.path.join(out, f"{type_net}.log"))
     return out, logger
 
 
@@ -124,12 +142,10 @@ def load_params(args, cfg: Config):
 def make_loaders(cfg: Config, synthetic: bool,
                  device: _device.DeviceLike = "cuda"):
     """The train / val / test datasets and loaders; each batch reaches the
-    consumer on ``device``."""
+    consumer on ``device`` whole (under a mesh every rank holds the whole
+    batch, and the served forward takes its dp slice itself)."""
     shard_fn = era5.device_put_fn(device)
-    dist = torch.distributed
-    rank, world = ((dist.get_rank(), dist.get_world_size())
-                   if dist.is_available() and dist.is_initialized()
-                   else (0, 1))
+    rank, world = M.world()
     dsets = {s: era5.make_dataset(cfg.data, s, cfg.model,
                                   synthetic=synthetic or None)
              for s in ("train", "val", "test")}

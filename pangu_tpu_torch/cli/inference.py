@@ -8,6 +8,12 @@ Usage:
       --set model.gelu=tanh --pretrained weights/pangu24.pt   # 7 days
   python -m pangu_tpu_torch.cli.inference --device cpu --tiny --synthetic \\
       --horizon 48 --limit 1
+  torchrun --nproc_per_node 6 -m pangu_tpu_torch.cli.inference --bf16 \\
+      --token-space --horizon 48     # one (dp 1, sp 3, tp 2) mesh
+
+Under a launch of N ranks each rank serves its shard of the mesh
+(``cli/common.py::setup_mesh``); every rank scores the whole batch, rank 0
+writes the CSVs and the log.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from pangu_tpu_torch import _device
 from pangu_tpu_torch.cli import common
 from pangu_tpu_torch.engine import evaluate as E
 from pangu_tpu_torch.engine import rollout as R
+from pangu_tpu_torch.parallel import sharding
 from pangu_tpu_torch.utils.logging import device_timer
 
 
@@ -52,7 +59,6 @@ def main(argv=None):
     args = p.parse_args(argv)
 
     cfg = common.build_config(args)
-    common.single_device_only(cfg)
     if args.horizon:
         cfg = dataclasses.replace(
             cfg, data=dataclasses.replace(cfg.data, horizon=args.horizon))
@@ -66,6 +72,13 @@ def main(argv=None):
     elif cfg.data.horizon < 24 or cfg.data.horizon % 24 != 0:
         raise SystemExit("--horizon must be a positive multiple of 24 "
                          "(or pass a --models hierarchy)")
+    mesh = common.setup_mesh(cfg, args.device)
+    if mesh is None:            # a rank the mesh leaves idle
+        return 0
+    if hierarchy is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "a --models hierarchy under a mesh is the next slice of ROADMAP "
+            "queue A item 9 (parallelism)")
     dev = _device.resolve(args.device)
     out, logger = common.run_dirs(cfg, args.type_net)
     constants = common.load_constants_device(cfg, args.synthetic, dev)
@@ -94,7 +107,7 @@ def main(argv=None):
         roll = lambda u, s: hroll(models, u, s)  # noqa: E731
         steps = len(schedule)
     else:
-        params = common.load_params(args, cfg)
+        params = sharding.shard_params(common.load_params(args, cfg), mesh)
         steps = cfg.data.horizon // 24
         rollout = R.make_rollout(cfg.model, constants, steps,
                                  token_space=args.token_space, device=dev)
@@ -105,7 +118,7 @@ def main(argv=None):
     tables = {n: {} for n in names}
     stats = {"samples": 0, "load_s": 0.0, "device_s": 0.0}
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), sharding.use_mesh(mesh):
         for b in common.timed_batches(loaders["test"].epoch(0), args.limit,
                                       stats):
             keys = b["times"][1]
@@ -120,11 +133,12 @@ def main(argv=None):
                 for i, key in enumerate(keys):
                     tables[n][key] = arr[i]
 
-    E.save_error_scores(os.path.join(out, "csv"), tables,
-                        levels=cfg.data.levels_hpa[:cfg.model.levels],
-                        surface_vars=cfg.data.surface_variables)
-    common.log_timing(logger, stats, time.perf_counter() - t0)
-    logger.info(f"wrote {os.path.join(out, 'csv')}")
+    if common.writes():
+        E.save_error_scores(os.path.join(out, "csv"), tables,
+                            levels=cfg.data.levels_hpa[:cfg.model.levels],
+                            surface_vars=cfg.data.surface_variables)
+        common.log_timing(logger, stats, time.perf_counter() - t0)
+        logger.info(f"wrote {os.path.join(out, 'csv')} (mesh {mesh.cfg})")
     return 0
 
 

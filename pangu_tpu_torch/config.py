@@ -300,8 +300,10 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """Device-mesh layout (dp batch, sp longitude, tp heads / MLP).  The port
-    runs one device; a mesh larger than 1 is refused where it would run."""
+    """Device-mesh layout: dp the batch, sp the longitude windows, tp the z
+    windows of the window-major trunk (and with them the bias tables).  The
+    port serves the forecast under a mesh of ``torch.distributed`` ranks
+    (``parallel/``); what has no sharded path yet raises there."""
 
     dp: int = 1
     sp: int = 1

@@ -15,6 +15,11 @@
 //   plane 0:         M_s,  or M_sh  on the last real lat row h - 1;
 //   planes 1..Z-2:   M_u,  or M_uh;
 //   plane Z-1:       M_uz, or M_uzh.
+// On a tp z shard (the Pallas kernel's z_scalar=True variant) the pair, the
+// bias field and the output are the shard's own z windows and z is the
+// GLOBAL plane: the entry's z0 (first global window) and nz_global type the
+// surface and top-plane rows; one device passes 0 and nz, which is the
+// single-device kernel exactly.  The read offset's z component is then 0.
 // Latitude-pad rows (lat >= h) are written as zeros by select.  The TPU
 // kernel runs the interior matrix everywhere and corrects the edge rows with
 // a second product (its rounding differs by a bf16 ulp on those rows); here
@@ -49,12 +54,13 @@ struct TransitionOp {
   const T* mats[6];  // M_s, M_sh, M_u, M_uh, M_uz, M_uzh
   WmShape s;
   int C, Z, Hp, h_real, oz, olat, olon;
+  int z0, Zg;  // the first local plane's global index, the global planes
   int K, N, M;
 
   __device__ bool active(int g) const { return g % Hp < h_real; }
   __device__ const T* mat(int g) const {
-    const int lat = g % Hp, z = (g / Hp) % Z;
-    const int kind = z == 0 ? 0 : (z == Z - 1 ? 4 : 2);
+    const int lat = g % Hp, z = (g / Hp) % Z + z0;
+    const int kind = z == 0 ? 0 : (z == Zg - 1 ? 4 : 2);
     return mats[kind + (lat == h_real - 1 ? 1 : 0)];
   }
   __device__ Row row(int g, int r) const {
@@ -78,7 +84,8 @@ struct TransitionOp {
 template <typename T>
 int transition_wm(const void* skip, const void* dec, const void* bias,
                   const void* const* mats, void* out, int B, WmShape s, int C,
-                  int h_real, int oz, int olat, int olon, cudaStream_t st) {
+                  int h_real, int oz, int olat, int olon, int z0, int nzg,
+                  cudaStream_t st) {
   TransitionOp<T> op;
   op.skip = (const T*)skip;
   op.dec = (const T*)dec;
@@ -93,6 +100,8 @@ int transition_wm(const void* skip, const void* dec, const void* bias,
   op.oz = oz;
   op.olat = olat;
   op.olon = olon;
+  op.z0 = z0 * s.wz;
+  op.Zg = nzg * s.wz;
   op.K = 2 * C;
   op.N = C;
   op.M = s.nlon * s.ww;
@@ -111,13 +120,14 @@ struct TransitionMma : PairA {
   const bf16* mats[6];  // M_s, M_sh, M_u, M_uh, M_uz, M_uzh
   WmShape s;
   int Z, Hp, h_real, oz, olat, olon;
+  int z0, Zg;  // the first local plane's global index, the global planes
   int K, N, M;
   long long groups, sample_rows;
 
   __device__ bool active(int g) const { return g % Hp < h_real; }
   __device__ const bf16* mat(int g) const {
-    const int lat = g % Hp, z = (g / Hp) % Z;
-    const int kind = z == 0 ? 0 : (z == Z - 1 ? 4 : 2);
+    const int lat = g % Hp, z = (g / Hp) % Z + z0;
+    const int kind = z == 0 ? 0 : (z == Zg - 1 ? 4 : 2);
     return mats[kind + (lat == h_real - 1 ? 1 : 0)];
   }
   __device__ long long src(int g, int r) const {
@@ -170,7 +180,8 @@ struct TransitionMma : PairA {
 static int transition_wm_bf16(const bf16* skip, const bf16* dec,
                               const bf16* bias, const void* const* mats,
                               bf16* out, int B, WmShape s, int C, int h_real,
-                              int oz, int olat, int olon, cudaStream_t st) {
+                              int oz, int olat, int olon, int z0, int nzg,
+                              cudaStream_t st) {
   TransitionMma op;
   op.skip = skip;
   op.dec = dec;
@@ -185,6 +196,8 @@ static int transition_wm_bf16(const bf16* skip, const bf16* dec,
   op.oz = oz;
   op.olat = olat;
   op.olon = olon;
+  op.z0 = z0 * s.wz;
+  op.Zg = nzg * s.wz;
   op.K = 2 * C;
   op.N = C;
   op.M = s.nlon * s.ww;
@@ -197,9 +210,12 @@ static int transition_wm_bf16(const bf16* skip, const bf16* dec,
 
 using namespace pangu;
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = ok;
-// cudaErrorInvalidValue for a bf16 C that is not a multiple of 8 or an
-// operand off a 16-byte boundary).
+// dtype: 0 = float32, 1 = bfloat16.  z0: the global index of the first
+// local z window, nz_global: the global z windows (one device: 0 and nz; a
+// tp z shard: its own window range, whose surface / top-plane rows are
+// typed by the global plane).  Returns a cudaError_t (0 = ok;
+// cudaErrorInvalidValue for a bf16 C that is not a multiple of 8, an
+// operand off a 16-byte boundary or a window range outside nz_global).
 extern "C" int pangu_transition_wm(int dtype, const void* skip, const void* dec,
                                    const void* bias, const void* m_s,
                                    const void* m_sh, const void* m_u,
@@ -207,18 +223,20 @@ extern "C" int pangu_transition_wm(int dtype, const void* skip, const void* dec,
                                    const void* m_uzh, void* out, int B, int nz,
                                    int nlat, int nlon, int n, int C, int wz,
                                    int wh, int ww, int h_real, int off_z,
-                                   int off_lat, int off_lon, void* stream) {
+                                   int off_lat, int off_lon, int z0,
+                                   int nz_global, void* stream) {
   WmShape s = {nz, nlat, nlon, n, wz, wh, ww};
   const void* mats[6] = {m_s, m_sh, m_u, m_uh, m_uz, m_uzh};
   cudaStream_t st = (cudaStream_t)stream;
+  if (z0 < 0 || z0 + nz > nz_global) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return transition_wm<float>(skip, dec, bias, mats, out, B, s, C, h_real, off_z,
-                                off_lat, off_lon, st);
+                                off_lat, off_lon, z0, nz_global, st);
   // bf16: the tensor-core tiles
   if (dtype != 1 || C % 8 ||
       !aligned16_all({skip, dec, bias, m_s, m_sh, m_u, m_uh, m_uz, m_uzh, out}))
     return (int)cudaErrorInvalidValue;
   return transition_wm_bf16((const bf16*)skip, (const bf16*)dec,
                             (const bf16*)bias, mats, (bf16*)out, B, s, C, h_real,
-                            off_z, off_lat, off_lon, st);
+                            off_z, off_lat, off_lon, z0, nz_global, st);
 }

@@ -13,8 +13,8 @@
     ``"<n>D"``, ``"h"``, ``"D"``) without pandas;
   * ``Loader``: a thread pool decodes samples ahead of the consumer within a
     bounded window; batches are host numpy arrays, and its ``shard_fn``
-    (``device_put_fn(device)``) moves each batch to the device in the
-    consumer, on the thread that iterates.
+    (``device_put_fn(device)``) moves each batch, whole, to the device in
+    the consumer, on the thread that iterates.
 """
 
 from __future__ import annotations
@@ -358,8 +358,10 @@ class Loader:
 
 def device_put_fn(device: _device.DeviceLike = "cuda"):
     """A ``shard_fn`` that moves a batch's arrays to ``device`` as float32
-    tensors (other entries, such as "times", pass as they are).  The port
-    runs one device; there is no mesh to shard over."""
+    tensors (other entries, such as "times", pass as they are).  Under a
+    mesh every rank holds the whole batch this way: the served forward
+    takes its dp slice itself and hands every rank the whole prediction,
+    as a JAX global array is seen whole."""
     dev = _device.resolve(device)
 
     def put(batch):

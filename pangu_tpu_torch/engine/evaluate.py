@@ -114,7 +114,7 @@ def _host(x) -> np.ndarray:
 
 
 def evaluate(params, batches: Iterable, cfg: Config, constants, *,
-             res_path: str, forward_fn: Callable = pangu.forward,
+             res_path: Optional[str], forward_fn: Callable = pangu.forward,
              visualize: bool = True, logger=None,
              device: _device.DeviceLike = "cuda", kernels: bool = True,
              timing: Optional[dict] = None
@@ -124,7 +124,8 @@ def evaluate(params, batches: Iterable, cfg: Config, constants, *,
     target), each a string or one per sample.  A short last batch runs as
     it is.  Returns ``{score_name: {target_time: vector}}`` and writes the
     CSVs under ``<res_path>/csv`` and (``visualize``) the PNGs of each
-    batch's first sample under ``<res_path>/png``.  ``timing``: a dict
+    batch's first sample under ``<res_path>/png``; nothing is written
+    without a ``res_path`` (the ranks of a mesh but rank 0).  ``timing``: a dict
     whose "device_s" gathers the seconds of each batch's score step
     (``device_timer``)."""
     dev = _device.resolve(device)
@@ -133,7 +134,8 @@ def evaluate(params, batches: Iterable, cfg: Config, constants, *,
     names = score_names(cfg.model.upper_vars)
     tables: Dict[str, Dict[str, np.ndarray]] = {n: {} for n in names}
 
-    png_path = os.path.join(res_path, "png")
+    visualize = visualize and res_path is not None
+    png_path = os.path.join(res_path, "png") if visualize else None
     for i, batch in enumerate(batches):
         fields = [torch.as_tensor(batch[k]).to(dev) for k in
                   ("upper", "surface", "target_upper", "target_surface")]
@@ -168,7 +170,8 @@ def evaluate(params, batches: Iterable, cfg: Config, constants, *,
                              _host(fields[1][0]), var="u10",
                              step=row_keys[0], path=png_path)
 
-    save_error_scores(os.path.join(res_path, "csv"), tables,
-                      levels=cfg.data.levels_hpa[:cfg.model.levels],
-                      surface_vars=cfg.data.surface_variables)
+    if res_path is not None:
+        save_error_scores(os.path.join(res_path, "csv"), tables,
+                          levels=cfg.data.levels_hpa[:cfg.model.levels],
+                          surface_vars=cfg.data.surface_variables)
     return tables

@@ -18,6 +18,12 @@ LoRA leaves on the trunk (the chain runs them unmerged, block by block
 where a stage carries them), it is the canonical token grid, the transition
 ``engine/transition`` (the JAX package's ``rollout_tokens``).
 
+Under an active mesh (``parallel.sharding.use_mesh``) a full step is the
+sharded ``forward`` and the window-major chain runs per (dp, sp, tp) shard
+(``_rollout_tokens_sharded``, the JAX package's
+``rollout_tokens_wm_sharded``); the hierarchical token-space rollout and a
+trajectory raise there.
+
 The hierarchical rollout chains a model hierarchy (24/6/3/1 h) by the
 greedy schedule, largest horizon first: full steps per model, or, with
 ``token_space=True``, token space throughout, each model's own transition
@@ -41,6 +47,7 @@ from pangu_tpu_torch.engine.transition_wm import (apply_transition_wm,
                                                   build_transition_wm)
 from pangu_tpu_torch.models import layers as L
 from pangu_tpu_torch.models import pangu
+from pangu_tpu_torch.parallel import sharding
 
 
 def single_step(params, upper, surface, constants, cfg: ModelConfig, *,
@@ -142,6 +149,39 @@ def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool, trees):
     return (_WmChain if wm else _CanonChain)(cfg, consts, dev, kernels)
 
 
+def _rollout_tokens_sharded(params, upper, surface, cfg: ModelConfig, consts,
+                            dev, kernels: bool, steps: int, mesh):
+    """The window-major token-space chain per (dp, sp, tp) shard (the JAX
+    package's ``rollout_tokens_wm_sharded``): embed and slice once, then
+    ``steps - 1`` times the sharded trunk and the transition on the shard
+    (its slice of the bias field; under tp > 1 the z-shard transition,
+    typed by the global z window), then the last trunk, the gathers and
+    patch recovery.  Every rank returns the whole batch."""
+    g = cfg.stage(0)
+    p = pangu.mesh_params(params, cfg, mesh)
+    tp = build_transition_wm(p, consts, cfg)
+    tp["bias_field_wm"] = sharding.shard(
+        tp["bias_field_wm"], sharding.TOKEN_SPEC[:4] + (None, None),
+        mesh).contiguous()
+    z_kw = {}
+    if mesh.shape["tp"] > 1:
+        nzg = g.z // g.window[0]
+        z_kw = {"z_base": mesh.coords["tp"] * (nzg // mesh.shape["tp"]),
+                "nz_global": nzg}
+    cdt = _device.dtype_of(cfg.compute_dtype)
+    x = pangu.embed_shard(p, upper.to(dev, cdt), surface.to(dev, cdt), consts,
+                          cfg, mesh)
+    for _ in range(steps - 1):
+        skip, dec, off = pangu.forward_core_wm(p, x, cfg, mesh=mesh,
+                                               kernels=kernels)
+        x = apply_transition_wm(tp, skip, dec, g, off, kernels=kernels,
+                                **z_kw)
+    skip, dec, off = pangu.forward_core_wm(p, x, cfg, mesh=mesh,
+                                           kernels=kernels)
+    return denorm_data(*pangu.recover_shard(p, skip, dec, off, cfg, mesh),
+                       consts)
+
+
 def make_rollout(cfg: ModelConfig, constants, steps: int, *,
                  return_trajectory: bool = False, token_space: bool = False,
                  device: _device.DeviceLike = "cuda", kernels: bool = True):
@@ -149,7 +189,13 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
     ``(upper, surface)``, or ``(final, (upper_traj, surface_traj))`` with the
     per-step states stacked on a leading axis when ``return_trajectory``.
     ``steps`` = horizon // 24.  Constants go to ``device`` once, here.
-    ``kernels=False`` runs every kernel's plain version instead."""
+    ``kernels=False`` runs every kernel's plain version instead.
+
+    Under an active mesh of more than one rank every rank passes the whole
+    batch and gets the whole result: each full step is the sharded
+    ``forward``; ``token_space=True`` runs the chain per shard
+    (``_rollout_tokens_sharded``).  A trajectory, or what the gate refuses
+    (``pangu.serving_mesh``), raises there."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
     if steps < 1:
@@ -170,6 +216,15 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
         return stacked((u, s), traj) if return_trajectory else (u, s)
 
     def rollout_tokens(params, upper, surface):
+        if sharding.multi_device_mesh_active():
+            if return_trajectory:
+                raise NotImplementedError(
+                    "a token-space trajectory under a mesh is ROADMAP queue "
+                    "A item 9")
+            mesh = pangu.serving_mesh(params, cfg, upper.shape[0],
+                                      what="make_rollout")
+            return _rollout_tokens_sharded(params, upper, surface, cfg,
+                                           consts, dev, kernels, steps, mesh)
         chain = _token_chain(cfg, consts, dev, kernels, [params])
         tp = chain.build(params)
         x = chain.embed(params, upper, surface)
@@ -214,12 +269,10 @@ def greedy_schedule(horizon: int,
 def _single_device_only() -> None:
     """Raise where the JAX package would take its canonical token-space
     branch for a multi-device mesh, which the port does not serve yet."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1:
+    if sharding.multi_device_mesh_active():
         raise NotImplementedError(
-            "the hierarchical token-space rollout under a multi-device mesh "
-            "is ROADMAP queue A item 9")
+            "the hierarchical token-space rollout under a mesh is the next "
+            "slice of ROADMAP queue A item 9 (parallelism)")
 
 
 def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,

@@ -92,15 +92,24 @@ def build_transition(params, constants, cfg: ModelConfig,
         ("M_s", M_s), ("M_sh", M_sh), ("bias_field", bias_field))}
 
 
-def apply_transition(tp, x_cat):
+def apply_transition(tp, x_cat, *, z0: int = 0, z_global: int = None):
     """Pre-recovery features -> the next step's (B, Z, H, W, C) token grid.
     ``x_cat``: the (skip, decoder) pair of canonical (B, Z, H, W, C) grids,
     or their (B, Z, H, W, 2C) concatenation.  Rounding: the float32 sum of
     the split-row product rounded once to the input dtype, then the bias
-    field added in that dtype (the port's transition kernel rounds so)."""
+    field added in that dtype (the port's transition kernel rounds so).
+
+    On a z shard of the grid (``tp["bias_field"]`` the shard's planes too)
+    ``z0`` is the global index of its first plane and ``z_global`` the
+    global plane count: a plane is typed surface where its global index is
+    0 and top where it is ``z_global - 1``.  The default is the whole
+    grid."""
     parts = x_cat if isinstance(x_cat, tuple) else (x_cat,)
-    H = parts[0].shape[2]
-    ZP = parts[0].shape[1] - 1
+    H, Z = parts[0].shape[2], parts[0].shape[1]
+    if z_global is None:
+        z_global = Z
+    s_end = 1 if z0 == 0 else 0                    # local surface planes
+    t_start = Z - 1 if z0 + Z == z_global else Z   # local top plane
     dt = parts[0].dtype
 
     def mm(sl, m):
@@ -116,7 +125,7 @@ def apply_transition(tp, x_cat):
         return torch.cat([mm(lambda p: p[:, planes, :H - 1], tp[m]),
                           mm(lambda p: p[:, planes, H - 1:], tp[m_edge])], dim=2)
 
-    x = torch.cat([typed(slice(0, 1), "M_s", "M_sh"),
-                   typed(slice(1, ZP), "M_u", "M_uh"),
-                   typed(slice(ZP, ZP + 1), "M_uz", "M_uzh")], dim=1)
+    x = torch.cat([typed(slice(a, b), m, m_edge) for a, b, m, m_edge in (
+        (0, s_end, "M_s", "M_sh"), (s_end, t_start, "M_u", "M_uh"),
+        (t_start, Z, "M_uz", "M_uzh")) if b > a], dim=1)
     return x + tp["bias_field"][None].to(dt)

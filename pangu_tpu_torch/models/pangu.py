@@ -12,6 +12,14 @@ kernels the canonical token grid exists after the embed and before the
 recovery; with ``cfg.edge_kernels`` the embed writes wm storage and the
 recovery reads the rolled pair, so it never exists.
 
+Under a (dp, sp, tp) mesh of ``torch.distributed`` ranks
+(``parallel.sharding.use_mesh``; the gate :func:`wm_core_mesh`) the served
+forward runs the window-major trunk per shard: patch embed of the rank's dp
+slice, its (tp, sp) share of the tokens (:func:`embed_shard`), the stage
+chains with their lon / z halos, then the pair gathered, patch recovery and
+the batch gathered (:func:`recover_shard`).  What has no sharded path
+raises (:func:`serving_mesh`).
+
 ``forward(..., taps=dict)`` runs the canonical-layout trunk instead, as the
 JAX package does when it collects golden activations: each stage reads and
 writes the canonical (B, Z, H, W, C) grid (end-point blocks in canon
@@ -83,6 +91,7 @@ from pangu_tpu_torch.ops.updown_wm import (down_sample_wm,
                                            down_sample_wm_train, up_sample_wm,
                                            up_sample_wm_plain,
                                            up_sample_wm_train)
+from pangu_tpu_torch.parallel import sharding
 
 
 # ---------------------------------------------------------------------------
@@ -191,18 +200,25 @@ def _require_wm_core(params, cfg: ModelConfig) -> None:
                          "forward_core")
 
 
-def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
+def forward_core_wm(params, xs, cfg: ModelConfig, *, mesh=None,
+                    kernels: bool = True):
     """The encoder/decoder trunk entirely in window-major storage.  ``xs``:
     stage-0 wm entry storage in canonical coordinates (B, nz, nlat, nlon, N,
     C).  Returns ``(skip_wm, dec_wm, off)``, the pre-recovery pair, each
     still rolled by ``off``.  ``kernels=False`` runs every kernel's plain
-    version instead, on any device."""
+    version instead, on any device.
+
+    Under a ``mesh`` (gated by :func:`wm_core_mesh`) ``xs`` is this rank's
+    (tp, sp) shard and ``params`` carry its tp slice of the bias tables: the
+    stage chains resolve the lon (sp > 1) and z (tp > 1) components of the
+    shifts through halo exchanges, so ``off`` has those components 0 and
+    DownSample / UpSample read their shard alone."""
     _require_wm_core(params, cfg)
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     down = down_sample_wm if kernels else down_sample_wm_plain
     up = up_sample_wm if kernels else up_sample_wm_plain
     kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels,
-              lat_group=cfg.lat_group)
+              lat_group=cfg.lat_group, mesh=mesh)
 
     skip, off0 = run_stage_wm(params["stages"][0], xs, g0, **kw)
     x = down(params["downsample"], skip, g0, g1, off0)
@@ -214,6 +230,95 @@ def forward_core_wm(params, xs, cfg: ModelConfig, *, kernels: bool = True):
     if off0 != off3:
         raise AssertionError("even depths keep skip and decoder in step")
     return skip, dec, off3
+
+
+# ---------------------------------------------------------------------------
+# Serving under a (dp, sp, tp) mesh
+# ---------------------------------------------------------------------------
+
+def wm_core_mesh(cfg: ModelConfig, mesh):
+    """``mesh`` where the all-window-major trunk can run per (dp, sp, tp)
+    shard: sp divides every stage's longitude windows and, when tp > 1, tp
+    divides every stage's z windows (the tp axis shards z windows, and with
+    them the z-type-major bias tables).  None without a mesh, for a mesh
+    of one rank, or where the gate refuses the mesh."""
+    if mesh is None or mesh.size == 1:
+        return None
+    sp, tp = mesh.shape["sp"], mesh.shape["tp"]
+    wz, _, ww = cfg.window
+    if any((cfg.stage(i).w // ww) % sp for i in range(4)):
+        return None
+    if tp > 1 and any(cfg.stage(i).z % wz or (cfg.stage(i).z // wz) % tp
+                      for i in range(4)):
+        return None
+    return mesh
+
+
+def serving_mesh(params, cfg: ModelConfig, batch: int, *,
+                 what: str = "forward"):
+    """The active mesh (``parallel.sharding.use_mesh``) this call is served
+    under, or None on one device.  Under a mesh of more than one rank,
+    raises ``NotImplementedError`` where the port has no sharded path for
+    the call: a tree or config off the window-major trunk, a mesh the gate
+    refuses (:func:`wm_core_mesh`) or a batch that dp does not divide (the
+    JAX package falls through to its per-stage sharded paths or GSPMD
+    there)."""
+    mesh = sharding.active_mesh()
+    if mesh is None or mesh.size == 1:
+        return None
+    if not wm_core_supported(params, cfg):
+        why = "a tree or config off the window-major trunk"
+    elif wm_core_mesh(cfg, mesh) is None:
+        why = (f"the mesh {mesh.cfg} (sp must divide every stage's longitude "
+               f"windows, tp every stage's z windows)")
+    elif batch % mesh.shape["dp"]:
+        why = f"a batch of {batch} over dp {mesh.shape['dp']}"
+    else:
+        return mesh
+    raise NotImplementedError(
+        f"{what}: {why} is not served under a mesh: the per-stage sharded "
+        "and GSPMD paths are ROADMAP queue A item 9")
+
+
+def mesh_params(params, cfg: ModelConfig, mesh):
+    """``params`` with this rank's tp slice of the bias tables: sliced here
+    where they are whole (``parallel.sharding.shard_params``), as they are
+    where already sliced."""
+    t = params["stages"][0]["blocks"][0]["attn"]["bias_table"]
+    whole = cfg.stage(0).num_window_types
+    if t.shape[0] == whole:
+        return sharding.shard_params(params, mesh)
+    if t.shape[0] * mesh.shape["tp"] == whole:
+        return params
+    raise ValueError(f"bias table of {t.shape[0]} types for {whole} over tp "
+                     f"{mesh.shape['tp']}")
+
+
+def embed_shard(params, upper, surface, constants, cfg: ModelConfig, mesh):
+    """Physical fields (the whole batch, compute dtype, on the rank's
+    device) -> this rank's stage-0 wm entry storage: patch embed of its dp
+    slice of the batch, then its (tp, sp) share of the tokens (z and
+    longitude are patch-local, so the slice of the embed is exact)."""
+    g = cfg.stage(0)
+    u, s = (sharding.shard(t, sharding.BATCH_SPEC, mesh)
+            for t in (upper, surface))
+    x = L.patch_embed(params["patch_embed"], u, s, constants, cfg)
+    x = sharding.shard(x, sharding.TOKEN_SPEC, mesh)
+    x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
+    return to_window_major(x, g.window).contiguous()
+
+
+def recover_shard(params, skip, dec, off, cfg: ModelConfig, mesh):
+    """This rank's rolled stage-3 exit pair -> the normalised (upper,
+    surface) fields of the whole batch on every rank: each shard
+    canonicalised by its own ``off`` (z 0 under tp > 1, lon 0 under
+    sp > 1; the local components still applied), gathered over tp and sp,
+    patch recovery, then the batch gathered over dp."""
+    g = cfg.stage(0)
+    pair = tuple(sharding.unshard(wm_to_canonical(t, off, g), sharding.TOKEN_SPEC,
+                                  mesh) for t in (skip, dec))
+    out = L.patch_recovery(params["patch_recovery"], pair, cfg)
+    return tuple(sharding.unshard(t, sharding.BATCH_SPEC, mesh) for t in out)
 
 
 def _stage_drops(n_blocks: int, rates, offset: int, gen, B: int):
@@ -489,7 +594,17 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     params, with stochastic-depth scales ``drops`` (four per-stage lists of
     (B, 2) tensors) or drawn from the ``torch.Generator`` ``gen`` (see
     :func:`draw_drops`) before anything else draws from it, so every path
-    sees one drop stream."""
+    sees one drop stream.
+
+    Under an active mesh of more than one rank
+    (``parallel.sharding.use_mesh``), every rank passes the whole batch and
+    gets the whole prediction back: its dp slice is embedded (patch embed),
+    its (tp, sp) share of the tokens runs the sharded window-major trunk
+    (:func:`forward_core_wm` with the mesh) with its tp slice of the bias
+    tables (sliced here where ``params`` hold them whole), the pair is
+    gathered, recovered (patch recovery) and gathered over dp, as the JAX
+    package serves a global array.  The edge kernels serve one device
+    only.  What has no sharded path raises (:func:`serving_mesh`)."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
@@ -506,6 +621,17 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
         feature = train and has_lora_dropout(params, "lora_drop_feat")
         params = merge_lora(params, gen if feature else None)
     u, s = upper.to(dev, cdt), surface.to(dev, cdt)
+    if sharding.multi_device_mesh_active():
+        if train or taps is not None:
+            raise NotImplementedError(
+                "forward: training and taps are not served under a mesh: "
+                "ROADMAP queue A item 9")
+        mesh = serving_mesh(params, cfg, u.shape[0])
+        p = mesh_params(params, cfg, mesh)
+        xs = embed_shard(p, u, s, consts, cfg, mesh)
+        skip, dec, off = forward_core_wm(p, xs, cfg, mesh=mesh,
+                                         kernels=kernels)
+        return recover_shard(p, skip, dec, off, cfg, mesh)
     if (taps is not None or not wm_core_supported(params, cfg)
             or (train and not cfg.train_fused)):
         x = L.patch_embed(params["patch_embed"], u, s, consts, cfg)

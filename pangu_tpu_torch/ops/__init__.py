@@ -1,7 +1,9 @@
 """The port's kernel wrappers and their launch counters.
 
 Each wrapper launches its CUDA kernel for a CUDA tensor (and adds one to its
-``launches`` count), or runs its plain PyTorch version for a CPU tensor."""
+``launches`` count), or runs its plain PyTorch version for a CPU tensor.
+``launches()`` also reports ``transition_wm_z``, the transition's launches
+on a tp z shard."""
 
 from __future__ import annotations
 
@@ -57,7 +59,12 @@ def kernels() -> Dict[str, Callable]:
 def reset_launches() -> None:
     for fn in kernels().values():
         fn.launches = 0
+    kernels()["transition_wm"].z_launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in kernels().items()}
+    """Each wrapper's count, and ``transition_wm_z``: the transition's
+    launches on a tp z shard (row 5z; counted in ``transition_wm`` too)."""
+    counts = {name: fn.launches for name, fn in kernels().items()}
+    counts["transition_wm_z"] = kernels()["transition_wm"].z_launches
+    return counts

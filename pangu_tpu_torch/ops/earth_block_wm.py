@@ -2,7 +2,9 @@
 ``pangu_tpu/ops/earth_block_wm.py`` (``to_window_major``,
 ``from_window_major``, ``_block_wm_call`` in wm -> wm layout and with a
 canonical input or output, ``_block_wm_group_call``, ``_pick_gh`` and
-``run_stage_wm`` with either ``io_layout``, one device).
+``run_stage_wm`` with either ``io_layout``; under a (dp, sp, tp) mesh, with
+``io_layout="wm"``, the storage-level halos ``_lon_shift_wm`` and
+``_z_shift_wm``).
 
 The inter-block activation is stored as (B, nz, nlat, nlon, N, C), one row
 per window token, windows contiguous, N ordered (z, lat, lon).  A block reads
@@ -27,6 +29,11 @@ version on a CPU tensor:
     its own window coordinates (``out_layout="canon"``), or both; with
     ``drop`` it is the end-point block of the canonical training stage
     (``ops/earth_block_bwd.py::run_stage_train_wm``).
+
+On a rank's shard of a mesh each wrapper takes the shard's local extent (a
+share of the z windows, tp, and of the longitude windows, sp) and raises
+where the block's shift would read across shards (``check_shard_read``):
+the sharded stage chain resolves those components in storage first.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from pangu_tpu_torch.config import StageGeometry, _pick_gh
 from pangu_tpu_torch.models.layers import dense, window_region_ids
 from pangu_tpu_torch.models.lora import has_lora
 from pangu_tpu_torch.ops.block_tail import tail_math
+from pangu_tpu_torch.parallel.sharding import shard
 
 Offset = Tuple[int, int, int]
 
@@ -196,6 +204,36 @@ def check_drop(drop, b: int, device, what: str):
     return drop.contiguous()
 
 
+def wm_extent(xs, window):
+    """The (Z, Hp, W) token extent of (B, nz, nlat, nlon, N, C) storage."""
+    return tuple(n * k for n, k in zip(xs.shape[1:4], window))
+
+
+def local_extent(extent, geom: StageGeometry, what: str):
+    """Check that ``extent = (Z, Hp, W)``, the token extent of a tensor, is
+    the stage's whole grid or one shard of it: the whole latitude, a whole
+    share of the z planes (a tp shard) and of longitude (an sp shard).
+    Returns ``(z_local, lon_local)``; raises ValueError on the rest."""
+    z, hp, w = extent
+    if (hp != geom.h_padded or z <= 0 or w <= 0 or geom.z % z
+            or geom.w % w):
+        raise ValueError(f"{what}: token extent {tuple(extent)} is no shard "
+                         f"of {geom}")
+    return z != geom.z, w != geom.w
+
+
+def check_shard_read(extent, geom: StageGeometry, shift: Offset, what: str):
+    """Raise ValueError where a launch on a shard would read across it: a
+    z component of ``shift`` on a z-local extent (a tp shard) or a lon
+    component on a lon-local extent (an sp shard).  The sharded stage
+    chain resolves both in storage first (``_z_shift_wm``,
+    ``_lon_shift_wm``)."""
+    z_local, lon_local = local_extent(extent, geom, what)
+    if (z_local and shift[0]) or (lon_local and shift[2]):
+        raise ValueError(f"{what}: shift {tuple(shift)} on the shard "
+                         f"{tuple(extent)} of {geom} reads across shards")
+
+
 def block_operands(p, x, geom: StageGeometry, gh: int, in_canon: bool,
                    what: str):
     """Check what a block kernel takes and raise on the rest (in bf16, the
@@ -208,11 +246,11 @@ def block_operands(p, x, geom: StageGeometry, gh: int, in_canon: bool,
     if in_canon:
         b, z, hp, w, c = x.shape
         nz, nlat, nlon = z // wz, hp // wh, w // ww
-        ok = (z, hp, w) == (geom.z, geom.h_padded, geom.w)
+        ok = (nz * wz, nlat * wh, nlon * ww) == (z, hp, w)
     else:
         b, nz, nlat, nlon, n_in, c = x.shape
-        ok = n_in == n and (nz * wz, nlat * wh, nlon * ww) == (
-            geom.z, geom.h_padded, geom.w)
+        ok = n_in == n
+    local_extent((nz * wz, nlat * wh, nlon * ww), geom, what)
     if (not ok or x.dtype not in DTYPE_CODE or not x.is_contiguous()
             or c % geom.heads or c != geom.dim or nlat % gh):
         raise ValueError(f"{what}: unsupported input {tuple(x.shape)} "
@@ -275,6 +313,7 @@ def block_wm(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     (ntype, N) int32 region ids for a shifted block, else None; ``drop``:
     (B, 2) float32 stochastic-depth scales of the attention and MLP branches
     (training), else None (the served block)."""
+    check_shard_read(wm_extent(xs, geom.window), geom, delta, "block_wm")
     if not xs.is_cuda:
         return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
                               drop)
@@ -295,6 +334,8 @@ def block_wm_group(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     CPU tensor runs ``block_wm_plain``.  ``drop``: (B, 2) float32 branch
     scales or None, as in ``block_wm`` (the grouping touches only the
     attention; the scales act in the two LayerNorm-residual launches)."""
+    check_shard_read(wm_extent(xs, geom.window), geom, delta,
+                     "block_wm_group")
     if not xs.is_cuda:
         return block_wm_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
                               drop)
@@ -336,14 +377,15 @@ def block_wm_canon(p, x, geom: StageGeometry, delta: Offset, canon_add: int,
                          f"{out_layout!r}")
     if in_canon and tuple(delta) != (0, 0, 0):
         raise ValueError("block_wm_canon: canonical entry blocks are unshifted")
+    wz, wh, ww = geom.window
+    b, c = x.shape[0], x.shape[-1]
+    z, hp, w = x.shape[1:4] if in_canon else wm_extent(x, geom.window)
+    check_shard_read((z, hp, w), geom, delta, "block_wm_canon")
     if not x.is_cuda:
         return block_wm_canon_plain(p, x, geom, delta, canon_add, ids,
                                     gelu_tanh, in_layout, out_layout, drop)
-    wz, wh, ww = geom.window
-    b, c = x.shape[0], x.shape[-1]
-    shape = ((b, geom.z, geom.h_padded, geom.w, c) if out_canon else
-             (b, geom.z // wz, geom.h_padded // wh, geom.w // ww,
-              wz * wh * ww, c))
+    shape = ((b, z, hp, w, c) if out_canon else
+             (b, z // wz, hp // wh, w // ww, wz * wh * ww, c))
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     launch_block(p, x, out, geom, delta, canon_add, ids, gelu_tanh, 1,
                  in_canon, out_canon, "block_wm_canon", drop)
@@ -358,9 +400,75 @@ block_wm_canon.launches = 0
 # A stage chain on wm storage
 # ---------------------------------------------------------------------------
 
+def _lon_shift_wm(xs, dw: int, ww: int, mesh=None):
+    """Global longitude shift on window-major storage: canonical window
+    token w' reads storage token w' + dw (the wm form of
+    ``torch.roll(canonical, -dw, dims=W)``).  Rows whose in-window lon
+    w_loc < ww - dw shift within their window; the rest spill to the lon
+    NEIGHBOUR window, which under a longitude-sharded mesh (sp > 1) lives
+    on the next rank: the neighbour rotate is then a one-window-column
+    ``Mesh.ppermute`` halo instead of a local roll (which would wrap at the
+    shard's edge)."""
+    if dw == 0:
+        return xs
+    n = xs.shape[4]
+    w_in_run = (torch.arange(n, device=xs.device) % ww).reshape(n, 1)
+    sharded = mesh is not None and mesh.shape["sp"] > 1
+
+    def lon_rotate(x, step: int):
+        # storage window l reads window l + step (step in {-1, +1})
+        if not sharded:
+            return torch.roll(x, -step, dims=3)
+        if step > 0:
+            halo = mesh.ppermute(x[:, :, :, :1], "sp", 1)
+            return torch.cat([x[:, :, :, 1:], halo], dim=3)
+        halo = mesh.ppermute(x[:, :, :, -1:], "sp", -1)
+        return torch.cat([halo, x[:, :, :, :-1]], dim=3)
+
+    if dw > 0:
+        xn = lon_rotate(xs, 1)
+        return torch.where(w_in_run < ww - dw, torch.roll(xs, -dw, dims=4),
+                           torch.roll(xn, ww - dw, dims=4))
+    xp = lon_rotate(xs, -1)
+    return torch.where(w_in_run >= -dw, torch.roll(xs, -dw, dims=4),
+                       torch.roll(xp, -(ww + dw), dims=4))
+
+
+def _z_shift_wm(xs, dz: int, wz: int, mesh=None):
+    """Global Z shift on window-major storage: canonical window z-row rz
+    reads storage z token wz*zz + rz + dz (the wm form of
+    ``torch.roll(canonical, -dz, dims=Z)``; the wrap is masked by the region
+    ids).  N is (z, lat, lon)-major, so the two z-halves of every window
+    move as whole N/2 chunks: for dz = +1 the new first half is the
+    window's own second half and the new second half the NEXT z-window's
+    first half, which under a z-window-sharded mesh (tp > 1) lives on the
+    next rank: a one-z-row ``Mesh.ppermute`` halo."""
+    if dz == 0:
+        return xs
+    if wz != 2 or dz not in (-1, 1):
+        raise ValueError(f"_z_shift_wm takes wz 2 and dz +-1, not {wz}, {dz}")
+    half = xs.shape[4] // 2
+    lo, hi = xs[:, :, :, :, :half], xs[:, :, :, :, half:]
+    sharded = mesh is not None and mesh.shape["tp"] > 1
+
+    def z_rotate(x, step: int):
+        # storage z-window zz reads window zz + step (step in {-1, +1})
+        if not sharded:
+            return torch.roll(x, -step, dims=1)
+        if step > 0:
+            halo = mesh.ppermute(x[:, :1], "tp", 1)
+            return torch.cat([x[:, 1:], halo], dim=1)
+        halo = mesh.ppermute(x[:, -1:], "tp", -1)
+        return torch.cat([halo, x[:, :-1]], dim=1)
+
+    if dz > 0:
+        return torch.cat([hi, z_rotate(lo, 1)], dim=4)
+    return torch.cat([z_rotate(hi, -1), lo], dim=4)
+
+
 def run_stage_wm(stage_params, x, geom: StageGeometry, *,
                  gelu_tanh: bool = False, kernels: bool = True,
-                 io_layout: str = "wm", lat_group: int = 1):
+                 io_layout: str = "wm", lat_group: int = 1, mesh=None):
     """Run one EarthSpecificLayer in window-major whole-block kernels.
 
     ``io_layout="wm"``: ``x`` is wm entry storage in canonical coordinates
@@ -376,11 +484,29 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
     - off``.  Interior wm -> wm blocks take ``gh = _pick_gh(nlat,
     lat_group)`` latitude windows per attention program when gh > 1.
     ``kernels=False`` runs the plain versions on any device (the reference
-    the card's kernels are held against)."""
+    the card's kernels are held against).
+
+    Under a ``mesh`` (``parallel.mesh.Mesh``) with sp > 1, ``x`` is this
+    rank's longitude shard: the lon component of each block's shift runs
+    as a storage-level ``_lon_shift_wm`` (a one-window-column halo) before
+    the block, and the block keeps the z / lat stitch.  With tp > 1 it is
+    also the rank's z-window shard: the z component runs as
+    ``_z_shift_wm`` (a one-z-row halo), and each rank takes its own
+    ``ntype / tp`` rows of the region ids (the bias tables come sliced
+    alike, ``parallel.sharding.shard_params``).  The returned ``off`` then
+    has lon and z components 0: the stage hands its consumer a lon- and
+    z-canonical shard, which it reads without crossing shards.  Only
+    ``io_layout="wm"`` runs sharded."""
     if io_layout not in ("wm", "canon"):
         raise ValueError(f"io_layout must be 'wm' or 'canon', not {io_layout!r}")
     wz, wh, ww = geom.window
     wm_io = io_layout == "wm"
+    sp_sharded = mesh is not None and mesh.shape["sp"] > 1
+    tp_sharded = mesh is not None and mesh.shape["tp"] > 1
+    if (sp_sharded or tp_sharded) and not wm_io:
+        raise NotImplementedError(
+            "a canonical-io stage under sp or tp (run_stage_wm_sharded) is "
+            "ROADMAP queue A item 9")
     if not wm_io:
         h = x.shape[2]
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))
@@ -394,9 +520,18 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
         target = half if shifted else (0, 0, 0)
         delta = tuple(t - o for t, o in zip(target, off))
         if shifted and ids is None:
+            # defined on the global grid; a z shard takes its own rows
             ids = torch.as_tensor(
                 window_region_ids(geom.z, geom.h_padded, geom.window),
                 device=x.device)
+            if tp_sharded:
+                ids = shard(ids, ("tp", None), mesh)
+        if sp_sharded and delta[2]:
+            x = _lon_shift_wm(x, delta[2], ww, mesh)
+            delta = (delta[0], delta[1], 0)
+        if tp_sharded and delta[0]:
+            x = _z_shift_wm(x, delta[0], wz, mesh)
+            delta = (0, delta[1], delta[2])
         args = (bp, x, geom, delta, target[1], ids if shifted else None,
                 gelu_tanh)
         in_l = "wm" if (wm_io or j > 0) else "canon"
@@ -412,6 +547,12 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
             x = block_wm(*args)
         off = target
     if wm_io:
+        if sp_sharded and off[2]:
+            x = _lon_shift_wm(x, -off[2], ww, mesh)
+            off = (off[0], off[1], 0)
+        if tp_sharded and off[0]:
+            x = _z_shift_wm(x, -off[0], wz, mesh)
+            off = (0, off[1], off[2])
         return x, off
     if any(off):
         x = torch.roll(x, shifts=off, dims=(1, 2, 3))

@@ -37,9 +37,9 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
-                                                aligned16, params_in,
-                                                require_device,
-                                                to_window_major,
+                                                aligned16, check_shard_read,
+                                                params_in, require_device,
+                                                to_window_major, wm_extent,
                                                 wm_to_canonical)
 from pangu_tpu_torch.ops.updown import (aligned_tree, check_updown_shape,
                                         down_sample_plain, recompute_train,
@@ -94,7 +94,11 @@ def down_sample_wm(p, xs, geom0: StageGeometry, geom1: StageGeometry,
     """xs: (B, nz, nlat0, nlon0, N, C) rolled wm storage with offset ``off``.
     Returns (B, nz, nlat1, nlon1, N, 2C) wm entry storage of the next stage
     in canonical coordinates: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor.  On a shard (a z share, a lon share of the
+    windows) it stays shard-local where ``off`` has no z or lon component;
+    it raises otherwise."""
+    check_shard_read(wm_extent(xs, geom0.window), geom0, off,
+                     "down_sample_wm")
     if not xs.is_cuda:
         return down_sample_wm_plain(p, xs, geom0, geom1, off)
     xs, q, shape = down_operands(p, xs, geom0, geom1)
@@ -150,7 +154,8 @@ def up_sample_wm(p, xs, geom2: StageGeometry, geom3: StageGeometry,
     """xs: (B, nz, nlat2, nlon2, N, C2) rolled wm storage with offset
     ``off``.  Returns (B, nz, nlat3, nlon3, N, C3) wm entry storage of stage
     3 in canonical coordinates: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    version for a CPU tensor; on a shard as :func:`down_sample_wm`."""
+    check_shard_read(wm_extent(xs, geom2.window), geom2, off, "up_sample_wm")
     if not xs.is_cuda:
         return up_sample_wm_plain(p, xs, geom2, geom3, off)
     xs, q, shape = up_operands(p, xs, geom2, geom3)

@@ -10,8 +10,8 @@
 * ``inference --horizon 48``, full-step and ``--token-space`` (the same
   function: their CSVs agree within 1e-3 relative), and a ``--models
   24=,6=`` hierarchy over 30 h;
-* refusals: a horizon that is not a multiple of 24, a mesh of 2 devices,
-  ``--device cuda`` without a card."""
+* refusals: a horizon that is not a multiple of 24, a mesh of 2 ranks in
+  a process that is no world of 2, ``--device cuda`` without a card."""
 
 import csv
 import dataclasses
@@ -130,7 +130,9 @@ def test_inference_rejects_bad_horizon(tmp_path):
 
 @pytest.mark.parametrize("cli", [evaluate, inference])
 def test_mesh_raises(tmp_path, cli):
-    with pytest.raises(NotImplementedError, match="item 9"):
+    """A mesh of 2 ranks in a process that is no world of 2 raises (the
+    sharded command lines themselves: tests/test_torch_parallel_cli.py)."""
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         cli.main(_args(tmp_path, "mesh", "--set", "mesh.dp=2"))
 
 

@@ -37,6 +37,17 @@ def test_no_jax_or_reference_package_import(rel):
     assert not roots & set(FORBIDDEN), (rel, sorted(roots & set(FORBIDDEN)))
 
 
+def test_the_parallel_modules_and_the_rank_helper_are_covered():
+    """The mesh modules are checked like every port module, and the module
+    whose functions the tests' spawned ranks run imports no JAX either."""
+    assert {"pangu_tpu_torch/parallel/__init__.py",
+            "pangu_tpu_torch/parallel/mesh.py",
+            "pangu_tpu_torch/parallel/sharding.py",
+            "pangu_tpu_torch/parallel/launch.py"} <= set(PORT_FILES)
+    roots = set(_imported_roots(ROOT / "tests" / "torch_world.py"))
+    assert not roots & {"jax", "jaxlib", "pangu_tpu"}, roots
+
+
 def test_every_port_module_imports_without_jax():
     modules = [f[:-3].replace(os.sep, ".").removesuffix(".__init__")
                for f in PORT_FILES]

@@ -308,6 +308,46 @@ def test_transition_and_recovery_kernels_match_plain(cuda, cfg_name, dtype,
             assert torch.equal(again, got)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+@pytest.mark.parametrize("off", [(0, 0, 0), (0, 3, 6)])
+def test_transition_z_shards_match_plain_and_the_whole_pair(cuda, cfg_name,
+                                                            dtype, off):
+    """Row 5z: the transition on each tp = 2 z shard (``z_base``,
+    ``nz_global``; the shard's slice of the bias field, not contiguous
+    where it is also a longitude shard) against its plain version, and the
+    shards put together bit-equal to the transition of the whole pair; at
+    off (0, 0, 0) also tp 2 x sp 2 shards.  Counted in ``z_launches``."""
+    cfg = _in_dtype(CFGS[cfg_name], dtype)
+    g0 = cfg.stage(0)
+    nz, nlon = g0.z // g0.window[0], g0.w // g0.window[2]
+    skip, dec = _storage(g0, cuda, dtype, seed=6), _storage(g0, cuda, dtype,
+                                                            seed=7)
+    tp = build_transition_wm(_params(cfg, cuda),
+                             to_device(synthetic_constants(cfg), cuda), cfg)
+    whole = apply_transition_wm(tp, skip, dec, g0, off)
+    for spn in (1, 2) if off[2] == 0 else (1,):
+        nzl, nll = nz // 2, nlon // spn
+        planes = []
+        for zi in range(2):
+            row = []
+            for li in range(spn):
+                sl = (slice(None), slice(zi * nzl, (zi + 1) * nzl),
+                      slice(None), slice(li * nll, (li + 1) * nll))
+                loc = {**tp, "bias_field_wm": tp["bias_field_wm"][sl]}
+                a, b = skip[sl].contiguous(), dec[sl].contiguous()
+                before = apply_transition_wm.z_launches
+                got = apply_transition_wm(loc, a, b, g0, off, z_base=zi * nzl,
+                                          nz_global=nz)
+                want = apply_transition_wm_plain(loc, a, b, g0, off,
+                                                 z_base=zi * nzl, nz_global=nz)
+                assert apply_transition_wm.z_launches == before + 1
+                assert _rel_err(got, want) <= TOL[dtype]
+                row.append(got)
+            planes.append(torch.cat(row, dim=3))
+        assert torch.equal(torch.cat(planes, dim=1), whole)
+
+
 @pytest.mark.parametrize("which", ["transition", "recovery_upper",
                                    "recovery_surface", "embed"])
 def test_edge_bf16_refuses_shapes_outside_the_tiles(cuda, which):
