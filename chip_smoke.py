@@ -231,6 +231,37 @@ Phases, each with its wall seconds:
         weights file: rank 0 writes the 12 CSVs, each value within 2^-4 of
         phase 10's token-space run on that date (RMSE relative, ACC
         absolute).
+ 12. sharded training, a world of ranks on the one card:
+     a. ``block_bwd`` on a (tp 2, sp 3) shard of stage 0 at full width
+        (the rank's ``ntype / tp`` rows of the region ids and the bias
+        table, drop scales), float32 and bf16, against its plain version on
+        the same shard (``TOL``, each output: dx and every gradient);
+        a launch whose shift would read across shards must raise;
+     b. a world of 6 ranks over gloo, Pangu-24 at full width from seed 0,
+        drop-path rate 0.2: mesh (dp 1, sp 3, tp 2) at batch 1 and full
+        depth, float32 and bf16 (the perf config), and mesh (2, 3, 1) at
+        batch 2 and depths (2, 2, 2, 2), bf16; two ``make_train_step`` Adam
+        steps each against one device's two steps of the same params,
+        batch and seeds in this process: each step's loss (float32 1e-6
+        relative, bf16 1e-3), every leaf of the first step's summed
+        gradient (float32 1e-5, bf16 2e-2 of the leaf's max |value|), the
+        params bit-equal across ranks after each step (equal ``checksum``s
+        of their words); per rank and step the launch counts (one
+        ``block_wm`` with scales and one ``block_bwd`` a block, one
+        DownSample, one UpSample; no other kernel: no embed, recovery or
+        grouped block), the exchanges and bytes of the halos, the gathers
+        and the gradient sum, the wall seconds, and the rank's peak device
+        memory;
+     c. in the same world, ``cli.finetune`` and ``cli.lora_tune``
+        (feature-mode dropout) with ``--bf16 --synthetic --smoke --set
+        model.gelu=tanh`` at mesh (2, 3, 1), batch 2, depths (2, 2, 2, 2),
+        fresh weights: each rank its own output directory, every rank
+        returns 0 and only rank 0's directory exists (checkpoints, best
+        params, 12 test CSVs, the log; the adapter and the merged
+        snapshot); the validation losses (batch 1, dp collapsed) finite and
+        equal across the ranks; per rank 4 steps' ``block_bwd`` launches,
+        the served forwards' blocks, DownSample and UpSample, and no embed
+        or recovery kernel; each command's wall seconds.
 
 Training gates (phases 6, 7 and 8): the float32 train step's loss within
 1e-4 relative of the plain path's, every gradient leaf within 1e-3 of its
@@ -1931,6 +1962,12 @@ def main() -> int:
         sharded = sharded_phase(smi, records, path_counts, tmp, kept)
         done("sharded serving", t0)
 
+        # ---- 12. sharded training ----------------------------------------
+        t0 = phase(f"sharded training: a world of {WORLD} ranks, meshes "
+                   f"{[m[0] for m in TRAIN_MESHES]}")
+        sharded_train = sharded_train_phase(smi, path_counts, tmp)
+        done("sharded training", t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -1999,7 +2036,8 @@ def main() -> int:
                           "full_step_ms_per_step": full_ms,
                           "full_step_edge_kernels_ms_per_step": edge_ms},
                       "v2": v2, "per_block": per_block, "canon": canon,
-                      "cli": cli, "sharded": sharded}))
+                      "cli": cli, "sharded": sharded,
+                      "sharded_train": sharded_train}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -3925,6 +3963,502 @@ def sharded_phase(smi, records, path_counts, tmp, kept):
     del refs
     torch.cuda.empty_cache()
     return out
+
+# ---------------------------------------------------------------------------
+# 12. sharded training
+# ---------------------------------------------------------------------------
+
+# (mesh (dp, sp, tp), batch, depths or None: the full depth, the dtypes of
+# ``world_runs`` it trains in)
+TRAIN_MESHES = (((1, 3, 2), 1, None, ("float32", "bf16")),
+                ((2, 3, 1), 2, (2, 2, 2, 2), ("bf16",)))
+TRAIN_WORLD_STEPS = 2
+# phase 12c: the training command lines in the world, at the second mesh
+TRAIN_CLI_MESH, TRAIN_CLI_BATCH, TRAIN_CLI_DEPTHS = (2, 3, 1), 2, (2, 2, 2, 2)
+TRAIN_CLI_STEPS = 4                 # --smoke: 2 epochs of 2 steps
+TRAIN_CLI_SERVED = 5                # 2 validations of 2 samples, 1 test
+TRAIN_CLI_RUNS = (
+    ("finetune", "finetune_fully", (), set()),
+    ("lora_tune", "lora", ("train.lora_dropout_mode=feature",),
+     {"lora_adapter", "merged"}))
+# kernels no sharded training or serving path of the trunk launches
+EDGE_KERNELS = ("embed_wm", "recovery_wm_upper", "recovery_wm_surface",
+                "embed_dw_upper", "recovery_bwd")
+TRAIN_WORLD_TIMEOUT_S = 600
+TRAIN_LOSS_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+TRAIN_GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+def checksum(tensors):
+    """A digest of many tensors' bits computed on their device: per tensor,
+    the int64 sums of its words (32-bit, or 16-bit for 2-byte dtypes) plain
+    and weighted by position (a change of any one word changes the second
+    sum), then sha256 of those sums.  The params' sha256 on the host
+    (``digest``) would copy the whole tree off the card every step."""
+    import hashlib
+    sums = []
+    for t in tensors:
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int16 if v.element_size() == 2 else torch.int32)
+        v = v.to(torch.int64)
+        w = torch.arange(1, v.numel() + 1, device=v.device) % 1_000_003
+        sums += [v.sum(), (v * w).sum()]
+    h = hashlib.sha256(torch.stack(sums).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_world_cfg(cfg, depths):
+    return cfg if depths is None else dataclasses.replace(cfg, depths=depths)
+
+
+def cut_depth(params, depths):
+    """The tree of a depth-cut config: each stage's first blocks."""
+    if depths is None:
+        return params
+    return {**params, "stages": [
+        {"blocks": st["blocks"][:d]} for st, d in zip(params["stages"],
+                                                      depths)]}
+
+
+def train_steps(cfg, params32, dtype, batch, consts, dev, mesh=None,
+                on_step=None):
+    """TRAIN_WORLD_STEPS steps of ``make_train_step`` from ``params32`` in
+    ``dtype`` (under ``mesh`` where given), step i seeded SEED + 40 + i;
+    returns the losses and the first step's gradient (CPU).  ``on_step(i,
+    seconds, params)`` after each step."""
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine import train as T
+    from pangu_tpu_torch.parallel import sharding
+
+    p = T._map(params32, lambda t: t.detach().to(dev, dtype, copy=True))
+    tcfg = TrainConfig()
+    opt = T.make_optimizer(tcfg)
+    state = T.create_train_state(p, opt)
+    step = T.make_train_step(cfg, tcfg, consts, opt, device=dev)
+    losses, grads = [], None
+    with sharding.use_mesh(mesh):
+        for i in range(TRAIN_WORLD_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch, SEED + 40 + i)
+            torch.cuda.synchronize()
+            losses.append(float(metrics["loss"]))
+            if i == 0:
+                grads = to_dtype(T._map(p, lambda t: t.grad.detach()),
+                                 torch.device("cpu"))
+            if on_step is not None:
+                on_step(i, time.perf_counter() - t0, p)
+    del state, step, opt, p
+    torch.cuda.empty_cache()
+    return losses, grads
+
+
+def train_world_runs():
+    """(shape, batch, depths, label, cfg, dtype) of phase 12b's runs."""
+    return [(shape, b, depths, label, cfg, dtype)
+            for shape, b, depths, labels in TRAIN_MESHES
+            for label, cfg, dtype in world_runs() if label in labels]
+
+
+def train_cli_rank(runs):
+    """Phase 12c on one rank of the world: each ``(module, argv)`` of
+    ``runs`` ("{rank}" in an argument replaced by this rank's number): its
+    return code, the validation losses ``train_loop`` returned, the launch
+    counts and the wall seconds."""
+    import importlib
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.engine import train as T
+    from pangu_tpu_torch.parallel import mesh as M
+
+    rank = str(M.world()[0])
+    loop, histories, out = T.train_loop, [], []
+
+    def recorded(*args, **kw):
+        state, history = loop(*args, **kw)
+        histories.append(history)
+        return state, history
+
+    T.train_loop = recorded
+    try:
+        for module, argv in runs:
+            histories.clear()
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rc = importlib.import_module(f"pangu_tpu_torch.cli.{module}").main(
+                [a.replace("{rank}", rank) for a in argv])
+            torch.cuda.synchronize()
+            out.append({"rc": rc, "s": time.perf_counter() - t0,
+                        "val_loss": [h["val_loss"] for h in histories],
+                        "counts": ops.launches()})
+    finally:
+        T.train_loop = loop
+    return out
+
+
+def train_world_rank(path, cli_runs):
+    """One rank of phase 12's world: each run of ``train_world_runs``, two
+    sharded Adam steps; per step the launch counts, the exchanges by
+    collective, the wall seconds and a digest of the params; rank 0 also
+    returns the first step's gradient.  The rank's peak device memory over
+    those runs.  Then the command lines of ``cli_runs`` (phase 12c)."""
+    import torch.distributed as dist
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import MeshConfig
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.parallel import mesh as M
+
+    from pangu_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blob = torch.load(path, mmap=True, weights_only=False)
+    rank = M.world()[0]
+    out = {"rank": rank, "backend": None, "runs": {}}
+    # the seconds of each step's gradient sum, timed around reduce_grads
+    reduce_grads, sum_s = sharding.reduce_grads, []
+
+    def timed_reduce(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = reduce_grads(*args)
+        torch.cuda.synchronize()
+        sum_s.append(time.perf_counter() - t0)
+        return res
+
+    sharding.reduce_grads = timed_reduce
+    meshes = {}
+    for shape, b, depths, label, cfg0, dtype in train_world_runs():
+        if shape not in meshes:
+            meshes[shape] = M.build_mesh(MeshConfig(*shape))
+        mesh = meshes[shape]
+        dev = mesh.device
+        out["backend"], out["host_staged"] = dist.get_backend(), \
+            mesh.host_staged
+        batch = {k: v.to(dev) for k, v in blob[f"batch{b}"].items()}
+        params32 = cut_depth(blob["params"], depths)
+        cfg = train_world_cfg(cfg0, depths)
+        consts = to_device(synthetic_constants(cfg, seed=SEED), dev)
+        steps = []
+
+        def on_step(i, sec, p):
+            steps.append({"counts": ops.launches(), "s": sec,
+                          "sum_s": sum_s.pop(),
+                          "by_op": {k: list(v) for k, v in
+                                    mesh.by_op.items()},
+                          "digest": checksum(leaves(p))})
+            ops.reset_launches()
+            mesh.reset_counts()
+
+        ops.reset_launches()
+        mesh.reset_counts()
+        losses, grads = train_steps(cfg, params32, dtype, batch, consts,
+                                    dev, mesh, on_step)
+        rec = {"losses": losses, "steps": steps, "coords": mesh.coords}
+        if rank == 0:
+            rec["grads"] = grads
+        out["runs"][(shape, label)] = rec
+        del grads
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del blob, batch, consts, mesh, meshes
+    torch.cuda.empty_cache()
+    sharding.reduce_grads = reduce_grads
+    out["cli"] = train_cli_rank(cli_runs)
+    return out
+
+
+def block_bwd_shard(params32):
+    """Phase 12a: ``block_bwd`` on a (tp 2, sp 3) shard of stage 0 with the
+    rank's rows of the region ids and the bias table, against its plain
+    version; a launch that would read across shards raises."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.models.layers import window_region_ids
+    from pangu_tpu_torch.ops.earth_block_bwd import block_bwd, block_bwd_plain
+
+    dev = torch.device("cuda")
+    g0 = PANGU_24.stage(0)
+    wz, wh, ww = g0.window
+    nz, nlat, nlon = g0.z // wz, g0.h_padded // wh, g0.w // ww
+    tpn, spn = 2, 3
+    nzl, nll = nz // tpn, nlon // spn
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    ids = torch.as_tensor(window_region_ids(g0.z, g0.h_padded, g0.window),
+                          device=dev)[:nzl * nlat]
+    shape = (1, nzl, nlat, nll, wz * wh * ww, g0.dim)
+    drop = torch.tensor([[1.25, 0.0]], device=dev)
+    out = {}
+    for label, cfg, dtype in world_runs():
+        bp = to_dtype(to_dtype(params32["stages"][0]["blocks"][1], dev),
+                      dtype)
+        bp["attn"]["bias_table"] = bp["attn"]["bias_table"][:nzl * nlat]
+        x, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        args = (bp, x, g, g0, (0, 3, 0), (0, 0, 0), 3, ids, drop,
+                cfg.gelu_tanh)
+        got, want = block_bwd(*args), block_bwd_plain(*args)
+        errs = [("dx", *rel_err(got[0], want[0]))] + tree_errs(got[1],
+                                                              want[1])
+        worst = max(errs, key=lambda e: e[2])
+        ms = time_ms(lambda: block_bwd(*args), 3)
+        print(f"block_bwd {label} on a (tp {tpn}, sp {spn}) shard "
+              f"{tuple(x.shape)}, table {tuple(bp['attn']['bias_table'].shape)}"
+              f": worst {worst[0]} max_abs_err {worst[1]:.3e} rel "
+              f"{worst[2]:.3e} (tol {TOL[dtype]:.1e}), {ms:.3f} ms",
+              flush=True)
+        if worst[2] > TOL[dtype]:
+            raise AssertionError(f"block_bwd on a shard, {label}: {worst}")
+        out[label] = {"worst": worst[0], "rel": worst[2], "ms": ms}
+        for bad in ((1, 3, 0), (0, 3, 6)):
+            try:
+                block_bwd(bp, x, g, g0, bad, (0, 0, 0), 3, ids, drop,
+                          cfg.gelu_tanh)
+            except ValueError as e:
+                print(f"  shift {bad} on the shard: raises ({e})")
+            else:
+                raise AssertionError(f"block_bwd with {bad} did not raise")
+        del bp, x, g, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train_phase(smi, path_counts, tmp):
+    """Phase 12: ``block_bwd`` on a shard, then a world of ``WORLD`` ranks
+    on the one card training two meshes, against one device's steps."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    print("card:", smi)
+    t0 = time.perf_counter()
+    params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
+                                 PANGU_24, device="cpu")
+    out = {"block_bwd_shard": block_bwd_shard(params32)}
+    print(f"params and 12a: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    consts_dev = to_device(synthetic_constants(PANGU_24, seed=SEED), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def state(b):
+        u = (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
+             * torch.randn((b, 5, PANGU_24.levels, PANGU_24.lat,
+                            PANGU_24.lon), generator=g, device=dev))
+        s = (consts_dev["surface_mean"][None]
+             + consts_dev["surface_std"][None]
+             * torch.randn((b, 4, PANGU_24.lat, PANGU_24.lon), generator=g,
+                           device=dev))
+        return u, s
+
+    # every batch the first samples of the largest
+    b_max = max(m[1] for m in TRAIN_MESHES)
+    (u, s), (tu, ts) = state(b_max), state(b_max)
+    whole = {"upper": u, "surface": s, "target_upper": tu,
+             "target_surface": ts}
+    blob = {"params": params32}
+    for b in sorted({m[1] for m in TRAIN_MESHES}):
+        blob[f"batch{b}"] = {k: v[:b].cpu() for k, v in whole.items()}
+    path = os.path.join(tmp, "train_world.pt")
+    torch.save(blob, path)
+    del consts_dev, whole, u, s, tu, ts
+    print(f"inputs drawn and saved for the world: "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # one device's two steps of every run, in this process
+    refs = {}
+    t0 = time.perf_counter()
+    for shape, b, depths, label, cfg0, dtype in train_world_runs():
+        batch = {k: v.to(dev) for k, v in blob[f"batch{b}"].items()}
+        cfg = train_world_cfg(cfg0, depths)
+        consts = to_device(synthetic_constants(cfg, seed=SEED), dev)
+        walls = []
+        refs[(shape, label)] = train_steps(
+            cfg, cut_depth(params32, depths), dtype, batch, consts, dev,
+            on_step=lambda i, sec, p: walls.append(sec))
+        print(f"one device, batch {b}, depths {cfg.depths}, {label}: "
+              f"losses {refs[(shape, label)][0]}, wall per step "
+              f"{[round(w, 3) for w in walls]} s", flush=True)
+        del batch, consts
+    torch.cuda.synchronize()
+    print(f"single-device references: {time.perf_counter() - t0:.2f} s")
+    del blob
+    torch.cuda.empty_cache()
+
+    print(f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB of the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"reserved) while the world runs")
+    # the ranks' allocators map what they use in growable segments: six
+    # processes share the card, and a rank's freed-but-cached blocks are
+    # memory the others cannot have
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    cli_root = os.path.join(tmp, "train_cli")
+    cli_runs = [(module, train_cli_argv(cli_root, name, sets))
+                for module, name, sets, _ in TRAIN_CLI_RUNS]
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.run(train_world_rank, WORLD, path, cli_runs,
+                           device="cuda", timeout_s=TRAIN_WORLD_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"world of {WORLD} ranks: backend {r0['backend']}, exchanges "
+          f"through host buffers {r0['host_staged']}, the whole world "
+          f"{world_s:.1f} s (spawn, loads, {len(train_world_runs())} runs "
+          f"of {TRAIN_WORLD_STEPS} steps, {len(cli_runs)} command lines); "
+          f"six CUDA contexts share the one card and every exchange crosses "
+          f"the host: no multi-card number")
+    out["world_s"] = world_s
+    out["peak_gib"] = [r["peak_bytes"] / 2 ** 30 for r in ranks]
+    print("peak device memory per rank (GiB): "
+          + ", ".join(f"{v:.2f}" for v in out["peak_gib"]))
+    for shape, b, depths, label, cfg0, dtype in train_world_runs():
+        n_blocks = sum(depths or PANGU_24.depths)
+        want_counts = {"block_wm": n_blocks, "block_bwd": n_blocks,
+                       "down_sample_wm": 1, "up_sample_wm": 1}
+        key = (shape, label)
+        name = (f"mesh {shape} batch {b} depths "
+                f"{depths or PANGU_24.depths} {label}")
+        want_losses, want_grads = refs.pop(key)
+        got = r0["runs"][key]
+        lrel = max(abs(a - w) / abs(w)
+                   for a, w in zip(got["losses"], want_losses))
+        errs = tree_errs(got["grads"], want_grads)
+        worst = max(errs, key=lambda e: e[2])
+        print(f"sharded train {name}: losses {got['losses']} vs one "
+              f"device {want_losses} (rel {lrel:.3e}, tol "
+              f"{TRAIN_LOSS_TOL[dtype]:.0e}); step-1 gradient "
+              f"({len(errs)} leaves) worst {worst[0]} max_abs_err "
+              f"{worst[1]:.3e} rel {worst[2]:.3e} (tol "
+              f"{TRAIN_GRAD_TOL[dtype]:.0e})", flush=True)
+        if (lrel > TRAIN_LOSS_TOL[dtype]
+                or worst[2] > TRAIN_GRAD_TOL[dtype]):
+            raise AssertionError(f"sharded train {name}: loss rel {lrel}"
+                                 f", gradient {worst}")
+        for i in range(TRAIN_WORLD_STEPS):
+            digests = {r["runs"][key]["steps"][i]["digest"]
+                       for r in ranks}
+            if len(digests) != 1:
+                raise AssertionError(f"sharded train {name} step {i}: "
+                                     f"the ranks' params differ")
+        print(f"  params bit-equal across the {WORLD} ranks after each "
+              f"of the {TRAIN_WORLD_STEPS} steps")
+        total = {}
+        for r in ranks:
+            for i, st in enumerate(r["runs"][key]["steps"]):
+                counts = st["counts"]
+                ops_ = st["by_op"]
+                mib = {k: v[1] / 2 ** 20 for k, v in ops_.items()}
+                print(f"  rank {r['rank']} {r['runs'][key]['coords']} "
+                      f"step {i}: launches "
+                      f"{ {k: v for k, v in counts.items() if v} }; "
+                      f"halos {ops_.get('ppermute', [0])[0]} exchanges "
+                      f"{mib.get('ppermute', 0):.1f} MiB, gathers "
+                      f"{ops_.get('all_gather', [0])[0]} "
+                      f"{mib.get('all_gather', 0):.1f} MiB, gradient "
+                      f"sum {ops_.get('all_reduce', [0])[0]} "
+                      f"{mib.get('all_reduce', 0):.1f} MiB; wall "
+                      f"{st['s']:.3f} s, of which the gradient sum "
+                      f"{st['sum_s']:.3f}")
+                if counts != {**{k: 0 for k in counts}, **want_counts}:
+                    raise AssertionError(
+                        f"rank {r['rank']} {name} step {i}: launches "
+                        f"{counts}, want {want_counts}")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        walls = [st["s"] for r in ranks for st in r["runs"][key]["steps"]]
+        sums = [st["sum_s"] for r in ranks
+                for st in r["runs"][key]["steps"]]
+        print(f"  over the {WORLD} ranks and {TRAIN_WORLD_STEPS} steps: wall "
+              f"{min(walls):.3f}-{max(walls):.3f} s a step, of which the "
+              f"gradient sum {min(sums):.3f}-{max(sums):.3f} s")
+        path_counts[f"sharded train {name}"] = total
+        out[name] = {"loss_rel": lrel, "grad_rel": worst[2],
+                     "grad_worst": worst[0],
+                     "s_per_step": [st["s"] for r in ranks
+                                    for st in r["runs"][key]["steps"]],
+                     "sum_s_per_step": [
+                         st["sum_s"] for r in ranks
+                         for st in r["runs"][key]["steps"]],
+                     "by_op_step0": r0["runs"][key]["steps"][0]["by_op"]}
+    out["cli"] = check_train_cli(ranks, cli_root, path_counts)
+    del ranks
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_cli_argv(root, name, sets):
+    """Phase 12c's arguments of one training command line: each rank
+    writes under ``root/rank<r>`` (only rank 0 may create it)."""
+    items = (f"model.depths={list(TRAIN_CLI_DEPTHS)}",
+             f"train.batch_size={TRAIN_CLI_BATCH}",
+             *(f"mesh.{a}={n}" for a, n in zip(("dp", "sp", "tp"),
+                                               TRAIN_CLI_MESH)),
+             "model.gelu=tanh", "data.test_start=20180103",
+             "data.test_end=20180104", "data.test_freq=24h",
+             "data.num_workers=1", "data.prefetch=1", *sets,
+             f"output_path={os.path.join(root, 'rank{rank}')}")
+    return ["--bf16", "--synthetic", "--smoke", "--type_net", name,
+            *(a for item in items for a in ("--set", item))]
+
+
+def check_train_cli(ranks, root, path_counts):
+    """Phase 12c's checks on the world's command-line runs: every rank
+    returned 0 and only rank 0 wrote; the validation losses are finite and
+    the same on every rank; the launches of the training steps and of the
+    served forwards, and no edge kernel."""
+    from pangu_tpu_torch.config import DataConfig
+
+    out = {}
+    if sorted(os.listdir(root)) != ["rank0"]:
+        raise AssertionError(f"12c: ranks other than 0 wrote: "
+                             f"{sorted(os.listdir(root))}")
+    n_blocks = sum(TRAIN_CLI_DEPTHS)
+    for i, (module, name, _, extra) in enumerate(TRAIN_CLI_RUNS):
+        runs = [r["cli"][i] for r in ranks]
+        run_dir = os.path.join(root, "rank0", name,
+                               str(DataConfig().horizon))
+        models = set(os.listdir(os.path.join(run_dir, "models")))
+        csvs = os.listdir(os.path.join(run_dir, "test", "csv"))
+        with open(os.path.join(run_dir, f"{name}.log")) as f:
+            log = f.read()
+        vals = {tuple(r["val_loss"][0]) for r in runs}
+        val = runs[0]["val_loss"][0]
+        print(f"cli.{module} in the world, mesh {TRAIN_CLI_MESH} batch "
+              f"{TRAIN_CLI_BATCH} depths {TRAIN_CLI_DEPTHS} bf16: return "
+              f"codes {[r['rc'] for r in runs]}; rank 0 wrote models "
+              f"{sorted(models)}, {len(csvs)} test CSVs and the log; "
+              f"validation losses {val} on every rank "
+              f"{len(vals) == 1}; wall {runs[0]['s']:.1f} s", flush=True)
+        for r in ranks:
+            c = r["cli"][i]["counts"]
+            print(f"  rank {r['rank']}: launches "
+                  f"{ {k: v for k, v in c.items() if v} }")
+            # a train step: one block_wm and one block_bwd a block; a
+            # served forward: its blocks, grouped or not
+            trunks = TRAIN_CLI_STEPS + TRAIN_CLI_SERVED
+            if (c["block_bwd"] != TRAIN_CLI_STEPS * n_blocks
+                    or c["block_wm"] + c["block_wm_group"] != trunks * n_blocks
+                    or c["down_sample_wm"] != trunks
+                    or c["up_sample_wm"] != trunks
+                    or any(c[k] for k in EDGE_KERNELS)):
+                raise AssertionError(f"12c {module} rank {r['rank']}: "
+                                     f"launches {c}")
+        if (any(r["rc"] != 0 for r in runs) or len(vals) != 1
+                or not val or not all(math.isfinite(v) for v in val)
+                or "best.pt" not in models or not extra <= models
+                or len(csvs) != 12 or "done; best val loss" not in log):
+            raise AssertionError(f"12c {module}: codes "
+                                 f"{[r['rc'] for r in runs]}, val losses "
+                                 f"{vals}, models {models}, {len(csvs)} CSVs")
+        path_counts[f"sharded train cli.{module}"] = {
+            k: sum(r["cli"][i]["counts"][k] for r in ranks)
+            for k in runs[0]["counts"]}
+        out[module] = {"val_loss": val, "s": [r["s"] for r in runs]}
+    return out
+
 
 if __name__ == "__main__":
     sys.exit(main())

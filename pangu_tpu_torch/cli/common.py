@@ -78,18 +78,20 @@ def build_config(args) -> Config:
     return dataclasses.replace(cfg, model=model)
 
 
-def setup_mesh(cfg: Config, device: _device.DeviceLike = "cuda"):
+def setup_mesh(cfg: Config, device: _device.DeviceLike = "cuda", *,
+               batch: int = 1):
     """Join the process group where the launch describes one (torchrun,
     SLURM; idempotent), then build this rank's mesh, as the JAX command
     lines set theirs up: ``cfg.mesh`` where its size is more than 1, else
-    ``auto_mesh_config`` over the world's ranks (sp dividing stage 1's
-    longitude windows, tp the smallest head count, batch 1).  None on a
+    ``auto_mesh_config`` over the world's ranks (dp dividing ``batch``: the
+    fine-tuning command lines pass ``cfg.train.batch_size``; sp dividing
+    stage 1's longitude windows, tp the smallest head count).  None on a
     rank the mesh leaves idle."""
     M.initialize_distributed(device=device)
     _, n_world = M.world()
     mcfg = cfg.mesh if cfg.mesh.size > 1 else M.auto_mesh_config(
         n_world, lon_windows=cfg.model.stage(1).w // cfg.model.window[2],
-        max_heads=min(cfg.model.heads), batch=1)
+        max_heads=min(cfg.model.heads), batch=batch)
     return M.build_mesh(mcfg, device=device)
 
 
@@ -142,10 +144,10 @@ def load_params(args, cfg: Config):
 def make_loaders(cfg: Config, synthetic: bool,
                  device: _device.DeviceLike = "cuda"):
     """The train / val / test datasets and loaders; each batch reaches the
-    consumer on ``device`` whole (under a mesh every rank holds the whole
-    batch, and the served forward takes its dp slice itself)."""
+    consumer on ``device`` whole (under a mesh every rank loads and holds
+    the whole batch, and the forward, served or trained, takes its dp
+    slice itself)."""
     shard_fn = era5.device_put_fn(device)
-    rank, world = M.world()
     dsets = {s: era5.make_dataset(cfg.data, s, cfg.model,
                                   synthetic=synthetic or None)
              for s in ("train", "val", "test")}
@@ -153,8 +155,7 @@ def make_loaders(cfg: Config, synthetic: bool,
         "train": era5.Loader(dsets["train"], cfg.train.batch_size,
                              shuffle=True, seed=cfg.train.seed,
                              num_workers=cfg.data.num_workers,
-                             prefetch=cfg.data.prefetch, shard_fn=shard_fn,
-                             process_index=rank, process_count=world),
+                             prefetch=cfg.data.prefetch, shard_fn=shard_fn),
         "val": era5.Loader(dsets["val"], 1, num_workers=cfg.data.num_workers,
                            shard_fn=shard_fn),
         "test": era5.Loader(dsets["test"], cfg.train.eval_batch_size,

@@ -77,8 +77,7 @@ def main(argv=None):
         return 0
     if hierarchy is not None and mesh.size > 1:
         raise NotImplementedError(
-            "a --models hierarchy under a mesh is the next slice of ROADMAP "
-            "queue A item 9 (parallelism)")
+            "a --models hierarchy under a mesh is ROADMAP queue A item 12")
     dev = _device.resolve(args.device)
     out, logger = common.run_dirs(cfg, args.type_net)
     constants = common.load_constants_device(cfg, args.synthetic, dev)

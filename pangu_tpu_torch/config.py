@@ -302,7 +302,7 @@ class DataConfig:
 class MeshConfig:
     """Device-mesh layout: dp the batch, sp the longitude windows, tp the z
     windows of the window-major trunk (and with them the bias tables).  The
-    port serves the forecast under a mesh of ``torch.distributed`` ranks
+    port serves and trains under a mesh of ``torch.distributed`` ranks
     (``parallel/``); what has no sharded path yet raises there."""
 
     dp: int = 1

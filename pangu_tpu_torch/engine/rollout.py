@@ -220,7 +220,7 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
             if return_trajectory:
                 raise NotImplementedError(
                     "a token-space trajectory under a mesh is ROADMAP queue "
-                    "A item 9")
+                    "A item 12")
             mesh = pangu.serving_mesh(params, cfg, upper.shape[0],
                                       what="make_rollout")
             return _rollout_tokens_sharded(params, upper, surface, cfg,
@@ -271,8 +271,8 @@ def _single_device_only() -> None:
     branch for a multi-device mesh, which the port does not serve yet."""
     if sharding.multi_device_mesh_active():
         raise NotImplementedError(
-            "the hierarchical token-space rollout under a mesh is the next "
-            "slice of ROADMAP queue A item 9 (parallelism)")
+            "the hierarchical token-space rollout under a mesh is ROADMAP "
+            "queue A item 12")
 
 
 def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,

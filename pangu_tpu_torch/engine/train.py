@@ -1,6 +1,6 @@
 """Training engine of the port: the counterpart of
 ``pangu_tpu/engine/train.py`` (loss, optimizer, train and eval steps, the
-epoch loop), on one device.
+epoch loop), on one device or under a (dp, sp, tp) mesh.
 
 * ``weighted_l1_loss``: mean(|err_upper| * w_var) + 0.25 * mean(|err_surface|
   * w_var) on normalised fields, the reference's formula;
@@ -25,6 +25,16 @@ epoch loop), on one device.
 A step's stochastic-depth scales come from a ``torch.Generator`` seeded by
 the step's seed, so a run repeats itself; the JAX package's ``jax.random``
 streams are not reproduced.
+
+Under an active mesh of more than one rank (``parallel.sharding.use_mesh``)
+every rank passes the whole batch and holds the whole parameter tree and
+its own optimizer: the training forward runs the rank's shard, and
+``parallel.sharding.reduce_grads`` sums the gradient over the mesh after
+``loss.backward()`` (the sum the JAX package's ``jit`` over the mesh holds,
+which the reference's DDP set-up forgot).  Every rank then holds the same
+gradient bits, takes the same Adam update and reports the same metrics, so
+early stopping decides alike everywhere; the command lines save
+checkpoints on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from pangu_tpu_torch import _device
 from pangu_tpu_torch.config import ModelConfig, TrainConfig
 from pangu_tpu_torch.data.constants import norm_data, to_device
 from pangu_tpu_torch.models import lora, pangu
+from pangu_tpu_torch.parallel import sharding
 
 
 def _leaves(tree):
@@ -175,7 +186,10 @@ def loss_and_grads(params, batch, constants, cfg: ModelConfig,
     param's dtype).  ``batch``: upper / surface / target_upper /
     target_surface in raw units; the targets are normalised on the device.
     Stochastic depth: ``drops`` if given, else drawn from a generator on the
-    device seeded with ``seed`` (no seed: scales of 1)."""
+    device seeded with ``seed`` (no seed: scales of 1).  Under an active
+    mesh the batch is the whole batch on every rank, and the gradient is
+    summed over the mesh (``parallel.sharding.reduce_grads``) before it is
+    returned."""
     dev = _device.resolve(device)
     for t in _leaves(params):
         t.grad = None
@@ -190,6 +204,8 @@ def loss_and_grads(params, batch, constants, cfg: ModelConfig,
     loss, aux = weighted_l1_loss(out_u, out_s, tgt_u, tgt_s, tcfg)
     loss.backward()
     grads = _map(params, lambda t: t.grad)
+    if sharding.multi_device_mesh_active():
+        grads = sharding.reduce_grads(params, grads, sharding.active_mesh())
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -208,7 +224,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constants,
     loss_surface, grad_norm (tensors on the device).  On the card the
     training trunk runs the block, block backward, DownSample, UpSample and
     (``cfg.edge_kernels``) embed, embed dW, recovery and recovery backward
-    kernels; ``device="cpu"`` runs every plain version."""
+    kernels; ``device="cpu"`` runs every plain version.  Under an active
+    mesh each rank trains its shard, the gradient is summed over the mesh,
+    and every rank takes the same update on its copy of the params."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
 
@@ -224,18 +242,31 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constants,
     return train_step
 
 
+def eval_forward(params, upper, surface, constants, cfg: ModelConfig,
+                 **kw):
+    """``pangu.forward`` for evaluation under the active mesh: a batch that
+    dp does not divide (a validation or test batch of 1 under a training
+    mesh) runs with dp collapsed (``parallel.sharding.serving_view``: each
+    dp line serves the whole batch over its sp and tp shards)."""
+    view = sharding.serving_view(sharding.active_mesh(), upper.shape[0])
+    with sharding.use_mesh(view):
+        return pangu.forward(params, upper, surface, constants, cfg, **kw)
+
+
 def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig, constants, *,
                    device: _device.DeviceLike = "cuda",
                    kernels: bool = True) -> Callable:
     """The validation step ``(params, batch) -> metrics``: the served
-    forward and the same weighted L1 against normalised targets."""
+    forward (under an active mesh the sharded one, :func:`eval_forward`,
+    the whole prediction on every rank) and the same weighted L1 against
+    normalised targets."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        out_u, out_s = pangu.forward(params, batch["upper"], batch["surface"],
-                                     consts, cfg, device=dev, kernels=kernels)
+        out_u, out_s = eval_forward(params, batch["upper"], batch["surface"],
+                                    consts, cfg, device=dev, kernels=kernels)
         tgt_u, tgt_s = norm_data(batch["target_upper"].to(dev, torch.float32),
                                  batch["target_surface"].to(dev, torch.float32),
                                  consts)
@@ -261,7 +292,9 @@ def train_loop(tcfg: TrainConfig, state: TrainState, train_step, eval_step,
     ``n`` (counted over the whole run) gets the seed ``seed + n``, so a run
     resumed at (``start_epoch``, ``start_batch``) repeats the uninterrupted
     one.  With ``tcfg.save_steps > 0`` the checkpointer also saves every
-    that many steps."""
+    that many steps.  In a world of several ranks every rank runs the same
+    steps and validations; the caller passes a checkpointer on the rank
+    that writes alone (``cli/common.py::writes``)."""
     best_loss = float("inf")
     best_params = None
     stale = 0

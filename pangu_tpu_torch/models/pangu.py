@@ -17,8 +17,13 @@ Under a (dp, sp, tp) mesh of ``torch.distributed`` ranks
 forward runs the window-major trunk per shard: patch embed of the rank's dp
 slice, its (tp, sp) share of the tokens (:func:`embed_shard`), the stage
 chains with their lon / z halos, then the pair gathered, patch recovery and
-the batch gathered (:func:`recover_shard`).  What has no sharded path
-raises (:func:`serving_mesh`).
+the batch gathered (:func:`recover_shard`).  The training forward
+(``deterministic=False``) runs the same way through the window-major
+training trunk (:func:`forward_core_wm_train` with the mesh), on
+stochastic-depth scales drawn at the global batch and cut to the rank's dp
+rows; its gradient is summed over the mesh by
+``parallel.sharding.reduce_grads`` (``engine/train.py``).  What has no
+sharded path raises (:func:`serving_mesh`).
 
 ``forward(..., taps=dict)`` runs the canonical-layout trunk instead, as the
 JAX package does when it collects golden activations: each stage reads and
@@ -175,6 +180,26 @@ def param_count(params) -> int:
     return sum(t.numel() for t in _leaves(params))
 
 
+def summarize(params, cfg: ModelConfig) -> str:
+    """Parameter counts by top-level group and stage, with the model's
+    geometry (the JAX package's ``summarize``)."""
+    lines = [f"PanguModel ({cfg.lat}x{cfg.lon}, {cfg.levels} levels, "
+             f"dims {cfg.dims}, depths {cfg.depths})"]
+    groups = {}
+    for key, sub in params.items():
+        if key == "stages":
+            for i, st in enumerate(sub):
+                groups[f"stage[{i}]"] = param_count(st)
+        else:
+            groups[key] = param_count(sub)
+    total = sum(groups.values())
+    for key, n in groups.items():
+        lines.append(f"  {key:<16} {n:>12,} params "
+                     f"({100 * n / max(total, 1):.1f}%)")
+    lines.append(f"  total            {total:>12,} params")
+    return "\n".join(lines)
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -255,19 +280,27 @@ def wm_core_mesh(cfg: ModelConfig, mesh):
 
 
 def serving_mesh(params, cfg: ModelConfig, batch: int, *,
-                 what: str = "forward"):
+                 what: str = "forward", train: bool = False):
     """The active mesh (``parallel.sharding.use_mesh``) this call is served
-    under, or None on one device.  Under a mesh of more than one rank,
-    raises ``NotImplementedError`` where the port has no sharded path for
-    the call: a tree or config off the window-major trunk, a mesh the gate
-    refuses (:func:`wm_core_mesh`) or a batch that dp does not divide (the
-    JAX package falls through to its per-stage sharded paths or GSPMD
+    (``train``: trained) under, or None on one device.  Under a mesh of
+    more than one rank, raises ``NotImplementedError`` where the port has
+    no sharded path for the call: a tree or config off the window-major
+    trunk (training: also ``train_fused=False``, and a LoRA tree with
+    element-mode dropout, which cannot merge), a mesh the gate refuses
+    (:func:`wm_core_mesh`) or a batch that dp does not divide (the JAX
+    package falls through to its per-stage sharded paths or GSPMD
     there)."""
     mesh = sharding.active_mesh()
     if mesh is None or mesh.size == 1:
         return None
-    if not wm_core_supported(params, cfg):
+    if train and has_lora_dropout(params):
+        why = ("a LoRA tree with element-mode dropout (per-token masks do "
+               "not merge; train with lora_dropout_mode=\"feature\" or "
+               "lora_dropout=0)")
+    elif not wm_core_supported(params, cfg):
         why = "a tree or config off the window-major trunk"
+    elif train and not cfg.train_fused:
+        why = "train_fused=False (the per-block trunk)"
     elif wm_core_mesh(cfg, mesh) is None:
         why = (f"the mesh {mesh.cfg} (sp must divide every stage's longitude "
                f"windows, tp every stage's z windows)")
@@ -276,18 +309,20 @@ def serving_mesh(params, cfg: ModelConfig, batch: int, *,
     else:
         return mesh
     raise NotImplementedError(
-        f"{what}: {why} is not served under a mesh: the per-stage sharded "
-        "and GSPMD paths are ROADMAP queue A item 9")
+        f"{what}: {why} is not {'trained' if train else 'served'} under a "
+        "mesh: the per-stage sharded and GSPMD paths are ROADMAP queue A "
+        "item 12")
 
 
-def mesh_params(params, cfg: ModelConfig, mesh):
+def mesh_params(params, cfg: ModelConfig, mesh, *, copy: bool = True):
     """``params`` with this rank's tp slice of the bias tables: sliced here
-    where they are whole (``parallel.sharding.shard_params``), as they are
-    where already sliced."""
+    where they are whole (``parallel.sharding.shard_params``: a copy, or
+    with ``copy=False`` a view the gradient reaches the whole table
+    through), as they are where already sliced."""
     t = params["stages"][0]["blocks"][0]["attn"]["bias_table"]
     whole = cfg.stage(0).num_window_types
     if t.shape[0] == whole:
-        return sharding.shard_params(params, mesh)
+        return sharding.shard_params(params, mesh, copy=copy)
     if t.shape[0] * mesh.shape["tp"] == whole:
         return params
     raise ValueError(f"bias table of {t.shape[0]} types for {whole} over tp "
@@ -298,7 +333,8 @@ def embed_shard(params, upper, surface, constants, cfg: ModelConfig, mesh):
     """Physical fields (the whole batch, compute dtype, on the rank's
     device) -> this rank's stage-0 wm entry storage: patch embed of its dp
     slice of the batch, then its (tp, sp) share of the tokens (z and
-    longitude are patch-local, so the slice of the embed is exact)."""
+    longitude are patch-local, so the slice of the embed is exact).
+    Differentiable: the embed's gradient comes from this rank's tokens."""
     g = cfg.stage(0)
     u, s = (sharding.shard(t, sharding.BATCH_SPEC, mesh)
             for t in (upper, surface))
@@ -313,7 +349,8 @@ def recover_shard(params, skip, dec, off, cfg: ModelConfig, mesh):
     surface) fields of the whole batch on every rank: each shard
     canonicalised by its own ``off`` (z 0 under tp > 1, lon 0 under
     sp > 1; the local components still applied), gathered over tp and sp,
-    patch recovery, then the batch gathered over dp."""
+    patch recovery, then the batch gathered over dp.  Differentiable: the
+    gathers' backward hands each rank the cotangent of its own shard."""
     g = cfg.stage(0)
     pair = tuple(sharding.unshard(wm_to_canonical(t, off, g), sharding.TOKEN_SPEC,
                                   mesh) for t in (skip, dec))
@@ -354,7 +391,7 @@ def draw_drops(cfg: ModelConfig, gen, batch: int):
 
 
 def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
-                          drops=None, kernels: bool = True):
+                          drops=None, kernels: bool = True, mesh=None):
     """The training trunk in window-major storage, differentiable in ``xs``
     and every trunk parameter: each stage call is one autograd Function
     (block kernels forward, the block backward kernel backward), DownSample
@@ -362,12 +399,17 @@ def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
     recompute backward.  ``drops``: four per-stage lists of (B, 2) branch
     scales, or None to draw them from ``gen`` (``cfg.drop_path_rates()``;
     ones without a generator).  Returns ``(skip_wm, dec_wm, off)`` as
-    :func:`forward_core_wm` does."""
+    :func:`forward_core_wm` does.
+
+    Under a ``mesh`` ``xs`` is this rank's (tp, sp) shard, ``drops`` its
+    dp rows and ``params`` carry its tp slice of the bias tables, as
+    :func:`forward_core_wm` serves: the stage chains' halos are
+    differentiable, and ``off`` has its lon and z components 0."""
     _require_wm_core(params, cfg)
     g0, g1, g2, g3 = (cfg.stage(i) for i in range(4))
     if drops is None:
         drops = draw_drops(cfg, gen, xs.shape[0])
-    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+    kw = dict(gelu_tanh=cfg.gelu_tanh, kernels=kernels, mesh=mesh)
 
     skip, off0 = run_stage_train_wm(params["stages"][0], xs, g0, drops[0], **kw)
     x = down_sample_wm_train(params["downsample"], skip, g0, g1, off0,
@@ -603,8 +645,14 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     (:func:`forward_core_wm` with the mesh) with its tp slice of the bias
     tables (sliced here where ``params`` hold them whole), the pair is
     gathered, recovered (patch recovery) and gathered over dp, as the JAX
-    package serves a global array.  The edge kernels serve one device
-    only.  What has no sharded path raises (:func:`serving_mesh`)."""
+    package serves a global array.  Trained (``deterministic=False``), the
+    trunk is :func:`forward_core_wm_train` with the mesh, the tables' slices
+    are views of the whole tables, and the drop scales are drawn at the
+    global batch on every rank from the one seeded ``gen`` and cut to the
+    rank's dp rows, so every sample keeps its one-device scales; the
+    gradient is this rank's share until ``parallel.sharding.reduce_grads``
+    sums it.  The edge kernels serve one device only.  What has no sharded
+    path raises (:func:`serving_mesh`), and so do ``taps``."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
@@ -622,15 +670,21 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
         params = merge_lora(params, gen if feature else None)
     u, s = upper.to(dev, cdt), surface.to(dev, cdt)
     if sharding.multi_device_mesh_active():
-        if train or taps is not None:
+        if taps is not None:
             raise NotImplementedError(
-                "forward: training and taps are not served under a mesh: "
-                "ROADMAP queue A item 9")
-        mesh = serving_mesh(params, cfg, u.shape[0])
-        p = mesh_params(params, cfg, mesh)
+                "forward: taps (the canonical-layout trunk) are not run under "
+                "a mesh: ROADMAP queue A item 12")
+        mesh = serving_mesh(params, cfg, u.shape[0], train=train)
+        p = mesh_params(params, cfg, mesh, copy=not train)
         xs = embed_shard(p, u, s, consts, cfg, mesh)
-        skip, dec, off = forward_core_wm(p, xs, cfg, mesh=mesh,
-                                         kernels=kernels)
+        if train:
+            dr = [[sharding.shard(d, sharding.BATCH_SPEC, mesh) for d in st]
+                  for st in drops]
+            skip, dec, off = forward_core_wm_train(p, xs, cfg, drops=dr,
+                                                   kernels=kernels, mesh=mesh)
+        else:
+            skip, dec, off = forward_core_wm(p, xs, cfg, mesh=mesh,
+                                             kernels=kernels)
         return recover_shard(p, skip, dec, off, cfg, mesh)
     if (taps is not None or not wm_core_supported(params, cfg)
             or (train and not cfg.train_fused)):

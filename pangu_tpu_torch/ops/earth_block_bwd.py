@@ -46,15 +46,18 @@ import torch
 from pangu_tpu_torch import _build
 from pangu_tpu_torch.config import StageGeometry
 from pangu_tpu_torch.models.layers import dense, window_region_ids
-from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset, block_wm,
-                                                block_wm_canon,
+from pangu_tpu_torch.ops.earth_block_wm import (DTYPE_CODE, Offset,
+                                                _lon_shift_wm, _z_shift_wm,
+                                                block_wm, block_wm_canon,
                                                 block_wm_canon_plain,
                                                 block_wm_plain, check_drop,
-                                                drop_scales, from_window_major,
+                                                check_shard_read, drop_scales,
+                                                from_window_major,
                                                 pad_rows_zeroed, params_in,
                                                 require_device,
                                                 tensor_core_operands,
-                                                to_window_major)
+                                                to_window_major, wm_extent)
+from pangu_tpu_torch.parallel.sharding import shard
 
 LAYOUTS = ("wm", "canon")
 
@@ -251,21 +254,36 @@ def block_bwd_plain(p, xs, g, geom: StageGeometry, delta_x: Offset,
 # The CUDA kernel unit
 # ---------------------------------------------------------------------------
 
+def _extent(x, layout: str, geom: StageGeometry):
+    """The (Z, Hp, W) token extent of x in ``layout``."""
+    return tuple(x.shape[1:4]) if layout == "canon" else wm_extent(x,
+                                                                  geom.window)
+
+
+def _check_shard(x, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
+                 x_layout: str, g_layout: str, what: str) -> None:
+    """The whole grid or one (tp, sp) shard of it, read through shifts that
+    stay on the shard (``check_shard_read``: the sharded stage chain
+    resolves the z and lon components in storage first)."""
+    check_shard_read(_extent(x, x_layout, geom), geom, delta_x, what)
+    check_shard_read(_extent(g, g_layout, geom), geom, delta_g, what)
+
+
 def _launch(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
             canon_add: int, ids, drop, gelu_tanh: bool, x_layout: str,
             g_layout: str):
     wz, wh, ww = geom.window
     n = wz * wh * ww
-    nz, nlat, nlon = geom.z // wz, geom.h_padded // wh, geom.w // ww
+    z, hp, w = _extent(xs, x_layout, geom)      # the whole grid or a shard
+    nz, nlat, nlon = z // wz, hp // wh, w // ww
     c = xs.shape[-1]
     b = xs.shape[0]
-    grid = (b, geom.z, geom.h_padded, geom.w, c)
+    grid = (b, z, hp, w, c)
     wm = (b, nz, nlat, nlon, n, c)
     want_x = grid if x_layout == "canon" else wm
     want_g = grid if g_layout == "canon" else wm
     if (tuple(xs.shape) != want_x or tuple(g.shape) != want_g
-            or (nz * wz, nlat * wh, nlon * ww) != (geom.z, geom.h_padded,
-                                                   geom.w)
+            or (nz * wz, nlat * wh, nlon * ww) != (z, hp, w)
             or xs.dtype not in DTYPE_CODE or c != geom.dim or c % geom.heads
             or g.dtype != xs.dtype
             or not xs.is_contiguous() or not g.is_contiguous()):
@@ -341,12 +359,20 @@ def block_bwd(p, xs, g, geom: StageGeometry, delta_x: Offset, delta_g: Offset,
     ``drop`` as in ``block_wm``.  Returns ``(dx, grads)``: dx in the block's
     window coordinates, pad rows zero; grads float32 sums in a block param
     tree.  A canonical layout of either end is :func:`block_bwd_canon`'s
-    (and counted there)."""
+    (and counted there).
+
+    On a rank's (tp, sp) shard, ``xs`` and ``g`` are the shard (its local
+    extent), ``ids`` and the bias table its tp slice of rows, and the
+    table's gradient comes out for that slice; a shift that would read
+    across shards (a z component of ``delta_x`` / ``delta_g`` on a z
+    shard, a lon component on a lon shard) raises ValueError."""
     _check_layouts(x_layout, g_layout, delta_x, delta_g, "block_bwd")
     if "canon" in (x_layout, g_layout):
         return block_bwd_canon(p, xs, g, geom, delta_x, delta_g, canon_add,
                                ids, drop, gelu_tanh, x_layout=x_layout,
                                g_layout=g_layout)
+    _check_shard(xs, g, geom, delta_x, delta_g, x_layout, g_layout,
+                 "block_bwd")
     if not xs.is_cuda:
         return block_bwd_plain(p, xs, g, geom, delta_x, delta_g, canon_add,
                                ids, drop, gelu_tanh)
@@ -369,11 +395,13 @@ def block_bwd_canon(p, x, g, geom: StageGeometry, delta_x: Offset,
     unshifted, and dx is written to that grid (pad rows zero);
     ``g_layout="canon"``, the cotangent is that grid in the block's own
     window coordinates.  At least one end is canonical; the other as in
-    :func:`block_bwd`.  The CUDA kernel unit for a CUDA tensor, the plain
-    version for a CPU tensor."""
+    :func:`block_bwd`, on the whole grid or a shard as there.  The CUDA
+    kernel unit for a CUDA tensor, the plain version for a CPU tensor."""
     if "canon" not in (x_layout, g_layout):
         raise ValueError("block_bwd_canon: neither end is canonical")
     _check_layouts(x_layout, g_layout, delta_x, delta_g, "block_bwd_canon")
+    _check_shard(x, g, geom, delta_x, delta_g, x_layout, g_layout,
+                 "block_bwd_canon")
     if not x.is_cuda:
         return block_bwd_plain(p, x, g, geom, delta_x, delta_g, canon_add,
                                ids, drop, gelu_tanh, x_layout, g_layout)
@@ -411,22 +439,57 @@ def _ends(j: int, nb: int, io_in: str, io_out: str):
             "canon" if io_out == "canon" and j == nb - 1 else "wm")
 
 
+def _stage_ids(geom: StageGeometry, mesh, device):
+    """The region ids of a shifted block, defined on the global grid; a z
+    shard (tp > 1) takes its own ``ntype / tp`` rows."""
+    ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                            geom.window), device=device)
+    if mesh is not None and mesh.shape["tp"] > 1:
+        ids = shard(ids, ("tp", None), mesh)
+    return ids
+
+
+def _storage_shifts(delta: Offset, mesh):
+    """A block's storage-level shift ``(dz, dw)`` under a mesh (the z
+    component on a z shard, tp > 1; the lon one on a lon shard, sp > 1)
+    and the delta its kernel keeps."""
+    if mesh is None:
+        return (0, 0), delta
+    dz = delta[0] if mesh.shape["tp"] > 1 else 0
+    dw = delta[2] if mesh.shape["sp"] > 1 else 0
+    return (dz, dw), (delta[0] - dz, delta[1], delta[2] - dw)
+
+
 class _StageTrain(torch.autograd.Function):
     """One stage call: forward through the block kernels saving each block's
-    input, backward through ``block_bwd`` block by block in reverse."""
+    input, backward through ``block_bwd`` block by block in reverse.
+
+    Under a mesh the halos before a block (``_z_shift_wm`` /
+    ``_lon_shift_wm`` in storage, the kernel keeping the rest of its
+    delta) run inside: the saved input is the shifted storage, and the
+    backward takes the cotangent through the opposite shifts between block
+    backwards (a global shift is a permutation: its transpose is the
+    opposite shift), so the next block back still reads it through minus
+    this block's kernel delta."""
 
     @staticmethod
     def forward(ctx, meta, x, *leaves):
-        geom, drops, gelu_tanh, kernels, io_in, io_out = meta
+        geom, drops, gelu_tanh, kernels, io_in, io_out, mesh = meta
+        wz, _, ww = geom.window
         nb = len(leaves) // len(BLOCK_LEAVES)
         blocks = [_tree(leaves[j * len(BLOCK_LEAVES):(j + 1) * len(BLOCK_LEAVES)])
                   for j in range(nb)]
         sched, _ = _schedule(geom, nb)
-        ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
-                                                geom.window), device=x.device)
-        inputs = []
+        ids = _stage_ids(geom, mesh, x.device)
+        inputs, plan = [], []
         for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
+            (dz, dw), delta = _storage_shifts(delta, mesh)
+            if dw:
+                x = _lon_shift_wm(x, dw, ww, mesh)
+            if dz:
+                x = _z_shift_wm(x, dz, wz, mesh)
             inputs.append(x)
+            plan.append(((dz, dw), delta))
             args = (bp, x, geom, delta, canon_add, ids if shifted else None,
                     gelu_tanh)
             drop = None if drops is None else drops[j]
@@ -437,25 +500,27 @@ class _StageTrain(torch.autograd.Function):
                      else block_wm_canon_plain(*args, in_l, out_l, drop))
             else:
                 x = (block_wm if kernels else block_wm_plain)(*args, drop)
-        ctx.meta = meta
+        ctx.meta, ctx.plan = meta, plan
         ctx.save_for_backward(*inputs, *leaves)
         return x
 
     @staticmethod
     def backward(ctx, g):
-        geom, drops, gelu_tanh, kernels, io_in, io_out = ctx.meta
+        geom, drops, gelu_tanh, kernels, io_in, io_out, mesh = ctx.meta
+        wz, _, ww = geom.window
+        plan = ctx.plan
         saved = ctx.saved_tensors
         nl = len(BLOCK_LEAVES)
         nb = len(saved) // (nl + 1)
         inputs, leaves = saved[:nb], saved[nb:]
         sched, _ = _schedule(geom, nb)
-        ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
-                                                geom.window), device=g.device)
+        ids = _stage_ids(geom, mesh, g.device)
         g = g.contiguous()
         dleaves: List[Optional[torch.Tensor]] = [None] * len(leaves)
         for j in reversed(range(nb)):
-            delta, canon_add, shifted = sched[j]
-            delta_g = (tuple(-d for d in sched[j + 1][0]) if j + 1 < nb
+            _, canon_add, shifted = sched[j]
+            (dz, dw), delta = plan[j]
+            delta_g = (tuple(-d for d in plan[j + 1][1]) if j + 1 < nb
                        else (0, 0, 0))
             bl = leaves[j * nl:(j + 1) * nl]
             in_l, out_l = _ends(j, nb, io_in, io_out)
@@ -466,6 +531,11 @@ class _StageTrain(torch.autograd.Function):
                 g, grads = block_bwd(*args, x_layout=in_l, g_layout=out_l)
             else:
                 g, grads = block_bwd_plain(*args, in_l, out_l)
+            # the transposes of this block's storage shifts, last first
+            if dz:
+                g = _z_shift_wm(g, -dz, wz, mesh)
+            if dw:
+                g = _lon_shift_wm(g, -dw, ww, mesh)
             for i, (path, leaf) in enumerate(zip(BLOCK_LEAVES, bl)):
                 dleaves[j * nl + i] = _get(grads, path).to(leaf.dtype)
         return (None, g, *dleaves)
@@ -474,7 +544,7 @@ class _StageTrain(torch.autograd.Function):
 def run_stage_train_wm(stage_params, x, geom: StageGeometry,
                        drops: Optional[list], *, gelu_tanh: bool = False,
                        kernels: bool = True, io_in: str = "wm",
-                       io_out: str = "wm"):
+                       io_out: str = "wm", mesh=None):
     """Training forward of one EarthSpecificLayer through the window-major
     block kernels, differentiable in ``x`` and every block parameter.
     ``drops``: one (B, 2) float32 tensor of branch scales per block, or None.
@@ -486,9 +556,24 @@ def run_stage_train_wm(stage_params, x, geom: StageGeometry,
     storage and its offset ``(xs, off)``, as ``run_stage_wm(io_layout="wm")``
     does; ``"canon"``: the last block writes the grid in its own window
     coordinates, and one roll by ``off`` plus a crop to H returns the
-    canonical grid (an odd depth ends unshifted, ``off`` zero)."""
+    canonical grid (an odd depth ends unshifted, ``off`` zero).
+
+    Under a ``mesh`` (``parallel.mesh.Mesh``; wm io only) ``x`` is this
+    rank's (tp, sp) shard, ``drops`` its dp rows and the bias tables its tp
+    slice, as ``run_stage_wm(mesh=)`` serves: the lon (sp > 1) and z
+    (tp > 1) components of each block's shift run as storage-level halos
+    before the block (and their transposes between block backwards), each
+    rank takes its ``ntype / tp`` rows of the region ids, and the closing
+    halos after the last block (differentiable, ``Mesh.ppermute``) hand
+    back a lon- and z-canonical shard: ``off`` has those components 0."""
     if io_in not in LAYOUTS or io_out not in LAYOUTS:
         raise ValueError(f"run_stage_train_wm: io {io_in!r} -> {io_out!r}")
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    if mesh is not None and (io_in, io_out) != ("wm", "wm"):
+        raise NotImplementedError(
+            "run_stage_train_wm: a canonical-io training stage under a mesh "
+            "(the JAX package's GSPMD path) is ROADMAP queue A item 12")
     blocks = stage_params["blocks"]
     leaves = [_get(bp, path) for bp in blocks for path in BLOCK_LEAVES]
     if drops is not None:
@@ -498,10 +583,17 @@ def run_stage_train_wm(stage_params, x, geom: StageGeometry,
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))
     else:
         h = geom.h
-    meta = (geom, drops, gelu_tanh, kernels, io_in, io_out)
+    meta = (geom, drops, gelu_tanh, kernels, io_in, io_out, mesh)
     _, off = _schedule(geom, len(blocks))
     y = _StageTrain.apply(meta, x.contiguous(), *leaves)
     if io_out == "wm":
+        wz, _, ww = geom.window
+        if mesh is not None and mesh.shape["sp"] > 1 and off[2]:
+            y = _lon_shift_wm(y, -off[2], ww, mesh)
+            off = (off[0], off[1], 0)
+        if mesh is not None and mesh.shape["tp"] > 1 and off[0]:
+            y = _z_shift_wm(y, -off[0], wz, mesh)
+            off = (0, off[1], off[2])
         return y, off
     if any(off):
         y = torch.roll(y, shifts=off, dims=(1, 2, 3))

@@ -506,7 +506,7 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
     if (sp_sharded or tp_sharded) and not wm_io:
         raise NotImplementedError(
             "a canonical-io stage under sp or tp (run_stage_wm_sharded) is "
-            "ROADMAP queue A item 9")
+            "ROADMAP queue A item 12")
     if not wm_io:
         h = x.shape[2]
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))

@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from pangu_tpu_torch import _device
 from pangu_tpu_torch.parallel.mesh import backend_for
 
 
@@ -56,13 +57,17 @@ def _rank_main(rank: int, world: int, tmp: str, device: str,
             dist.destroy_process_group()
 
 
-def run(fn: Callable, world: int, *args, device: str = "cpu",
+def run(fn: Callable, world: int, *args, device: str = "cuda",
         timeout_s: float = 60.0) -> List:
     """``fn(*args)`` on each of ``world`` ranks; returns their results in
     rank order (each saved with ``torch.save`` and loaded here).  Raises
     RuntimeError, after ending every rank, where one raises, dies or the
     world outlives ``timeout_s`` seconds (which also bounds each
-    collective)."""
+    collective).  ``device`` ("cuda", the default, or "cpu") picks the
+    backend (``mesh.backend_for``); "cuda" without a card raises before a
+    rank starts."""
+    if torch.device(device).type == "cuda":
+        _device.resolve(device)         # raises where there is no card
     ctx = mp.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="pangu_world_") as tmp:
         # the call goes through a file, not the process arguments: those

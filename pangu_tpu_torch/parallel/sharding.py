@@ -16,6 +16,13 @@ dimension (None: whole on every rank), as a ``PartitionSpec`` does:
 
 The active mesh lives in a module-level context, as ``jax.set_mesh`` sets
 it: ``with use_mesh(mesh): ...``.
+
+Training: :func:`shard` (a slice) and :func:`unshard` (gathers whose
+backward is this rank's slice) are differentiable, ``shard_params(...,
+copy=False)`` slices the bias tables as views of the whole ones, and
+:func:`reduce_grads` sums each leaf's gradient over the ranks that split
+its work, so every rank holds one device's gradient of the global-batch
+loss (the sum ``shard_map``'s transpose makes in the JAX package).
 """
 
 from __future__ import annotations
@@ -24,6 +31,8 @@ import contextlib
 from typing import Optional, Tuple
 
 import torch
+
+from pangu_tpu_torch.parallel.mesh import AXES
 
 Spec = Tuple[Optional[str], ...]
 
@@ -53,6 +62,17 @@ def active_mesh():
     return _ACTIVE
 
 
+def serving_view(mesh, batch: int):
+    """The mesh a served batch of ``batch`` samples runs under: ``mesh``
+    where dp divides the batch, else ``mesh`` with dp collapsed
+    (``Mesh.without``): each dp line serves the whole batch over its sp and
+    tp shards, and the dp replicas compute the same values.  (A validation
+    or test batch of 1 under a training mesh with dp > 1.)"""
+    if mesh is None or batch % mesh.shape["dp"] == 0:
+        return mesh
+    return mesh.without("dp")
+
+
 def multi_device_mesh_active() -> bool:
     """True under an active mesh of more than one rank: the paths that
     serve one device only refuse to run there."""
@@ -68,7 +88,8 @@ def _split(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
 
 
 def shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
-    """This rank's slice of ``x`` (whole on every rank) under ``spec``."""
+    """This rank's slice of ``x`` (whole on every rank) under ``spec``: a
+    view, differentiable."""
     for dim, axis in enumerate(spec):
         if axis is not None:
             x = _split(x, dim, mesh.shape[axis], mesh.coords[axis])
@@ -77,7 +98,8 @@ def shard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 
 def unshard(x: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole tensor on every rank from each rank's slice under
-    ``spec``: an all-gather along each split dimension, last first."""
+    ``spec``: an all-gather along each split dimension, last first
+    (differentiable: the backward is this rank's slice)."""
     for dim in reversed(range(len(spec))):
         if spec[dim] is not None:
             x = mesh.all_gather(x, spec[dim], dim)
@@ -108,11 +130,12 @@ def param_spec(path: tuple, leaf) -> Spec:
     return ()
 
 
-def shard_params(params, mesh):
-    """The param tree this rank serves with: each bias table cut to its tp
-    shard of types (a copy, so the whole table can be freed: the tables are
-    most of the weights), every other leaf as it is.  The tables must be
-    whole."""
+def shard_params(params, mesh, *, copy: bool = True):
+    """The param tree this rank runs with: each bias table cut to its tp
+    shard of types, every other leaf as it is.  ``copy=True`` (serving)
+    takes a copy, so the whole table can be freed: the tables are most of
+    the weights; ``copy=False`` (training) a view of the whole table, which
+    the table's gradient reaches through.  The tables must be whole."""
     if mesh is None or mesh.shape["tp"] == 1:
         return params
 
@@ -122,8 +145,96 @@ def shard_params(params, mesh):
         if isinstance(tree, list):
             return [walk(v, path + (i,)) for i, v in enumerate(tree)]
         if "bias_table" in path:
-            return shard(tree, param_spec(path, tree), mesh).clone()
+            t = shard(tree, param_spec(path, tree), mesh)
+            return t.clone() if copy else t
         return tree
 
     return walk(params, ())
 
+
+# ---- the gradient sum ----------------------------------------------------
+
+def grad_axes(path: tuple) -> Tuple[str, ...]:
+    """The axes whose ranks split one leaf's work, by its path, under the
+    sharded training forward (``models/pangu.py``): every rank embeds its
+    dp slice and keeps its (tp, sp) share of the tokens, and runs the trunk
+    on that shard, so a trunk or embed leaf sums over the whole mesh; the
+    patch recovery runs on the gathered tokens of the rank's dp slice, so
+    it sums over dp alone (over the whole mesh it would count sp * tp
+    times); a bias table is sliced over tp, so each slice sums over dp
+    and sp, and the slices are then gathered over tp."""
+    if "patch_recovery" in path:
+        return ("dp",)
+    if "bias_table" in path:
+        return ("dp", "sp")
+    return AXES
+
+
+def _paths(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _set(tree, path, value):
+    _get(tree, path[:-1])[path[-1]] = value
+
+
+def reduce_grads(params, grads, mesh):
+    """Sum ``grads`` (a tree like ``params``, this rank's gradients of the
+    sharded training forward; None leaves stay None) over the mesh, leaf by
+    leaf by :func:`grad_axes`, in place in ``grads`` and in each param's
+    ``.grad``; returns ``grads``.  Afterwards every rank holds the same
+    bits: one device's gradient of the global-batch loss.
+
+    The leaves of one rule go as one float32 buffer, one exchange per axis:
+    the trunk and embed leaves over dp, sp and tp; the recovery leaves over
+    dp; this rank's tp slice of every bias table over dp and sp, then one
+    gather of the slices over tp (whole tables of zeros never travel)."""
+    if mesh is None or mesh.size == 1:
+        return grads
+    tp, pos = mesh.shape["tp"], mesh.coords["tp"]
+    groups = {}
+    for (path, p), (_, g) in zip(_paths(params), _paths(grads)):
+        if g is not None:
+            key = (grad_axes(path), "bias_table" in path and tp > 1)
+            groups.setdefault(key, []).append((path, p))
+    for (axes, table), group in groups.items():
+        chunks, shapes = [], []
+        for path, _ in group:
+            g = _get(grads, path)
+            part = (g.narrow(0, pos * (g.shape[0] // tp), g.shape[0] // tp)
+                    if table else g)
+            shapes.append((g.shape, g.dtype, part.shape))
+            chunks.append(part.reshape(-1).float())
+        flat = torch.cat(chunks)
+        del chunks, g, part
+        for path, p in group:       # the old gradients are in the buffer
+            _set(grads, path, None)
+            if isinstance(p, torch.Tensor):
+                p.grad = None
+        flat = mesh.all_reduce(flat, axes)
+        if table:     # (tp, L): row r holds rank r's slices
+            flat = mesh.all_gather(flat, "tp", 0).reshape(tp, -1)
+        at = 0
+        for (path, p), (shape, dtype, part_shape) in zip(group, shapes):
+            k = part_shape.numel()
+            whole = (flat[:, at:at + k].reshape(tp, *part_shape)
+                     if table else flat[at:at + k]).reshape(shape)
+            at += k
+            g = whole.to(dtype)
+            _set(grads, path, g)
+            if isinstance(p, torch.Tensor) and p.requires_grad:
+                p.grad = g
+    return grads

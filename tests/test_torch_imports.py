@@ -2,7 +2,7 @@
 ``chip_smoke.py`` imports JAX or anything of the JAX package, and every port
 module imports in a process where JAX cannot be imported at all, nor any of
 the optional packages the card's machine lacks (``OPTIONAL``); the serving
-command lines run there too."""
+command lines and the fine-tuning one run there too."""
 
 import ast
 import os
@@ -46,6 +46,14 @@ def test_the_parallel_modules_and_the_rank_helper_are_covered():
             "pangu_tpu_torch/parallel/launch.py"} <= set(PORT_FILES)
     roots = set(_imported_roots(ROOT / "tests" / "torch_world.py"))
     assert not roots & {"jax", "jaxlib", "pangu_tpu"}, roots
+
+
+def test_the_training_command_lines_are_covered():
+    """The four command lines of the last slice are checked like every port
+    module."""
+    assert {f"pangu_tpu_torch/cli/{m}.py" for m in (
+        "finetune", "lora_tune", "profile_step", "parity_check")} <= set(
+        PORT_FILES)
 
 
 def test_every_port_module_imports_without_jax():
@@ -114,6 +122,27 @@ def test_serving_command_lines_run_without_optional_packages(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "ok"
     for run in ("pangu_tpu/24", "inf/48"):
         assert len(os.listdir(tmp_path / run / "csv")) == 12
+
+
+def test_fine_tuning_runs_without_optional_packages(tmp_path):
+    """finetune ``--smoke`` at TINY on the CPU with every optional package
+    and JAX unimportable (no tensorboardX: the writer is a stub)."""
+    args = ["--device", "cpu", "--tiny", "--synthetic", "--smoke",
+            "--set", f"output_path={tmp_path}",
+            "--set", "data.test_start=20150106",
+            "--set", "data.test_end=20150107", "--set", "data.num_workers=1"]
+    body = (f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "import torch\n"
+            "torch.set_num_threads(1)   # beside the other test workers\n"
+            "from pangu_tpu_torch.cli import finetune\n"
+            f"assert finetune.main({args!r} + ['--type_net', 'ft']) == 0\n"
+
+            "print('ok')\n")
+    out = _run_blocked(body, ("jax", "pangu_tpu") + OPTIONAL, tmp_path,
+                       timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert len(os.listdir(tmp_path / "ft" / "24" / "test" / "csv")) == 12
 
 
 def test_chip_smoke_fails_alone(tmp_path):

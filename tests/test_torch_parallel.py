@@ -66,7 +66,7 @@ def _storage(seed, b=1):
 def halo_world():
     xs = _storage(5)
     got = launch.run(torch_world.halos, 2, torch.as_tensor(xs), G0.window,
-                     LON_SHIFTS, Z_SHIFTS, timeout_s=60)
+                     LON_SHIFTS, Z_SHIFTS, device="cpu", timeout_s=60)
     return xs, got
 
 

@@ -45,7 +45,7 @@ def runs(tmp_path_factory):
         assert cli.main(_args(one, name, extra)) == 0
     codes = launch.run(torch_world.cli_main, 4,
                        [(name, _args(world, name, extra))
-                        for name, extra in RUNS.items()], timeout_s=60)
+                        for name, extra in RUNS.items()], device="cpu", timeout_s=60)
     assert codes == [[0, 0]] * 4
     return one, world
 

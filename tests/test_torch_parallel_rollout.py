@@ -52,7 +52,7 @@ def world(setup):
     _, params, consts, upper, surface = setup
     return launch.run(torch_world.serve, 4, [MeshConfig(*m) for m in MESHES],
                       TINY, params, consts, torch.as_tensor(upper),
-                      torch.as_tensor(surface), STEPS, timeout_s=60)
+                      torch.as_tensor(surface), STEPS, device="cpu", timeout_s=60)
 
 
 @pytest.fixture(scope="module")
