@@ -1023,6 +1023,9 @@ def bound(flops, nbytes_, dtype):
 
 
 def main() -> int:
+    # set before the allocator starts: empty_cache can then hand back what
+    # earlier phases cached, which phases 12-13's worlds of ranks need
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1968,6 +1971,13 @@ def main() -> int:
         sharded_train = sharded_train_phase(smi, path_counts, tmp)
         done("sharded training", t0)
 
+        # ---- 13. the canonical-layout route under a mesh ------------------
+        t0 = phase(f"canonical route under a mesh: shard kernels, a world of "
+                   f"{WORLD} ranks, meshes {CANON_MESH}, "
+                   f"{CANON_REFUSED_MESH}, {CANON_TRAIN_MESH}")
+        canon_sharded = canon_world_phase(smi, path_counts, tmp)
+        done("canonical route under a mesh", t0)
+
     sources = {"block_wm": ("pangu_tpu_torch/csrc/block_wm.cu",
                             "pangu_tpu/ops/earth_block_wm.py:358"),
                "block_wm_group": ("pangu_tpu_torch/csrc/block_wm.cu",
@@ -2037,7 +2047,8 @@ def main() -> int:
                           "full_step_edge_kernels_ms_per_step": edge_ms},
                       "v2": v2, "per_block": per_block, "canon": canon,
                       "cli": cli, "sharded": sharded,
-                      "sharded_train": sharded_train}))
+                      "sharded_train": sharded_train,
+                      "canon_sharded": canon_sharded}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
@@ -2143,8 +2154,10 @@ def check_kernels(cases, dtype, records):
     the plain version's ms over that many launches and the bound; a case out
     of tolerance raises.  The bf16 backward units (``BIT_IDENTICAL``) run
     twice more and must agree bit for bit.  A kernel's first bf16 case at
-    stage 0, an offset or full width is its record."""
+    stage 0, an offset or full width is its record.  Returns each case's
+    numbers."""
     from pangu_tpu_torch import ops
+    lines = []
     for name, label, flops, byts, kern, plain, (reps, plain_reps) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
@@ -2183,6 +2196,10 @@ def check_kernels(cases, dtype, records):
             records[name] = {"max_abs_err": err, "ms": ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": bound_by, "at": f"{label}, bf16"}
+        lines.append({"name": name, "label": label, "max_abs_err": err,
+                      "rel": rel, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by})
+    return lines
 
 
 def adam_steps(cfg, params, batch, consts_dev, step_counts, path_counts,
@@ -4389,13 +4406,13 @@ def sharded_train_phase(smi, path_counts, tmp):
     return out
 
 
-def train_cli_argv(root, name, sets):
-    """Phase 12c's arguments of one training command line: each rank
-    writes under ``root/rank<r>`` (only rank 0 may create it)."""
+def train_cli_argv(root, name, sets, mesh=TRAIN_CLI_MESH,
+                   batch=TRAIN_CLI_BATCH):
+    """Phase 12c's (and 13d's) arguments of one training command line:
+    each rank writes under ``root/rank<r>`` (only rank 0 may create it)."""
     items = (f"model.depths={list(TRAIN_CLI_DEPTHS)}",
-             f"train.batch_size={TRAIN_CLI_BATCH}",
-             *(f"mesh.{a}={n}" for a, n in zip(("dp", "sp", "tp"),
-                                               TRAIN_CLI_MESH)),
+             f"train.batch_size={batch}",
+             *(f"mesh.{a}={n}" for a, n in zip(("dp", "sp", "tp"), mesh)),
              "model.gelu=tanh", "data.test_start=20180103",
              "data.test_end=20180104", "data.test_freq=24h",
              "data.num_workers=1", "data.prefetch=1", *sets,
@@ -4459,6 +4476,668 @@ def check_train_cli(ranks, root, path_counts):
         out[module] = {"val_loss": val, "s": [r["s"] for r in runs]}
     return out
 
+
+# ---------------------------------------------------------------------------
+# 13. the canonical-layout route under a mesh
+# ---------------------------------------------------------------------------
+
+# 13a/b: sp 3 divides both stages' longitude windows (30, 15); the
+# canonical route collapses tp, so the tp pairs replicate the work
+CANON_MESH = (1, 3, 2)
+# 13c: the window-major gate refuses it (sp 2 and stage 1's 15 windows, tp
+# 3 and stage 0's 4 z windows); the canonical view collapses sp and tp
+CANON_REFUSED_MESH = (1, 2, 3)
+CANON_TRAIN_MESH, CANON_TRAIN_BATCH = (2, 3, 1), 2
+CANON_TRAIN_DEPTHS = (2, 2, 2, 2)
+# 13d's cli.lora_tune (element-mode dropout, block by block on the plain
+# layers): a rank's step peaks at ~11-13 GiB, and six of them do not fit
+# the card beside each other (they did not at (2, 3, 1) batch 2 nor at
+# (1, 3, 2) batch 1); at (1, 3, 1) batch 1 three ranks compute the share
+# each computes at (2, 3, 1), and the other three stay idle
+CANON_CLI_MESH, CANON_CLI_BATCH = (1, 3, 1), 1
+CANON_STEPS = 2
+CANON_TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -4}
+CANON_GRAD_TOL = 1e-3
+CANON_WORLD_TIMEOUT_S = 600
+# the kernels of the canonical route's main path, by row of PERF.md
+CANON_ROWS = {"block_v2": "12", "grid_attention": "16",
+              "grid_attention_bwd": "17", "block_wm_canon": "1b",
+              "block_wm_group": "2", "down_sample": "20", "up_sample": "21"}
+
+
+def canon_cfgs():
+    """(float32 wm, bf16 wm, float32 v2, bf16 v2) configs of phase 13."""
+    from pangu_tpu_torch.config import PANGU_24
+    perf = dataclasses.replace(PANGU_24, param_dtype="bfloat16",
+                               compute_dtype="bfloat16", gelu="tanh")
+    return (PANGU_24, perf,
+            dataclasses.replace(PANGU_24, block_layout="v2"),
+            dataclasses.replace(perf, block_layout="v2"))
+
+
+def canon_served_runs():
+    """(label, config, dtype, kind, mesh, launches a rank) of phase 13's
+    served runs: 13a the v2 forward, 13b the v2 trajectory and the wm taps
+    forward, 13c the wm forward on a mesh the window-major gate refuses."""
+    wm32, wm16, v2_32, v2_16 = canon_cfgs()
+    n = sum(wm32.depths)
+    v2 = {"block_v2": n, "down_sample": 1, "up_sample": 1}
+    return (
+        ("13a v2 forward float32", v2_32, torch.float32, "forward",
+         CANON_MESH, v2),
+        ("13a v2 forward bf16", v2_16, torch.bfloat16, "forward", CANON_MESH,
+         v2),
+        ("13b v2 trajectory bf16", v2_16, torch.bfloat16, "trajectory",
+         CANON_MESH, {k: CANON_STEPS * v for k, v in v2.items()}),
+        ("13b wm taps float32", wm32, torch.float32, "taps", CANON_MESH,
+         {"block_wm_canon": 8, "block_wm_group": n - 8, "down_sample": 1,
+          "up_sample": 1}),
+        ("13c wm forward bf16", wm16, torch.bfloat16, "forward",
+         CANON_REFUSED_MESH, WORLD_TRUNK))
+
+
+def canon_serve(kind, cfg, params, consts, u, s):
+    """One served call of phase 13 (whole results, flattened): a forward,
+    a taps forward (prediction, then the taps by name) or the
+    ``CANON_STEPS``-step token-space trajectory."""
+    from pangu_tpu_torch.engine.rollout import make_rollout
+    from pangu_tpu_torch.models import pangu
+    if kind == "forward":
+        return list(pangu.forward(params, u, s, consts, cfg))
+    if kind == "taps":
+        taps = {}
+        out = pangu.forward(params, u, s, consts, cfg, taps=taps)
+        return list(out) + [taps[k] for k in sorted(taps)]
+    final, traj = make_rollout(cfg, consts, CANON_STEPS, token_space=True,
+                               return_trajectory=True)(params, u, s)
+    return list(final) + list(traj)
+
+
+def canon_train_runs():
+    """(label, config, dtype, LoRA, launches a rank a step) of 13d's
+    trained runs: a float32 gradient of the v2 model and one of the v2
+    model's element-mode LoRA tree of ``canon_lora_tree`` (one
+    ``loss_and_grads`` each, no optimizer: six ranks' float32 Adam steps do
+    not fit the card beside each other), two bf16 Adam steps of the v2
+    model twice (the second run bit-identical to the first).  v2 for the
+    LoRA tree too: one device then trains its stages without LoRA as the
+    mesh does (the window-major layout trains them through the stage
+    Function with canonical ends on one device, row 11c, and through v2
+    blocks under a mesh).  The LoRA gradient takes the targets of
+    ``far_targets``: the LoRA products on a shard round otherwise than on
+    the whole grid, and with the batch's own targets that flipped the sign
+    of a few L1 residuals and moved the tiny leaves (stage 3's last bias
+    table by 3.1e-2 of its max, the loss equal)."""
+    _, _, v2_32, v2_16 = canon_cfgs()
+    n = sum(CANON_TRAIN_DEPTHS)
+    v2 = {"block_v2": n, "grid_attention": n, "grid_attention_bwd": n,
+          "down_sample": 1, "up_sample": 1}
+    # the stages without LoRA train on v2 blocks; stage 1, with LoRA and
+    # element dropout, on the plain layers
+    m = sum(CANON_TRAIN_DEPTHS) - CANON_TRAIN_DEPTHS[1]
+    lora = {"block_v2": m, "grid_attention": m, "grid_attention_bwd": m,
+            "down_sample": 1, "up_sample": 1}
+    return (("float32", train_world_cfg(v2_32, CANON_TRAIN_DEPTHS),
+             torch.float32, False, v2),
+            ("element LoRA float32",
+             train_world_cfg(v2_32, CANON_TRAIN_DEPTHS), torch.float32, True,
+             lora),
+            ("bf16", train_world_cfg(v2_16, CANON_TRAIN_DEPTHS),
+             torch.bfloat16, False, v2),
+            ("bf16 again", train_world_cfg(v2_16, CANON_TRAIN_DEPTHS),
+             torch.bfloat16, False, v2))
+
+
+def far_targets(batch, consts):
+    """``batch`` with its targets 1000 standard deviations below their
+    means: every residual of the weighted L1 loss is then positive, so its
+    cotangent is one constant on any path, as phases 6-9 hold two paths to
+    one loss cotangent."""
+    return {**batch,
+            "target_upper": batch["target_upper"] - 1e3 * consts["upper_std"],
+            "target_surface": (batch["target_surface"]
+                               - 1e3 * consts["surface_std"])}
+
+
+def canon_lora_tree(cut):
+    """13d's element-mode LoRA tree from the depth-cut tree ``cut``:
+    rank-4 factors with dropout 0.1 in element mode at every dense site of
+    stage 1's blocks (both kinds of mask cut: a window site's rows and a
+    grid site's tokens, over dp and sp), B drawn nonzero (each mask then
+    reaches the loss and A's gradient); the rest keeps no LoRA (with LoRA
+    in stages 1 and 2 and at Down/UpSample, or in stage 1 and at
+    Down/UpSample, six ranks' float32 gradients ran out of the card's
+    memory).  Drawn from seeded CPU generators: the same on every rank."""
+    from pangu_tpu_torch.models import lora
+    tree = {**cut, "stages": list(cut["stages"])}
+    tree["stages"][1] = lora.init_lora(
+        torch.Generator().manual_seed(SEED + 41), cut["stages"][1], rank=4,
+        dropout=0.1, dropout_mode="element")
+    gen = torch.Generator().manual_seed(SEED + 42)
+    for site in lora._dense_nodes(tree["stages"][1]):
+        site["lora_b"] = 0.01 * torch.randn(site["lora_b"].shape,
+                                            generator=gen)
+    return tree
+
+
+def canon_grads(cfg, params32, batch, consts, dev, mesh=None):
+    """13d's float32 loss and gradient (``engine.train.loss_and_grads``,
+    seeded as ``train_steps``' first step, no optimizer) from ``params32``
+    (under ``mesh`` where given): ``(losses, grads on the CPU, seconds)``."""
+    from pangu_tpu_torch.config import TrainConfig
+    from pangu_tpu_torch.engine import train as T
+    from pangu_tpu_torch.parallel import sharding
+
+    p = T._map(params32, lambda t: t.detach().to(dev, torch.float32,
+                                                copy=True).requires_grad_())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with sharding.use_mesh(mesh):
+        loss, _, grads = T.loss_and_grads(p, batch, consts, cfg,
+                                          TrainConfig(), device=dev,
+                                          seed=SEED + 40)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    grads = to_dtype(grads, torch.device("cpu"))
+    del p
+    torch.cuda.empty_cache()
+    return [float(loss)], grads, sec
+
+
+def canon_rank(path, cli_runs):
+    """One rank of phase 13's world: each served run of
+    ``canon_served_runs`` and each trained run of ``canon_train_runs`` with
+    the rank's launch counts, exchanges by collective, wall seconds and
+    peak device memory (and rank 0's results), then the command lines of
+    ``cli_runs``."""
+    from pangu_tpu_torch import ops
+    from pangu_tpu_torch.config import MeshConfig
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.parallel import mesh as M
+    from pangu_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    blob = torch.load(path, mmap=True, weights_only=False)
+    rank = M.world()[0]
+    meshes = {}
+
+    def mesh_of(shape):
+        if shape not in meshes:
+            meshes[shape] = M.build_mesh(MeshConfig(*shape))
+        return meshes[shape]
+
+    def measured(mesh, fn):
+        ops.reset_launches()
+        mesh.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"counts": ops.launches(), "s": time.perf_counter() - t0,
+                     "by_op": {k: list(v) for k, v in mesh.by_op.items()},
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+    out = {"rank": rank, "served": {}, "train": {}}
+    dev = mesh_of(CANON_MESH).device
+    u, s = blob["upper"].to(dev), blob["surface"].to(dev)
+    consts = to_device(synthetic_constants(canon_cfgs()[0], seed=SEED), dev)
+    params32 = to_dtype(blob["params"], dev)
+    for label, cfg, dtype, kind, shape, _ in canon_served_runs():
+        mesh = mesh_of(shape)
+        params = to_dtype(params32, dtype)
+        with sharding.use_mesh(mesh):
+            res, rec = measured(mesh, lambda: canon_serve(
+                kind, cfg, params, consts, u, s))
+        rec["coords"] = mesh.coords
+        rec["digest"] = digest(res)
+        if rank == 0:
+            rec["result"] = [t.cpu() for t in res]
+        out["served"][label] = rec
+        del res, params
+    del params32
+    torch.cuda.empty_cache()
+
+    mesh = mesh_of(CANON_TRAIN_MESH)
+    batch = {k: v.to(dev) for k, v in blob["batch"].items()}
+    cut = cut_depth(blob["params"], CANON_TRAIN_DEPTHS)
+    for label, cfg, dtype, lora, _ in canon_train_runs():
+        tc = to_device(synthetic_constants(cfg, seed=SEED), dev)
+        if dtype == torch.float32:
+            tree = canon_lora_tree(cut) if lora else cut
+            b = far_targets(batch, tc) if lora else batch
+            (losses, grads, _), rec = measured(mesh, lambda: canon_grads(
+                cfg, tree, b, tc, dev, mesh))
+            rec["digest"] = checksum(flat(grads))
+            rec = {"losses": losses, "steps": [rec], "coords": mesh.coords}
+            if rank == 0:
+                rec["grads"] = grads
+            out["train"][label] = rec
+            del grads
+            continue
+        steps = []
+
+        def on_step(i, sec, p):
+            steps.append({"counts": ops.launches(), "s": sec,
+                          "by_op": {k: list(v) for k, v in
+                                    mesh.by_op.items()},
+                          "peak_gib": torch.cuda.max_memory_allocated()
+                          / 2 ** 30, "digest": checksum(leaves(p))})
+            ops.reset_launches()
+            mesh.reset_counts()
+
+        ops.reset_launches()
+        mesh.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        losses, grads = train_steps(cfg, cut, dtype, batch, tc, dev, mesh,
+                                    on_step)
+        out["train"][label] = {"losses": losses, "steps": steps,
+                               "coords": mesh.coords}
+        del grads
+    del blob, batch
+    torch.cuda.empty_cache()
+    out["cli"] = train_cli_rank(cli_runs)
+    return out
+
+
+def canon_shard_kernels(params32, smi):
+    """Phase 13's kernels on the shapes a rank of the canonical route gives
+    them (sp 3 at full width: a third of each stage's longitude windows),
+    each against its plain version (``TOL``), with its time, the plain
+    version's and the bound; returns their lines by row."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.models.layers import window_region_ids
+    from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
+    from pangu_tpu_torch.ops.earth_block_wm import (block_wm_canon,
+                                                    block_wm_canon_plain,
+                                                    block_wm_group,
+                                                    block_wm_plain)
+    from pangu_tpu_torch.ops.updown import (down_sample, down_sample_plain,
+                                            up_sample, up_sample_plain)
+    from pangu_tpu_torch.ops.window_attention import (
+        grid_attention, grid_attention_bwd, grid_attention_bwd_plain,
+        grid_attention_plain)
+
+    dev = torch.device("cuda")
+    spn = CANON_MESH[1]
+    g0, g1, g2, g3 = (PANGU_24.stage(i) for i in range(4))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    out = {}
+
+    def wbytes(p, dtype):
+        n = sum(t.numel() for t in leaves(p) if t.dim() < 4)
+        return n * torch.tensor([], dtype=dtype).element_size()
+
+    for label, dtype in (("float32", torch.float32),
+                         ("bf16", torch.bfloat16)):
+        p = to_dtype(to_dtype({"s0": params32["stages"][0]["blocks"][1],
+                               "s1": params32["stages"][1]["blocks"][2],
+                               "down": params32["downsample"],
+                               "up": params32["upsample"]}, dev), dtype)
+        cases = []
+        for geom, bp, sname in ((g0, p["s0"], "stage 0"),
+                                (g1, p["s1"], "stage 1")):
+            c, n = geom.dim, geom.window_tokens
+            ids = torch.as_tensor(window_region_ids(geom.z, geom.h_padded,
+                                                    geom.window), device=dev)
+            w_l = geom.w // spn
+            x = torch.randn((1, geom.z, geom.h_padded, w_l, c), generator=gen,
+                            device=dev).to(dtype)
+            gy = torch.randn(x.shape, generator=gen, device=dev).to(dtype)
+            rows = x.numel() // c
+            tb = bp["attn"]["bias_table"]
+            byts = 2 * nbytes(x) + nbytes(tb) + wbytes(bp, dtype) + nbytes(ids)
+            name = f"{sname} sp-{spn} shard"
+            cases.append((
+                "block_v2", f"{name}, shift (1, 3, 0)",
+                2 * rows * c * (12 * c + 2 * n), byts,
+                lambda bp=bp, x=x, g=geom, i=ids: block_v2(
+                    bp, x, g, (1, 3, 0), 3, i, dtype == torch.bfloat16),
+                lambda bp=bp, x=x, g=geom, i=ids: block_v2_plain(
+                    bp, x, g, (1, 3, 0), 3, i, dtype == torch.bfloat16),
+                (3, 1)))
+            at = bp["attn"]
+            w = (at["qkv"]["kernel"], at["qkv"]["bias"], at["proj"]["kernel"],
+                 at["proj"]["bias"])
+            cases.append((
+                "grid_attention", f"{name}, region ids",
+                2 * rows * c * (4 * c + 2 * n),
+                2 * nbytes(x) + nbytes(*w, tb) + nbytes(ids),
+                lambda x=x, w=w, tb=tb, g=geom, i=ids:
+                    grid_attention(x, *w, tb, g.window, i),
+                lambda x=x, w=w, tb=tb, g=geom, i=ids:
+                    grid_attention_plain(x, *w, tb, g.window, i), (3, 1)))
+            cases.append((
+                "grid_attention_bwd", f"{name}, region ids",
+                2 * rows * (11 * c * c + 6 * n * c),
+                3 * nbytes(x) + nbytes(*w[:3], tb) + nbytes(ids)
+                + 4 * (sum(t.numel() for t in w) + tb.numel()),
+                lambda x=x, gy=gy, w=w, tb=tb, g=geom, i=ids:
+                    grid_attention_bwd(x, gy, *w[:3], tb, g.window, i),
+                lambda x=x, gy=gy, w=w, tb=tb, g=geom, i=ids:
+                    grid_attention_bwd_plain(x, gy, *w[:3], tb, g.window, i),
+                (2, 1)))
+            xs = to_window_major_(x, geom)
+            tanh = dtype == torch.bfloat16
+            cases.append((
+                "block_wm_canon", f"{name}, canonical in", 2 * rows * c * (
+                    12 * c + 2 * n), byts - nbytes(ids),
+                lambda bp=bp, x=x, g=geom: block_wm_canon(
+                    bp, x, g, (0, 0, 0), 0, None, tanh, in_layout="canon"),
+                lambda bp=bp, x=x, g=geom: block_wm_canon_plain(
+                    bp, x, g, (0, 0, 0), 0, None, tanh, "canon", "wm"),
+                (3, 1)))
+            cases.append((
+                "block_wm_canon", f"{name}, canonical out, shift (1, 3, 0)",
+                2 * rows * c * (12 * c + 2 * n), byts,
+                lambda bp=bp, xs=xs, g=geom, i=ids: block_wm_canon(
+                    bp, xs, g, (1, 3, 0), 3, i, tanh, out_layout="canon"),
+                lambda bp=bp, xs=xs, g=geom, i=ids: block_wm_canon_plain(
+                    bp, xs, g, (1, 3, 0), 3, i, tanh, "wm", "canon"),
+                (3, 1)))
+            if geom is g1:
+                gh = 2
+                cases.append((
+                    "block_wm_group", f"{name}, gh {gh}, shift (1, 3, 0)",
+                    2 * rows * c * (12 * c + 2 * n), byts,
+                    lambda bp=bp, xs=xs, g=geom, i=ids: block_wm_group(
+                        bp, xs, g, (1, 3, 0), 3, i, tanh, gh),
+                    lambda bp=bp, xs=xs, g=geom, i=ids: block_wm_plain(
+                        bp, xs, g, (1, 3, 0), 3, i, tanh), (3, 1)))
+        c0, c_in, c_out = g0.dim, g2.dim, g3.dim
+        isz = torch.tensor([], dtype=dtype).element_size()
+        x0 = torch.randn((1, g0.z, g0.h, g0.w // spn, c0), generator=gen,
+                         device=dev).to(dtype)
+        out_rows = g1.z * g1.h * g1.w // spn
+        cases.append((
+            "down_sample", f"stage 0 -> 1, sp-{spn} shard",
+            2 * out_rows * 4 * c0 * 2 * c0,
+            nbytes(x0) + out_rows * 2 * c0 * isz + wbytes(p["down"], dtype),
+            lambda x=x0: down_sample(p["down"], x),
+            lambda x=x0: down_sample_plain(p["down"], x), (5, 1)))
+        x2 = torch.randn((1, g2.z, g2.h, g2.w // spn, c_in), generator=gen,
+                         device=dev).to(dtype)
+        in_rows, out_rows = x2.numel() // c_in, g3.z * g3.h * g3.w // spn
+        cases.append((
+            "up_sample", f"stage 2 -> 3, sp-{spn} shard",
+            2 * in_rows * c_in * 4 * c_out + 2 * out_rows * c_out * c_out,
+            nbytes(x2) + out_rows * c_out * isz + wbytes(p["up"], dtype),
+            lambda x=x2: up_sample(p["up"], x, g3.h),
+            lambda x=x2: up_sample_plain(p["up"], x, g3.h), (5, 1)))
+        for line in check_kernels(cases, dtype, {}):
+            out.setdefault(line["name"], []).append(
+                {**line, "dtype": label, "card": smi})
+        del cases, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def to_window_major_(x, geom):
+    from pangu_tpu_torch.ops.earth_block_wm import to_window_major
+    return to_window_major(x, geom.window).contiguous()
+
+
+def canon_world_phase(smi, path_counts, tmp):
+    """Phase 13: the canonical route's kernels on a rank's shard against
+    their plain versions, then a world of ``WORLD`` ranks on the one card
+    serving and training the canonical route (13a-d), against one
+    device's runs."""
+    from pangu_tpu_torch.config import PANGU_24
+    from pangu_tpu_torch.data.constants import synthetic_constants, to_device
+    from pangu_tpu_torch.models import pangu
+    from pangu_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    print("card:", smi)
+    t0 = time.perf_counter()
+    params32 = pangu.init_params(torch.Generator().manual_seed(SEED),
+                                 PANGU_24, device="cpu")
+    out = {"shard_kernels": canon_shard_kernels(params32, smi)}
+    print(f"params and the shard kernels: {time.perf_counter() - t0:.2f} s "
+          f"({smi})")
+
+    t0 = time.perf_counter()
+    consts_dev = to_device(synthetic_constants(PANGU_24, seed=SEED), dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def state(b):
+        return (consts_dev["upper_mean"][None] + consts_dev["upper_std"][None]
+                * torch.randn((b, 5, PANGU_24.levels, PANGU_24.lat,
+                               PANGU_24.lon), generator=g, device=dev),
+                consts_dev["surface_mean"][None]
+                + consts_dev["surface_std"][None]
+                * torch.randn((b, 4, PANGU_24.lat, PANGU_24.lon), generator=g,
+                              device=dev))
+
+    u, s = state(1)
+    (bu, bs), (tu, ts) = state(CANON_TRAIN_BATCH), state(CANON_TRAIN_BATCH)
+    batch = {"upper": bu, "surface": bs, "target_upper": tu,
+             "target_surface": ts}
+    path = os.path.join(tmp, "canon_world.pt")
+    torch.save({"params": params32, "upper": u.cpu(), "surface": s.cpu(),
+                "batch": {k: v.cpu() for k, v in batch.items()}}, path)
+
+    refs, walls = {}, {}
+    params_dev = to_dtype(params32, dev)
+    for label, cfg, dtype, kind, shape, _ in canon_served_runs():
+        p = to_dtype(params_dev, dtype)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        refs[label] = [t.cpu() for t in canon_serve(kind, cfg, p,
+                                                     consts_dev, u, s)]
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t1
+        del p
+    del params_dev
+    train_refs = {}
+    cut = cut_depth(params32, CANON_TRAIN_DEPTHS)
+    for label, cfg, dtype, lora, _ in canon_train_runs():
+        if label == "bf16 again":
+            continue
+        tc = to_device(synthetic_constants(cfg, seed=SEED), dev)
+        if dtype == torch.float32:
+            tree = canon_lora_tree(cut) if lora else cut
+            b = far_targets(batch, tc) if lora else batch
+            *train_refs[label], sec = canon_grads(cfg, tree, b, tc, dev)
+            del tree, b
+            walls[f"13d train {label}"] = [sec]
+            continue
+        w = []
+        train_refs[label] = train_steps(cfg, cut, dtype, batch, tc, dev,
+                                        on_step=lambda i, sec, p: w.append(
+                                            sec))
+        walls[f"13d train {label}"] = w
+    torch.cuda.synchronize()
+    print(f"single-device references: {time.perf_counter() - t0:.2f} s; "
+          f"walls {({k: v if isinstance(v, list) else round(v, 3) for k, v in walls.items()})} "
+          f"({smi})", flush=True)
+    del params32, consts_dev, batch, u, s, bu, bs, tu, ts, g, tc
+    torch.cuda.empty_cache()
+
+    print(f"this process holds {torch.cuda.memory_allocated() / 2**30:.2f} "
+          f"GiB of the card ({torch.cuda.memory_reserved() / 2**30:.2f} "
+          f"reserved) while the world runs")
+    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    cli_root = os.path.join(tmp, "canon_cli")
+    cli_runs = [("lora_tune", train_cli_argv(
+        cli_root, "lora_element", (), CANON_CLI_MESH, CANON_CLI_BATCH))]
+    t0 = time.perf_counter()
+    try:
+        ranks = launch.run(canon_rank, WORLD, path, cli_runs, device="cuda",
+                           timeout_s=CANON_WORLD_TIMEOUT_S)
+    finally:
+        if alloc is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
+    world_s = time.perf_counter() - t0
+    out["world_s"] = world_s
+    print(f"world of {WORLD} ranks: the whole world {world_s:.1f} s (spawn, "
+          f"loads, {len(canon_served_runs())} served and "
+          f"{len(canon_train_runs())} trained runs, {len(cli_runs)} command "
+          f"line) ({smi})")
+    r0 = ranks[0]
+
+    def by_op_line(by_op):
+        return ", ".join(f"{k} {v[0]} x {v[1] / 2 ** 20:.1f} MiB"
+                         for k, v in sorted(by_op.items())) or "none"
+
+    for label, cfg, dtype, kind, shape, want_counts in canon_served_runs():
+        digests = {r["served"][label]["digest"] for r in ranks}
+        if len(digests) != 1:
+            raise AssertionError(f"{label}: the ranks' results differ")
+        got, want = r0["served"][label]["result"], refs.pop(label)
+        errs = [rel_err(a, b) for a, b in zip(got, want)]
+        rel = max(e[1] for e in errs)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"{label} mesh {shape} vs one device ({len(got)} tensors): "
+              f"max_abs_err {max(e[0] for e in errs):.3e} rel {rel:.3e} (tol "
+              f"{CANON_TOL[dtype]:.0e}) "
+              f"{'bit-equal' if same else 'not bit-equal'}; one device "
+              f"{walls[label]:.3f} s ({smi})", flush=True)
+        if rel > CANON_TOL[dtype]:
+            raise AssertionError(f"{label}: rel err {rel:.3e}")
+        for r in ranks:
+            rec = r["served"][label]
+            counts = rec["counts"]
+            print(f"  rank {r['rank']} {rec['coords']}: launches "
+                  f"{ {k: v for k, v in counts.items() if v} }; exchanges "
+                  f"{by_op_line(rec['by_op'])}; wall {rec['s']:.3f} s; peak "
+                  f"{rec['peak_gib']:.2f} GiB ({smi})")
+            if counts != {**{k: 0 for k in counts}, **want_counts}:
+                raise AssertionError(f"rank {r['rank']} {label}: launches "
+                                     f"{counts}, want {want_counts}")
+            if (rec["by_op"] != {}) != (shape == CANON_MESH):
+                raise AssertionError(f"rank {r['rank']} {label}: exchanges "
+                                     f"{rec['by_op']}")
+        path_counts[f"canonical {label}"] = {
+            k: sum(r["served"][label]["counts"][k] for r in ranks)
+            for k in r0["served"][label]["counts"]}
+        out[label] = {"rel": rel, "bit_equal": same,
+                      "s": [r["served"][label]["s"] for r in ranks],
+                      "one_device_s": walls[label],
+                      "by_op": r0["served"][label]["by_op"],
+                      "peak_gib": [r["served"][label]["peak_gib"]
+                                   for r in ranks]}
+
+    for label, cfg, dtype, lora, step_counts in canon_train_runs():
+        name = (f"13d {'' if lora else 'v2 '}train mesh {CANON_TRAIN_MESH} "
+                f"batch {CANON_TRAIN_BATCH} depths {CANON_TRAIN_DEPTHS} "
+                f"{label}")
+        got = r0["train"][label]
+        want_losses, want_grads = train_refs[label.replace(" again", "")]
+        if not all(math.isfinite(v) for v in got["losses"]):
+            raise AssertionError(f"{name}: losses {got['losses']}")
+        lrel = max(abs(a - w) / abs(w)
+                   for a, w in zip(got["losses"], want_losses))
+        line = (f"{name}: losses {got['losses']} vs one device "
+                f"{want_losses} (rel {lrel:.3e}, tol "
+                f"{TRAIN_LOSS_TOL[dtype]:.0e})")
+        if lrel > TRAIN_LOSS_TOL[dtype]:
+            raise AssertionError(line)
+        if dtype == torch.float32:
+            errs = tree_errs(got["grads"], want_grads)
+            worst = max(errs, key=lambda e: e[2])
+            line += (f"; step-1 gradient ({len(errs)} leaves) worst "
+                     f"{worst[0]} rel {worst[2]:.3e} (tol "
+                     f"{CANON_GRAD_TOL:.0e})")
+            if lora:            # the leaves the masks feed directly
+                fed = [e for e in errs if "/lora_" in e[0]]
+                line += (f", of the {len(fed)} LoRA leaves "
+                         f"{max(fed, key=lambda e: e[2])[0]} rel "
+                         f"{max(e[2] for e in fed):.3e}; targets "
+                         f"1000 std below the means (far_targets)")
+            if worst[2] > CANON_GRAD_TOL:
+                raise AssertionError(line)
+        print(line, flush=True)
+        for i in range(CANON_STEPS if dtype == torch.bfloat16 else 1):
+            digests = {r["train"][label]["steps"][i]["digest"]
+                       for r in ranks}
+            if label == "bf16 again":
+                digests.add(r0["train"]["bf16"]["steps"][i]["digest"])
+            if len(digests) != 1:
+                raise AssertionError(f"{name} step {i}: the params (float32: "
+                                     f"the gradient) differ across ranks or "
+                                     f"runs")
+        print(f"  {'params' if dtype == torch.bfloat16 else 'the gradient'} "
+              f"bit-equal across the {WORLD} ranks"
+              + (" after each step" if dtype == torch.bfloat16 else "")
+              + (" and equal to the first bf16 run's"
+                 if label == "bf16 again" else ""))
+        total = {}
+        for r in ranks:
+            for i, st in enumerate(r["train"][label]["steps"]):
+                counts = st["counts"]
+                print(f"  rank {r['rank']} {r['train'][label]['coords']} "
+                      f"{'step ' + str(i) if dtype == torch.bfloat16 else 'gradient'}: launches "
+                      f"{ {k: v for k, v in counts.items() if v} }; "
+                      f"exchanges {by_op_line(st['by_op'])}; wall "
+                      f"{st['s']:.3f} s; peak {st['peak_gib']:.2f} GiB "
+                      f"({smi})")
+                if counts != {**{k: 0 for k in counts}, **step_counts}:
+                    raise AssertionError(f"rank {r['rank']} {name} step {i}: "
+                                         f"launches {counts}")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        path_counts[f"canonical {name}"] = total
+        out[name] = {"loss_rel": lrel,
+                     "s": [st["s"] for r in ranks
+                           for st in r["train"][label]["steps"]],
+                     "one_device_s": walls.get(f"13d train {label}"),
+                     "by_op_step0": r0["train"][label]["steps"][0]["by_op"]}
+
+    # 13d: cli.lora_tune with its default element-mode dropout in the world
+    from pangu_tpu_torch.config import DataConfig
+    if sorted(os.listdir(cli_root)) != ["rank0"]:
+        raise AssertionError(f"13d: ranks other than 0 wrote: "
+                             f"{sorted(os.listdir(cli_root))}")
+    active = ranks[:math.prod(CANON_CLI_MESH)]
+    if any(r["cli"][0]["counts"]["block_wm"] for r in ranks[len(active):]):
+        raise AssertionError("13d: an idle rank launched a kernel")
+    runs = [r["cli"][0] for r in active]
+    run_dir = os.path.join(cli_root, "rank0", "lora_element",
+                           str(DataConfig().horizon))
+    models = set(os.listdir(os.path.join(run_dir, "models")))
+    csvs = os.listdir(os.path.join(run_dir, "test", "csv"))
+    with open(os.path.join(run_dir, "lora_element.log")) as f:
+        log = f.read()
+    vals = {tuple(r["val_loss"][0]) for r in runs}
+    val = runs[0]["val_loss"][0]
+    print(f"cli.lora_tune (element-mode dropout) in the world, mesh "
+          f"{CANON_CLI_MESH} batch {CANON_CLI_BATCH} depths "
+          f"{TRAIN_CLI_DEPTHS} bf16 (ranks {len(active)}-{WORLD - 1} idle): "
+          f"return codes {[r['cli'][0]['rc'] for r in ranks]}; rank 0 wrote "
+          f"models {sorted(models)}, {len(csvs)} test CSVs; "
+          f"validation losses {val} on every rank {len(vals) == 1}; wall "
+          f"{runs[0]['s']:.1f} s ({smi})", flush=True)
+    n_cli = sum(TRAIN_CLI_DEPTHS)
+    for r in active:
+        c = r["cli"][0]["counts"]
+        print(f"  rank {r['rank']}: launches "
+              f"{ {k: v for k, v in c.items() if v} }")
+        # training runs the plain per-block layers (LoRA in every block);
+        # each served forward merges and runs the window-major trunk
+        if (c["block_wm"] + c["block_wm_group"] != TRAIN_CLI_SERVED * n_cli
+                or c["block_bwd"] or c["block_v2"]
+                or any(c[k] for k in EDGE_KERNELS)):
+            raise AssertionError(f"13d lora_tune rank {r['rank']}: "
+                                 f"launches {c}")
+    if (any(r["cli"][0]["rc"] != 0 for r in ranks) or len(vals) != 1 or not val
+            or not all(math.isfinite(v) for v in val)
+            or not {"best.pt", "lora_adapter", "merged"} <= models
+            or len(csvs) != 12 or "mode=element" not in log):
+        raise AssertionError(f"13d lora_tune: codes {[r['rc'] for r in runs]}"
+                             f", val losses {vals}, models {models}, "
+                             f"{len(csvs)} CSVs")
+    path_counts["canonical cli.lora_tune element"] = {
+        k: sum(r["cli"][0]["counts"][k] for r in active)
+        for k in runs[0]["counts"]}
+    out["cli.lora_tune element"] = {"val_loss": val,
+                                    "s": [r["s"] for r in runs]}
+    del ranks
+    torch.cuda.empty_cache()
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

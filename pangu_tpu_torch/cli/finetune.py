@@ -90,7 +90,7 @@ def main(argv=None):
         E.evaluate(state.params, loaders["test"].epoch(0), cfg, constants,
                    res_path=os.path.join(out, "test") if common.writes()
                    else None, visualize=not args.smoke, logger=logger,
-                   device=dev, forward_fn=T.eval_forward)
+                   device=dev)
     if ckpt is not None:
         ckpt.close()
     if writer is not None:

@@ -12,7 +12,8 @@ Usage:
       --token-space --horizon 48     # one (dp 1, sp 3, tp 2) mesh
 
 Under a launch of N ranks each rank serves its shard of the mesh
-(``cli/common.py::setup_mesh``); every rank scores the whole batch, rank 0
+(``cli/common.py::setup_mesh``; a ``--models`` hierarchy in token space on
+the canonical route's shards); every rank scores the whole batch, rank 0
 writes the CSVs and the log.
 """
 
@@ -29,6 +30,7 @@ from pangu_tpu_torch import _device
 from pangu_tpu_torch.cli import common
 from pangu_tpu_torch.engine import evaluate as E
 from pangu_tpu_torch.engine import rollout as R
+from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.parallel import sharding
 from pangu_tpu_torch.utils.logging import device_timer
 
@@ -75,9 +77,6 @@ def main(argv=None):
     mesh = common.setup_mesh(cfg, args.device)
     if mesh is None:            # a rank the mesh leaves idle
         return 0
-    if hierarchy is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "a --models hierarchy under a mesh is ROADMAP queue A item 12")
     dev = _device.resolve(args.device)
     out, logger = common.run_dirs(cfg, args.type_net)
     constants = common.load_constants_device(cfg, args.synthetic, dev)
@@ -106,7 +105,13 @@ def main(argv=None):
         roll = lambda u, s: hroll(models, u, s)  # noqa: E731
         steps = len(schedule)
     else:
-        params = sharding.shard_params(common.load_params(args, cfg), mesh)
+        params = common.load_params(args, cfg)
+        with sharding.use_mesh(mesh):
+            routed = pangu.serving_mesh(params, cfg.model,
+                                        cfg.train.eval_batch_size)
+        if routed is not None and routed[0] == "wm":
+            # the rank keeps its tp slice of the bias tables alone
+            params = pangu.mesh_params(params, cfg.model, routed[1])
         steps = cfg.data.horizon // 24
         rollout = R.make_rollout(cfg.model, constants, steps,
                                  token_space=args.token_space, device=dev)

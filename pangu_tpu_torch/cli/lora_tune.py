@@ -9,15 +9,15 @@ Usage:
       --pretrained /path/pangu_weather_24_torch.pth
   python -m pangu_tpu_torch.cli.lora_tune --device cpu --tiny --synthetic \\
       --smoke
-  torchrun --nproc_per_node 6 -m pangu_tpu_torch.cli.lora_tune --bf16 \\
-      --set train.lora_dropout_mode=feature
+  torchrun --nproc_per_node 6 -m pangu_tpu_torch.cli.lora_tune --bf16
 
 Under a launch of N ranks each rank trains its shard of the mesh
 (``cli/common.py::setup_mesh``); rank 0 alone writes the adapter, the
-merged snapshot, the log and the CSVs.  Under a mesh the default
-element-mode LoRA dropout raises ``NotImplementedError`` (its per-token
-masks do not merge into the window-major kernels): train with
-``--set train.lora_dropout_mode=feature`` or ``train.lora_dropout=0``.
+merged snapshot, the log and the CSVs.  With the default element-mode
+LoRA dropout the step trains block by block on the canonical route, each
+rank on its (dp, sp) shard with its part of the one-device masks; with
+``--set train.lora_dropout_mode=feature`` it merges and trains the
+window-major trunk.
 """
 
 from __future__ import annotations
@@ -127,7 +127,7 @@ def main(argv=None):
         E.evaluate(merged, loaders["test"].epoch(0), cfg, constants,
                    res_path=os.path.join(out, "test") if common.writes()
                    else None, visualize=not args.smoke, logger=logger,
-                   device=dev, forward_fn=T.eval_forward)
+                   device=dev)
     if ckpt is not None:
         ckpt.close()
     if writer is not None:

@@ -1,8 +1,9 @@
 """Autoregressive multi-day rollout: the counterpart of
 ``pangu_tpu/engine/rollout.py`` (``single_step``; ``make_rollout`` with
-``token_space=False`` or, on one device, ``token_space=True`` through ``rollout_tokens_wm`` or, under
-``block_layout="v2"`` or with LoRA leaves on the trunk, ``rollout_tokens``;
-``greedy_schedule`` and ``make_hierarchical_rollout`` on one device).  The
+``token_space=False`` or ``token_space=True`` through ``rollout_tokens_wm``
+or, under ``block_layout="v2"`` or with LoRA leaves on the trunk,
+``rollout_tokens``; ``greedy_schedule`` and ``make_hierarchical_rollout``;
+under a mesh, ``rollout_tokens_wm_sharded`` and the canonical branches).  The
 JAX ``lax.scan`` is a Python loop over steps.
 
 ``token_space=False``: each 24 h step is a full ``forward`` followed by
@@ -19,10 +20,12 @@ where a stage carries them), it is the canonical token grid, the transition
 ``engine/transition`` (the JAX package's ``rollout_tokens``).
 
 Under an active mesh (``parallel.sharding.use_mesh``) a full step is the
-sharded ``forward`` and the window-major chain runs per (dp, sp, tp) shard
+sharded ``forward``; the window-major chain runs per (dp, sp, tp) shard
 (``_rollout_tokens_sharded``, the JAX package's
-``rollout_tokens_wm_sharded``); the hierarchical token-space rollout and a
-trajectory raise there.
+``rollout_tokens_wm_sharded``) where ``pangu.serving_mesh`` gives the
+window-major route, and the canonical chain runs per (dp, sp) shard under
+the canonical route's view everywhere else: a trajectory, the hierarchical
+token-space rollout, and the trees and meshes that route takes.
 
 The hierarchical rollout chains a model hierarchy (24/6/3/1 h) by the
 greedy schedule, largest horizon first: full steps per model, or, with
@@ -70,6 +73,7 @@ class _Chain:
     consts: dict
     dev: torch.device
     kernels: bool
+    mesh: object = None     # the canonical route's view (_CanonChain)
 
     def _fields_in(self, upper, surface):
         cdt = _device.dtype_of(self.cfg.compute_dtype)
@@ -116,37 +120,55 @@ class _WmChain(_Chain):
 class _CanonChain(_Chain):
     """The token-space chain of ``block_layout="v2"``: the state is the
     canonical (B, Z, H, W, C) grid, a step's pre-recovery pair ``(skip,
-    dec)``; patch embed, patch recovery and ``engine/transition``."""
+    dec)``; patch embed, patch recovery and ``engine/transition``.  With a
+    ``mesh`` (the canonical route's (dp, sp) view) the state is this rank's
+    shard: the transition is per token and typed by z and latitude only,
+    so it runs on the shard with the shard's longitude columns of the bias
+    field; the fields are gathered at the recovery."""
 
     def embed(self, params, upper, surface):
-        return L.patch_embed(params["patch_embed"],
-                             *self._fields_in(upper, surface), self.consts,
+        u, s = self._fields_in(upper, surface)
+        if self.mesh is not None:
+            return pangu.embed_canon_shard(params, u, s, self.consts,
+                                           self.cfg, self.mesh)
+        return L.patch_embed(params["patch_embed"], u, s, self.consts,
                              self.cfg)
 
     def core(self, params, x):
-        return pangu.forward_core(params, x, self.cfg, kernels=self.kernels)
+        return pangu.forward_core(params, x, self.cfg, kernels=self.kernels,
+                                  mesh=self.mesh)
 
     def build(self, params, embed_params=None):
-        return build_transition(params, self.consts, self.cfg,
-                                embed_params=embed_params)
+        tp = build_transition(params, self.consts, self.cfg,
+                              embed_params=embed_params)
+        if self.mesh is not None:       # (Z, HT, WT, C): its lon columns
+            tp["bias_field"] = sharding.shard(
+                tp["bias_field"], sharding.CANON_TOKEN_SPEC[1:],
+                self.mesh).contiguous()
+        return tp
 
     def transition(self, tp, pair):
         return apply_transition(tp, pair)
 
     def recover(self, params, pair):
-        return denorm_data(*L.patch_recovery(params["patch_recovery"], pair,
-                                             self.cfg), self.consts)
+        if self.mesh is not None:
+            out = pangu.recover_canon_shard(params, pair, self.cfg, self.mesh)
+        else:
+            out = L.patch_recovery(params["patch_recovery"], pair, self.cfg)
+        return denorm_data(*out, self.consts)
 
     recover_step = recover      # the canonical grid already
 
 
-def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool, trees):
+def _token_chain(cfg: ModelConfig, consts, dev, kernels: bool, trees,
+                 mesh=None):
     """The window-major chain where every parameter tree of the rollout
     takes the window-major trunk (``pangu.wm_core_supported``), else the
     canonical chain (``block_layout="v2"``, or LoRA leaves left unmerged on
-    the trunk, as the JAX package's token-space dispatch)."""
-    wm = all(pangu.wm_core_supported(p, cfg) for p in trees)
-    return (_WmChain if wm else _CanonChain)(cfg, consts, dev, kernels)
+    the trunk, as the JAX package's token-space dispatch); under the
+    canonical route's view ``mesh``, the canonical chain on its shards."""
+    wm = mesh is None and all(pangu.wm_core_supported(p, cfg) for p in trees)
+    return (_WmChain if wm else _CanonChain)(cfg, consts, dev, kernels, mesh)
 
 
 def _rollout_tokens_sharded(params, upper, surface, cfg: ModelConfig, consts,
@@ -193,9 +215,11 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
 
     Under an active mesh of more than one rank every rank passes the whole
     batch and gets the whole result: each full step is the sharded
-    ``forward``; ``token_space=True`` runs the chain per shard
-    (``_rollout_tokens_sharded``).  A trajectory, or what the gate refuses
-    (``pangu.serving_mesh``), raises there."""
+    ``forward``; ``token_space=True`` runs the window-major chain per shard
+    (``_rollout_tokens_sharded``) where ``pangu.serving_mesh`` gives that
+    route, else (a trajectory, v2, unmerged LoRA, a mesh the gate refuses)
+    the canonical chain per (dp, sp) shard of the canonical route's
+    view."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
     if steps < 1:
@@ -216,16 +240,14 @@ def make_rollout(cfg: ModelConfig, constants, steps: int, *,
         return stacked((u, s), traj) if return_trajectory else (u, s)
 
     def rollout_tokens(params, upper, surface):
-        if sharding.multi_device_mesh_active():
-            if return_trajectory:
-                raise NotImplementedError(
-                    "a token-space trajectory under a mesh is ROADMAP queue "
-                    "A item 12")
-            mesh = pangu.serving_mesh(params, cfg, upper.shape[0],
-                                      what="make_rollout")
+        routed = pangu.serving_mesh(params, cfg, upper.shape[0],
+                                    canonical=return_trajectory)
+        if routed is not None and routed[0] == "wm":
             return _rollout_tokens_sharded(params, upper, surface, cfg,
-                                           consts, dev, kernels, steps, mesh)
-        chain = _token_chain(cfg, consts, dev, kernels, [params])
+                                           consts, dev, kernels, steps,
+                                           routed[1])
+        chain = _token_chain(cfg, consts, dev, kernels, [params],
+                             None if routed is None else routed[1])
         tp = chain.build(params)
         x = chain.embed(params, upper, surface)
         traj = []
@@ -266,15 +288,6 @@ def greedy_schedule(horizon: int,
     return steps
 
 
-def _single_device_only() -> None:
-    """Raise where the JAX package would take its canonical token-space
-    branch for a multi-device mesh, which the port does not serve yet."""
-    if sharding.multi_device_mesh_active():
-        raise NotImplementedError(
-            "the hierarchical token-space rollout under a mesh is ROADMAP "
-            "queue A item 12")
-
-
 def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
                               model_horizons: Tuple[int, ...], *,
                               token_space: bool = False,
@@ -287,10 +300,12 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
     model horizons.  Consecutive steps of one model form a group.
 
     ``token_space=False``: full steps (``single_step``) per model.
-    ``token_space=True``: the single-device token chain (window-major, with
-    the edge kernels when ``cfg.edge_kernels``; the canonical grid under
-    ``block_layout="v2"``): embed with the first model; in a group, trunk +
-    that model's own transition; at a hand-off, trunk + the transition from
+    ``token_space=True``: the token chain (window-major, with the edge
+    kernels when ``cfg.edge_kernels``; the canonical grid under
+    ``block_layout="v2"``, and under an active mesh, where it runs per
+    (dp, sp) shard of the canonical route's view, as the JAX package's
+    mesh branch): embed with the first model; in a group, trunk + that
+    model's own transition; at a hand-off, trunk + the transition from
     this model's recovery into the next model's embed (``embed_params=
     next``); trunk + recovery at the end.  ``kernels=False`` runs every
     kernel's plain version."""
@@ -313,9 +328,12 @@ def make_hierarchical_rollout(cfg: ModelConfig, constants, horizon: int,
         return u, s
 
     def rollout_tokens(params_by_horizon, upper, surface):
-        _single_device_only()
+        first = params_by_horizon[groups[0][0]]
+        routed = pangu.serving_mesh(first, cfg, upper.shape[0],
+                                    canonical=True)
         chain = _token_chain(cfg, consts, dev, kernels,
-                             [params_by_horizon[h] for h, _ in groups])
+                             [params_by_horizon[h] for h, _ in groups],
+                             None if routed is None else routed[1])
         x = chain.embed(params_by_horizon[groups[0][0]], upper, surface)
         for gi, (h, count) in enumerate(groups):
             params = params_by_horizon[h]

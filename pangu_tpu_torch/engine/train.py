@@ -29,9 +29,11 @@ streams are not reproduced.
 Under an active mesh of more than one rank (``parallel.sharding.use_mesh``)
 every rank passes the whole batch and holds the whole parameter tree and
 its own optimizer: the training forward runs the rank's shard, and
-``parallel.sharding.reduce_grads`` sums the gradient over the mesh after
-``loss.backward()`` (the sum the JAX package's ``jit`` over the mesh holds,
-which the reference's DDP set-up forgot).  Every rank then holds the same
+``parallel.sharding.reduce_grads`` sums the gradient after
+``loss.backward()`` over the view of the mesh the forward ran under
+(``models/pangu.py::serving_mesh``; a collapsed axis replicated the
+work): the sum the JAX package's ``jit`` over the mesh holds, which the
+reference's DDP set-up forgot.  Every rank then holds the same
 gradient bits, takes the same Adam update and reports the same metrics, so
 early stopping decides alike everywhere; the command lines save
 checkpoints on rank 0 alone.
@@ -188,15 +190,18 @@ def loss_and_grads(params, batch, constants, cfg: ModelConfig,
     Stochastic depth: ``drops`` if given, else drawn from a generator on the
     device seeded with ``seed`` (no seed: scales of 1).  Under an active
     mesh the batch is the whole batch on every rank, and the gradient is
-    summed over the mesh (``parallel.sharding.reduce_grads``) before it is
-    returned."""
+    summed over the view the forward ran under
+    (``parallel.sharding.reduce_grads``) before it is returned."""
     dev = _device.resolve(device)
     for t in _leaves(params):
         t.grad = None
     gen = None if seed is None else torch.Generator(device=dev).manual_seed(seed)
+    routed = pangu.serving_mesh(params, cfg, batch["upper"].shape[0],
+                                train=True)
     out_u, out_s = pangu.forward(params, batch["upper"], batch["surface"],
                                  constants, cfg, device=dev, kernels=kernels,
-                                 deterministic=False, gen=gen, drops=drops)
+                                 deterministic=False, gen=gen, drops=drops,
+                                 routed=routed)
     consts = to_device(constants, dev)
     tgt_u, tgt_s = norm_data(batch["target_upper"].to(dev, torch.float32),
                              batch["target_surface"].to(dev, torch.float32),
@@ -204,8 +209,8 @@ def loss_and_grads(params, batch, constants, cfg: ModelConfig,
     loss, aux = weighted_l1_loss(out_u, out_s, tgt_u, tgt_s, tcfg)
     loss.backward()
     grads = _map(params, lambda t: t.grad)
-    if sharding.multi_device_mesh_active():
-        grads = sharding.reduce_grads(params, grads, sharding.active_mesh())
+    if routed is not None:
+        grads = sharding.reduce_grads(params, grads, routed[1])
     return loss.detach(), {k: v.detach() for k, v in aux.items()}, grads
 
 
@@ -242,31 +247,21 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, constants,
     return train_step
 
 
-def eval_forward(params, upper, surface, constants, cfg: ModelConfig,
-                 **kw):
-    """``pangu.forward`` for evaluation under the active mesh: a batch that
-    dp does not divide (a validation or test batch of 1 under a training
-    mesh) runs with dp collapsed (``parallel.sharding.serving_view``: each
-    dp line serves the whole batch over its sp and tp shards)."""
-    view = sharding.serving_view(sharding.active_mesh(), upper.shape[0])
-    with sharding.use_mesh(view):
-        return pangu.forward(params, upper, surface, constants, cfg, **kw)
-
-
 def make_eval_step(cfg: ModelConfig, tcfg: TrainConfig, constants, *,
                    device: _device.DeviceLike = "cuda",
                    kernels: bool = True) -> Callable:
     """The validation step ``(params, batch) -> metrics``: the served
-    forward (under an active mesh the sharded one, :func:`eval_forward`,
-    the whole prediction on every rank) and the same weighted L1 against
-    normalised targets."""
+    forward (under an active mesh the sharded one, the whole prediction on
+    every rank; a batch that dp does not divide, such as a validation
+    batch of 1 under a training mesh, with dp collapsed) and the same
+    weighted L1 against normalised targets."""
     dev = _device.resolve(device)
     consts = to_device(constants, dev)
 
     @torch.no_grad()
     def eval_step(params, batch):
-        out_u, out_s = eval_forward(params, batch["upper"], batch["surface"],
-                                    consts, cfg, device=dev, kernels=kernels)
+        out_u, out_s = pangu.forward(params, batch["upper"], batch["surface"],
+                                     consts, cfg, device=dev, kernels=kernels)
         tgt_u, tgt_s = norm_data(batch["target_upper"].to(dev, torch.float32),
                                  batch["target_surface"].to(dev, torch.float32),
                                  consts)

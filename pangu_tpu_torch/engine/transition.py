@@ -103,7 +103,11 @@ def apply_transition(tp, x_cat, *, z0: int = 0, z_global: int = None):
     ``z0`` is the global index of its first plane and ``z_global`` the
     global plane count: a plane is typed surface where its global index is
     0 and top where it is ``z_global - 1``.  The default is the whole
-    grid."""
+    grid.  A token's map depends on its z plane and latitude row alone
+    (the crop row ``H - 1`` included; the canonical grid has no pad
+    rows), so on a longitude shard (the canonical route under a mesh,
+    ``engine/rollout.py``) it runs as it does on the whole grid, given the
+    shard's longitude columns of ``tp["bias_field"]``."""
     parts = x_cat if isinstance(x_cat, tuple) else (x_cat,)
     H, Z = parts[0].shape[2], parts[0].shape[1]
     if z_global is None:

@@ -21,6 +21,15 @@ layers: each product to the activation dtype before its bias is added in
 it, the LoRA term rounded and scaled in the dtype.  LoRA dropout masks come
 from an explicit ``torch.Generator``; a block's generators are made from
 one seed, so a recomputed block draws the same masks.
+
+On a rank's shard of the canonical-layout route (``mesh=``: a (dp, sp)
+view, ``parallel.sharding.canon_view``) ``earth_block`` keeps the z and
+latitude parts of its shift local and runs the longitude part as a halo
+(``parallel.sharding.grid_roll``) before the block and after it, and an
+element-mode LoRA mask is drawn at the one-device shape and layout, on
+every rank from the same generator, and cut to this rank's part
+(``cut``: the spec of the site's input and the view), so each sample and
+token keeps its one-device mask.
 """
 
 from __future__ import annotations
@@ -33,6 +42,9 @@ import torch
 
 from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.models.lora import has_lora
+from pangu_tpu_torch.parallel.sharding import (GRID_SPEC, WINDOWS_SPEC,
+                                               global_shape, grid_roll,
+                                               lon_view, shard)
 
 
 def dense(p, x):
@@ -79,35 +91,47 @@ def _dot(x, w):
 # The per-block path
 # ---------------------------------------------------------------------------
 
-def _lora_input(p, x, gen):
+def _lora_input(p, x, gen, cut=None):
     """The LoRA branch input: ``x``, or, with a generator and a dropout-rate
     leaf, ``x`` under its dropout mask, kept values divided by the keep
     probability in x's dtype (``lora_drop``: a mask per token and feature;
-    ``lora_drop_feat``: one per input feature, shared by every token)."""
+    ``lora_drop_feat``: one per input feature, shared by every token).
+    ``cut``: ``(spec, view)`` where ``x`` is this rank's part of the
+    one-device input under ``spec``: the per-token mask is drawn whole and
+    cut alike."""
     if gen is None:
         return x
     if "lora_drop" in p:
         rate, shape = p["lora_drop"], x.shape
+        if cut is not None:
+            shape = global_shape(shape, *cut)
     elif "lora_drop_feat" in p:
-        rate, shape = p["lora_drop_feat"], x.shape[-1:]
+        rate, shape, cut = p["lora_drop_feat"], x.shape[-1:], None
     else:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if "lora_drop" in p:        # one byte a value: drawn whole under a cut
+        mask = torch.empty(shape, dtype=torch.bool, device=x.device)
+        mask.bernoulli_(float(keep.detach()), generator=gen)
+    else:
+        mask = torch.rand(shape, generator=gen, device=x.device) < keep
+    if cut is not None:         # a copy: the whole draw is freed
+        mask = shard(mask, *cut).contiguous()
     return torch.where(mask, x / keep.to(x.dtype),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def linear(p, x, gen=None):
+def linear(p, x, gen=None, cut=None):
     """The JAX package's ``dense`` as its per-block path runs it: x @ kernel
     rounded to x's dtype; with LoRA leaves the unmerged low-rank term
     ((drop(x) @ A) @ B, each product rounded) times ``lora_scale`` in the
     dtype is added; then the bias in the dtype.  ``gen``: the generator of
-    this site's LoRA dropout mask (training), or None (no dropout)."""
+    this site's LoRA dropout mask (training), or None (no dropout); ``cut``:
+    see :func:`_lora_input`."""
     dt = x.dtype
     y = _dot(x, p["kernel"].to(dt))
     if "lora_a" in p:
-        lo = _dot(_dot(_lora_input(p, x, gen), p["lora_a"].to(dt)),
+        lo = _dot(_dot(_lora_input(p, x, gen, cut), p["lora_a"].to(dt)),
                   p["lora_b"].to(dt))
         y = y + lo * p["lora_scale"].to(dt)
     if "bias" in p:
@@ -133,14 +157,15 @@ def drop_path(x, scale):
     return x * scale.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
 
 
-def mlp(p, x, gelu_tanh: bool, gens=(None, None)):
+def mlp(p, x, gelu_tanh: bool, gens=(None, None), cut=None):
     """Linear(C, 4C) -> GELU (erf, or tanh) -> Linear(4C, C)."""
     from pangu_tpu_torch.ops.block_tail import gelu
-    return linear(p["fc2"], gelu(linear(p["fc1"], x, gens[0]), gelu_tanh),
-                  gens[1])
+    return linear(p["fc2"], gelu(linear(p["fc1"], x, gens[0], cut),
+                                 gelu_tanh), gens[1], cut)
 
 
-def earth_attention(p, x, heads: int, ids=None, gens=(None, None)):
+def earth_attention(p, x, heads: int, ids=None, gens=(None, None),
+                    cut=None):
     """Windowed attention with the earth-specific bias on partitioned windows
     ``x`` (B, nlon, ntype, N, C): q scaled in x's dtype, float32 logits plus
     the bias table (and -100 between tokens of different regions where
@@ -149,7 +174,7 @@ def earth_attention(p, x, heads: int, ids=None, gens=(None, None)):
     B, nlon, ntype, N, C = x.shape
     hd = C // heads
     dt = x.dtype
-    qkv = linear(p["qkv"], x, gens[0])
+    qkv = linear(p["qkv"], x, gens[0], cut)
     qkv = qkv.reshape(B, nlon, ntype, N, 3, heads, hd).permute(
         4, 0, 1, 2, 5, 3, 6)                    # (3, B, nlon, ntype, heads, N, hd)
     q = qkv[0] * torch.tensor(hd ** -0.5, dtype=dt, device=x.device)
@@ -161,13 +186,13 @@ def earth_attention(p, x, heads: int, ids=None, gens=(None, None)):
     attn = torch.softmax(s, dim=-1).to(dt)
     out = (attn.float() @ qkv[2].float()).to(dt)
     out = out.permute(0, 1, 2, 4, 3, 5).reshape(B, nlon, ntype, N, C)
-    return linear(p["proj"], out, gens[1])
+    return linear(p["proj"], out, gens[1], cut)
 
 
 def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
                 deterministic: bool = True, gelu_tanh: bool = False,
                 kernels: bool = True, grid_bwd: str = "pallas",
-                attn_impl: str = "pallas"):
+                attn_impl: str = "pallas", mesh=None):
     """One Earth-specific block on the canonical (B, Z, H, W, C) grid, the
     JAX package's ``earth_block`` on one device: pad the latitude (and, with
     ``roll``, shift by half a window, region ids masking the wrapped
@@ -187,7 +212,8 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
 
     ``lora_seed``: the seed of this block's LoRA dropout generators (one per
     dense site), or None for no dropout.  ``kernels=False`` runs every
-    kernel's plain version instead, on any device."""
+    kernel's plain version instead, on any device.  ``mesh``: a (dp, sp)
+    view whose shard ``x`` is (the module's halos and mask cuts)."""
     from pangu_tpu_torch.ops.block_tail import (fused_block_tail,
                                                 fused_block_tail_plain)
     from pangu_tpu_torch.ops.window_attention import (block_noroll_fused,
@@ -199,8 +225,9 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
     hp = geom.h_padded
     xp = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, hp - H))
     ids = None
+    halo = lon_view(mesh)       # None at sp 1: the lon roll stays local
     if roll:
-        xp = torch.roll(xp, shifts=tuple(-h for h in half), dims=(1, 2, 3))
+        xp = grid_roll(xp, tuple(-h for h in half), halo)
         ids = torch.as_tensor(window_region_ids(Z, hp, geom.window),
                               device=x.device)
     pallas = attn_impl == "pallas"
@@ -208,14 +235,16 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
         block = block_noroll_fused if kernels else block_noroll_plain
         return block(p, xp, geom, gelu_tanh)[:, :, :H].contiguous()
     gens = _lora_gens(lora_seed, 4, x.device)   # qkv, proj, fc1, fc2
+    cuts = (None, None) if mesh is None else ((WINDOWS_SPEC, mesh),
+                                              (GRID_SPEC, mesh))
     a = (window_attention_grid(p["attn"], xp, geom, ids, bwd_impl=grid_bwd,
                                kernels=kernels) if pallas else None)
     if a is None:
         win = earth_attention(p["attn"], window_partition(xp, geom.window),
-                              geom.heads, ids, gens[:2])
+                              geom.heads, ids, gens[:2], cuts[0])
         a = window_reverse(win, geom.window, Z, hp, W)
     if roll:
-        a = torch.roll(a, shifts=half, dims=(1, 2, 3))
+        a = grid_roll(a, half, halo)
     a = a[:, :, :H]
     if (pallas and deterministic and "lora_a" not in p["mlp"]["fc1"]
             and "lora_a" not in p["mlp"]["fc2"]):
@@ -224,31 +253,41 @@ def earth_block(p, x, geom, roll: bool, *, drop=None, lora_seed=None,
     s1, s2 = (None, None) if drop is None else (drop[:, 0], drop[:, 1])
     x = x + drop_path(layer_norm(p["norm1"], a), s1)
     return x + drop_path(layer_norm(p["norm2"],
-                                    mlp(p["mlp"], x, gelu_tanh, gens[2:])), s2)
+                                    mlp(p["mlp"], x, gelu_tanh, gens[2:],
+                                        cuts[1])), s2)
 
 
-def down_sample(p, x, gen=None):
+def _grid_cut(mesh):
+    return None if mesh is None else (GRID_SPEC, mesh)
+
+
+def down_sample(p, x, gen=None, mesh=None):
     """DownSample as the JAX package's XLA layer (LoRA leaves at ``reduce``
     unmerged): a zero latitude row where H is odd, 2x2 space-to-depth in
-    (h_off, w_off, C) order, LayerNorm(4C), Linear(4C -> 2C, no bias)."""
+    (h_off, w_off, C) order, LayerNorm(4C), Linear(4C -> 2C, no bias).
+    ``mesh``: a (dp, sp) view whose lon shard ``x`` is (an even number of
+    columns: the space-to-depth stays local); the mask is cut from the
+    one-device draw."""
     B, Z, H, W, C = x.shape
     h2, w2 = -(-H // 2), W // 2
     x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, 2 * h2 - H))
     x = x.reshape(B, Z, h2, 2, w2, 2, C).permute(0, 1, 2, 4, 3, 5, 6)
     x = x.reshape(B, Z, h2, w2, 4 * C)
-    return linear(p["reduce"], layer_norm(p["norm"], x), gen)
+    return linear(p["reduce"], layer_norm(p["norm"], x), gen,
+                  _grid_cut(mesh))
 
 
-def up_sample(p, x, out_h: int, gen=None):
+def up_sample(p, x, out_h: int, gen=None, mesh=None):
     """UpSample as the JAX package's XLA layer (LoRA leaves at ``expand`` /
     ``mix`` unmerged): Linear(2C -> 4C', no bias), 2x2 depth-to-space, crop
-    to ``out_h`` latitude rows, LayerNorm(C'), Linear(C' -> C', no bias)."""
+    to ``out_h`` latitude rows, LayerNorm(C'), Linear(C' -> C', no bias).
+    ``mesh``: as :func:`down_sample` (depth-to-space is column-local)."""
     B, Z, H, W, _ = x.shape
-    x = linear(p["expand"], x, gen)
+    x = linear(p["expand"], x, gen, _grid_cut(mesh))
     c = x.shape[-1] // 4
     x = x.reshape(B, Z, H, W, 2, 2, c).permute(0, 1, 2, 4, 3, 5, 6)
     x = x.reshape(B, Z, 2 * H, 2 * W, c)[:, :, :out_h]
-    return linear(p["mix"], layer_norm(p["norm"], x), gen)
+    return linear(p["mix"], layer_norm(p["norm"], x), gen, _grid_cut(mesh))
 
 
 def patch_embed(p, upper, surface, constants, cfg: ModelConfig):

@@ -13,17 +13,24 @@ recovery; with ``cfg.edge_kernels`` the embed writes wm storage and the
 recovery reads the rolled pair, so it never exists.
 
 Under a (dp, sp, tp) mesh of ``torch.distributed`` ranks
-(``parallel.sharding.use_mesh``; the gate :func:`wm_core_mesh`) the served
-forward runs the window-major trunk per shard: patch embed of the rank's dp
-slice, its (tp, sp) share of the tokens (:func:`embed_shard`), the stage
-chains with their lon / z halos, then the pair gathered, patch recovery and
-the batch gathered (:func:`recover_shard`).  The training forward
-(``deterministic=False``) runs the same way through the window-major
-training trunk (:func:`forward_core_wm_train` with the mesh), on
-stochastic-depth scales drawn at the global batch and cut to the rank's dp
-rows; its gradient is summed over the mesh by
-``parallel.sharding.reduce_grads`` (``engine/train.py``).  What has no
-sharded path raises (:func:`serving_mesh`).
+(``parallel.sharding.use_mesh``) a call takes one of two routes
+(:func:`serving_mesh`).  The window-major route, where the tree and config
+run that trunk and the gate takes the mesh (:func:`wm_core_mesh`), runs it
+per shard: patch embed of the rank's dp slice, its (tp, sp) share of the
+tokens (:func:`embed_shard`), the stage chains with their lon / z halos,
+then the pair gathered, patch recovery and the batch gathered
+(:func:`recover_shard`); trained, :func:`forward_core_wm_train` with the
+mesh.  Everything else (v2, odd depths, unmerged LoRA, ``attn_impl="xla"``,
+``train_fused=False``, taps, a mesh the gate refuses) takes the
+canonical-layout route, the JAX package's ``forward_core`` under a mesh:
+the canonical trunk (:func:`forward_core` with ``mesh=``) on the rank's
+(dp, sp) shard of the canonical grid, under one view of the mesh with tp
+collapsed, sp collapsed where it does not divide every stage's longitude
+windows (``parallel.sharding.canon_view``).  On both routes dp is
+collapsed where it does not divide the batch.  Trained, the stochastic-
+depth scales are drawn at the global batch and cut to the rank's dp rows,
+and the gradient is summed over the view the forward ran under by
+``parallel.sharding.reduce_grads`` (``engine/train.py``).
 
 ``forward(..., taps=dict)`` runs the canonical-layout trunk instead, as the
 JAX package does when it collects golden activations: each stage reads and
@@ -77,7 +84,7 @@ from pangu_tpu_torch.config import ModelConfig
 from pangu_tpu_torch.data.constants import to_device
 from pangu_tpu_torch.models import layers as L
 from pangu_tpu_torch.models.lora import (has_lora, has_lora_dropout,
-                                         merge_lora)
+                                         merge_lora, strip_lora)
 from pangu_tpu_torch.ops.earth_block_bwd import run_stage_train_wm
 from pangu_tpu_torch.ops.earth_block_fused import (run_stage_fused,
                                                    run_stage_train,
@@ -279,39 +286,62 @@ def wm_core_mesh(cfg: ModelConfig, mesh):
     return mesh
 
 
+def _merges(params, cfg: ModelConfig, train: bool) -> bool:
+    """True where ``forward`` merges the LoRA factors into the kernels
+    first: ``attn_impl="pallas"`` under ``cfg.lora_fused``, served, or
+    trained without element-mode dropout (which has no merged form)."""
+    return (cfg.attn_impl == "pallas" and cfg.lora_fused and has_lora(params)
+            and (not train or not has_lora_dropout(params)))
+
+
+def _runs_wm_core(params, cfg: ModelConfig, train: bool) -> bool:
+    """True where ``forward`` runs the window-major trunk: the tree, once
+    merged where it merges, passes :func:`wm_core_supported`, and a
+    training call trains fused."""
+    tree = strip_lora(params) if _merges(params, cfg, train) else params
+    return (wm_core_supported(tree, cfg)
+            and (not train or cfg.train_fused))
+
+
+def lon_windows(cfg: ModelConfig):
+    """Each stage's longitude window count."""
+    return [cfg.stage(i).w // cfg.window[2] for i in range(4)]
+
+
+# forward's default ``routed``: the route is taken by forward itself
+DECIDE = "decide"
+
+
 def serving_mesh(params, cfg: ModelConfig, batch: int, *,
-                 what: str = "forward", train: bool = False):
-    """The active mesh (``parallel.sharding.use_mesh``) this call is served
-    (``train``: trained) under, or None on one device.  Under a mesh of
-    more than one rank, raises ``NotImplementedError`` where the port has
-    no sharded path for the call: a tree or config off the window-major
-    trunk (training: also ``train_fused=False``, and a LoRA tree with
-    element-mode dropout, which cannot merge), a mesh the gate refuses
-    (:func:`wm_core_mesh`) or a batch that dp does not divide (the JAX
-    package falls through to its per-stage sharded paths or GSPMD
-    there)."""
+                 train: bool = False, canonical: bool = False):
+    """How a call of a ``batch``-sample batch is served (``train``: trained)
+    under the active mesh (``parallel.sharding.use_mesh``): ``(route,
+    view)``, or None where it runs as on one device (no mesh, or a view of
+    one rank, whose ranks each compute the whole call).
+
+    ``"wm"``: the window-major trunk per (dp, sp, tp) shard, under the
+    mesh, or with dp collapsed where dp does not divide the batch
+    (``parallel.sharding.serving_view``); taken where the tree and config
+    run that trunk (:func:`wm_core_supported` after the merge; trained:
+    ``cfg.train_fused``) and the gate takes the view (:func:`wm_core_mesh`).
+
+    ``"canon"``: the canonical-layout trunk per (dp, sp) shard
+    (:func:`forward_core` with the view), everywhere else, and where the
+    caller asks for the canonical grid (``canonical``: taps, a trajectory,
+    the hierarchy): under ``parallel.sharding.canon_view`` (tp collapsed,
+    sp where it does not divide every stage's longitude windows, dp where
+    it does not divide the batch).  Its collapsed axes replicate the work,
+    so the gradient is summed over the view alone
+    (``parallel.sharding.reduce_grads``)."""
     mesh = sharding.active_mesh()
     if mesh is None or mesh.size == 1:
         return None
-    if train and has_lora_dropout(params):
-        why = ("a LoRA tree with element-mode dropout (per-token masks do "
-               "not merge; train with lora_dropout_mode=\"feature\" or "
-               "lora_dropout=0)")
-    elif not wm_core_supported(params, cfg):
-        why = "a tree or config off the window-major trunk"
-    elif train and not cfg.train_fused:
-        why = "train_fused=False (the per-block trunk)"
-    elif wm_core_mesh(cfg, mesh) is None:
-        why = (f"the mesh {mesh.cfg} (sp must divide every stage's longitude "
-               f"windows, tp every stage's z windows)")
-    elif batch % mesh.shape["dp"]:
-        why = f"a batch of {batch} over dp {mesh.shape['dp']}"
-    else:
-        return mesh
-    raise NotImplementedError(
-        f"{what}: {why} is not {'trained' if train else 'served'} under a "
-        "mesh: the per-stage sharded and GSPMD paths are ROADMAP queue A "
-        "item 12")
+    view = sharding.serving_view(mesh, batch)
+    if (not canonical and _runs_wm_core(params, cfg, train)
+            and wm_core_mesh(cfg, view) is not None):
+        return "wm", view
+    view = sharding.canon_view(mesh, lon_windows(cfg), batch)
+    return None if view.size == 1 else ("canon", view)
 
 
 def mesh_params(params, cfg: ModelConfig, mesh, *, copy: bool = True):
@@ -336,10 +366,8 @@ def embed_shard(params, upper, surface, constants, cfg: ModelConfig, mesh):
     longitude are patch-local, so the slice of the embed is exact).
     Differentiable: the embed's gradient comes from this rank's tokens."""
     g = cfg.stage(0)
-    u, s = (sharding.shard(t, sharding.BATCH_SPEC, mesh)
-            for t in (upper, surface))
-    x = L.patch_embed(params["patch_embed"], u, s, constants, cfg)
-    x = sharding.shard(x, sharding.TOKEN_SPEC, mesh)
+    x = embed_canon_shard(params, upper, surface, constants, cfg, mesh,
+                          sharding.TOKEN_SPEC)
     x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, g.h_padded - x.shape[2]))
     return to_window_major(x, g.window).contiguous()
 
@@ -352,10 +380,48 @@ def recover_shard(params, skip, dec, off, cfg: ModelConfig, mesh):
     patch recovery, then the batch gathered over dp.  Differentiable: the
     gathers' backward hands each rank the cotangent of its own shard."""
     g = cfg.stage(0)
-    pair = tuple(sharding.unshard(wm_to_canonical(t, off, g), sharding.TOKEN_SPEC,
-                                  mesh) for t in (skip, dec))
+    return recover_canon_shard(
+        params, tuple(wm_to_canonical(t, off, g) for t in (skip, dec)), cfg,
+        mesh, sharding.TOKEN_SPEC)
+
+
+def embed_canon_shard(params, upper, surface, constants, cfg: ModelConfig,
+                      mesh, spec=sharding.CANON_TOKEN_SPEC):
+    """Physical fields (the whole batch) -> this rank's shard of the
+    canonical route under the view ``mesh``: patch embed of its dp slice,
+    then its share of the tokens under ``spec`` (the longitude shard;
+    :func:`embed_shard` passes the window-major route's spec).
+    Differentiable."""
+    u, s = (sharding.shard(t, sharding.BATCH_SPEC, mesh)
+            for t in (upper, surface))
+    x = L.patch_embed(params["patch_embed"], u, s, constants, cfg)
+    return sharding.shard(x, spec, mesh)
+
+
+def gather_canon(x, mesh):
+    """This rank's shard of a canonical (B, Z, H, W, C) grid -> the whole
+    grid of the whole batch on every rank (gathered over sp, then dp)."""
+    x = sharding.unshard(x, sharding.CANON_TOKEN_SPEC, mesh)
+    return sharding.unshard(x, sharding.BATCH_SPEC, mesh)
+
+
+def recover_canon_shard(params, pair, cfg: ModelConfig, mesh,
+                        spec=sharding.CANON_TOKEN_SPEC):
+    """This rank's shard (under ``spec``) of the canonical pre-recovery
+    pair -> the normalised (upper, surface) fields of the whole batch on
+    every rank: the pair gathered, patch recovery, the batch gathered over
+    dp.  Differentiable."""
+    pair = tuple(sharding.unshard(t, spec, mesh) for t in pair)
     out = L.patch_recovery(params["patch_recovery"], pair, cfg)
     return tuple(sharding.unshard(t, sharding.BATCH_SPEC, mesh) for t in out)
+
+
+def _require_whole_tables(params, cfg: ModelConfig) -> None:
+    t = params["stages"][0]["blocks"][0]["attn"]["bias_table"]
+    if t.shape[0] != cfg.stage(0).num_window_types:
+        raise ValueError(f"the canonical route takes whole bias tables, not "
+                         f"{t.shape[0]} of {cfg.stage(0).num_window_types} "
+                         "types (a tp slice)")
 
 
 def _stage_drops(n_blocks: int, rates, offset: int, gen, B: int):
@@ -427,22 +493,24 @@ def forward_core_wm_train(params, xs, cfg: ModelConfig, *, gen=None,
 
 
 def run_stage(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
-              kernels: bool = True):
+              kernels: bool = True, mesh=None):
     """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid,
     as the JAX package's ``_run_stage`` runs it for inference: by
     ``cfg.block_layout``, ``run_stage_wm(io_layout="canon")`` ("wm") or
     ``run_stage_fused`` ("v2"); block by block (:func:`run_stage_blocks`)
-    where a block carries LoRA leaves or under ``attn_impl="xla"``."""
+    where a block carries LoRA leaves or under ``attn_impl="xla"``.
+    ``mesh``: the canonical route's (dp, sp) view, whose shard ``x`` is."""
     if cfg.attn_impl != "pallas" or not stage_supports_fused(stage_params):
         return run_stage_blocks(stage_params, x, cfg, stage_idx,
-                                kernels=kernels)
+                                kernels=kernels, mesh=mesh)
     geom = cfg.stage(stage_idx)
     if cfg.block_layout == "v2":
         return run_stage_fused(stage_params, x, geom,
-                               gelu_tanh=cfg.gelu_tanh, kernels=kernels)
+                               gelu_tanh=cfg.gelu_tanh, kernels=kernels,
+                               mesh=mesh)
     return run_stage_wm(stage_params, x, geom, gelu_tanh=cfg.gelu_tanh,
                         kernels=kernels, io_layout="canon",
-                        lat_group=cfg.lat_group)
+                        lat_group=cfg.lat_group, mesh=mesh)
 
 
 def _lora_seed(bp, gen):
@@ -457,7 +525,7 @@ def _lora_seed(bp, gen):
 
 def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
                      deterministic: bool = True, drops=None, gen=None,
-                     kernels: bool = True):
+                     kernels: bool = True, mesh=None):
     """One EarthSpecificLayer block by block on the canonical grid, the JAX
     package's ``_run_stage`` fallback loop: ``L.earth_block`` per block
     (with ``cfg.attn_impl``), unshifted and shifted in turn.  Training
@@ -466,7 +534,9 @@ def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
     seed is drawn from ``gen`` before the block runs, so under
     ``cfg.remat`` the block, recomputed in the backward
     (``torch.utils.checkpoint``), draws the same masks; the grid attention's
-    backward is ``cfg.grid_bwd``."""
+    backward is ``cfg.grid_bwd``.  ``mesh``: the canonical route's (dp, sp)
+    view, whose shard ``x`` is (``L.earth_block``'s halos and LoRA mask
+    cuts)."""
     geom = cfg.stage(stage_idx)
     train = not deterministic
     for j, bp in enumerate(stage_params["blocks"]):
@@ -476,7 +546,7 @@ def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
             lora_seed=_lora_seed(bp, gen) if train else None,
             deterministic=deterministic, gelu_tanh=cfg.gelu_tanh,
             kernels=kernels, grid_bwd=cfg.grid_bwd,
-            attn_impl=cfg.attn_impl)
+            attn_impl=cfg.attn_impl, mesh=mesh)
         if train and cfg.remat:
             x = torch.utils.checkpoint.checkpoint(
                 block, x, use_reentrant=False, preserve_rng_state=False)
@@ -487,7 +557,7 @@ def run_stage_blocks(stage_params, x, cfg: ModelConfig, stage_idx: int, *,
 
 def forward_core(params, x, cfg: ModelConfig, *, taps=None,
                  kernels: bool = True, deterministic: bool = True, gen=None,
-                 drops=None):
+                 drops=None, mesh=None):
     """The encoder/decoder trunk on the canonical embedded grid (B, Z, H, W,
     C): stages, DownSample and UpSample.  Returns the pre-recovery pair
     ``(skip, dec)``, each canonical (B, Z, H, W, C).  ``taps``: a dict that
@@ -510,7 +580,17 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
     ``deterministic=False``: the training trunk, differentiable in ``x`` and
     every trunk parameter.  ``drops``: four per-stage lists of (B, 2) branch
     scales, or None to draw them from ``gen`` (:func:`draw_drops`); ``gen``
-    also draws the LoRA dropout of unmerged adapters."""
+    also draws the LoRA dropout of unmerged adapters.
+
+    ``mesh``: the canonical route's (dp, sp) view (:func:`serving_mesh`),
+    as the JAX package runs ``forward_core`` under a mesh: ``x`` is this
+    rank's shard (its dp rows, its longitude windows), ``drops`` its dp
+    rows; each stage runs on the shard with longitude halos (served fused:
+    ``run_stage_fused`` / ``run_stage_wm(io_layout="canon")`` with the
+    view; trained fused: ``run_stage_train`` with the view, whatever the
+    layout, as the JAX package's ``run_stage_train_sharded``; else block by
+    block), DownSample and UpSample on the shard, stages 1 and 2 never
+    merged; the pair comes back sharded, and each tap whole (gathered)."""
     train = not deterministic
     if train and taps is not None:
         raise ValueError("taps are collected by the served trunk only")
@@ -528,33 +608,35 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
 
     def tap(name, val):
         if taps is not None:
-            taps[name] = val
+            taps[name] = val if mesh is None else gather_canon(val, mesh)
         return val
 
     def stage(sp, xx, i, dr):
         if not train:
-            return run_stage(sp, xx, cfg, i, kernels=kernels)
+            return run_stage(sp, xx, cfg, i, kernels=kernels, mesh=mesh)
         if not fused_ok(sp):
             return run_stage_blocks(sp, xx, cfg, i, deterministic=False,
-                                    drops=dr, gen=gen, kernels=kernels)
+                                    drops=dr, gen=gen, kernels=kernels,
+                                    mesh=mesh)
         geom = cfg.stage(i)
-        if cfg.block_layout == "v2":
+        if cfg.block_layout == "v2" or mesh is not None:
             return run_stage_train(sp, xx, geom, dr, gelu_tanh=cfg.gelu_tanh,
-                                   kernels=kernels, grid_bwd=cfg.grid_bwd)
+                                   kernels=kernels, grid_bwd=cfg.grid_bwd,
+                                   mesh=mesh)
         return run_stage_train_wm(sp, xx, geom, dr, gelu_tanh=cfg.gelu_tanh,
                                   kernels=kernels, io_in="canon",
                                   io_out="canon")
 
     def down(p, xx):
         if not pallas or "lora_a" in p["reduce"]:
-            return L.down_sample(p, xx, gen)
+            return L.down_sample(p, xx, gen, mesh)
         if train:
             return down_sample_train(p, xx, kernels=kernels)
         return (down_sample if kernels else down_sample_plain)(p, xx)
 
     def up(p, xx):
         if not pallas or "lora_a" in p["expand"] or "lora_a" in p["mix"]:
-            return L.up_sample(p, xx, cfg.h_tokens, gen)
+            return L.up_sample(p, xx, cfg.h_tokens, gen, mesh)
         if train:
             return up_sample_train(p, xx, cfg.h_tokens, kernels=kernels)
         return (up_sample if kernels else up_sample_plain)(p, xx,
@@ -563,8 +645,8 @@ def forward_core(params, x, cfg: ModelConfig, *, taps=None,
     x = tap("stage0", stage(stages[0], x, 0, drops[0]))
     skip = x
     x = tap("downsample", down(params["downsample"], x))
-    if (taps is None and cfg.depths[1] % 2 == 0 and fused_ok(stages[1])
-            and fused_ok(stages[2])):
+    if (taps is None and mesh is None and cfg.depths[1] % 2 == 0
+            and fused_ok(stages[1]) and fused_ok(stages[2])):
         combined = {"blocks": (list(stages[1]["blocks"])
                                + list(stages[2]["blocks"]))}
         x = stage(combined, x, 1,
@@ -608,7 +690,8 @@ def recover_fields(params, skip, dec, off, cfg: ModelConfig, *,
 
 def forward(params, upper, surface, constants, cfg: ModelConfig, *,
             device: _device.DeviceLike = "cuda", kernels: bool = True,
-            taps=None, deterministic: bool = True, gen=None, drops=None):
+            taps=None, deterministic: bool = True, gen=None, drops=None,
+            routed=DECIDE):
     """Full forward step: upper (B, 5, levels, lat, lon) and surface
     (B, 4, lat, lon) in physical units in, the *normalised* prediction
     (upper, surface) out.  Inputs and constants are moved to ``device``; the
@@ -640,19 +723,28 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
 
     Under an active mesh of more than one rank
     (``parallel.sharding.use_mesh``), every rank passes the whole batch and
-    gets the whole prediction back: its dp slice is embedded (patch embed),
-    its (tp, sp) share of the tokens runs the sharded window-major trunk
-    (:func:`forward_core_wm` with the mesh) with its tp slice of the bias
-    tables (sliced here where ``params`` hold them whole), the pair is
+    gets the whole prediction back, by the route and view of
+    :func:`serving_mesh`.  ``"wm"``: its dp slice is embedded (patch
+    embed), its (tp, sp) share of the tokens runs the sharded window-major
+    trunk (:func:`forward_core_wm` with the view) with its tp slice of the
+    bias tables (sliced here where ``params`` hold them whole), the pair is
     gathered, recovered (patch recovery) and gathered over dp, as the JAX
-    package serves a global array.  Trained (``deterministic=False``), the
-    trunk is :func:`forward_core_wm_train` with the mesh, the tables' slices
-    are views of the whole tables, and the drop scales are drawn at the
-    global batch on every rank from the one seeded ``gen`` and cut to the
-    rank's dp rows, so every sample keeps its one-device scales; the
-    gradient is this rank's share until ``parallel.sharding.reduce_grads``
-    sums it.  The edge kernels serve one device only.  What has no sharded
-    path raises (:func:`serving_mesh`), and so do ``taps``."""
+    package serves a global array; trained (``deterministic=False``), the
+    trunk is :func:`forward_core_wm_train` with the view, and the tables'
+    slices are views of the whole tables.  ``"canon"`` (v2, odd depths,
+    unmerged LoRA, ``attn_impl="xla"``, ``train_fused=False``, taps, a
+    mesh the window-major gate refuses): its dp slice is embedded and cut
+    to its longitude shard (:func:`embed_canon_shard`), the canonical trunk
+    runs on the shard (:func:`forward_core` with the view, whole tables),
+    the pair is gathered and recovered (:func:`recover_canon_shard`), taps
+    are gathered whole.  Trained, the drop scales are drawn at the global
+    batch on every rank from the one seeded ``gen`` and cut to the rank's
+    dp rows, so every sample keeps its one-device scales (LoRA masks
+    likewise, ``models/layers.py``); the gradient is this rank's share
+    until ``parallel.sharding.reduce_grads`` sums it over the view.  The
+    edge kernels serve one device only.  ``routed``: :func:`serving_mesh`'s
+    answer for this call where the caller took it (``engine/train.py::
+    loss_and_grads`` sums the gradient over that view), else taken here."""
     dev = _device.resolve(device)
     leaf = params["patch_embed"]["upper"]["kernel"]
     if leaf.device != dev:
@@ -662,30 +754,38 @@ def forward(params, upper, surface, constants, cfg: ModelConfig, *,
     train = not deterministic
     if train and taps is not None:
         raise ValueError("taps are collected by the served forward only")
+    if routed is DECIDE:
+        routed = serving_mesh(params, cfg, upper.shape[0], train=train,
+                              canonical=taps is not None)
     if train and drops is None:
         drops = draw_drops(cfg, gen, upper.shape[0])
-    if (cfg.attn_impl == "pallas" and cfg.lora_fused and has_lora(params)
-            and (not train or not has_lora_dropout(params))):
+    if _merges(params, cfg, train):
         feature = train and has_lora_dropout(params, "lora_drop_feat")
         params = merge_lora(params, gen if feature else None)
     u, s = upper.to(dev, cdt), surface.to(dev, cdt)
-    if sharding.multi_device_mesh_active():
-        if taps is not None:
-            raise NotImplementedError(
-                "forward: taps (the canonical-layout trunk) are not run under "
-                "a mesh: ROADMAP queue A item 12")
-        mesh = serving_mesh(params, cfg, u.shape[0], train=train)
-        p = mesh_params(params, cfg, mesh, copy=not train)
-        xs = embed_shard(p, u, s, consts, cfg, mesh)
+    if routed is not None:
+        route, view = routed
+        dr = None if drops is None else [
+            [sharding.shard(d, sharding.BATCH_SPEC, view) for d in st]
+            for st in drops]
+        if route == "canon":
+            _require_whole_tables(params, cfg)
+            x = embed_canon_shard(params, u, s, consts, cfg, view)
+            if taps is not None:
+                taps["embed"] = gather_canon(x, view)
+            pair = forward_core(params, x, cfg, taps=taps, kernels=kernels,
+                                deterministic=deterministic, gen=gen,
+                                drops=dr, mesh=view)
+            return recover_canon_shard(params, pair, cfg, view)
+        p = mesh_params(params, cfg, view, copy=not train)
+        xs = embed_shard(p, u, s, consts, cfg, view)
         if train:
-            dr = [[sharding.shard(d, sharding.BATCH_SPEC, mesh) for d in st]
-                  for st in drops]
             skip, dec, off = forward_core_wm_train(p, xs, cfg, drops=dr,
-                                                   kernels=kernels, mesh=mesh)
+                                                   kernels=kernels, mesh=view)
         else:
-            skip, dec, off = forward_core_wm(p, xs, cfg, mesh=mesh,
+            skip, dec, off = forward_core_wm(p, xs, cfg, mesh=view,
                                              kernels=kernels)
-        return recover_shard(p, skip, dec, off, cfg, mesh)
+        return recover_shard(p, skip, dec, off, cfg, view)
     if (taps is not None or not wm_core_supported(params, cfg)
             or (train and not cfg.train_fused)):
         x = L.patch_embed(params["patch_embed"], u, s, consts, cfg)

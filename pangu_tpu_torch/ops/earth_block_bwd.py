@@ -558,7 +558,8 @@ def run_stage_train_wm(stage_params, x, geom: StageGeometry,
     coordinates, and one roll by ``off`` plus a crop to H returns the
     canonical grid (an odd depth ends unshifted, ``off`` zero).
 
-    Under a ``mesh`` (``parallel.mesh.Mesh``; wm io only) ``x`` is this
+    Under a ``mesh`` (``parallel.mesh.Mesh``; wm io only, a canonical end
+    raises ValueError) ``x`` is this
     rank's (tp, sp) shard, ``drops`` its dp rows and the bias tables its tp
     slice, as ``run_stage_wm(mesh=)`` serves: the lon (sp > 1) and z
     (tp > 1) components of each block's shift run as storage-level halos
@@ -571,9 +572,10 @@ def run_stage_train_wm(stage_params, x, geom: StageGeometry,
     if mesh is not None and mesh.size == 1:
         mesh = None
     if mesh is not None and (io_in, io_out) != ("wm", "wm"):
-        raise NotImplementedError(
-            "run_stage_train_wm: a canonical-io training stage under a mesh "
-            "(the JAX package's GSPMD path) is ROADMAP queue A item 12")
+        raise ValueError(
+            "run_stage_train_wm: a canonical-io training stage runs on one "
+            "device; under a mesh the canonical route trains its stages "
+            "through ops/earth_block_fused.py::run_stage_train")
     blocks = stage_params["blocks"]
     leaves = [_get(bp, path) for bp in blocks for path in BLOCK_LEAVES]
     if drops is not None:

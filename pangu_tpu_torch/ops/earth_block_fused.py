@@ -29,6 +29,16 @@ and output).
     its reference composition (XLA tail, Pallas attention);
   * ``stage_supports_fused``: False for a stage with LoRA leaves on a
     block, which ``models/pangu.py`` runs block by block instead.
+
+Under a (dp, sp) view of a mesh (``run_stage_fused`` / ``run_stage_train``
+with ``mesh=``, the JAX package's ``run_stage_fused_sharded`` /
+``run_stage_train_sharded``) the grid is this rank's longitude shard of
+whole windows: the longitude component of each block's shift runs as a
+canonical-storage halo (``parallel.sharding.lon_shift``, a
+``Mesh.ppermute`` whose backward is the opposite rotate) before the block,
+which keeps the z and latitude components; the closing roll is z and
+latitude locally, then a longitude halo.  ``block_v2`` takes the shard's
+local extent and raises where its shift would read across shards.
 """
 
 from __future__ import annotations
@@ -43,11 +53,12 @@ from pangu_tpu_torch.ops.block_tail import tail_math
 from pangu_tpu_torch.ops.earth_block_bwd import (BLOCK_LEAVES, _get, _schedule,
                                                  _tree)
 from pangu_tpu_torch.models.lora import has_lora
-from pangu_tpu_torch.ops.earth_block_wm import (Offset, drop_scales,
-                                                launch_block, pad_rows_zeroed,
-                                                params_in)
+from pangu_tpu_torch.ops.earth_block_wm import (Offset, check_shard_read,
+                                                drop_scales, launch_block,
+                                                pad_rows_zeroed, params_in)
 from pangu_tpu_torch.ops.window_attention import (GridAttention,
                                                   grid_attention_plain)
+from pangu_tpu_torch.parallel.sharding import grid_roll, lon_shift, lon_view
 
 
 def _block_ref(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
@@ -89,7 +100,10 @@ def block_v2(p, xs, geom: StageGeometry, delta: Offset, canon_add: int,
     (pad rows are those whose canonical latitude is >= the real count);
     ``ids``: (ntype, N) region ids of a shifted block, else None; ``drop``:
     (B, 2) float32 branch scales (training) or None.  The CUDA block kernel
-    for a CUDA tensor, the plain version for a CPU tensor."""
+    for a CUDA tensor, the plain version for a CPU tensor.  On a longitude
+    shard of the grid a shift with a longitude component raises (it would
+    read across shards)."""
+    check_shard_read(xs.shape[1:4], geom, delta, "block_v2")
     if not xs.is_cuda:
         return block_v2_plain(p, xs, geom, delta, canon_add, ids, gelu_tanh,
                               drop)
@@ -125,28 +139,40 @@ def _padded(x, geom: StageGeometry):
     return torch.nn.functional.pad(x, (0, 0, 0, 0, 0, pad))
 
 
-def _canonical(xs, off: Offset, h: int):
+def _lon_halo(xs, delta: Offset, mesh):
+    """Under a lon-sharded ``mesh``, the longitude component of ``delta`` as
+    a storage halo; returns the grid and the delta the block keeps."""
+    if mesh is None or not delta[2]:
+        return xs, delta
+    return lon_shift(xs, delta[2], mesh), (delta[0], delta[1], 0)
+
+
+def _canonical(xs, off: Offset, h: int, mesh=None):
     """The stage's last block output -> the canonical grid: roll back by the
-    offset and crop the latitude padding."""
-    if any(off):
-        xs = torch.roll(xs, shifts=tuple(off), dims=(1, 2, 3))
-    return xs[:, :, :h].contiguous()
+    offset (on a lon shard: z and latitude locally, then a longitude halo)
+    and crop the latitude padding."""
+    return grid_roll(xs, off, mesh)[:, :, :h].contiguous()
 
 
 def run_stage_fused(stage_params, x, geom: StageGeometry, *,
-                    gelu_tanh: bool = False, kernels: bool = True):
+                    gelu_tanh: bool = False, kernels: bool = True,
+                    mesh=None):
     """One served EarthSpecificLayer on the canonical (B, Z, H, W, C) grid
     through ``block_v2``: pad, the block chain in rolled coordinates, one
-    roll back and a crop.  ``kernels=False`` runs the plain version."""
+    roll back and a crop.  ``kernels=False`` runs the plain version.
+    ``mesh``: a (dp, sp) view whose sp shard ``x`` is (longitude halos
+    before the blocks, as the module says)."""
     _fused_only(stage_params, "run_stage_fused")
+    mesh = lon_view(mesh)
     sched, off = _schedule(geom, len(stage_params["blocks"]))
     ids = _region_ids(geom, x.device)
     block = block_v2 if kernels else block_v2_plain
     xs = _padded(x, geom)
     for bp, (delta, canon_add, shifted) in zip(stage_params["blocks"], sched):
-        xs = block(bp, xs, geom, delta, canon_add, ids if shifted else None,
-                   gelu_tanh)
-    return _canonical(xs, off, x.shape[2])
+        xs, delta = _lon_halo(xs, delta, mesh)
+        xs = block(bp, xs.contiguous(), geom, delta, canon_add,
+                   ids if shifted else None, gelu_tanh)
+    return _canonical(xs, off, x.shape[2], mesh)
 
 
 class _BlockTrain(torch.autograd.Function):
@@ -184,21 +210,26 @@ class _BlockTrain(torch.autograd.Function):
 
 def run_stage_train(stage_params, x, geom: StageGeometry,
                     drops: Optional[list], *, gelu_tanh: bool = False,
-                    kernels: bool = True, grid_bwd: str = "pallas"):
+                    kernels: bool = True, grid_bwd: str = "pallas",
+                    mesh=None):
     """Training forward of one EarthSpecificLayer on the canonical grid,
     differentiable in ``x`` and every block parameter: the served stage's
     chain with one autograd Function per block.  ``drops``: one (B, 2)
     float32 tensor of branch scales per block, or None; ``grid_bwd``: the
-    grid attention's backward in the recompute ("pallas" | "xla")."""
+    grid attention's backward in the recompute ("pallas" | "xla").
+    ``mesh``: a (dp, sp) view whose shard ``x`` is, ``drops`` its dp rows;
+    the longitude halos sit between the block Functions, differentiable."""
     _fused_only(stage_params, "run_stage_train")
+    mesh = lon_view(mesh)
     blocks = stage_params["blocks"]
     sched, off = _schedule(geom, len(blocks))
     ids = _region_ids(geom, x.device)
     xs = _padded(x, geom)
     for j, (bp, (delta, canon_add, shifted)) in enumerate(zip(blocks, sched)):
+        xs, delta = _lon_halo(xs, delta, mesh)
         drop = None if drops is None else drops[j].to(x.device)
         meta = (geom, delta, canon_add, ids if shifted else None, drop,
                 gelu_tanh, kernels, grid_bwd)
-        xs = _BlockTrain.apply(meta, xs,
+        xs = _BlockTrain.apply(meta, xs.contiguous(),
                                *(_get(bp, path) for path in BLOCK_LEAVES))
-    return _canonical(xs, off, x.shape[2])
+    return _canonical(xs, off, x.shape[2], mesh)

@@ -4,7 +4,8 @@
 canonical input or output, ``_block_wm_group_call``, ``_pick_gh`` and
 ``run_stage_wm`` with either ``io_layout``; under a (dp, sp, tp) mesh, with
 ``io_layout="wm"``, the storage-level halos ``_lon_shift_wm`` and
-``_z_shift_wm``).
+``_z_shift_wm``; with ``io_layout="canon"`` under a (dp, sp) view,
+``run_stage_wm_sharded``).
 
 The inter-block activation is stored as (B, nz, nlat, nlon, N, C), one row
 per window token, windows contiguous, N ordered (z, lat, lon).  A block reads
@@ -47,7 +48,7 @@ from pangu_tpu_torch.config import StageGeometry, _pick_gh
 from pangu_tpu_torch.models.layers import dense, window_region_ids
 from pangu_tpu_torch.models.lora import has_lora
 from pangu_tpu_torch.ops.block_tail import tail_math
-from pangu_tpu_torch.parallel.sharding import shard
+from pangu_tpu_torch.parallel.sharding import grid_roll, shard
 
 Offset = Tuple[int, int, int]
 
@@ -495,18 +496,20 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
     ``ntype / tp`` rows of the region ids (the bias tables come sliced
     alike, ``parallel.sharding.shard_params``).  The returned ``off`` then
     has lon and z components 0: the stage hands its consumer a lon- and
-    z-canonical shard, which it reads without crossing shards.  Only
-    ``io_layout="wm"`` runs sharded."""
+    z-canonical shard, which it reads without crossing shards.
+    ``io_layout="canon"`` (the JAX package's ``run_stage_wm_sharded``)
+    shards longitude only: the first block reads the canonical shard
+    unshifted, and the closing roll is z and latitude locally, then a
+    canonical longitude halo (``parallel.sharding.grid_roll``)."""
     if io_layout not in ("wm", "canon"):
         raise ValueError(f"io_layout must be 'wm' or 'canon', not {io_layout!r}")
     wz, wh, ww = geom.window
     wm_io = io_layout == "wm"
     sp_sharded = mesh is not None and mesh.shape["sp"] > 1
     tp_sharded = mesh is not None and mesh.shape["tp"] > 1
-    if (sp_sharded or tp_sharded) and not wm_io:
-        raise NotImplementedError(
-            "a canonical-io stage under sp or tp (run_stage_wm_sharded) is "
-            "ROADMAP queue A item 12")
+    if tp_sharded and not wm_io:
+        raise ValueError("a canonical-io stage shards longitude only: run "
+                         "it under a view with tp collapsed")
     if not wm_io:
         h = x.shape[2]
         x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, geom.h_padded - h))
@@ -554,6 +557,4 @@ def run_stage_wm(stage_params, x, geom: StageGeometry, *,
             x = _z_shift_wm(x, -off[0], wz, mesh)
             off = (0, off[1], off[2])
         return x, off
-    if any(off):
-        x = torch.roll(x, shifts=off, dims=(1, 2, 3))
-    return x[:, :, :h].contiguous()
+    return grid_roll(x, off, mesh)[:, :, :h].contiguous()

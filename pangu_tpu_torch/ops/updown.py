@@ -25,6 +25,11 @@ training trunk) run the kernel forward and, backward, autograd
 through a recompute of the plain version (``recompute_train``, which the
 window-major pair in ``ops/updown_wm`` shares), as the JAX package's
 ``_down_core`` / ``_up_core`` take an XLA ``jax.vjp`` of their reference.
+
+Both read only their own longitude columns (DownSample a pair, UpSample
+one), so on a rank's longitude shard of the canonical-layout route they
+run as they do on the whole grid; ``down_sample`` raises where the shard
+holds an odd number of columns (a pair would straddle two shards).
 """
 
 from __future__ import annotations
@@ -79,7 +84,8 @@ def down_sample_operands(p, x):
     bf16 input and params are 16-byte aligned (copies where they are
     not)."""
     B, Z, H, W, C = x.shape
-    if x.dtype not in DTYPE_CODE or not x.is_contiguous() or W % 2:
+    check_lon_pairs(W)
+    if x.dtype not in DTYPE_CODE or not x.is_contiguous():
         raise ValueError(f"down_sample: unsupported input {tuple(x.shape)} "
                          f"{x.dtype}")
     q = params_in(p, x.dtype)
@@ -93,11 +99,20 @@ def down_sample_operands(p, x):
     return x, q
 
 
+def check_lon_pairs(w: int) -> None:
+    """Raise where DownSample's longitude pairs would not lie within the
+    ``w`` columns of its input (a shard of odd width)."""
+    if w % 2:
+        raise ValueError(f"down_sample: {w} longitude columns: a pair would "
+                         "straddle two shards (it reads across shards)")
+
+
 def down_sample(p, x):
-    """x: the canonical (B, Z, H, W, C) grid, W even.  The CUDA kernel for
-    a CUDA tensor (in bf16 the tensor-core route, whose operands
-    ``down_sample_operands`` checks and aligns), the plain version for a
-    CPU tensor."""
+    """x: the canonical (B, Z, H, W, C) grid, W even (the whole grid, or a
+    longitude shard of it).  The CUDA kernel for a CUDA tensor (in bf16
+    the tensor-core route, whose operands ``down_sample_operands`` checks
+    and aligns), the plain version for a CPU tensor."""
+    check_lon_pairs(x.shape[3])
     if not x.is_cuda:
         return down_sample_plain(p, x)
     x, q = down_sample_operands(p, x)

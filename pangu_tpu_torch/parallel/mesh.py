@@ -206,9 +206,8 @@ class Mesh:
     groups: Dict[str, object]
     device: torch.device
     host_staged: bool
-    exchanges: int = 0
-    exchange_bytes: int = 0
-    # per collective ("ppermute", "all_gather", "all_reduce"): [n, bytes]
+    # per collective ("ppermute", "all_gather", "all_reduce"): [n, bytes];
+    # one dict for a mesh and the views made from it (``without``)
     by_op: Dict[str, List[int]] = dataclasses.field(default_factory=dict)
     # per axis of more than one rank, where the world is on this machine
     # under gloo: its line's shared-memory exchange
@@ -222,26 +221,31 @@ class Mesh:
     def size(self) -> int:
         return self.cfg.size
 
+    @property
+    def exchanges(self) -> int:
+        return sum(n for n, _ in self.by_op.values())
+
+    @property
+    def exchange_bytes(self) -> int:
+        return sum(b for _, b in self.by_op.values())
+
     def without(self, axis: str) -> "Mesh":
         """This mesh with ``axis`` collapsed to this rank's own place: the
         ranks along it become replicas that compute the same values (the
-        other axes keep their lines and groups; the counts start at 0)."""
+        other axes keep their lines and groups; the view's exchanges count
+        in this mesh's counts)."""
         return dataclasses.replace(
             self, cfg=dataclasses.replace(self.cfg, **{axis: 1}),
             coords={**self.coords, axis: 0},
             lines={**self.lines, axis: [self.lines[axis][self.coords[axis]]]},
-            groups={**self.groups, axis: None}, exchanges=0,
-            exchange_bytes=0, by_op={},
+            groups={**self.groups, axis: None},
             slots={a: v for a, v in self.slots.items() if a != axis})
 
     def reset_counts(self) -> None:
-        self.exchanges = self.exchange_bytes = 0
-        self.by_op = {}
+        self.by_op.clear()
 
     def _count(self, t: torch.Tensor, op: str) -> None:
         n = t.numel() * t.element_size()
-        self.exchanges += 1
-        self.exchange_bytes += n
         rec = self.by_op.setdefault(op, [0, 0])
         rec[0] += 1
         rec[1] += n

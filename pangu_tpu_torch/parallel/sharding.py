@@ -9,7 +9,9 @@ dimension (None: whole on every rank), as a ``PartitionSpec`` does:
   * tp splits the z windows of the window-major trunk and, with them, the
     earth-specific bias tables along their z-type-major type axis (the
     layout the wm trunk's z-window sharding reads, ``models/pangu.py::
-    wm_core_mesh``).  The megatron split of fc1 / fc2 / proj that
+    wm_core_mesh``).  The canonical-layout route runs under a view of the
+    mesh with tp collapsed (:func:`canon_view`): its tp ranks replicate
+    the work with the whole tables.  The megatron split of fc1 / fc2 / proj that
     :func:`param_spec` names serves only the JAX package's GSPMD paths,
     which the port does not have: :func:`shard_params` slices the bias
     tables alone.
@@ -28,6 +30,7 @@ loss (the sum ``shard_map``'s transpose makes in the JAX package).
 from __future__ import annotations
 
 import contextlib
+import logging
 from typing import Optional, Tuple
 
 import torch
@@ -41,8 +44,17 @@ BATCH_SPEC: Spec = ("dp",)
 # a rank's share of its dp slice of the canonical (B, Z, H, W, C) token grid:
 # z windows over tp, longitude windows over sp (the window-major trunk's)
 TOKEN_SPEC: Spec = (None, "tp", None, "sp", None)
+# the canonical-layout route's share of its dp slice of that grid: longitude
+# over sp, z whole (the JAX package's TOKEN_SPEC without its dp entry)
+CANON_TOKEN_SPEC: Spec = (None, None, None, "sp", None)
+# a canonical grid of the whole batch on the canonical-layout route, and the
+# same grid partitioned into windows (B, nlon, ntype, N, C), lon outermost:
+# how a rank cuts its part of a draw made at the one-device shape
+GRID_SPEC: Spec = ("dp", None, None, "sp", None)
+WINDOWS_SPEC: Spec = ("dp", "sp", None, None, None)
 
 _ACTIVE = None
+_LOGGED = set()     # the collapses canon_view has logged
 
 
 @contextlib.contextmanager
@@ -73,10 +85,88 @@ def serving_view(mesh, batch: int):
     return mesh.without("dp")
 
 
-def multi_device_mesh_active() -> bool:
-    """True under an active mesh of more than one rank: the paths that
-    serve one device only refuse to run there."""
-    return _ACTIVE is not None and _ACTIVE.size > 1
+def canon_view(mesh, lon_windows, batch: int):
+    """The view of ``mesh`` the canonical-layout route runs under, for a
+    batch of ``batch`` samples and the stages' longitude window counts
+    ``lon_windows``: tp always collapsed (its ranks replicate the work with
+    the whole bias tables), sp collapsed where it does not divide every
+    stage's longitude windows (a shard holds whole windows), dp collapsed
+    where it does not divide the batch (:func:`serving_view`).  Each
+    collapse is logged once per process: its ranks compute the same
+    values."""
+    view = serving_view(mesh, batch)
+    if view.shape["dp"] < mesh.shape["dp"]:
+        _collapsed("dp", mesh.shape["dp"],
+                   f"it does not divide the batch of {batch}")
+    if view.shape["tp"] > 1:
+        _collapsed("tp", view.shape["tp"], "the canonical-layout route "
+                   "shards no z: its tp ranks replicate the work")
+        view = view.without("tp")
+    if view.shape["sp"] > 1 and any(n % view.shape["sp"]
+                                    for n in lon_windows):
+        _collapsed("sp", view.shape["sp"], "it does not divide every "
+                   f"stage's longitude windows {tuple(lon_windows)}")
+        view = view.without("sp")
+    return view
+
+
+def _collapsed(axis: str, size: int, why: str):
+    """Log, once per process and reason, that the canonical-layout route
+    collapsed ``axis`` of ``size`` ranks."""
+    msg = (f"canonical-layout route: {axis} {size} collapsed ({why}); its "
+           f"{size} ranks compute the same values")
+    if msg not in _LOGGED:
+        _LOGGED.add(msg)
+        logging.getLogger("pangu_tpu").warning(msg)
+
+
+def global_shape(shape, spec: Spec, mesh) -> Tuple[int, ...]:
+    """The shape of the whole tensor whose slice under ``spec`` has
+    ``shape`` (the inverse of :func:`shard`'s cut)."""
+    return tuple(n * (1 if a is None else mesh.shape[a])
+                 for n, a in zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def lon_view(mesh):
+    """The view a canonical-layout layer resolves longitude halos over:
+    None without one or at sp 1; raises ValueError under tp > 1 (the
+    canonical route collapses tp, :func:`canon_view`)."""
+    if mesh is not None and mesh.shape["tp"] > 1:
+        raise ValueError("the canonical-layout route shards longitude only: "
+                         "run it under a view with tp collapsed")
+    return None if mesh is None or mesh.shape["sp"] == 1 else mesh
+
+
+def lon_shift(xs: torch.Tensor, dw: int, mesh=None) -> torch.Tensor:
+    """``torch.roll(xs, -dw, dims=3)`` of the whole grid on a tensor whose
+    dimension 3 (longitude) may be this rank's sp shard: columns that
+    leave the shard come from the neighbour rank, an ``|dw|``-column
+    ``Mesh.ppermute`` halo (differentiable), as the JAX package's
+    ``_lon_shift``.  A local roll without a mesh or at sp 1."""
+    if dw == 0:
+        return xs
+    if mesh is None or mesh.shape["sp"] == 1:
+        return torch.roll(xs, -dw, dims=3)
+    if abs(dw) > xs.shape[3]:
+        raise ValueError(f"lon_shift: {dw} columns on a shard of "
+                         f"{xs.shape[3]}")
+    if dw > 0:      # the tail comes from the next rank's head
+        halo = mesh.ppermute(xs[:, :, :, :dw], "sp", 1)
+        return torch.cat([xs[:, :, :, dw:], halo], dim=3)
+    halo = mesh.ppermute(xs[:, :, :, dw:], "sp", -1)
+    return torch.cat([halo, xs[:, :, :, :dw]], dim=3)
+
+
+def grid_roll(xs: torch.Tensor, shifts, mesh=None) -> torch.Tensor:
+    """``torch.roll(xs, shifts, dims=(1, 2, 3))`` of the whole (B, Z, H, W,
+    ...) grid: one roll without a mesh or at sp 1; on a longitude shard, z
+    and latitude locally, then a longitude halo (:func:`lon_shift`)."""
+    if mesh is None or mesh.shape["sp"] == 1:
+        return (torch.roll(xs, shifts=tuple(shifts), dims=(1, 2, 3))
+                if any(shifts) else xs)
+    if any(shifts[:2]):
+        xs = torch.roll(xs, shifts=tuple(shifts[:2]), dims=(1, 2))
+    return lon_shift(xs, -shifts[2], mesh)
 
 
 def _split(x: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
@@ -162,7 +252,8 @@ def grad_axes(path: tuple) -> Tuple[str, ...]:
     patch recovery runs on the gathered tokens of the rank's dp slice, so
     it sums over dp alone (over the whole mesh it would count sp * tp
     times); a bias table is sliced over tp, so each slice sums over dp
-    and sp, and the slices are then gathered over tp."""
+    and sp, and the slices are then gathered over tp.  An axis the view
+    collapsed has one rank: its sum is none."""
     if "patch_recovery" in path:
         return ("dp",)
     if "bias_table" in path:
@@ -193,10 +284,13 @@ def _set(tree, path, value):
 
 def reduce_grads(params, grads, mesh):
     """Sum ``grads`` (a tree like ``params``, this rank's gradients of the
-    sharded training forward; None leaves stay None) over the mesh, leaf by
-    leaf by :func:`grad_axes`, in place in ``grads`` and in each param's
-    ``.grad``; returns ``grads``.  Afterwards every rank holds the same
-    bits: one device's gradient of the global-batch loss.
+    sharded training forward; None leaves stay None) over ``mesh``, the
+    view the forward ran under (``models/pangu.py::serving_mesh``: a
+    collapsed axis replicated the work, and a sum over it would count the
+    work once per replica), leaf by leaf by :func:`grad_axes`, in place in
+    ``grads`` and in each param's ``.grad``; returns ``grads``.
+    Afterwards every rank holds the same bits: one device's gradient of
+    the global-batch loss.
 
     The leaves of one rule go as one float32 buffer, one exchange per axis:
     the trunk and embed leaves over dp, sp and tp; the recovery leaves over

@@ -1884,3 +1884,74 @@ WM_DOWN_BEFORE = {
 
 def test_down_sample_wm_bf16_bits_unchanged(cuda):
     assert wm_down_digests(cuda) == WM_DOWN_BEFORE
+
+
+def _lon_shard(x, dim, n, i):
+    k = x.shape[dim] // n
+    return x.narrow(dim, i * k, k).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cfg_name", ["TINY", "MID"])
+def test_canonical_kernels_on_a_lon_shard(cuda, cfg_name, dtype):
+    """The kernels of the canonical route on a rank's longitude shard (sp
+    2 at stage 0; stage 1 of MID has 5 lon windows, so its DownSample /
+    UpSample take a shard of stage 0 and its image): ``block_v2`` and
+    ``block_wm_canon`` (canonical in, canonical out) with a shift whose
+    lon component is 0, ``down_sample`` and ``up_sample``, each against
+    its plain version and against its output on the whole grid cut to the
+    shard; a shift with a lon component on the shard, and a DownSample of
+    an odd number of columns, raise ValueError (they would read across
+    shards)."""
+    from pangu_tpu_torch.ops.earth_block_fused import block_v2, block_v2_plain
+    cfg = CFGS[cfg_name]
+    params = _params(cfg, cuda)
+    g0 = cfg.stage(0)
+    bp = params["stages"][0]["blocks"][1]
+    ids = torch.as_tensor(window_region_ids(g0.z, g0.h_padded, g0.window),
+                          device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(31)
+    grid = torch.randn((2, g0.z, g0.h_padded, g0.w, g0.dim), generator=g,
+                       device=cuda).to(dtype)
+    shard = _lon_shard(grid, 3, 2, 1)
+    wm = to_window_major(grid, g0.window).contiguous()
+    wm_shard = _lon_shard(wm, 3, 2, 1)
+    cases = (
+        ("block_v2", lambda x: block_v2(bp, x, g0, (1, 3, 0), 3, ids, True),
+         lambda x: block_v2_plain(bp, x, g0, (1, 3, 0), 3, ids, True),
+         grid, shard, 3),
+        ("block_wm_canon in", lambda x: block_wm_canon(
+            bp, x, g0, (0, 0, 0), 0, None, True, in_layout="canon"),
+         lambda x: block_wm_canon_plain(bp, x, g0, (0, 0, 0), 0, None, True,
+                                        "canon", "wm"), grid, shard, 3),
+        ("block_wm_canon out", lambda x: block_wm_canon(
+            bp, x, g0, (1, 3, 0), 3, ids, True, out_layout="canon"),
+         lambda x: block_wm_canon_plain(bp, x, g0, (1, 3, 0), 3, ids, True,
+                                        "wm", "canon"), wm, wm_shard, 3),
+        ("down_sample", lambda x: down_sample(params["downsample"], x),
+         lambda x: down_sample_plain(params["downsample"], x),
+         grid[:, :, :g0.h].contiguous(), shard[:, :, :g0.h].contiguous(), 3))
+    for name, kern, plain, whole, part, dim in cases:
+        got, want = kern(part), plain(part)
+        cut = _lon_shard(kern(whole), dim, 2, 1)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= TOL[dtype], name
+        assert _rel_err(got, cut) <= TOL[dtype], name
+    g2, g3 = cfg.stage(2), cfg.stage(3)
+    y = torch.randn((2, g2.z, g2.h, g2.w, g2.dim), generator=g,
+                    device=cuda).to(dtype)
+    y_shard = _lon_shard(y, 3, 5 if g2.w // g2.window[2] % 2 else 2, 1)
+    got = up_sample(params["upsample"], y_shard, g3.h)
+    assert _rel_err(got, up_sample_plain(params["upsample"], y_shard,
+                                         g3.h)) <= TOL[dtype]
+    whole = up_sample(params["upsample"], y, g3.h)
+    n = y.shape[3] // y_shard.shape[3]
+    assert _rel_err(got, _lon_shard(whole, 3, n, 1)) <= TOL[dtype]
+    with pytest.raises(ValueError, match="reads across shards"):
+        block_v2(bp, shard, g0, (1, 3, 6), 3, ids, True)
+    with pytest.raises(ValueError, match="reads across shards"):
+        block_wm_canon(bp, wm_shard, g0, (1, 3, 6), 3, ids, True,
+                       out_layout="canon")
+    with pytest.raises(ValueError, match="reads across shards"):
+        down_sample(params["downsample"], grid[:, :, :g0.h, :g0.w // 2 - 1]
+                    .contiguous())

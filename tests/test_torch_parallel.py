@@ -12,14 +12,11 @@ float32, on the CPU:
   (valid rows, 2e-4 as ``tests/test_torch_transition.py``);
 * ``wm_core_mesh``, ``auto_mesh_config`` and ``param_spec`` against the JAX
   functions (pure Python);
-* what the port refuses: a mesh the gate refuses, a batch dp does not
-  divide and a token-space trajectory under a mesh raise
-  ``NotImplementedError``; a read across shards (a lon shift on a lon
-  shard, a z shift on a z shard, a z offset under ``z_base``) raises
-  ``ValueError`` in every wrapper;
+* a read across shards (a lon shift on a lon shard, a z shift on a z
+  shard, a z offset under ``z_base``) raises ``ValueError`` in every
+  wrapper (the paths a mesh used to refuse serve through the canonical
+  route: ``tests/test_torch_parallel_canon.py``);
 * the backend rule and the launch detection of ``parallel/mesh.py``."""
-
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +38,6 @@ from pangu_tpu.parallel import sharding as jax_sharding
 from pangu_tpu_torch.config import PANGU_24, TINY, MeshConfig
 from pangu_tpu_torch.data.constants import synthetic_constants, to_device
 from pangu_tpu_torch.engine import transition_wm as TW
-from pangu_tpu_torch.engine.rollout import make_rollout
 from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.ops.earth_block_wm import (block_wm, from_window_major,
                                                 to_window_major)
@@ -189,40 +185,6 @@ def served():
                                       6))
     surface = torch.as_tensor(TP.normal((1, 4, TINY.lat, TINY.lon), 7))
     return params, consts, upper, surface
-
-
-@pytest.mark.parametrize("entry", ["forward", "rollout"])
-@pytest.mark.parametrize("shape,what", [((1, 3, 1), "the mesh"),
-                                        ((1, 1, 4), "the mesh"),
-                                        ((2, 1, 1), "a batch of 1")])
-def test_refused_mesh_raises(served, entry, shape, what):
-    params, consts, upper, surface = served
-    with sharding.use_mesh(_cpu_mesh(*shape)):
-        with pytest.raises(NotImplementedError, match=what):
-            if entry == "forward":
-                pangu.forward(params, upper, surface, consts, TINY,
-                              device="cpu")
-            else:
-                make_rollout(TINY, consts, 2, token_space=True,
-                             device="cpu")(params, upper, surface)
-
-
-@pytest.mark.parametrize("case", ["trajectory", "taps", "v2"])
-def test_unsharded_paths_raise_under_a_mesh(served, case):
-    params, consts, upper, surface = served
-    with sharding.use_mesh(_cpu_mesh(1, 2, 1)):
-        with pytest.raises(NotImplementedError):
-            if case == "trajectory":
-                make_rollout(TINY, consts, 2, token_space=True,
-                             return_trajectory=True, device="cpu")(
-                    params, upper, surface)
-            elif case == "taps":
-                pangu.forward(params, upper, surface, consts, TINY,
-                              device="cpu", taps={})
-            else:
-                pangu.forward(params, upper, surface, consts,
-                              dataclasses.replace(TINY, block_layout="v2"),
-                              device="cpu")
 
 
 def test_reads_across_shards_raise(served, transition):

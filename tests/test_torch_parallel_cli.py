@@ -1,8 +1,10 @@
 """The port's command lines in a 4-rank gloo world on the CPU
 (``parallel/launch.py``), at TINY, float32, with ``--device cpu --tiny
---synthetic``: ``cli.inference --token-space --horizon 48`` and
-``cli.evaluate --no-viz``, each rank on its shard of the mesh the command
-line sets up itself (``auto_mesh_config`` over 4 ranks: (dp, sp, tp) =
+--synthetic``: ``cli.inference --token-space --horizon 48``, the 24 + 6 h
+token-space hierarchy ``cli.inference --models 24=,6= --horizon 30
+--token-space`` (the canonical route's shards) and ``cli.evaluate
+--no-viz``, each rank on its shard of the mesh the command line sets up
+itself (``auto_mesh_config`` over 4 ranks: (dp, sp, tp) =
 (1, 2, 2)).  Rank 0 alone writes the 12 CSVs and the log; each value equals
 the single-device run's within 1e-5 relative."""
 
@@ -19,8 +21,12 @@ from pangu_tpu_torch.parallel import launch
 TOL = 1e-5
 WINDOW = {"data.test_start": "20150106", "data.test_end": "20150109",
           "data.num_workers": "1"}
-RUNS = {"inference": ["--horizon", "48", "--token-space", "--limit", "1"],
-        "evaluate": ["--no-viz", "--limit", "1"]}
+# type_net -> (command line, arguments)
+RUNS = {"inference": ("inference", ["--horizon", "48", "--token-space",
+                                    "--limit", "1"]),
+        "hierarchy": ("inference", ["--models", "24=,6=", "--horizon", "30",
+                                    "--token-space", "--limit", "1"]),
+        "evaluate": ("evaluate", ["--no-viz", "--limit", "1"])}
 
 
 def _args(out, name, extra):
@@ -40,17 +46,19 @@ def _read(path):
 def runs(tmp_path_factory):
     one = tmp_path_factory.mktemp("one")
     world = tmp_path_factory.mktemp("world")
-    for name, extra in RUNS.items():
-        cli = {"inference": inference, "evaluate": evaluate}[name]
+    for name, (module, extra) in RUNS.items():
+        cli = {"inference": inference, "evaluate": evaluate}[module]
         assert cli.main(_args(one, name, extra)) == 0
     codes = launch.run(torch_world.cli_main, 4,
-                       [(name, _args(world, name, extra))
-                        for name, extra in RUNS.items()], device="cpu", timeout_s=60)
-    assert codes == [[0, 0]] * 4
+                       [(module, _args(world, name, extra))
+                        for name, (module, extra) in RUNS.items()],
+                       device="cpu", timeout_s=60)
+    assert codes == [[0] * len(RUNS)] * 4
     return one, world
 
 
 @pytest.mark.parametrize("name,horizon", [("inference", "48"),
+                                          ("hierarchy", "30"),
                                           ("evaluate", "24")])
 def test_sharded_command_line_writes_the_single_device_csvs(runs, name,
                                                             horizon):

@@ -19,10 +19,10 @@ meshes (1, 2, 2) (both halos, the tables sliced over tp) and (2, 1, 2)
 * a feature-mode LoRA tree under (1, 2, 2): the factors' gradients match
   one device's (1e-5 of each leaf's max) and the frozen base keeps its
   bits;
-* what raises under a mesh: element-mode LoRA dropout, ``taps``, a batch
-  dp does not divide, ``block_layout="v2"``, ``train_fused=False``, and
-  ``block_bwd`` on a shard whose shift would read across shards; and
-  ``launch.run`` asks for the card unless told otherwise.
+* ``block_bwd`` on a shard whose shift would read across shards raises;
+  and ``launch.run`` asks for the card unless told otherwise.  (What the
+  window-major trunk does not train under a mesh trains through the
+  canonical route: ``tests/test_torch_parallel_canon_train.py``.)
 
 The world runs in a thread while the one-device steps are computed, so
 the file stays well inside its time; the sharded step against the JAX
@@ -44,13 +44,12 @@ from pangu_tpu.ops import earth_block_wm as JW
 from pangu_tpu_torch.config import TINY, MeshConfig, TrainConfig
 from pangu_tpu_torch.data.constants import synthetic_constants
 from pangu_tpu_torch.engine import train as T
-from pangu_tpu_torch.models import lora, pangu
+from pangu_tpu_torch.models import lora
 from pangu_tpu_torch.models.convert import params_from_jax
 from pangu_tpu_torch.models.layers import window_region_ids
 from pangu_tpu_torch.ops.earth_block_bwd import block_bwd
 from pangu_tpu_torch.ops.earth_block_wm import _lon_shift_wm, _z_shift_wm
 from pangu_tpu_torch.parallel import launch
-from pangu_tpu_torch.parallel import mesh as M
 from pangu_tpu_torch.parallel import sharding
 
 MESHES = [(1, 2, 2), (2, 1, 2)]
@@ -242,41 +241,6 @@ def test_lora_tree_under_a_mesh(results):
 
 
 # ---- what raises -----------------------------------------------------------
-
-def _cpu_mesh(dp=1, sp=1, tp=1):
-    """A mesh object of this process alone: enough for what raises before
-    the first exchange."""
-    return M.Mesh(cfg=MeshConfig(dp, sp, tp),
-                  coords={"dp": 0, "sp": 0, "tp": 0}, lines={}, groups={},
-                  device=torch.device("cpu"), host_staged=False)
-
-
-@pytest.mark.parametrize("case,match", [
-    ("element_lora", 'lora_dropout_mode="feature"'),
-    ("taps", "taps"), ("batch", "a batch of 2 over dp 4"),
-    ("v2", "off the window-major trunk"), ("per_block", "train_fused")])
-def test_what_has_no_sharded_training_path_raises(results, case, match):
-    params, consts, batch = (results["params"], results["consts"],
-                             results["batch"])
-    cfg, mesh = TINY, _cpu_mesh(1, 2, 2)
-    if case == "element_lora":
-        params = lora.init_lora(torch.Generator().manual_seed(1), params,
-                                rank=4, dropout=0.1, dropout_mode="element")
-    elif case == "batch":
-        mesh = _cpu_mesh(4, 1, 1)
-    elif case == "v2":
-        cfg = dataclasses.replace(TINY, block_layout="v2")
-    elif case == "per_block":
-        cfg = dataclasses.replace(TINY, train_fused=False)
-    with sharding.use_mesh(mesh), pytest.raises(NotImplementedError,
-                                                match=match):
-        if case == "taps":       # trained, taps raise on one device too
-            pangu.forward(params, batch["upper"], batch["surface"], consts,
-                          cfg, device="cpu", taps={})
-        else:
-            T.loss_and_grads(params, batch, consts, cfg, TCFG, device="cpu",
-                             seed=1)
-
 
 def test_block_bwd_on_a_shard_raises_on_a_read_across_shards(results):
     bp = results["params"]["stages"][0]["blocks"][1]

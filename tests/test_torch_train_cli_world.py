@@ -1,5 +1,7 @@
 """The port's two training command lines, ``cli.finetune --smoke`` and
-``cli.lora_tune --smoke`` (feature-mode dropout), in a 4-rank gloo world on
+``cli.lora_tune --smoke`` (feature-mode dropout, and its default
+element-mode dropout, which trains on the canonical route's shards with
+each rank's part of the one-device masks), in a 4-rank gloo world on
 the CPU (``parallel/launch.py``) at TINY, float32, ``--device cpu --tiny
 --synthetic``: the mesh the command line picks for batch 2 over 4 ranks is
 (dp, sp, tp) = (2, 2, 1) (validation and test batches of 1 run with dp
@@ -19,7 +21,8 @@ WINDOW = {"data.test_start": "20150106", "data.test_end": "20150107",
           "data.num_workers": "1", "train.save_steps": "1"}
 RUNS = [("finetune", "finetune_fully", {}),
         ("lora_tune", "lora", {"train.lora_dropout_mode": "feature",
-                               "train.lora_rank": "4"})]
+                               "train.lora_rank": "4"}),
+        ("lora_tune", "lora_element", {"train.lora_rank": "4"})]
 
 
 def _args(out, name, sets):
@@ -40,11 +43,12 @@ def world(tmp_path_factory):
 
 
 @pytest.mark.parametrize("name,extra", [
-    ("finetune_fully", set()), ("lora", {"lora_adapter", "merged"})])
+    ("finetune_fully", set()), ("lora", {"lora_adapter", "merged"}),
+    ("lora_element", {"lora_adapter", "merged"})])
 def test_training_command_line_in_a_world_writes_on_rank_0_only(world, name,
                                                                  extra):
     root, codes = world
-    assert codes == [[0, 0]] * 4
+    assert codes == [[0] * len(RUNS)] * 4
     assert sorted(os.listdir(root)) == ["rank0"]
     run = root / "rank0" / name / "24"
     assert len(os.listdir(run / "test" / "csv")) == 12
@@ -53,3 +57,6 @@ def test_training_command_line_in_a_world_writes_on_rank_0_only(world, name,
     log = (run / f"{name}.log").read_text()
     assert "MeshConfig(dp=2, sp=2, tp=1)" in log
     assert "Epoch 2 :" in log and "done; best val loss" in log
+    if name.startswith("lora"):
+        mode = "element" if name == "lora_element" else "feature"
+        assert f"mode={mode}" in log

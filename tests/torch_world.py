@@ -12,7 +12,8 @@ import torch
 
 from pangu_tpu_torch.config import MeshConfig
 from pangu_tpu_torch.engine import train as T
-from pangu_tpu_torch.engine.rollout import make_rollout
+from pangu_tpu_torch.engine.rollout import (make_hierarchical_rollout,
+                                            make_rollout)
 from pangu_tpu_torch.models import pangu
 from pangu_tpu_torch.ops.earth_block_wm import _lon_shift_wm, _z_shift_wm
 from pangu_tpu_torch.parallel import mesh as M
@@ -176,3 +177,77 @@ def train_world(collective_args, train_args):
     """:func:`collectives`, then :func:`train`, in one world."""
     return {"collectives": collectives(*collective_args),
             "train": train(*train_args)}
+
+
+# ---- the canonical-layout route (tests/test_torch_parallel_canon*.py) -----
+
+def serve_case(kind, cfg, trees, consts, upper, surface):
+    """One served call of the canonical-route tests, on one device or under
+    the active mesh: ``forward``, ``taps`` (the prediction and the taps),
+    a 2-step token-space ``rollout``, its ``trajectory``, or the 24 + 6 h
+    token-space ``hierarchy`` (``trees["base"]`` the 24 h model,
+    ``trees["h6"]`` the 6 h one)."""
+    p = trees["base"]
+    if kind == "forward":
+        return pangu.forward(p, upper, surface, consts, cfg, device="cpu")
+    if kind == "taps":
+        taps = {}
+        out = pangu.forward(p, upper, surface, consts, cfg, device="cpu",
+                            taps=taps)
+        return out, taps
+    if kind in ("rollout", "trajectory"):
+        return make_rollout(cfg, consts, 2, token_space=True, device="cpu",
+                            return_trajectory=kind == "trajectory")(
+            p, upper, surface)
+    if kind == "hierarchy":
+        roll, _ = make_hierarchical_rollout(cfg, consts, 30, (24, 6),
+                                            token_space=True, device="cpu")
+        return roll({24: p, 6: trees["h6"]}, upper, surface)
+    raise ValueError(kind)
+
+
+def canon_serve(cases, trees, consts, upper, surface):
+    """For each ``(key, mesh shape, cfg, kind, batch)`` of ``cases``: the
+    :func:`serve_case` on this rank under that mesh, with the first
+    ``batch`` samples, and the mesh's exchange count.  Ranks a mesh leaves
+    idle skip it."""
+    out = {}
+    for key, shape, cfg, kind, b in cases:
+        mesh = M.build_mesh(MeshConfig(*shape), device="cpu")
+        if mesh is None:
+            continue
+        with sharding.use_mesh(mesh):
+            res = serve_case(kind, cfg, trees, consts, upper[:b], surface[:b])
+        out[key] = {"result": res, "exchanges": mesh.exchanges}
+    return out
+
+
+def grads_case(cfg, tree, tcfg, consts, batch, seed):
+    """``engine.train.loss_and_grads`` from a copy of ``tree``, on one
+    device or under the active mesh: the loss and the summed gradient."""
+    p = _clone(tree)
+    for t in T._leaves(p):
+        t.requires_grad_(True)
+    loss, _, grads = T.loss_and_grads(p, batch, consts, cfg, tcfg,
+                                      device="cpu", seed=seed)
+    return loss, T._map(grads, lambda g: None if g is None
+                        else g.detach().clone())
+
+
+def canon_train(cases, tcfg, consts, batch, seed):
+    """For each ``(key, mesh shape, cfg, tree, batch)`` of ``cases``:
+    :func:`grads_case` under that mesh with the first ``batch`` samples,
+    and the mesh's exchanges by collective.  Ranks a mesh leaves idle skip
+    it."""
+    out = {}
+    for key, shape, cfg, tree, b in cases:
+        mesh = M.build_mesh(MeshConfig(*shape), device="cpu")
+        if mesh is None:
+            continue
+        with sharding.use_mesh(mesh):
+            loss, grads = grads_case(cfg, tree, tcfg, consts,
+                                     {k: v[:b] for k, v in batch.items()},
+                                     seed)
+        out[key] = {"loss": loss, "grads": grads,
+                    "by_op": {k: list(v) for k, v in mesh.by_op.items()}}
+    return out
